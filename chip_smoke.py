@@ -24,9 +24,25 @@ prints no result line:
      every kernel's launch count zeroed just before and read just after;
      each kernel must have launched;
   4. the lsdb100k RIB against the CPU oracle (``SpfSolver``);
-  5. every kernel wrapper against its plain PyTorch version on the card,
-     on the main path's own tensors (exact int32 equality, tolerance 0),
-     timed with CUDA events beside its plain version and its bound.
+  5. every kernel wrapper of the cold path against its plain PyTorch
+     version on the card, on the main path's own tensors (exact int32
+     equality, tolerance 0), timed with CUDA events beside its plain
+     version and its bound;
+  6. the churn path: a second lsdb100k solver with ``incremental_spf``
+     takes a cold first build, then 8 flap steps (the victim
+     ``adj_dbs[1]``'s links, both directions, metric 50 + i % 5, through
+     the changelog path: K5 scatter, then the incremental solve), and a
+     fresh solver with ``incremental_cone_frac=0.0`` one more step, so
+     the cone fallback runs on the card. Every step's RIB equals a cold
+     solve of the same state, two equal the oracle; the 8 flap steps
+     are incremental and do not fall back, the last one does. Each
+     step prints its time split, cone, trips, rounds, launches, flag
+     reads and bytes moved; the counts are zeroed before each
+     incremental build and read after it;
+  7. the churn kernels (K5-K9, K4 with the incremental tail) and the
+     whole incremental solve against their plain versions on the last
+     flap step's own inputs, timed beside their bounds and, for K5 and
+     K7, the one PyTorch call that computes the same scatter.
 
 Output: phase lines, then one ``{"kernels": [...]}`` JSON line, the card's
 name and power limit as nvidia-smi reports them, and last
@@ -35,6 +51,7 @@ name and power limit as nvidia-smi reports them, and last
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -101,7 +118,89 @@ def max_abs_err(torch, got, want) -> int:
 
 def build_cell(topologies, gen):
     adj_dbs, prefix_dbs = gen()
-    return topologies.build_states(adj_dbs, prefix_dbs)
+    return adj_dbs, *topologies.build_states(adj_dbs, prefix_dbs)
+
+
+def churn_inputs(relax, incremental, solver):
+    """The last incremental solve of ``solver`` (one area "0"): its own
+    inputs, and the planes the incremental kernels derive from them
+    (masked new and old weights, the cold seed, the parent forest) as
+    each kernel's argument tuple."""
+    lane, prev_out, incr_in = solver._last_exec_incr
+    (deltas, shift_w, res_rows, res_nbr, res_w, mbuf, root, root_nbr,
+     root_w) = lane
+    prev_dist, sdi, sdo, rdi, rdo, cone_limit = incr_in
+    plan = solver._area_dev["0"].plan
+    has_res = plan.k_res > 0
+    n_cap, s_cap, d_cap = plan.n_cap, plan.s_cap, root_nbr.shape[0]
+    sw_n, res_n, dist0 = relax.sssp_init(
+        shift_w, res_rows, res_nbr, res_w, root, root_nbr, root_w)
+    o_shift, o_res = incremental.old_planes(
+        shift_w, res_w, sdi, sdo, rdi, rdo, has_res)
+    swm_old, (_, _, rwm_old), _ = relax.sssp_init(
+        o_shift, res_rows, res_nbr, o_res, root, root_nbr, root_w)
+    pargs = (deltas, swm_old, res_rows, res_nbr, rwm_old, prev_dist, s_cap,
+             has_res, n_cap, d_cap)
+    par = incremental.parent_plane(*pargs)
+    cargs = (par, sw_n, res_n[2], deltas, res_rows, res_nbr, root, sdi, sdo,
+             rdi, rdo, has_res)
+    kernel = "bucketed" if plan.delta_exp > 0 else "sync"
+    whole = (
+        (deltas, shift_w, res_rows, res_nbr, res_w, root, root_nbr, root_w,
+         prev_dist, sdi, sdo, rdi, rdo, int(cone_limit)),
+        dict(s_cap=s_cap, has_res=has_res, n_cap=n_cap, d_cap=d_cap,
+             max_trips=relax.max_trips(n_cap), kernel=kernel,
+             delta_exp=plan.delta_exp if kernel == "bucketed" else 0),
+    )
+    return dict(
+        lane=lane, prev_out=prev_out, prev_dist=prev_dist, sdi=sdi, sdo=sdo,
+        rdi=rdi, rdo=rdo, cone_limit=int(cone_limit), plan=plan,
+        has_res=has_res, sw_n=sw_n, res_n=res_n, dist0=dist0, pargs=pargs,
+        par=par, cargs=cargs, whole=whole,
+    )
+
+
+def whole_incremental(torch, incremental, ci) -> tuple:
+    """The whole incremental SSSP on the card, checked against the plain
+    versions on CPU copies of the same inputs. -> (card result, host
+    wall ms of the card run)."""
+    args, static = ci["whole"]
+    t0 = time.perf_counter()
+    got = incremental.incremental_sssp(*args, **static)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    want = incremental.incremental_sssp(
+        *[a.cpu() if isinstance(a, torch.Tensor) else a for a in args],
+        **static)
+    check(max_abs_err(torch, got[0].cpu(), want[0]) == 0
+          and [int(x) for x in got[1:]] == [int(x) for x in want[1:]],
+          "incremental SSSP: kernels != plain")
+    return got, wall
+
+
+def flap(adb_cls, states, adj_dbs, by_name, victim: int, i: int) -> int:
+    """bench.py's flap: metric 50 + i % 5 on every adjacency of
+    ``adj_dbs[victim]`` and on its neighbours' adjacencies back to it
+    (both link directions), applied through LinkState's changelog.
+    Returns the metric."""
+    metric = 50 + (i % 5)
+    vdb = adj_dbs[victim]
+    name = vdb.this_node_name
+    touched = {name: tuple(dataclasses.replace(a, metric=metric)
+                           for a in vdb.adjacencies)}
+    for a in vdb.adjacencies:
+        ndb = by_name[a.other_node_name]
+        touched[ndb.this_node_name] = tuple(
+            dataclasses.replace(x, metric=metric)
+            if x.other_node_name == name else x
+            for x in ndb.adjacencies
+        )
+    for node, adjs in touched.items():
+        states["0"].update_adjacency_database(adb_cls(
+            this_node_name=node, adjacencies=adjs,
+            node_label=by_name[node].node_label, area="0",
+        ))
+    return metric
 
 
 def rib_equal(want_db, got_db) -> bool:
@@ -121,7 +220,8 @@ def main() -> int:
     from openr_tpu_torch.decision import gpu_solver
     from openr_tpu_torch.decision.spf_solver import SpfSolver
     from openr_tpu_torch.models import topologies
-    from openr_tpu_torch.ops import compact, cuda, relax, select
+    from openr_tpu_torch.ops import compact, cuda, incremental, relax, select
+    from openr_tpu_torch.types import AdjacencyDatabase
 
     t_start = time.perf_counter()
     dev = torch.device(DEVICE)
@@ -154,7 +254,20 @@ def main() -> int:
                           "openr_tpu/decision/tpu_solver.py:511"),
         "K4:compact_outputs": (compact.compact_outputs, "compact.cu",
                             "openr_tpu/ops/stream.py:79"),
+        "K5:scatter_set": (incremental.scatter_set, "incremental.cu",
+                           "openr_tpu/decision/tpu_solver.py:1097"),
+        "K6:parent_plane": (incremental.parent_plane, "incremental.cu",
+                            "openr_tpu/ops/incremental.py:74"),
+        "K7:cone_seed": (incremental.cone_seed, "incremental.cu",
+                         "openr_tpu/ops/incremental.py:128"),
+        "K8:cone_step": (incremental.cone_step, "incremental.cu",
+                         "openr_tpu/ops/incremental.py:128"),
+        "K9:cone_finish": (incremental.cone_finish, "incremental.cu",
+                           "openr_tpu/ops/incremental.py:128"),
     }
+    # the cold path runs every kernel but the incremental ones
+    cold_path = [n for n, (_, src, _) in wrappers.items()
+                 if src != "incremental.cu"]
 
     # -- 2. small cells: RIB parity, residual relaxation; also loads every
     # kernel's module, so the main path's first build times the solve ---------------------
@@ -166,7 +279,7 @@ def main() -> int:
          "pod000-rsw00"),
     ]
     for name, gen, me in cells:
-        c_states, c_ps = build_cell(topologies, gen)
+        c_dbs, c_states, c_ps = build_cell(topologies, gen)
         c_solver = gpu_solver.GpuSpfSolver(me, device=dev)
         got_db = c_solver.build_route_db(me, c_states, c_ps)
         t0 = time.perf_counter()
@@ -202,10 +315,44 @@ def main() -> int:
                       f"{name}: residual relax_step != plain")
                 plane = o_k
             log(f"{name}: relax_step with the residual ELL equal to plain")
+            # the incremental kernels' residual branches (lsdb100k has no
+            # residual): one flap of adj_dbs[1] — a fabric switch of the
+            # root's pod, whose links sit in the residual ELL
+            c_inc = gpu_solver.GpuSpfSolver(me, device=dev,
+                                            incremental_spf=True)
+            c_inc.build_route_db(me, c_states, c_ps)
+            flap(AdjacencyDatabase, c_states, c_dbs,
+                 {db.this_node_name: db for db in c_dbs}, 1, 0)
+            got_db = c_inc.build_route_db(me, c_states, c_ps)
+            st = c_inc.last_device_stats
+            check(st.get("incremental") and not st.get("fell_back"),
+                  f"{name}: the flap must take the incremental solve")
+            check(rib_equal(c_solver.build_route_db(me, c_states, c_ps),
+                            got_db), f"{name}: incremental RIB != cold")
+            check(rib_equal(SpfSolver(me).build_route_db(me, c_states, c_ps),
+                            got_db), f"{name}: incremental RIB != oracle")
+            ci = churn_inputs(relax, incremental, c_inc)
+            r_lim = c_plan.res_nbr.size
+            check(int(((ci["rdi"] >= 0) & (ci["rdi"] < r_lim)).sum()) > 0,
+                  f"{name}: the flap must dirty residual slots")
+            err = max(
+                max_abs_err(torch, ci["par"],
+                            incremental.parent_plane_plain(*ci["pargs"])),
+                max_abs_err(torch, incremental.cone_seed(*ci["cargs"]),
+                            incremental.cone_seed_plain(*ci["cargs"])),
+            )
+            check(err == 0, f"{name}: K6 / K7 with the residual != plain")
+            whole_incremental(torch, incremental, ci)
+            log(f"{name}: incremental solve after a flap equal to the cold "
+                f"solve and the oracle; K6, K7 with the residual and the "
+                f"whole {ci['whole'][1]['kernel']} incremental SSSP equal "
+                f"to plain: " + json.dumps({
+                    k: st.get(k) for k in ("cone", "cone_trips", "trips",
+                                           "rounds", "changed_rows")}))
 
     # -- 3. main path: lsdb100k cold solve x3 -------------------------------
     t0 = time.perf_counter()
-    states, ps = build_cell(
+    adj_dbs, states, ps = build_cell(
         topologies, lambda: topologies.grid(LSDB100K_SIDE, node_labels=False)
     )
     ls = states["0"]
@@ -233,7 +380,7 @@ def main() -> int:
                 "bytes_downloaded")},
             "sentinels": solver.last_sentinels,
         })))
-    launches = {name: fn.launches for name, (fn, _, _) in wrappers.items()}
+    launches = {name: wrappers[name][0].launches for name in cold_path}
     log(f"lsdb100k launches over 3 builds: {json.dumps(launches)}")
     for name, n in launches.items():
         check(n > 0, f"kernel {name} never launched on the main path")
@@ -265,7 +412,8 @@ def main() -> int:
     has_res = plan.k_res > 0
     results = {}
 
-    def record(name, err, fn, plain, nbytes, ops, reps=50, plain_reps=5):
+    def record(name, err, fn, plain, nbytes, ops, reps=50, plain_reps=5,
+               library=None):
         check(err == 0, f"{name}: kernel != plain (max abs err {err})")
         b_ms, b_by = bound(nbytes, ops)
         results[name] = {
@@ -274,6 +422,8 @@ def main() -> int:
             "plain_ms": time_ms(torch, plain, plain_reps),
             "bound_ms": b_ms,
             "bound_by": b_by,
+            "library_ms": None if library is None
+            else time_ms(torch, library, reps),
         }
         log(f"{name}: equal; {json.dumps(results[name])}")
 
@@ -435,17 +585,217 @@ def main() -> int:
         ops=p_cap * (4 + 2 * (wa + wd) + a_cap),
     )
 
+
+    # -- 6. the churn path: incremental solves at lsdb100k ------------------
+    by_name = {db.this_node_name: db for db in adj_dbs}
+    inc_solver = gpu_solver.GpuSpfSolver(LSDB100K_ROOT, device=dev,
+                                         incremental_spf=True)
+    cold_solver = gpu_solver.GpuSpfSolver(LSDB100K_ROOT, device=dev)
+    db = inc_solver.build_route_db(LSDB100K_ROOT, states, ps)
+    check(rib_equal(oracle, db), "churn solver's first build RIB != oracle")
+    check(not inc_solver.last_device_stats.get("incremental"),
+          "a vantage's first build must be the cold solve")
+    cold_solver.build_route_db(LSDB100K_ROOT, states, ps)
+    # the bytes a churn step re-uploaded before the device scatter: the
+    # touched weight plane, whole
+    whole_plane = inc_solver._area_dev["0"].shift_w.numel() * 4
+    churn_launches = dict.fromkeys(wrappers, 0)
+    steps = []
+
+    def churn_step(solver, i: int, label: str, with_oracle: bool) -> dict:
+        metric = flap(AdjacencyDatabase, states, adj_dbs, by_name, 1, i)
+        for fn, _, _ in wrappers.values():
+            fn.launches = 0
+        reads0 = relax.read_flag.reads
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = solver.build_route_db(LSDB100K_ROOT, states, ps)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        reads = relax.read_flag.reads - reads0
+        n = {name: fn.launches for name, (fn, _, _) in wrappers.items()}
+        for k, v in n.items():
+            churn_launches[k] += v
+        tm, st = solver.last_timing, solver.last_device_stats
+        want = cold_solver.build_route_db(LSDB100K_ROOT, states, ps)
+        check(rib_equal(want, got), f"churn {label}: RIB != cold solve")
+        if with_oracle:
+            ref = SpfSolver(LSDB100K_ROOT).build_route_db(
+                LSDB100K_ROOT, states, ps)
+            check(rib_equal(ref, got), f"churn {label}: RIB != oracle")
+        rec = {
+            "metric": metric, "build_ms": wall,
+            **{k: tm.get(k) for k in (
+                "sync_ms", "exec_ms", "scatter_ms", "old_planes_ms",
+                "parent_ms", "cone_ms", "sssp_ms", "tail_ms", "compact_ms",
+                "pull_ms", "unpack_ms", "bytes_uploaded",
+                "bytes_downloaded")},
+            "whole_plane_bytes": whole_plane,
+            **{k: st.get(k) for k in (
+                "incremental", "fell_back", "cone", "cone_trips", "trips",
+                "rounds", "changed_rows")},
+            "launches": sum(n.values()),
+            "launches_by_kernel": {k: v for k, v in n.items() if v},
+            "flag_reads": reads,
+            "oracle_checked": with_oracle,
+        }
+        log(f"lsdb100k churn {label}: {json.dumps(rec)}")
+        steps.append(rec)
+        return rec
+
+    for i in range(8):
+        rec = churn_step(inc_solver, i, f"step {i}", i in (0, 7))
+        check(rec["incremental"] is True and rec["fell_back"] is False,
+              f"churn step {i} must be incremental without fallback")
+        check(rec["bytes_uploaded"] < whole_plane,
+              f"churn step {i} uploaded a whole plane")
+    fb_solver = gpu_solver.GpuSpfSolver(
+        LSDB100K_ROOT, device=dev, incremental_spf=True,
+        incremental_cone_frac=0.0,
+    )
+    fb_solver.build_route_db(LSDB100K_ROOT, states, ps)  # its cold build
+    rec = churn_step(fb_solver, 8, "fallback step", False)
+    check(rec["incremental"] is True and rec["fell_back"] is True
+          and rec["cone"] > 0,
+          "the cone_frac=0 step must fall back on the device")
+    log(f"lsdb100k churn launches over 9 steps: {json.dumps(churn_launches)}")
+    for name, n in churn_launches.items():
+        check(n > 0, f"kernel {name} never launched on the churn path")
+
+    # -- 7. the churn kernels against their plain versions -----------------
+    ci = churn_inputs(relax, incremental, inc_solver)
+    (i_deltas, i_shift, i_rows, i_nbr, i_resw, i_mbuf, i_root, i_rnbr,
+     i_rw) = ci["lane"]
+    sdi, sdo, prev_dist = ci["sdi"], ci["sdo"], ci["prev_dist"]
+    has_res = ci["has_res"]
+    cap = sdi.numel()
+    s_live = (sdi >= 0) & (sdi < s_cap * n_cap)
+    n_live = int(s_live.sum())
+    check(n_live > 0, "the last flap step must carry dirty slots")
+
+    old_k, old_p, scratch = (i_shift.clone() for _ in range(3))
+    incremental.scatter_set(old_k, sdi, sdo)
+    incremental.scatter_set_plain(old_p, sdi, sdo)
+    idx_live, vals_live = sdi[s_live].long(), sdo[s_live]
+    record(
+        "K5:scatter_set", max_abs_err(torch, old_k, old_p),
+        lambda: incremental.scatter_set(scratch, sdi, sdo),
+        lambda: incremental.scatter_set_plain(scratch, sdi, sdo),
+        nbytes=4 * (2 * cap + n_live), ops=2 * cap,
+        library=lambda: scratch.view(-1).index_copy_(0, idx_live, vals_live),
+    )
+
+    pargs, par_k = ci["pargs"], ci["par"]
+    par_p = incremental.parent_plane_plain(*pargs)
+    record(
+        "K6:parent_plane", max_abs_err(torch, par_k, par_p),
+        lambda: incremental.parent_plane(*pargs),
+        lambda: incremental.parent_plane_plain(*pargs),
+        nbytes=4 * (2 * d_cap * n_cap + s_cap * n_cap + s_cap)
+        + (res_bytes if has_res else 0),
+        # every class tried for every word: an upper bound on the work
+        ops=4 * d_cap * n_cap * s_cap,
+    )
+
+    cargs, rdi = ci["cargs"], ci["rdi"]
+    aff_k = incremental.cone_seed(*cargs)
+    aff_p = incremental.cone_seed_plain(*cargs)
+    check(int(aff_k.sum()) > 0, "the last flap step must seed a cone")
+    heads, seeds = incremental.cone_seed_entries(*cargs)
+    lib_aff = torch.zeros((d_cap, n_cap + 1), dtype=torch.int32, device=dev)
+    n_dirty = cap + (rdi.numel() if has_res else 0)
+    record(
+        "K7:cone_seed", max_abs_err(torch, aff_k, aff_p),
+        lambda: incremental.cone_seed(*cargs),
+        lambda: incremental.cone_seed_plain(*cargs),
+        nbytes=4 * (2 * n_dirty + n_dirty + d_cap * n_dirty
+                    + d_cap * n_cap),
+        ops=6 * d_cap * n_dirty,
+        library=lambda: lib_aff.scatter_reduce_(1, heads, seeds, "amax"),
+    )
+
+    st_k, st_p = torch.empty_like(aff_k), torch.empty_like(aff_k)
+    f_k = torch.zeros(1, dtype=torch.int32, device=dev)
+    f_p = torch.zeros_like(f_k)
+    incremental.cone_step(par_k, aff_k, st_k, f_k)
+    incremental.cone_step_plain(par_k, aff_k, st_p, f_p)
+    err = max_abs_err(torch, (st_k, f_k), (st_p, f_p))
+    bound_trips = relax.max_trips(n_cap)
+    spread_k, trips_k = incremental.cone_spread(par_k, aff_k.clone(),
+                                                bound_trips)
+    spread_p, trips_p, _ = relax.run_sync(
+        lambda a, o, f: incremental.cone_step_plain(par_k, a, o, f),
+        aff_k.clone(), bound_trips)
+    check(trips_k == trips_p, "cone spread: kernel and plain trips differ")
+    record(
+        "K8:cone_step", max(err, max_abs_err(torch, spread_k, spread_p)),
+        lambda: incremental.cone_step(par_k, aff_k, st_k, f_k),
+        lambda: incremental.cone_step_plain(par_k, aff_k, st_p, f_p),
+        nbytes=4 * 3 * d_cap * n_cap + 4, ops=3 * d_cap * n_cap,
+    )
+    log(f"lsdb100k cone spread equal to plain: {trips_k} trips, cone "
+        f"{int(spread_k.sum())} node-lanes")
+
+    errs = []
+    dist0_n = ci["dist0"]
+    for limit in (ci["cone_limit"], 0):
+        fargs = (spread_k, prev_dist, dist0_n, i_rnbr, i_rw, limit)
+        got = incremental.cone_finish(*fargs)
+        errs.append(max_abs_err(torch, got,
+                                incremental.cone_finish_plain(*fargs)))
+        check(int(got[1][1]) == int(int(spread_k.sum()) > limit),
+              "cone_finish: wrong fallback decision")
+        if limit == 0:
+            check(max_abs_err(torch, got[0], dist0_n) == 0,
+                  "cone_finish: the fallback seed != K1s's cold seed")
+    fargs = (spread_k, prev_dist, dist0_n, i_rnbr, i_rw, ci["cone_limit"])
+    record(
+        "K9:cone_finish", max(errs),
+        lambda: incremental.cone_finish(*fargs),
+        lambda: incremental.cone_finish_plain(*fargs),
+        nbytes=4 * (3 * d_cap * n_cap + 2 * d_cap + 2),
+        ops=3 * d_cap * n_cap,
+    )
+
+    # the whole incremental solve: kernels on the card vs the plain
+    # versions on CPU copies of the same inputs; and the cold fixpoint
+    w_k, t_inc = whole_incremental(torch, incremental, ci)
+    d_cold, _, _ = relax.plan_sssp(
+        i_deltas, i_shift, i_rows, i_nbr, i_resw, i_root, i_rnbr, i_rw,
+        has_res, "bucketed", ci["plan"].delta_exp)
+    check(max_abs_err(torch, w_k[0], d_cold) == 0,
+          "incremental SSSP: fixpoint != the cold solve's")
+    log(f"lsdb100k incremental SSSP equal to plain and to the cold "
+        f"fixpoint: cone {int(w_k[2])}, {w_k[1]} epochs / {w_k[4]} rounds "
+        f"in {t_inc:.2f} ms host wall")
+
+    m_i, s3_i, nh_i, ok_i = select.select_routes(
+        w_k[0], i_rw, i_root, i_mbuf, p_cap, a_cap, False)
+    i_flags = i_mbuf[p_cap * a_cap:2 * p_cap * a_cap].view(p_cap, a_cap)
+    cargs = (m_i, s3_i, nh_i, ok_i, *ci["prev_out"], i_flags, w_k[1], w_k[4],
+             gpu_solver.DELTA_BUDGET, True, (w_k[2], w_k[3]))
+    got = compact.compact_outputs(*cargs)
+    want = compact.compact_outputs_plain(*cargs)
+    err = max_abs_err(torch, got, want)
+    check(err == 0, f"K4 with the incremental tail != plain (err {err})")
+    check(int(got[1][-3]) == int(w_k[2]) and int(got[1][-2]) == int(w_k[3]),
+          "K4: the [cone, fell_back] tail is misplaced")
+    results["K4:compact_outputs"]["incr_tail_max_abs_err"] = err
+    log("K4:compact_outputs with the incremental tail equal to plain")
+
     # -- result ----------------------------------------------------------
     kernels = []
     for name, (fn, src, replaces) in wrappers.items():
+        cold_n = launches.get(name, 0)
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": f"openr_tpu_torch/csrc/{src}",
             "replaces": replaces,
-            "launches": launches[name],
+            "launches": cold_n + churn_launches[name],
+            "launches_by_path": {"cold": cold_n,
+                                 "churn": churn_launches[name]},
             **results[name],
-            "library_ms": None,
         })
     log(json.dumps({"kernels": kernels}))
     smi = subprocess.run(

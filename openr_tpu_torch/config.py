@@ -16,6 +16,11 @@ class DecisionConfig:
     enable_lfa: bool = False
     # on-device unreachable / saturation counts riding the pull buffers
     enable_numerical_sentinels: bool = True
+    # seed each churn solve from the vantage's previous distance plane
+    # and re-anchor only the affected cone (bit-identical to the cold
+    # solve); the cone budget is this fraction of the area's node-lanes
+    incremental_spf: bool = True
+    incremental_cone_frac: float = 0.25
     # areas whose padded node capacity exceeds this need the multichip
     # tier, which the GPU solver refuses until it is ported
     multichip_n_cap_threshold: int = 131072
@@ -28,6 +33,8 @@ class DecisionConfig:
         return {
             "enable_lfa": self.enable_lfa,
             "enable_numerical_sentinels": self.enable_numerical_sentinels,
+            "incremental_spf": self.incremental_spf,
+            "incremental_cone_frac": self.incremental_cone_frac,
             "multichip_n_cap_threshold": self.multichip_n_cap_threshold,
             "spf_kernel": self.spf_kernel,
         }

@@ -16,7 +16,8 @@
 // block, then a scatter that ranks each row inside its block with warp
 // ballots. Pad slots past the live count carry index p_cap and the
 // values of row p_cap - 1: the fixed-size nonzero fills with p_cap and
-// the gather clips it to the last row.
+// the gather clips it to the last row. After an incremental solve the
+// cone size and the fallback flag join the tail (ops/incremental.py).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -80,12 +81,16 @@ __global__ void compact_count_kernel(Rows r, int* __restrict__ blk) {
 // one block: exclusive scan of the per-block counts in place (blk[4b]
 // and blk[4b+1] become offsets) and the scalar fields of both buffers.
 // The block count is p_cap / 1024, so a serial scan by one thread is a
-// few hundred adds.
+// few hundred adds. The tail, back to front: rounds; the incremental
+// solve's (cone, fell_back), read from the device where K9 left them,
+// when `cone` is not null; the sentinel pair when `sentinels`.
 __global__ void compact_scan_kernel(int* __restrict__ blk, int nblk,
                                     int* __restrict__ delta_buf,
                                     int* __restrict__ full_buf,
                                     int delta_len, int full_len, int trips,
-                                    int rounds, int sentinels) {
+                                    int rounds, int sentinels,
+                                    const int* __restrict__ cone,
+                                    const int* __restrict__ fell) {
     if (threadIdx.x != 0) return;
     int ch = 0, ok = 0, unreach = 0, sat = 0;
     for (int b = 0; b < nblk; ++b) {
@@ -101,11 +106,19 @@ __global__ void compact_scan_kernel(int* __restrict__ blk, int nblk,
     delta_buf[1] = trips;
     full_buf[0] = ok;
     full_buf[1] = trips;
+    int end = 1;  // tail words written so far, back to front
+    if (cone) {
+        delta_buf[delta_len - 3] = *cone;
+        delta_buf[delta_len - 2] = *fell;
+        full_buf[full_len - 3] = *cone;
+        full_buf[full_len - 2] = *fell;
+        end = 3;
+    }
     if (sentinels) {
-        delta_buf[delta_len - 3] = unreach;
-        delta_buf[delta_len - 2] = sat;
-        full_buf[full_len - 3] = unreach;
-        full_buf[full_len - 2] = sat;
+        delta_buf[delta_len - end - 2] = unreach;
+        delta_buf[delta_len - end - 1] = sat;
+        full_buf[full_len - end - 2] = unreach;
+        full_buf[full_len - end - 1] = sat;
     }
     delta_buf[delta_len - 1] = rounds;
     full_buf[full_len - 1] = rounds;
@@ -202,10 +215,11 @@ int compact_count(const int* metric, const int* s3w, const int* nhw,
 
 int compact_scan(int* blk, int nblk, int* delta_buf, int* full_buf,
                  int delta_len, int full_len, int trips, int rounds,
-                 int sentinels, cudaStream_t stream) {
+                 int sentinels, const int* cone, const int* fell,
+                 cudaStream_t stream) {
     compact_scan_kernel<<<1, 32, 0, stream>>>(blk, nblk, delta_buf, full_buf,
                                               delta_len, full_len, trips,
-                                              rounds, sentinels);
+                                              rounds, sentinels, cone, fell);
     return (int)cudaGetLastError();
 }
 

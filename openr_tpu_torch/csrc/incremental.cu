@@ -1,0 +1,289 @@
+// Incremental SSSP kernels for Hopper (sm_90a): the churn solve's dirty
+// scatter, parent forest and affected cone (ops/incremental.py drives
+// them and documents the algorithm). Each entry point launches exactly
+// one kernel on the caller's stream and returns cudaGetLastError().
+//
+// Replaces the jitted XLA device code of the JAX package:
+//   K5  decision/tpu_solver.py::_scatter_jit            flat .at[idx].set
+//       (and ops/incremental.py::_old_planes, K5 into a copy)
+//   K6  ops/incremental.py::_parent_plane               parent forest
+//   K7  ops/incremental.py::incremental_sssp, :169-205  cone seeds
+//   K8  ops/incremental.py::incremental_sssp, :207-240  cone spread step
+//   K9  ops/incremental.py::incremental_sssp, :242-254  cone size,
+//       in-device fallback decision, warm or cold seed plane
+//
+// Bound: bytes. K6, K8 and K9 stream [D, n_cap] int32 planes once
+// (K6 also the [s_cap, n_cap] old weights) with a handful of integer
+// ops per word; K5 and K7 touch a few thousand dirty entries. Design:
+// one thread per (lane, node) or per (lane, dirty entry), neighbouring
+// threads on neighbouring nodes, so plane loads coalesce except the
+// parent gathers of K8, which follow the forest. Change flags reduce
+// per block with __syncthreads_or before one atomicOr; the cone count
+// reduces per warp with shuffles before one atomicAdd.
+//
+// Exactness: every tie-break of the JAX functions is kept because the
+// cone rides the pull buffers. K6 tries shift classes in order and
+// stops at the first tight one (lowest class wins), then fills nodes
+// still without a parent from their residual row, first tight slot
+// first; residual rows are unique per node, so each (lane, row) thread
+// owns its node's word. Pad rows (res_rows == -1) are skipped, never
+// clipped onto node 0. K7 and K9 write only 0/1 values and the count,
+// so their store order does not matter.
+//
+// Index arithmetic: n_cap is a power of two, so the class-k edge u -> v
+// with v = (u + δ_k) mod n_cap has u = (v - δ_k) & (n_cap - 1) in
+// unsigned arithmetic, exact for any int32 shift. INF discipline:
+// weights <= 2^28, INF_E = 2^29, every sum <= 2^30.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define INF_E (1 << 29)
+#define THREADS 256
+
+static inline unsigned blocks_for(long long n) {
+    long long b = (n + THREADS - 1) / THREADS;
+    return (unsigned)(b > 0 ? b : 1);
+}
+
+// K5: plane[idx[i]] = vals[i] for idx[i] in [0, numel); others drop.
+__global__ void scatter_set_kernel(int* __restrict__ plane,
+                                   const int* __restrict__ idx,
+                                   const int* __restrict__ vals, int n,
+                                   int numel) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    int f = idx[i];
+    if (f >= 0 && f < numel) plane[f] = vals[i];
+}
+
+// K6 shift part: par[d, v] = (v - δ_k) mod n for the lowest class k
+// whose old edge into v is tight under prev, else -1.
+__global__ void parent_shift_kernel(const int* __restrict__ deltas,
+                                    const int* __restrict__ swm_old,
+                                    const int* __restrict__ prev,
+                                    int* __restrict__ par, int s_cap,
+                                    int n_cap, int d_cap) {
+    long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= (long long)d_cap * n_cap) return;
+    const unsigned hi = (unsigned)n_cap - 1u;
+    int d = (int)(i / n_cap);
+    unsigned v = (unsigned)(i - (long long)d * n_cap);
+    const int* row = prev + (long long)d * n_cap;
+    int pv = row[v];
+    int p = -1;
+    for (int k = 0; k < s_cap; ++k) {
+        unsigned u = (v - (unsigned)deltas[k]) & hi;
+        int pu = row[u];
+        int w = swm_old[(long long)k * n_cap + u];
+        if (pu < INF_E && w < INF_E && pu + w == pv) {
+            p = (int)u;
+            break;
+        }
+    }
+    par[i] = p;
+}
+
+// K6 residual part: for each valid row r (node v = res_rows[r]) still
+// without a parent, the first slot j whose old edge nbr -> v is tight.
+__global__ void parent_residual_kernel(const int* __restrict__ res_rows,
+                                       const int* __restrict__ res_nbr,
+                                       const int* __restrict__ rwm_old,
+                                       const int* __restrict__ prev,
+                                       int* __restrict__ par, int r_cap,
+                                       int kr_cap, int n_cap, int d_cap) {
+    long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= (long long)d_cap * r_cap) return;
+    int d = (int)(i / r_cap);
+    int r = (int)(i - (long long)d * r_cap);
+    int v = res_rows[r];
+    if (v < 0) return;  // pad row
+    long long pos = (long long)d * n_cap + v;
+    if (par[pos] >= 0) return;
+    const int* row = prev + (long long)d * n_cap;
+    int pv = row[v];
+    for (int j = 0; j < kr_cap; ++j) {
+        long long e = (long long)r * kr_cap + j;
+        int nb = res_nbr[e];
+        if (nb < 0) continue;
+        int pu = row[min(nb, n_cap - 1)];
+        int w = rwm_old[e];
+        if (pu < INF_E && w < INF_E && pu + w == pv) {
+            par[pos] = nb;
+            return;
+        }
+    }
+}
+
+// K7: one thread per (lane, dirty entry) over the shift entries, then
+// the residual entries. aff[d, head] = 1 where the root-masked weight
+// increased and the edge is the head's forest edge.
+__global__ void cone_seed_kernel(
+    const int* __restrict__ par, const int* __restrict__ swm_new,
+    const int* __restrict__ deltas, const int* __restrict__ s_idx,
+    const int* __restrict__ s_old, const int* __restrict__ rwm_new,
+    const int* __restrict__ res_rows, const int* __restrict__ res_nbr,
+    const int* __restrict__ r_idx, const int* __restrict__ r_old,
+    int* __restrict__ aff, int root, int s_cap, int n_cap, int d_cap,
+    int n_s, int r_cap, int kr_cap, int n_r) {
+    long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    const long long n_sd = (long long)d_cap * n_s;
+    if (i < n_sd) {
+        int d = (int)(i / n_s);
+        int j = (int)(i - (long long)d * n_s);
+        int f = s_idx[j];
+        if (f < 0 || (long long)f >= (long long)s_cap * n_cap) return;
+        const unsigned hi = (unsigned)n_cap - 1u;
+        int k = f / n_cap;
+        unsigned u = (unsigned)f & hi;
+        int new_m = swm_new[f];
+        int old_m = ((int)u == root) ? INF_E : s_old[j];
+        if (new_m <= old_m) return;
+        unsigned v = (u + (unsigned)deltas[k]) & hi;
+        long long pos = (long long)d * n_cap + v;
+        if (par[pos] == (int)u) aff[pos] = 1;
+        return;
+    }
+    i -= n_sd;
+    if (i >= (long long)d_cap * n_r) return;
+    int d = (int)(i / n_r);
+    int j = (int)(i - (long long)d * n_r);
+    int f = r_idx[j];
+    if (f < 0 || (long long)f >= (long long)r_cap * kr_cap) return;
+    int r = f / kr_cap;
+    int ru = res_nbr[f];
+    int rv = res_rows[r];
+    if (ru < 0 || rv < 0) return;
+    int old_m = (ru == root) ? INF_E : r_old[j];
+    if (rwm_new[f] <= old_m) return;
+    long long pos = (long long)d * n_cap + rv;
+    if (par[pos] == ru) aff[pos] = 1;
+}
+
+// K8: dst[d, v] = max(src[d, v], src[d, par[d, v]]) — Jacobi, one
+// forest level per step.
+__global__ void cone_step_kernel(const int* __restrict__ par,
+                                 const int* __restrict__ src,
+                                 int* __restrict__ dst,
+                                 int* __restrict__ flag, int d_cap,
+                                 int n_cap) {
+    long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    int changed = 0;
+    if (i < (long long)d_cap * n_cap) {
+        int cur = src[i];
+        int p = par[i];
+        int v = cur;
+        if (p >= 0) {
+            long long d = i / n_cap;
+            v = max(cur, src[d * n_cap + p]);
+        }
+        dst[i] = v;
+        changed = v != cur;
+    }
+    if (__syncthreads_or(changed) && threadIdx.x == 0) atomicOr(flag, 1);
+}
+
+// K9 count: tail[0] += sum(aff) (tail zeroed by the caller).
+__global__ void cone_count_kernel(const int* __restrict__ aff,
+                                  int* __restrict__ tail, int total) {
+    int s = 0;
+    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         i < total; i += (long long)gridDim.x * blockDim.x)
+        s += aff[i];
+    for (int off = 16; off > 0; off >>= 1)
+        s += __shfl_down_sync(0xffffffffu, s, off);
+    if ((threadIdx.x & 31) == 0 && s) atomicAdd(tail, s);
+}
+
+// K9 plane: fell_back = tail[0] > cone_limit (written to tail[1]); the
+// seed is dist0 when it fell back, else prev with the cone at INF_E
+// and the lane's live seed pinned to 0.
+__global__ void cone_plane_kernel(const int* __restrict__ aff,
+                                  const int* __restrict__ prev,
+                                  const int* __restrict__ dist0,
+                                  const int* __restrict__ seeds_nbr,
+                                  const int* __restrict__ seeds_w,
+                                  int* __restrict__ tail,
+                                  int* __restrict__ plane, int cone_limit,
+                                  int d_cap, int n_cap) {
+    long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    bool fell = tail[0] > cone_limit;
+    if (i == 0) tail[1] = fell ? 1 : 0;
+    if (i >= (long long)d_cap * n_cap) return;
+    if (fell) {
+        plane[i] = dist0[i];
+        return;
+    }
+    int d = (int)(i / n_cap);
+    int u = (int)(i - (long long)d * n_cap);
+    int v = aff[i] > 0 ? INF_E : prev[i];
+    int seed = min(max(seeds_nbr[d], 0), n_cap - 1);
+    if (u == seed && seeds_w[d] < INF_E) v = min(v, 0);
+    plane[i] = v;
+}
+
+extern "C" {
+
+int scatter_set(int* plane, const int* idx, const int* vals, int n,
+                int numel, cudaStream_t stream) {
+    scatter_set_kernel<<<blocks_for(n), THREADS, 0, stream>>>(plane, idx,
+                                                              vals, n, numel);
+    return (int)cudaGetLastError();
+}
+
+int parent_shift(const int* deltas, const int* swm_old, const int* prev,
+                 int* par, int s_cap, int n_cap, int d_cap,
+                 cudaStream_t stream) {
+    parent_shift_kernel<<<blocks_for((long long)d_cap * n_cap), THREADS, 0,
+                          stream>>>(deltas, swm_old, prev, par, s_cap, n_cap,
+                                    d_cap);
+    return (int)cudaGetLastError();
+}
+
+int parent_residual(const int* res_rows, const int* res_nbr,
+                    const int* rwm_old, const int* prev, int* par, int r_cap,
+                    int kr_cap, int n_cap, int d_cap, cudaStream_t stream) {
+    parent_residual_kernel<<<blocks_for((long long)d_cap * r_cap), THREADS, 0,
+                             stream>>>(res_rows, res_nbr, rwm_old, prev, par,
+                                       r_cap, kr_cap, n_cap, d_cap);
+    return (int)cudaGetLastError();
+}
+
+int cone_seed(const int* par, const int* swm_new, const int* deltas,
+              const int* s_idx, const int* s_old, const int* rwm_new,
+              const int* res_rows, const int* res_nbr, const int* r_idx,
+              const int* r_old, int* aff, int root, int s_cap, int n_cap,
+              int d_cap, int n_s, int r_cap, int kr_cap, int n_r,
+              cudaStream_t stream) {
+    long long total = (long long)d_cap * (n_s + n_r);
+    cone_seed_kernel<<<blocks_for(total), THREADS, 0, stream>>>(
+        par, swm_new, deltas, s_idx, s_old, rwm_new, res_rows, res_nbr, r_idx,
+        r_old, aff, root, s_cap, n_cap, d_cap, n_s, r_cap, kr_cap, n_r);
+    return (int)cudaGetLastError();
+}
+
+int cone_step(const int* par, const int* src, int* dst, int* flag, int d_cap,
+              int n_cap, cudaStream_t stream) {
+    cone_step_kernel<<<blocks_for((long long)d_cap * n_cap), THREADS, 0,
+                       stream>>>(par, src, dst, flag, d_cap, n_cap);
+    return (int)cudaGetLastError();
+}
+
+int cone_count(const int* aff, int* tail, int total, cudaStream_t stream) {
+    unsigned nblk = blocks_for(total);
+    if (nblk > 1056) nblk = 1056;  // 8 blocks an SM, grid-stride past that
+    cone_count_kernel<<<nblk, THREADS, 0, stream>>>(aff, tail, total);
+    return (int)cudaGetLastError();
+}
+
+int cone_plane(const int* aff, const int* prev, const int* dist0,
+               const int* seeds_nbr, const int* seeds_w, int* tail,
+               int* plane, int cone_limit, int d_cap, int n_cap,
+               cudaStream_t stream) {
+    cone_plane_kernel<<<blocks_for((long long)d_cap * n_cap), THREADS, 0,
+                        stream>>>(aff, prev, dist0, seeds_nbr, seeds_w, tail,
+                                  plane, cone_limit, d_cap, n_cap);
+    return (int)cudaGetLastError();
+}
+
+}  // extern "C"

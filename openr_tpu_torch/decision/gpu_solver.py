@@ -1,4 +1,5 @@
-"""GPU route-computation backend: the cold single-area Decision solve.
+"""GPU route-computation backend: the single-area Decision solve, cold
+and incremental.
 
 ``GpuSpfSolver.build_route_db(my_node, {area: LinkState}, PrefixState)``
 computes the same ``DecisionRouteDb`` as the CPU oracle
@@ -9,7 +10,13 @@ area whose prefixes are all single-area IP + SP_ECMP announcements
   1. ``ops/relax.plan_sssp``: batched SSSP [D, n_cap] from the root's D
      out-neighbours in G-minus-root over the shift-decomposed mirror
      (ops/edgeplan.py) — K1s init, then bucketed Δ-stepping (K2 ladder
-     + K1 handoff relaxation) or synchronous K1 rounds.
+     + K1 handoff relaxation) or synchronous K1 rounds. With
+     ``incremental_spf`` an eligible vantage runs
+     ``ops/incremental.incremental_sssp`` instead: the same loops from
+     its previous distance plane, with the affected cone behind metric
+     increases re-anchored (K5 old planes, K6 parent forest, K7/K8 cone,
+     K9 seed), falling back to the cold seed on the device when the
+     cone exceeds ``cone_limit``.
   2. ``ops/select.select_routes`` (K3): true distances and the ECMP
      predicate from via = root_w + dist_d, reference-order best-route
      selection, next-hop masks, 16-bit word packing, route-ok filter.
@@ -22,11 +29,13 @@ The host pulls ONE buffer — the full payload on a vantage's first solve
 patches the vantage's ColumnarRib, whose lazy view becomes the RIB's
 unicast routes. Everything else (cross-area or non-fast-path prefixes,
 static routes, MPLS label routes) goes through the oracle, as in the
-JAX solver. Not ported yet, and refused rather than approximated:
-LFA backup next hops (``enable_lfa``) and areas above
-``multichip_n_cap_threshold``. The incremental, fused-area and
-streaming solves of the JAX solver are not ported either; every build
-here is the cold solve.
+JAX solver. Changelog churn reaches the resident weight planes as a
+K5 scatter of the drained dirty slots, journalled per drain epoch so a
+vantage's previous plane can be advanced across several drains. Not
+ported yet, and refused rather than approximated: LFA backup next hops
+(``enable_lfa``) and areas above ``multichip_n_cap_threshold``. The
+fused-area and streaming solves of the JAX solver are not ported
+either.
 
 ``device`` defaults to "cuda" and raises without a CUDA device unless
 the caller passes ``device="cpu"``, which runs each kernel's plain
@@ -36,7 +45,7 @@ PyTorch version (the tests do).
 from __future__ import annotations
 
 import time
-from collections import OrderedDict
+from collections import OrderedDict, deque
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -49,8 +58,13 @@ from openr_tpu_torch.decision.rib import DecisionRouteDb
 from openr_tpu_torch.decision.spf_solver import SpfSolver
 from openr_tpu_torch.ops.compact import compact_outputs
 from openr_tpu_torch.ops.csr import PrefixMatrix, build_prefix_matrix
-from openr_tpu_torch.ops.edgeplan import drain_dirty, sync_plan
-from openr_tpu_torch.ops.relax import plan_sssp
+from openr_tpu_torch.ops.edgeplan import (
+    drain_dirty,
+    prewarm_edge_loc,
+    sync_plan,
+)
+from openr_tpu_torch.ops.incremental import incremental_sssp, scatter_set
+from openr_tpu_torch.ops.relax import INF_E, max_trips, plan_sssp
 from openr_tpu_torch.ops.select import select_routes
 from openr_tpu_torch.runtime.counters import counters
 from openr_tpu_torch.types import PrefixForwardingAlgorithm, PrefixForwardingType
@@ -58,6 +72,46 @@ from openr_tpu_torch.types import PrefixForwardingAlgorithm, PrefixForwardingTyp
 # rows shipped per delta pull; more changed rows fall back to the full
 # pull (the host reads the count first)
 DELTA_BUDGET = 4096
+
+# incremental-solve dirty buffers pad to one of these sizes (shared by
+# the shift and residual buffers); a larger merged dirty set takes the
+# cold solve
+_DIRTY_BUCKETS = (64, 256, 1024, 4096)
+
+
+def _dirty_bucket(n: int) -> Optional[int]:
+    for b in _DIRTY_BUCKETS:
+        if n <= b:
+            return b
+    return None
+
+
+def _merge_drain_log(ad: "_AreaDev", since_epoch: int):
+    """Merge the area's drain journal entries newer than ``since_epoch``
+    into ({shift_flat: old}, {res_flat: old}) maps holding each dirty
+    slot's weight AS OF since_epoch (the epoch of the vantage's resident
+    distance plane). None when the window cannot be rebuilt — a journal
+    gap (deque overflow), a reset marker (mirror rebuild or residual
+    layout change) or a missing epoch — and the caller takes the cold
+    solve."""
+    if ad.drain_epoch == since_epoch:
+        return {}, {}
+    s_map: dict = {}
+    r_map: dict = {}
+    expected = since_epoch + 1
+    for epoch, s_d, r_d in ad.drain_log:
+        if epoch <= since_epoch:
+            continue
+        if epoch != expected or s_d is None:
+            return None
+        for f, old in s_d.items():
+            s_map.setdefault(f, old)
+        for f, old in r_d.items():
+            r_map.setdefault(f, old)
+        expected += 1
+    if expected != ad.drain_epoch + 1:
+        return None
+    return s_map, r_map
 
 
 def resolve_device(device) -> torch.device:
@@ -126,49 +180,82 @@ class PipelineOut(NamedTuple):
     nhw: torch.Tensor
     trips: int
     rounds: int
-    # CUDA events at [start, SSSP done, selection done, compaction done]
-    # on a CUDA device; None on the CPU
+    # CUDA events on a CUDA device, None on the CPU: [start, SSSP done,
+    # selection done, compaction done] for a cold solve; [start, old
+    # planes done, parent plane done, seed plane done, SSSP done,
+    # selection done, compaction done] for an incremental one
     events: Optional[list]
+    # the [D, n_cap] distance plane (the next incremental solve's seed)
+    # with emit_dist or incr, else None
+    dist: Optional[torch.Tensor] = None
+    # trips of the incremental solve's cone spread (0 for a cold solve)
+    cone_trips: int = 0
 
 
 def pipeline(deltas, shift_w, res_rows, res_nbr, res_w, mbuf, root: int,
              root_nbr, root_w, prev_metric, prev_s3w, prev_nhw, *,
              has_res: bool, block_v4: bool = False, sentinels: bool = True,
              kernel: str = "sync", delta_exp: int = 0,
-             budget: int = DELTA_BUDGET) -> PipelineOut:
-    """The cold solve for one (area, vantage) on the device of its
-    tensors. Inputs are the resident mirror (deltas [s_cap], shift_w
-    [s_cap, n_cap], the residual ELL res_rows [r_cap] / res_nbr, res_w
-    [r_cap, kr_cap]), the packed announcer matrix mbuf [6*P*A], the
-    root's index and out-slot tables root_nbr / root_w [D], and the
-    previous solve's outputs prev_metric [P], prev_s3w [P, ceil(A/16)],
-    prev_nhw [P, ceil(D/16)] (zeros before the first). All int32."""
+             budget: int = DELTA_BUDGET, incr=None,
+             emit_dist: bool = False) -> PipelineOut:
+    """One solve for one (area, vantage) on the device of its tensors.
+    Inputs are the resident mirror (deltas [s_cap], shift_w [s_cap,
+    n_cap], the residual ELL res_rows [r_cap] / res_nbr, res_w [r_cap,
+    kr_cap]), the packed announcer matrix mbuf [6*P*A], the root's index
+    and out-slot tables root_nbr / root_w [D], and the previous solve's
+    outputs prev_metric [P], prev_s3w [P, ceil(A/16)], prev_nhw [P,
+    ceil(D/16)] (zeros before the first). All int32.
+
+    ``incr``, when given, is the incremental solve's ``(prev_dist [D,
+    n_cap], s_dirty_idx, s_dirty_old, r_dirty_idx, r_dirty_old,
+    cone_limit)`` (the JAX ``_incr_pipeline``'s six trailing inputs):
+    the SSSP starts from the previous plane, and (cone, fell_back) join
+    both buffers' tails. The distance plane is returned in ``dist``
+    with ``incr`` or ``emit_dist``."""
     p_cap = prev_metric.shape[0]
     a_cap = mbuf.numel() // (6 * p_cap)
     events = None
     if shift_w.is_cuda:
-        events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        events[0].record()
-    dist_d, trips, rounds = plan_sssp(
-        deltas, shift_w, res_rows, res_nbr, res_w, root, root_nbr, root_w,
-        has_res, kernel, delta_exp,
-    )
-    if events:
-        events[1].record()
+        n_ev = 4 if incr is None else 7
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(n_ev)]
+    pending = iter(events or ())
+
+    def mark():
+        ev = next(pending, None)
+        if ev is not None:
+            ev.record()
+
+    mark()
+    incr_tail = None
+    spread = {"cone_trips": 0}
+    if incr is None:
+        dist_d, trips, rounds = plan_sssp(
+            deltas, shift_w, res_rows, res_nbr, res_w, root, root_nbr,
+            root_w, has_res, kernel, delta_exp,
+        )
+    else:
+        s_cap, n_cap = shift_w.shape
+        dist_d, trips, cone, fell_back, rounds = incremental_sssp(
+            deltas, shift_w, res_rows, res_nbr, res_w, root, root_nbr,
+            root_w, *incr, s_cap, has_res, n_cap, root_nbr.shape[0],
+            max_trips(n_cap), kernel, delta_exp, mark=mark, stats=spread,
+        )
+        incr_tail = (cone, fell_back)
+    mark()
     metric, s3w, nhw, ok = select_routes(
         dist_d, root_w, root, mbuf, p_cap, a_cap, block_v4
     )
-    if events:
-        events[2].record()
+    mark()
     flags = mbuf[p_cap * a_cap:2 * p_cap * a_cap].view(p_cap, a_cap)
     delta_buf, full_buf = compact_outputs(
         metric, s3w, nhw, ok, prev_metric, prev_s3w, prev_nhw, flags,
-        trips, rounds, budget, sentinels,
+        trips, rounds, budget, sentinels, incr_tail,
     )
-    if events:
-        events[3].record()
+    mark()
+    keep = incr is not None or emit_dist
     return PipelineOut(delta_buf, full_buf, metric, s3w, nhw, trips, rounds,
-                       events)
+                       events, dist_d if keep else None,
+                       spread["cone_trips"])
 
 
 class _AreaDev:
@@ -177,7 +264,7 @@ class _AreaDev:
     __slots__ = (
         "plan", "deltas", "shift_w", "res_rows", "res_nbr", "res_w",
         "matrix_key", "matrix", "flags", "mbuf", "matrix_version",
-        "pack_over",
+        "pack_over", "drain_epoch", "drain_log",
     )
 
     def __init__(self):
@@ -195,6 +282,15 @@ class _AreaDev:
         # node_overloaded snapshot at the last pack: an unchanged
         # snapshot skips the O(6*P*A) host concat
         self.pack_over: Optional[np.ndarray] = None
+        # drain journal for the incremental solve: one entry per sync
+        # epoch — (epoch, {shift_flat: old_w}, {res_flat: old_w}) of
+        # that drain's pre-write weights, or (epoch, None, None) as a
+        # reset marker (mirror rebuild or residual layout change). A
+        # vantage whose plane is k epochs old merges the last k
+        # entries; the bounded deque turns a long-idle vantage into a
+        # journal gap (cold solve) rather than unbounded host state.
+        self.drain_epoch = 0
+        self.drain_log = deque(maxlen=16)
 
 
 class _VantageState:
@@ -202,7 +298,8 @@ class _VantageState:
     outputs + the columnar RIB the host patches from pulls."""
 
     __slots__ = ("shape_key", "matrix_version", "prev", "crib",
-                 "links_tuple", "valid")
+                 "links_tuple", "valid", "prev_dist", "dist_epoch",
+                 "root_sig")
 
     def __init__(self):
         self.shape_key = None
@@ -211,6 +308,14 @@ class _VantageState:
         self.crib: Optional[ColumnarRib] = None
         self.links_tuple: tuple = ()
         self.valid = False
+        # incremental seed state: the [D, N] distance plane of the last
+        # solve, the area drain epoch it belongs to, and the root
+        # out-link signature it was computed under (lane <-> neighbour
+        # map + per-lane link-up mask; a flipped lane goes between
+        # all-INF and finite, which a warm re-relax cannot express)
+        self.prev_dist = None
+        self.dist_epoch = -1
+        self.root_sig = None
 
 
 class _PendingBuild:
@@ -236,6 +341,8 @@ class GpuSpfSolver:
     def __init__(
         self, my_node_name: str, device="cuda",
         enable_numerical_sentinels: bool = True,
+        incremental_spf: bool = False,
+        incremental_cone_frac: float = 0.25,
         spf_kernel: str = "bucketed",
         multichip_n_cap_threshold: int = 131072,
         **solver_kwargs,
@@ -249,6 +356,15 @@ class GpuSpfSolver:
         # forces the sync rounds everywhere
         self.spf_kernel = spf_kernel
         self.enable_sentinels = enable_numerical_sentinels
+        # incremental SSSP: seed each eligible solve from the vantage's
+        # previous distance plane and re-anchor only the affected cone;
+        # the result is bit-identical to the cold solve. The cold solve
+        # runs on a first solve, shape / root churn, a journal gap,
+        # zero-weight edges, an oversized dirty set, and — decided on
+        # the device — when the cone exceeds incremental_cone_frac of
+        # the area's node-lanes.
+        self.incremental_spf = bool(incremental_spf)
+        self.incremental_cone_frac = float(incremental_cone_frac)
         self.multichip_n_cap_threshold = int(multichip_n_cap_threshold)
         self.cpu = SpfSolver(my_node_name, **solver_kwargs)
         if self.cpu.enable_lfa:
@@ -260,8 +376,14 @@ class GpuSpfSolver:
         self._vantage_lru: OrderedDict[tuple, None] = OrderedDict()
         self._partition = None  # ((generation, areas), fast_by_area, slow)
         self._bytes_uploaded = 0
+        # CUDA event pairs around the dirty-weight scatters of this solve
+        self._scatter_events: list = []
+        self._last_exec_incr = None
         # numerical-health sentinels of the last solve, summed over areas
         self.last_sentinels: dict = {}
+        # the last area's solve statistics (incremental, cone,
+        # fell_back, changed_rows, trips, rounds, ...)
+        self.last_device_stats: dict = {}
         # wall-time and device-time breakdown of the last solve
         self.last_timing: dict = {}
 
@@ -320,6 +442,7 @@ class GpuSpfSolver:
         self.last_timing = {}
         self.last_sentinels = {}
         self._bytes_uploaded = 0
+        self._scatter_events = []
         t_pipe0 = time.perf_counter()
         fast_by_area, slow = self._partition_prefixes(
             prefix_state, area_link_states
@@ -365,6 +488,7 @@ class GpuSpfSolver:
             rounds += stats["rounds"]
             bytes_dl += stats["bytes_downloaded"]
             kernels.add(stats["spf_kernel"])
+            self.last_device_stats = stats
             for sk, sv in stats.get("sentinels", {}).items():
                 self.last_sentinels[sk] = self.last_sentinels.get(sk, 0) + sv
         # device routes shadow host/static entries for the same prefix
@@ -443,6 +567,37 @@ class GpuSpfSolver:
         return torch.tensor(np.ascontiguousarray(arr), dtype=torch.int32,
                             device=self.device)
 
+    def _scatter_counted(self, d_arr: torch.Tensor, idx: np.ndarray,
+                         vals: np.ndarray) -> torch.Tensor:
+        """Scatter (idx, vals) into the resident tensor in place (K5);
+        only the index and value buffers cross to the device."""
+        idx_t, vals_t = self._upload(idx), self._upload(vals)
+        ev = None
+        if d_arr.is_cuda:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+        scatter_set(d_arr, idx_t, vals_t)
+        if ev:
+            ev[1].record()
+            self._scatter_events.append(ev)
+        return d_arr
+
+    def _diff_scatter(self, d_arr: torch.Tensor, old_np: np.ndarray,
+                      new_np: np.ndarray, extra_idx=None) -> torch.Tensor:
+        """Reconcile a resident tensor to ``new_np`` by scattering only
+        the positions where it differs from ``old_np``, whose content the
+        device holds except at ``extra_idx`` (undrained dirty slots,
+        always included). More than 25% changed: one whole upload."""
+        diff = np.flatnonzero(old_np.ravel() != new_np.ravel())
+        if extra_idx:
+            diff = np.union1d(diff, np.asarray(extra_idx, np.int64))
+        if diff.size == 0:
+            return d_arr
+        if diff.size * 4 > new_np.size:
+            return self._upload(new_np)
+        vals = np.ascontiguousarray(new_np.ravel()[diff])
+        return self._scatter_counted(d_arr, diff.astype(np.int32), vals)
+
     def _sync_area(self, area: str, link_state: LinkState,
                    prefix_state: PrefixState, prefixes: list) -> _AreaDev:
         ad = self._area_dev.get(area)
@@ -452,26 +607,86 @@ class GpuSpfSolver:
         plan = sync_plan(link_state, old_plan)
         ad.plan = plan
         if plan is not old_plan or ad.deltas is None:
-            ad.deltas = self._upload(plan.deltas)
-            ad.shift_w = self._upload(plan.shift_w)
-            ad.res_rows = self._upload(plan.res_rows)
-            ad.res_nbr = self._upload(plan.res_nbr)
-            ad.res_w = self._upload(plan.res_w)
+            # a same-capacity rebuild (index renumbering, class reshuffle
+            # within the pow2 buckets) keeps the resident tensors and
+            # ships only changed slots; the device holds the old plan's
+            # content except at its undrained dirty slots, which the
+            # diff folds in
+            same_caps = (
+                old_plan is not None
+                and ad.deltas is not None
+                and all(
+                    getattr(old_plan, f).shape == getattr(plan, f).shape
+                    for f in ("deltas", "shift_w", "res_rows", "res_nbr",
+                              "res_w")
+                )
+            )
+            if same_caps:
+                n_cap_o = old_plan.n_cap
+                kr_o = old_plan.res_nbr.shape[1]
+                sd = [k * n_cap_o + u for k, u, _, _ in old_plan.dirty_shift]
+                rd = [r * kr_o + c for r, c, _, _ in old_plan.dirty_res]
+                ad.deltas = self._diff_scatter(
+                    ad.deltas, old_plan.deltas, plan.deltas
+                )
+                ad.shift_w = self._diff_scatter(
+                    ad.shift_w, old_plan.shift_w, plan.shift_w, sd
+                )
+                if old_plan.dirty_res_nbr:
+                    # residual slot layout changed without tracked
+                    # indices: the residual mirror ships whole
+                    ad.res_rows = self._upload(plan.res_rows)
+                    ad.res_nbr = self._upload(plan.res_nbr)
+                    ad.res_w = self._upload(plan.res_w)
+                else:
+                    ad.res_rows = self._diff_scatter(
+                        ad.res_rows, old_plan.res_rows, plan.res_rows
+                    )
+                    ad.res_nbr = self._diff_scatter(
+                        ad.res_nbr, old_plan.res_nbr, plan.res_nbr
+                    )
+                    ad.res_w = self._diff_scatter(
+                        ad.res_w, old_plan.res_w, plan.res_w, rd
+                    )
+            else:
+                ad.deltas = self._upload(plan.deltas)
+                ad.shift_w = self._upload(plan.shift_w)
+                ad.res_rows = self._upload(plan.res_rows)
+                ad.res_nbr = self._upload(plan.res_nbr)
+                ad.res_w = self._upload(plan.res_w)
             plan.dirty_shift = []
             plan.dirty_res = []
             plan.dirty_res_nbr = False
+            # the mirror changed without per-slot old values: no older
+            # distance plane can be advanced across this epoch
+            ad.drain_epoch += 1
+            ad.drain_log.append((ad.drain_epoch, None, None))
+            # the first churn after a cold build must not pay the edge
+            # locator build inside its convergence window
+            prewarm_edge_loc(plan)
         else:
             # changelog deltas were applied to the host plan in place:
-            # re-upload the planes they touched (the cold slice has no
-            # device scatter of dirty slots)
-            (s_idx, _, _), (r_idx, _, _), nbr_changed = drain_dirty(plan)
+            # scatter the drained slots into the resident planes and
+            # journal their pre-drain values
+            ((s_idx, s_val, s_old), (r_idx, r_val, r_old),
+             nbr_changed) = drain_dirty(plan)
             if s_idx is not None:
-                ad.shift_w = self._upload(plan.shift_w)
+                ad.shift_w = self._scatter_counted(ad.shift_w, s_idx, s_val)
             if r_idx is not None:
-                ad.res_w = self._upload(plan.res_w)
+                ad.res_w = self._scatter_counted(ad.res_w, r_idx, r_val)
+            ad.drain_epoch += 1
             if nbr_changed:
                 ad.res_rows = self._upload(plan.res_rows)
                 ad.res_nbr = self._upload(plan.res_nbr)
+                # residual slots moved: journal old values no longer
+                # name stable (row, col) edges — reset marker
+                ad.drain_log.append((ad.drain_epoch, None, None))
+            else:
+                s_map = ({} if s_idx is None
+                         else dict(zip(s_idx.tolist(), s_old.tolist())))
+                r_map = ({} if r_idx is None
+                         else dict(zip(r_idx.tolist(), r_old.tolist())))
+                ad.drain_log.append((ad.drain_epoch, s_map, r_map))
         # announcer matrix: keyed on prefix churn + node-index stability
         mkey = (prefix_state.generation, plan.index_version)
         if ad.matrix_key != mkey or ad.matrix is None:
@@ -560,22 +775,87 @@ class GpuSpfSolver:
             )
             vs.links_tuple = links_tuple
             vs.valid = False
+            vs.prev_dist = None
+            vs.dist_epoch = -1
+            vs.root_sig = None
+        root_sig = (root_nbr.tobytes(), (root_w < INF_E).tobytes())
+        incr = self._incr_args(ad, vs, root_sig, d_cap)
         root_nbr_t = self._upload(root_nbr)
         root_w_t = self._upload(root_w)
+        scatter_events, self._scatter_events = self._scatter_events, []
         t1 = time.perf_counter()
         out = pipeline(
             ad.deltas, ad.shift_w, ad.res_rows, ad.res_nbr, ad.res_w,
             ad.mbuf, root_idx, root_nbr_t, root_w_t, *vs.prev,
             has_res=has_res, block_v4=block_v4,
             sentinels=self.enable_sentinels, kernel=kernel,
-            delta_exp=delta_exp,
+            delta_exp=delta_exp, incr=None if incr is None else incr[0],
+            emit_dist=self.incremental_spf,
         )
-        counters.increment("decision.solver.full.solves")
+        if incr is not None:
+            # the inputs of the last incremental solve, for device-only
+            # probes (chip_smoke.py): the lane tensors, the previous
+            # outputs and the six incremental inputs
+            self._last_exec_incr = (
+                (ad.deltas, ad.shift_w, ad.res_rows, ad.res_nbr, ad.res_w,
+                 ad.mbuf, root_idx, root_nbr_t, root_w_t),
+                vs.prev, incr[0],
+            )
+        if incr is None:
+            counters.increment("decision.solver.full.solves")
+            if self.incremental_spf:
+                # a first or ineligible solve, or a host-gate fallback
+                # (journal gap, root churn, zero-weight edges, oversized
+                # dirty set)
+                counters.increment("decision.solver.incr.full_fallbacks")
         return {
             "area": area, "vs": vs, "out": out, "kernel": kernel,
             "d_cap": d_cap, "p_cap": p_cap, "a_cap": a_cap,
+            "incr_denom": None if incr is None else incr[1],
+            "root_sig": root_sig, "dist_epoch": ad.drain_epoch,
+            "scatter_events": scatter_events,
             "t0": t0, "t1": t1, "t2": time.perf_counter(),
         }
+
+    def _incr_args(self, ad: _AreaDev, vs: _VantageState, root_sig: tuple,
+                   d_cap: int):
+        """The incremental gate: a resident distance plane whose epoch
+        window the drain journal covers, an unchanged root out-link
+        signature, no zero-weight edges and a dirty set that fits a
+        bucket. -> ((prev_dist, s_dirty_idx, s_dirty_old, r_dirty_idx,
+        r_dirty_old, cone_limit), cone denominator) or None (cold
+        solve)."""
+        plan = ad.plan
+        if not (
+            self.incremental_spf
+            and vs.valid
+            and vs.prev_dist is not None
+            and vs.root_sig == root_sig
+            and not plan.has_zero_w
+        ):
+            return None
+        merged = _merge_drain_log(ad, vs.dist_epoch)
+        if merged is None:
+            return None
+        s_map, r_map = merged
+        cap = _dirty_bucket(max(len(s_map), len(r_map), 1))
+        if cap is None:
+            return None
+        r_cap, kr_cap = plan.res_nbr.shape
+        # pads are out-of-range flat indices: they drop
+        sd_idx = np.full(cap, plan.s_cap * plan.n_cap, np.int32)
+        sd_old = np.zeros(cap, np.int32)
+        sd_idx[:len(s_map)] = list(s_map.keys())
+        sd_old[:len(s_map)] = list(s_map.values())
+        rd_idx = np.full(cap, r_cap * kr_cap, np.int32)
+        rd_old = np.zeros(cap, np.int32)
+        rd_idx[:len(r_map)] = list(r_map.keys())
+        rd_old[:len(r_map)] = list(r_map.values())
+        denom = d_cap * plan.n_nodes
+        cone_limit = int(np.int32(self.incremental_cone_frac * denom))
+        args = (vs.prev_dist, self._upload(sd_idx), self._upload(sd_old),
+                self._upload(rd_idx), self._upload(rd_old), cone_limit)
+        return args, denom
 
     def _collect_area(self, ctx: dict):
         """Pull the one buffer this solve consumes and patch the
@@ -620,18 +900,42 @@ class GpuSpfSolver:
                 s3w[live][:count], nhw[live][:count], None, None,
             )
         vs.prev = (out.metric, out.s3w, out.nhw)
+        if out.dist is not None:
+            # the next solve's warm seed, stamped with the drain epoch
+            # and root signature it was computed under
+            vs.prev_dist = out.dist
+            vs.dist_epoch = ctx["dist_epoch"]
+            vs.root_sig = ctx["root_sig"]
         sbuf = fbuf if full_pull else dbuf
         stats = {
             "trips": out.trips,
             "rounds": out.rounds,
             "spf_kernel": ctx["kernel"],
+            "changed_rows": count,
+            "full_pull": full_pull,
             "bytes_downloaded": (0 if dbuf is None else int(dbuf.nbytes))
             + (0 if fbuf is None else int(fbuf.nbytes)),
         }
+        # the tail, back to front: [-1] rounds; after an incremental
+        # solve [-3] cone and [-2] fell_back; the sentinels before those
+        denom = ctx["incr_denom"]
+        if denom is not None:
+            cone, fell_back = int(sbuf[-3]), bool(sbuf[-2])
+            stats.update(incremental=True, cone=cone, fell_back=fell_back,
+                         cone_trips=out.cone_trips)
+            counters.increment(
+                "decision.solver.incr.full_fallbacks" if fell_back
+                else "decision.solver.incr.solves"
+            )
+            counters.add_stat_value("decision.solver.incr.cone_frac",
+                                    cone / max(denom, 1))
+            counters.add_stat_value("decision.solver.incr.changed_rows",
+                                    count or 0)
         if self.enable_sentinels:
+            off = -3 if denom is not None else -1
             stats["sentinels"] = {
-                "unreachable_rows": int(sbuf[-3]),
-                "saturated_rows": int(sbuf[-2]),
+                "unreachable_rows": int(sbuf[off - 2]),
+                "saturated_rows": int(sbuf[off - 1]),
             }
         t4 = time.perf_counter()
         timing = {
@@ -645,7 +949,12 @@ class GpuSpfSolver:
         }
         if out.events:
             ev = out.events
-            timing["sssp_ms"] = ev[0].elapsed_time(ev[1])
-            timing["tail_ms"] = ev[1].elapsed_time(ev[2])
-            timing["compact_ms"] = ev[2].elapsed_time(ev[3])
+            phases = ("sssp_ms", "tail_ms", "compact_ms")
+            if len(ev) == 7:
+                phases = ("old_planes_ms", "parent_ms", "cone_ms") + phases
+            for i, key in enumerate(phases):
+                timing[key] = ev[i].elapsed_time(ev[i + 1])
+            timing["scatter_ms"] = sum(
+                a.elapsed_time(b) for a, b in ctx["scatter_events"]
+            )
         return crib.view(), timing, stats

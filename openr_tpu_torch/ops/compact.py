@@ -13,9 +13,12 @@ numerical-health sentinel counts and the trip / round scalars in their
 tails. Layouts (int32; B = budget, P = p_cap):
 
     delta_buf  count, trips, idx[B], metric[B], s3w[B*wa], nhw[B*wd],
-               (unreachable, saturated), rounds
+               (unreachable, saturated), (cone, fell_back), rounds
     full_buf   okc, trips, idx[P], metric[P], s3w[P*wa], nhw[P*wd],
-               (unreachable, saturated), rounds
+               (unreachable, saturated), (cone, fell_back), rounds
+
+The sentinel pair is there when sentinels are on, the cone pair when
+the solve was incremental; the host parses the tail back to front.
 
 Pad slots past the live count carry index P and the values of row
 P - 1 (a fixed-size nonzero fills with P, the gather clips it to the
@@ -53,16 +56,16 @@ def route_ok(metric, s3, nh_mask, ann_node, min_nh, v4_blocked, root: int):
 
 
 def buffer_lens(p_cap: int, wa: int, wd: int, budget: int,
-                sentinels: bool) -> tuple[int, int]:
+                sentinels: bool, incr: bool = False) -> tuple[int, int]:
     """(delta_buf, full_buf) int32 lengths."""
-    tail = 3 if sentinels else 1
+    tail = 1 + (2 if sentinels else 0) + (2 if incr else 0)
     return (2 + budget * (2 + wa + wd) + tail,
             2 + p_cap * (2 + wa + wd) + tail)
 
 
 def compact_outputs_plain(metric, s3w, nhw, ok, prev_metric, prev_s3w,
                           prev_nhw, flags, trips: int, rounds: int,
-                          budget: int, sentinels: bool):
+                          budget: int, sentinels: bool, incr_tail=None):
     p_cap = metric.shape[0]
     changed = column_diff(metric, s3w, nhw, prev_metric, prev_s3w, prev_nhw)
     delta = compact_rows(changed, trips, metric, s3w, nhw, budget, p_cap)
@@ -73,6 +76,8 @@ def compact_outputs_plain(metric, s3w, nhw, ok, prev_metric, prev_s3w,
         unreach = (live & (metric >= INF_E)).sum()
         sat = ((metric < INF_E) & (metric > SENTINEL_SAT)).sum()
         tail = [unreach[None], sat[None]]
+    if incr_tail is not None:
+        tail += [t.reshape(1) for t in incr_tail]
     rounds_t = torch.tensor([rounds], dtype=torch.int32, device=metric.device)
     tail = [t.to(torch.int32) for t in tail] + [rounds_t]
     return torch.cat(delta + tail), torch.cat(full + tail)
@@ -80,13 +85,15 @@ def compact_outputs_plain(metric, s3w, nhw, ok, prev_metric, prev_s3w,
 
 def compact_outputs(metric, s3w, nhw, ok, prev_metric, prev_s3w, prev_nhw,
                     flags, trips: int, rounds: int, budget: int,
-                    sentinels: bool):
+                    sentinels: bool, incr_tail=None):
     """-> (delta_buf, full_buf), laid out as the module docstring says.
-    ``flags`` is the [P, A] announcer flag plane (bit 0 = valid)."""
+    ``flags`` is the [P, A] announcer flag plane (bit 0 = valid).
+    ``incr_tail`` is the incremental solve's (cone, fell_back), two
+    int32 0-d tensors on the device, or None for a cold solve."""
     if _is_cpu(metric):
         return compact_outputs_plain(
             metric, s3w, nhw, ok, prev_metric, prev_s3w, prev_nhw, flags,
-            trips, rounds, budget, sentinels,
+            trips, rounds, budget, sentinels, incr_tail,
         )
     _int32(metric, s3w, nhw, prev_metric, prev_s3w, prev_nhw, flags)
     if ok.dtype != torch.bool or not ok.is_contiguous():
@@ -95,7 +102,8 @@ def compact_outputs(metric, s3w, nhw, ok, prev_metric, prev_s3w, prev_nhw,
     wd = nhw.shape[1]
     a_cap = flags.shape[1]
     dev = metric.device
-    n_delta, n_full = buffer_lens(p_cap, wa, wd, budget, sentinels)
+    incr = incr_tail is not None
+    n_delta, n_full = buffer_lens(p_cap, wa, wd, budget, sentinels, incr)
     delta_buf = torch.empty(n_delta, dtype=torch.int32, device=dev)
     full_buf = torch.empty(n_full, dtype=torch.int32, device=dev)
     nblk = -(-p_cap // _BLOCK)
@@ -105,9 +113,10 @@ def compact_outputs(metric, s3w, nhw, ok, prev_metric, prev_s3w, prev_nhw,
             p(prev_nhw), p(flags))
     cuda.launch("compact", "compact_count", "ppppppppp" + "iiii",
                 *rows, p(blk), p_cap, a_cap, wa, wd)
-    cuda.launch("compact", "compact_scan", "pipp" + "iiiii",
+    cone, fell = (p(t) for t in incr_tail) if incr else (0, 0)
+    cuda.launch("compact", "compact_scan", "pipp" + "iiiii" + "pp",
                 p(blk), nblk, p(delta_buf), p(full_buf), n_delta, n_full,
-                int(trips), int(rounds), int(sentinels))
+                int(trips), int(rounds), int(sentinels), cone, fell)
     cuda.launch("compact", "compact_scatter", "ppppppppppp" + "iiiii",
                 *rows, p(blk), p(delta_buf), p(full_buf), p_cap, a_cap, wa,
                 wd, budget)

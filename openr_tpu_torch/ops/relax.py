@@ -294,11 +294,16 @@ ladder_rung.launches = 0
 
 # -- the loops ---------------------------------------------------------------
 
-def _changed(flag) -> bool:
-    """Read the change flag on the host (one sync) and clear it."""
+def read_flag(flag) -> bool:
+    """Read the change flag on the host (one sync) and clear it; counts
+    the reads in ``read_flag.reads``."""
+    read_flag.reads += 1
     hit = bool(flag.item())
     flag.zero_()
     return hit
+
+
+read_flag.reads = 0
 
 
 def run_sync(step, dist0, bound: int):
@@ -315,7 +320,7 @@ def run_sync(step, dist0, bound: int):
             step(cur, spare, flag)
             cur, spare = spare, cur
         trips += 1
-        if not _changed(flag) or trips >= bound:
+        if not read_flag(flag) or trips >= bound:
             return cur, trips, trips * UNROLL
 
 
@@ -352,36 +357,47 @@ def run_bucketed(step, dist0, deltas, sw, n_cap: int, s_cap: int,
             rung(w, d, w_bufs[j % 2], d_bufs[j % 2])
             w, d = w_bufs[j % 2], d_bufs[j % 2]
             j += 1
-            changed = _changed(flag)
+            changed = read_flag(flag)
             epoch_changed |= changed
             if not changed or j >= j_cap:
                 break
         step(cur, spare, flag)
         cur, spare = spare, cur
-        epoch_changed |= _changed(flag)
+        epoch_changed |= read_flag(flag)
         epochs += 1
         rounds += j + 1
         if not epoch_changed or epochs >= epoch_bound:
             return cur, epochs, rounds
 
 
-def plan_sssp(deltas, shift_w, res_rows, res_nbr, res_w, root: int,
-              seeds_nbr, seeds_w, has_res: bool, kernel: str = "sync",
-              delta_exp: int = 0):
-    """Batched SSSP [D, n_cap] from the root's out-neighbours in
-    G-minus-root over the shift-decomposed mirror. ``kernel`` selects
-    the sync rounds or the bucketed Δ-stepping epochs. Returns
+def solve_from(deltas, sw, residual, dist0, kernel: str = "sync",
+               delta_exp: int = 0, bound: int | None = None):
+    """Relax the seed plane ``dist0`` [D, n_cap] to the fixpoint under
+    the root-masked class weights ``sw`` and ``residual`` (K1s's
+    outputs; None without residual edges), by the sync rounds (at most
+    ``bound`` trips, ``max_trips(n_cap)`` by default) or the bucketed
+    Δ-stepping epochs. ``dist0`` is consumed as scratch. Returns
     ``(dist, trips, rounds)``; trips counts epochs under bucketed."""
-    sw, residual, dist0 = sssp_init(
-        shift_w, res_rows, res_nbr, res_w, root, seeds_nbr, seeds_w
-    )
-    if not has_res:
-        residual = None
 
     def step(dist, out, flag):
         relax_step(dist, out, flag, deltas, sw, residual)
 
-    s_cap, n_cap = shift_w.shape
+    s_cap, n_cap = sw.shape
     if kernel == "bucketed":
         return run_bucketed(step, dist0, deltas, sw, n_cap, s_cap, delta_exp)
-    return run_sync(step, dist0, max_trips(n_cap))
+    return run_sync(step, dist0, bound or max_trips(n_cap))
+
+
+def plan_sssp(deltas, shift_w, res_rows, res_nbr, res_w, root: int,
+              seeds_nbr, seeds_w, has_res: bool, kernel: str = "sync",
+              delta_exp: int = 0):
+    """Batched SSSP [D, n_cap] from the root's out-neighbours in
+    G-minus-root over the shift-decomposed mirror, from the cold seed.
+    ``kernel`` selects the sync rounds or the bucketed Δ-stepping
+    epochs. Returns ``(dist, trips, rounds)``; trips counts epochs under
+    bucketed."""
+    sw, residual, dist0 = sssp_init(
+        shift_w, res_rows, res_nbr, res_w, root, seeds_nbr, seeds_w
+    )
+    return solve_from(deltas, sw, residual if has_res else None, dist0,
+                      kernel, delta_exp)

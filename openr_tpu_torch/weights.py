@@ -2,9 +2,11 @@
 
 The system has no weights: what a solve reads from the device is the
 resident mirror, the packed announcer matrix, the root tables and the
-previous solve's outputs. ``from_jax_state`` converts those arrays, as
-numpy arrays in the JAX pipeline's argument order, into the port's
-tensors, so a test can feed the same device inputs to both pipelines.
+previous solve's outputs — and, for the incremental solve, the previous
+distance plane, the dirty tuples and the cone budget. ``from_jax_state``
+converts those arrays, as numpy arrays in the JAX pipeline's argument
+order, into the port's tensors, so a test can feed the same device
+inputs to both pipelines.
 """
 
 from __future__ import annotations
@@ -22,25 +24,41 @@ JAX_ARGS = (
     "prev_lfa_slot", "prev_lfa_metric",
 )
 
+# the six trailing inputs of the JAX incremental pipeline
+# (tpu_solver._incr_pipeline)
+JAX_INCR_ARGS = (
+    "prev_dist", "s_dirty_idx", "s_dirty_old", "r_dirty_idx",
+    "r_dirty_old", "cone_limit",
+)
+
 
 def from_jax_state(args, device="cuda") -> dict:
     """``args``: the JAX pipeline's inputs as numpy arrays (or anything
-    ``np.asarray`` takes), in ``JAX_ARGS`` order. Returns the keyword
-    arguments of ``gpu_solver.pipeline``: int32 tensors on ``device``
-    and ``root`` as an int. The LFA passthrough planes are dropped (the
-    port's pipeline runs without LFA)."""
-    if len(args) != len(JAX_ARGS):
-        raise ValueError(f"expected {len(JAX_ARGS)} arrays, got {len(args)}")
+    ``np.asarray`` takes), in ``JAX_ARGS`` order, optionally followed by
+    the incremental pipeline's six (``JAX_INCR_ARGS``). Returns the
+    keyword arguments of ``gpu_solver.pipeline``: int32 tensors on
+    ``device``, ``root`` as an int and, with the incremental six,
+    ``incr`` as their tuple (``cone_limit`` an int). The LFA passthrough
+    planes are dropped (the port's pipeline runs without LFA)."""
+    n = len(JAX_ARGS)
+    if len(args) not in (n, n + len(JAX_INCR_ARGS)):
+        raise ValueError(
+            f"expected {n} or {n + len(JAX_INCR_ARGS)} arrays, got {len(args)}"
+        )
     dev = resolve_device(device)
+
+    def tensor(arr):
+        return torch.tensor(
+            np.ascontiguousarray(np.asarray(arr), dtype=np.int32), device=dev
+        )
+
     out = {}
     for name, arr in zip(JAX_ARGS, args):
         if name.startswith("prev_lfa"):
             continue
-        a = np.asarray(arr)
-        if name == "root":
-            out[name] = int(a)
-        else:
-            out[name] = torch.tensor(
-                np.ascontiguousarray(a, dtype=np.int32), device=dev
-            )
+        out[name] = int(np.asarray(arr)) if name == "root" else tensor(arr)
+    if len(args) > n:
+        *planes, cone_limit = args[n:]
+        out["incr"] = (*(tensor(a) for a in planes),
+                       int(np.asarray(cone_limit)))
     return out

@@ -216,10 +216,26 @@ def test_rib_matches_cpu_oracle_through_churn(port):
         )
 
 
+@pytest.fixture
+def aot_off():
+    """The JAX package's process-wide AOT executable cache switched off
+    while the reference solver runs, and restored after: a test earlier
+    in the same process (tools/prewarm.py's) may leave it pointing at a
+    directory of executables built for an 8-device mesh, which the
+    reference solver would then load (ROADMAP C5)."""
+    from openr_tpu.ops import xla_cache
+
+    prev = xla_cache.aot
+    xla_cache.configure_aot("off")
+    yield
+    xla_cache.aot = prev
+
+
 @pytest.mark.parametrize("name,me", [
     ("fat_tree", "ssw-0-0"), ("full_mesh", "node-1"),
 ])
-def test_payload_bytes_match_tpu_solver(port, monkeypatch, name, me):
+def test_payload_bytes_match_tpu_solver(port, monkeypatch, aot_off, name,
+                                        me):
     """The first solve's pull buffers, byte for byte, and the RIB.
 
     Both solvers run with the numerical sentinels off: the JAX suite's
