@@ -13,9 +13,22 @@ prints no result line:
   1. build every CUDA kernel of the port (one nvcc per source, started
      together, for sm_90a);
   2. RIB parity against the oracle on tg1k (grid 32 x 32) and fabric10k
-     (96 pods x 8 planes x 64 rsws, 36 spines a plane; LFA off), and the
+     (96 pods x 8 planes x 64 rsws, 36 spines a plane; LFA on, as the
+     bench's config 3 runs it: the oracle runs with LFA too), the
      residual relaxation kernel against its plain version on fabric10k,
-     whose pod-crossing spine tier lands in the residual ELL;
+     whose pod-crossing spine tier lands in the residual ELL, and K3 and
+     K4 with their LFA columns against their plain versions on
+     fabric10k's own inputs; the fabric10k LFA build is a path of its
+     own (counts zeroed before it, read after); then one flap of a
+     root neighbour through the incremental solve with LFA, equal to
+     the cold solve and the oracle;
+  2b. the fused path: vantage ``hub`` in 4 areas, each a grid 56 x 56
+     with the hub at its centre (3,136 nodes, n_cap 4096, one loopback
+     per node but the hub's, seeded link metrics 1-9) — one fused
+     dispatch of the 4 areas, RIB equal to the oracle, each area's pull
+     buffer equal to its unfused solve's, the fused build's launches
+     and flag reads beside each unfused area's and their sum, and the
+     fused K1s-K4 (a leading area axis) against their plain versions;
   3. the main path: the lsdb100k cell (grid 316 x 316 = 99,856 nodes,
      ~400k directed adjacencies, one loopback prefix per node, root
      node-158-158, default settings: bucketed kernel, sentinels on, no
@@ -44,7 +57,9 @@ prints no result line:
      flap step's own inputs, timed beside their bounds and, for K5 and
      K7, the one PyTorch call that computes the same scatter.
 
-Output: phase lines, then one ``{"kernels": [...]}`` JSON line, the card's
+Output: phase lines, then one ``{"kernels": [...]}`` JSON line (every
+kernel and its LFA and fused variants, each with the launches of the path
+that runs it), the card's
 name and power limit as nvidia-smi reports them, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -53,6 +68,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import random
 import subprocess
 import sys
 import time
@@ -65,6 +81,12 @@ PEAK_OPS_S = 67e12
 
 LSDB100K_SIDE = 316
 LSDB100K_ROOT = "node-158-158"
+# the fused cell: vantage "hub" in FUSED_AREAS grids of FUSED_SIDE^2
+# nodes (n_cap 4096, at the fuse_n_cap bound), each above Decision's
+# auto backend's small-graph cut of 2816 nodes (config.py:130)
+FUSED_SIDE = 56
+FUSED_AREAS = 4
+AUTO_SMALL_GRAPH_NODES = 2816
 DEVICE = "cuda"
 
 
@@ -211,6 +233,418 @@ def rib_equal(want_db, got_db) -> bool:
     )
 
 
+def lfa_kernels(torch, relax, select, compact, gpu_solver, record, solver,
+                states, me) -> None:
+    """K3 and K4 with their LFA columns against their plain versions on
+    the inputs of ``solver``'s last build (one area "0", LFA on)."""
+    ad = solver._area_dev["0"]
+    plan = ad.plan
+    dev = ad.shift_w.device
+    root = plan.node_index[me]
+    nbr_np, w_np, _ = plan.out_links(states["0"], me)
+    root_nbr = torch.tensor(nbr_np, device=dev)
+    root_w = torch.tensor(w_np, device=dev)
+    kernel = "bucketed" if plan.delta_exp > 0 else "sync"
+    dist, _, _ = relax.plan_sssp(
+        ad.deltas, ad.shift_w, ad.res_rows, ad.res_nbr, ad.res_w, root,
+        root_nbr, root_w, plan.k_res > 0, kernel, plan.delta_exp)
+    p_cap, a_cap = ad.matrix.ann_node.shape
+    d_cap, n_cap = dist.shape
+    # on the unit-metric fabric every detour ties its primary, so no row
+    # has a backup (as in the oracle); uplink costs 1, 2, 3, ... narrow
+    # the primaries to the first uplink and make the others backups
+    skew_w = root_w + torch.arange(d_cap, dtype=torch.int32, device=dev)
+    skew_w = torch.where(root_w < relax.INF_E, skew_w, root_w)
+    errs, backups = [], []
+    for rw in (skew_w, root_w):
+        sel = (dist, rw, root, ad.mbuf, p_cap, a_cap, False, True)
+        got = select.select_routes(*sel)
+        errs.append(max_abs_err(torch, got, select.select_routes_plain(*sel)))
+        backups.append(int((got[4] >= 0).sum()))
+    check(backups[0] > 0, "fabric10k: no row has an LFA backup with skewed "
+          "uplink costs")
+    wa, wd = got[1].shape[1], got[2].shape[1]
+    record(
+        "K3:select_routes[lfa]", max(errs),
+        lambda: select.select_routes(*sel),
+        lambda: select.select_routes_plain(*sel),
+        nbytes=4 * (d_cap * n_cap + d_cap + 6 * p_cap * a_cap
+                    + 2 * p_cap * a_cap + p_cap * (3 + wa + wd)) + p_cap,
+        ops=3 * d_cap * n_cap + 12 * p_cap * a_cap
+        + 4 * p_cap * a_cap * d_cap + 3 * p_cap * d_cap,
+    )
+    metric, s3w, nhw, ok, slot, alt = got
+    flags = ad.mbuf[p_cap * a_cap:2 * p_cap * a_cap].view(p_cap, a_cap)
+    zero = tuple(torch.zeros_like(t) for t in (metric, s3w, nhw, slot, alt))
+    near = tuple(t.clone() for t in (metric, s3w, nhw, slot, alt))
+    near[3][::89] += 1  # only the LFA column moves on these rows
+    errs = []
+    for prev in (zero, near):
+        cargs = (metric, s3w, nhw, ok, *prev[:3], flags, 7, 11,
+                 gpu_solver.DELTA_BUDGET, True, None,
+                 (slot, alt, prev[3], prev[4]))
+        k_out = compact.compact_outputs(*cargs)
+        errs.append(max_abs_err(torch, k_out,
+                                compact.compact_outputs_plain(*cargs)))
+    check(int(k_out[0][0]) == len(range(0, p_cap, 89)),
+          "K4[lfa]: the LFA column diff missed rows")
+    n_delta, n_full = compact.buffer_lens(
+        p_cap, wa, wd, gpu_solver.DELTA_BUDGET, True, False, True)
+    record(
+        "K4:compact_outputs[lfa]", max(errs),
+        lambda: compact.compact_outputs(*cargs),
+        lambda: compact.compact_outputs_plain(*cargs),
+        nbytes=4 * (2 * p_cap * (3 + wa + wd) + p_cap * a_cap
+                    + n_delta + n_full) + p_cap,
+        ops=p_cap * (8 + 2 * (wa + wd) + a_cap),
+    )
+    # the same calls without the LFA branch / columns, beside them
+    sel0 = sel[:-1] + (False,)
+    c0 = cargs[:-1] + (None,)
+    log(f"fabric10k: K3 and K4 with the LFA columns equal to plain "
+        f"({backups[1]} of {p_cap} rows with a backup on the path's inputs, "
+        f"{backups[0]} with skewed uplink costs); without LFA on the same "
+        f"inputs: " + json.dumps({
+            "K3_ms": time_ms(torch, lambda: select.select_routes(*sel0), 50),
+            "K4_ms": time_ms(torch, lambda: compact.compact_outputs(*c0), 50),
+        }))
+
+
+def fused_cell(adb, pdb, pentry, topologies, side: int, n_areas: int,
+               seed: int = 0):
+    """Vantage ``hub`` in ``n_areas`` grids of side x side nodes: in each
+    area the centre node is the hub, the others are area-prefixed and
+    announce one loopback of their area; link metrics 1-9 from ``seed``,
+    different in each area, so the areas share a shape (and fuse) but
+    not their shortest paths. -> (adj_dbs, prefix_dbs)."""
+    rng = random.Random(seed)
+    hub = "node-%d-%d" % (side // 2, side // 2)
+    adj_dbs, prefix_dbs = [], []
+    for a in range(n_areas):
+        area = f"g{a}"
+
+        def rename(n, area=area):
+            return "hub" if n == hub else f"{area}-{n}"
+
+        base, _ = topologies.grid(side, area=area, node_labels=False)
+        metric: dict = {}
+        for i, db in enumerate(base):
+            me = db.this_node_name
+            adjs = []
+            for x in db.adjacencies:
+                other = x.other_node_name
+                m = metric.setdefault(tuple(sorted((me, other))),
+                                      rng.randint(1, 9))
+                adjs.append(dataclasses.replace(
+                    x, other_node_name=rename(other), metric=m,
+                    if_name=f"if-{rename(me)}-{rename(other)}",
+                    other_if_name=f"if-{rename(other)}-{rename(me)}"))
+            adj_dbs.append(adb(this_node_name=rename(me),
+                               adjacencies=tuple(adjs), area=area))
+            if me != hub:
+                prefix_dbs.append(pdb(
+                    this_node_name=rename(me), area=area,
+                    prefix_entries=(pentry(prefix=f"fd{a:02x}::{i:x}/128"),)))
+    return adj_dbs, prefix_dbs
+
+
+def fused_phase(torch, gpu_solver, relax, select, compact, SpfSolver,
+                topologies, counters, types3, dev, wrappers, variants,
+                variant_launches, record, zero_counts,
+                read_counts) -> None:
+    """The fused path (see the module docstring, phase 2b)."""
+    t0 = time.perf_counter()
+    states, ps = topologies.build_states(
+        *fused_cell(*types3, topologies, FUSED_SIDE, FUSED_AREAS))
+    log(f"fused cell: {FUSED_AREAS} areas of {states['g0'].node_count()} "
+        f"nodes, {len(ps.prefixes())} prefixes, host build "
+        f"{(time.perf_counter() - t0):.1f} s")
+    captured: dict = {}
+    singles: list = []
+    real_fused, real_pipe = gpu_solver.fused_pipeline, gpu_solver.pipeline
+
+    def total():
+        return sum(fn.launches for fn, _, _ in wrappers.values())
+
+    def spy_fused(lanes, **kw):
+        captured.update(lanes=lanes, kw=kw, outs=real_fused(lanes, **kw))
+        return captured["outs"]
+
+    def spy_pipe(*a, **k):
+        n0, r0 = total(), relax.read_flag.reads
+        out = real_pipe(*a, **k)
+        singles.append({"launches": total() - n0,
+                        "flag_reads": relax.read_flag.reads - r0,
+                        "trips": out.trips, "rounds": out.rounds,
+                        "full_buf": out.full_buf})
+        return out
+
+    gpu_solver.fused_pipeline, gpu_solver.pipeline = spy_fused, spy_pipe
+    try:
+        f_solver = gpu_solver.GpuSpfSolver(
+            "hub", device=dev, small_graph_nodes=AUTO_SMALL_GRAPH_NODES)
+        d0 = counters.get_counter("decision.device.fused_dispatches") or 0
+        torch.cuda.synchronize()
+        reads0 = zero_counts()
+        t0 = time.perf_counter()
+        got_db = f_solver.build_route_db("hub", states, ps)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        f_launches, f_reads = read_counts(reads0)
+        st = f_solver.last_device_stats
+        check(st.get("fused") == FUSED_AREAS and not singles
+              and counters.get_counter("decision.device.fused_dispatches")
+              == d0 + 1, "fused phase: the areas must solve in ONE fused "
+              f"dispatch (stats {st}, {len(singles)} single solves)")
+        for name, (base, _) in variants.items():
+            if name.endswith("[fused]"):
+                variant_launches[name] = f_launches[base]
+                check(f_launches[base] > 0,
+                      f"{name} never launched on the fused path")
+        u_solver = gpu_solver.GpuSpfSolver(
+            "hub", device=dev, small_graph_nodes=AUTO_SMALL_GRAPH_NODES,
+            fuse_small_areas=False)
+        db_u = u_solver.build_route_db("hub", states, ps)
+        torch.cuda.synchronize()
+    finally:
+        gpu_solver.fused_pipeline, gpu_solver.pipeline = real_fused, real_pipe
+    t0 = time.perf_counter()
+    oracle = SpfSolver("hub").build_route_db("hub", states, ps)
+    t_oracle = (time.perf_counter() - t0) * 1e3
+    check(rib_equal(oracle, got_db), "fused phase: fused RIB != oracle")
+    check(rib_equal(oracle, db_u), "fused phase: unfused RIB != oracle")
+    outs = captured["outs"]
+    check(len(singles) == FUSED_AREAS, "fused phase: unfused solve count")
+    for i, (out, one) in enumerate(zip(outs, singles)):
+        check(torch.equal(out.full_buf, one["full_buf"]),
+              f"fused phase: area {i}'s payload != its unfused solve's")
+        check((int(out.trips), int(out.rounds))
+              == (one["trips"], one["rounds"]),
+              f"fused phase: area {i}'s trips / rounds != unfused")
+    u_timing = list(u_solver.last_timing["areas"].values())
+    areas = [{**{k: one[k] for k in ("launches", "flag_reads", "trips",
+                                     "rounds")},
+              **{k: tm_u.get(k) for k in ("exec_ms", "sssp_ms")}}
+             for one, tm_u in zip(singles, u_timing)]
+    n_fused = sum(f_launches.values())
+    n_sum = sum(a["launches"] for a in areas)
+    check(n_fused < n_sum, "fused phase: the fused build launched as often "
+          "as the unfused areas together")
+    tm = f_solver.last_timing
+    log("fused build: " + json.dumps({
+        "build_ms": wall, "oracle_ms": t_oracle,
+        "routes": len(oracle.unicast_routes),
+        "launches": n_fused, "flag_reads": f_reads,
+        "launches_by_kernel": {k: v for k, v in f_launches.items() if v},
+        "unfused_areas": areas,
+        "unfused_launches_sum": n_sum,
+        "unfused_flag_reads_sum": sum(a["flag_reads"] for a in areas),
+        "largest_area_launches": max(a["launches"] for a in areas),
+        "largest_area_flag_reads": max(a["flag_reads"] for a in areas),
+        "unfused_sssp_ms_sum": None if None in [a["sssp_ms"] for a in areas]
+        else sum(a["sssp_ms"] for a in areas),
+        "spf_kernel": tm.get("spf_kernel"),
+        **{k: next(iter(tm["areas"].values())).get(k) for k in (
+            "sync_ms", "exec_ms", "sssp_ms", "tail_ms", "compact_ms")},
+        "bytes_uploaded": tm.get("bytes_uploaded"),
+        "bytes_downloaded": tm.get("bytes_downloaded"),
+    }))
+    fused_kernels(torch, gpu_solver, relax, select, compact, record,
+                  captured, real_fused, dev)
+
+
+def fused_kernels(torch, gpu_solver, relax, select, compact, record,
+                  captured, real_fused, dev) -> None:
+    """The fused K1s-K4 against their plain versions on the fused path's
+    own stacked inputs, the gated kernels with a gate that closes half
+    the lanes; then the whole fused pipeline against its plain run on
+    CPU copies."""
+    lanes, kw = captured["lanes"], captured["kw"]
+    g = len(lanes)
+
+    def stack(i):
+        return torch.stack([lane[i] for lane in lanes])
+
+    deltas, shift_w, res_rows, res_nbr, res_w, mbuf = map(stack, range(6))
+    roots = torch.tensor([lane[6] for lane in lanes], dtype=torch.int32,
+                         device=dev)
+    root_nbr, root_w = stack(7), stack(8)
+    has_res, kernel, dexp = kw["has_res"], kw["kernel"], kw["delta_exp"]
+    s_cap, n_cap = shift_w.shape[1:]
+    d_cap = root_nbr.shape[1]
+    p_cap = lanes[0][9].shape[0]
+    a_cap = mbuf.shape[1] // (6 * p_cap)
+    res_bytes = 4 * (res_rows.numel() + 2 * res_nbr.numel())
+
+    ia = (shift_w, res_rows, res_nbr, res_w, roots, root_nbr, root_w)
+    got = relax.sssp_init(*ia)
+    want = relax.sssp_init_plain(*ia)
+    record(
+        "K1s:sssp_init[fused]", max_abs_err(torch, (got[0], *got[1], got[2]),
+                                            (want[0], *want[1], want[2])),
+        lambda: relax.sssp_init(*ia), lambda: relax.sssp_init_plain(*ia),
+        nbytes=4 * g * (2 * s_cap * n_cap + 2 * d_cap + d_cap * n_cap)
+        + 2 * res_bytes,
+        ops=g * (s_cap * n_cap + d_cap * n_cap),
+    )
+    sw, residual, dist0 = got
+    residual = residual if has_res else None
+
+    def gated_pair():
+        """(kernel gate, plain gate): lanes 0, 2, ... open, the others
+        closed, on equal copies of the stamps and counters."""
+        pair = []
+        for _ in range(2):
+            lanes_st = relax.Lanes(g, dev)
+            lanes_st.st[1::2, 0] = -5
+            pair.append(lanes_st.gate((-1, relax.ALWAYS), (0, relax.KEEP),
+                                      (1, 1)))
+        return pair
+
+    mid = dist0.clone()
+    spare = torch.empty_like(mid)
+    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    for _ in range(16):
+        relax.relax_step(mid, spare, flag, deltas, sw, residual)
+        mid, spare = spare, mid
+    gk, gp = gated_pair()
+    out_k, out_p = mid.clone(), mid.clone()
+    f_k = torch.zeros(1, dtype=torch.int32, device=dev)
+    f_p = torch.zeros_like(f_k)
+    relax.relax_step(mid, out_k, f_k, deltas, sw, residual, gk)
+    relax.relax_step_plain(mid, out_p, f_p, deltas, sw, residual, gp)
+    check(int(f_k) == 1, "fused relax_step on a wavefront must change it")
+    err = max_abs_err(torch, (out_k, f_k, gk.st, gk.cnt),
+                      (out_p, f_p, gp.st, gp.cnt))
+    check(torch.equal(out_k[1::2], mid[1::2]),
+          "fused relax_step wrote a closed lane")
+    record(
+        "K1:relax_step[fused]", err,
+        lambda: relax.relax_step(mid, out_k, f_k, deltas, sw, residual),
+        lambda: relax.relax_step_plain(mid, out_p, f_p, deltas, sw,
+                                       residual),
+        nbytes=4 * g * (2 * d_cap * n_cap + s_cap * n_cap + s_cap)
+        + (res_bytes if has_res else 0),
+        ops=2 * g * d_cap * n_cap * s_cap
+        + (2 * d_cap * res_nbr.numel() if has_res else 0),
+    )
+
+    s_lad = min(s_cap, relax.LADDER_WIDTH)
+    dq = 1 << max(dexp, 1)
+    w_k, dd_k = relax.ladder_classes(sw, deltas, dq, s_lad)
+    w_p, dd_p = relax.ladder_classes_plain(sw, deltas, dq, s_lad)
+    record(
+        "K2:ladder_classes[fused]",
+        max_abs_err(torch, (w_k, dd_k), (w_p, dd_p)),
+        lambda: relax.ladder_classes(sw, deltas, dq, s_lad),
+        lambda: relax.ladder_classes_plain(sw, deltas, dq, s_lad),
+        nbytes=4 * g * (s_cap * n_cap + s_cap + s_lad * n_cap + s_lad),
+        ops=g * (s_cap * n_cap + s_lad * n_cap),
+    )
+    errs = []
+    for k in range(s_lad):
+        gk, gp = gated_pair()
+        out_k, out_p = mid.clone(), mid.clone()
+        f_k.zero_()
+        f_p.zero_()
+        relax.ladder_apply(mid, out_k, w_k, dd_k, k, f_k, gk)
+        relax.ladder_apply_plain(mid, out_p, w_k, dd_k, k, f_p, gp)
+        errs.append(max_abs_err(torch, (out_k, f_k, gk.st, gk.cnt),
+                                (out_p, f_p, gp.st, gp.cnt)))
+    record(
+        "K2:ladder_apply[fused]", max(errs),
+        lambda: relax.ladder_apply(mid, out_k, w_k, dd_k, 0, f_k),
+        lambda: relax.ladder_apply_plain(mid, out_p, w_k, dd_k, 0, f_p),
+        nbytes=4 * g * (2 * d_cap * n_cap + n_cap + 1),
+        ops=2 * g * d_cap * n_cap,
+    )
+    errs = []
+    w_in, d_in = w_k, dd_k
+    for _ in range(3):  # three rungs: shifts double past the first wrap
+        gk, gp = gated_pair()
+        w2_k, d2_k = torch.zeros_like(w_k), torch.zeros_like(dd_k)
+        w2_p, d2_p = torch.zeros_like(w_k), torch.zeros_like(dd_k)
+        relax.ladder_rung(w_in, d_in, w2_k, d2_k, gk)
+        relax.ladder_rung_plain(w_in, d_in, w2_p, d2_p, gp)
+        errs.append(max_abs_err(torch, (w2_k, d2_k), (w2_p, d2_p)))
+        # every lane's next rung, ungated, feeds the next comparison
+        w_nx, d_nx = torch.empty_like(w_k), torch.empty_like(dd_k)
+        relax.ladder_rung(w_in, d_in, w_nx, d_nx)
+        w_in, d_in = w_nx, d_nx
+    record(
+        "K2:ladder_rung[fused]", max(errs),
+        lambda: relax.ladder_rung(w_k, dd_k, w2_k, d2_k),
+        lambda: relax.ladder_rung_plain(w_k, dd_k, w2_p, d2_p),
+        nbytes=4 * g * (2 * s_lad * n_cap + 2 * s_lad),
+        ops=2 * g * s_lad * n_cap,
+    )
+
+    # the whole fused SSSP: kernel loops vs plain loops on CPU copies
+    sa = (deltas, shift_w, res_rows, res_nbr, res_w, roots, root_nbr,
+          root_w)
+    t0 = time.perf_counter()
+    dist_k, cnt_k = relax.plan_sssp_lanes(*sa, has_res, kernel, dexp)
+    torch.cuda.synchronize()
+    t_k = (time.perf_counter() - t0) * 1e3
+    dist_p, cnt_p = relax.plan_sssp_lanes(*(t.cpu() for t in sa), has_res,
+                                          kernel, dexp)
+    check(max_abs_err(torch, (dist_k.cpu(), cnt_k.cpu()), (dist_p, cnt_p))
+          == 0, "fused SSSP: kernels != plain")
+    log(f"fused SSSP equal to plain: per-area (trips, rounds) "
+        f"{cnt_k.tolist()} in {t_k:.2f} ms host wall")
+
+    block_v4 = kw["block_v4"]
+    errs = []
+    for lfa in (True, False):
+        sel = (dist_k, root_w, roots, mbuf, p_cap, a_cap, block_v4, lfa)
+        got = select.select_routes(*sel)
+        errs.append(max_abs_err(torch, got, select.select_routes_plain(*sel)))
+    wa, wd = got[1].shape[-1], got[2].shape[-1]
+    record(
+        "K3:select_routes[fused]", max(errs),
+        lambda: select.select_routes(*sel),
+        lambda: select.select_routes_plain(*sel),
+        nbytes=4 * g * (d_cap * n_cap + d_cap + 6 * p_cap * a_cap
+                        + 2 * p_cap * a_cap + p_cap * (1 + wa + wd))
+        + g * p_cap,
+        ops=g * (3 * d_cap * n_cap + 12 * p_cap * a_cap),
+    )
+    metric, s3w, nhw, ok = got
+    flags = mbuf.view(g, 6, p_cap, a_cap)[:, 1]
+    zero = (torch.zeros_like(metric), torch.zeros_like(s3w),
+            torch.zeros_like(nhw))
+    near = tuple(t.clone() for t in (metric, s3w, nhw))
+    near[0][:, ::97] += 1
+    errs = []
+    for prev in (zero, near):
+        cargs = (metric, s3w, nhw, ok, *prev, flags, cnt_k, None,
+                 gpu_solver.DELTA_BUDGET, True)
+        errs.append(max_abs_err(torch, compact.compact_outputs(*cargs),
+                                compact.compact_outputs_plain(*cargs)))
+    n_delta, n_full = compact.buffer_lens(p_cap, wa, wd,
+                                          gpu_solver.DELTA_BUDGET, True)
+    record(
+        "K4:compact_outputs[fused]", max(errs),
+        lambda: compact.compact_outputs(*cargs),
+        lambda: compact.compact_outputs_plain(*cargs),
+        nbytes=4 * g * (2 * p_cap * (1 + wa + wd) + p_cap * a_cap
+                        + n_delta + n_full + 2) + g * p_cap,
+        ops=g * p_cap * (4 + 2 * (wa + wd) + a_cap),
+    )
+
+    # the whole fused pipeline against its plain run on CPU copies
+    cpu_lanes = [tuple(x.cpu() if isinstance(x, torch.Tensor) else x
+                       for x in lane) for lane in lanes]
+    plain = real_fused(cpu_lanes, **kw)
+    fields = ("delta_buf", "full_buf", "metric", "s3w", "nhw", "lfa_slot",
+              "lfa_metric", "trips", "rounds")
+    for i, (out, ref) in enumerate(zip(captured["outs"], plain)):
+        err = max_abs_err(torch, [getattr(out, f).cpu() for f in fields],
+                          [getattr(ref, f) for f in fields])
+        check(err == 0, f"fused pipeline area {i}: kernels != plain")
+    log("fused pipeline equal to its plain run for every area")
+
+
 def main() -> int:
     import torch
 
@@ -221,7 +655,12 @@ def main() -> int:
     from openr_tpu_torch.decision.spf_solver import SpfSolver
     from openr_tpu_torch.models import topologies
     from openr_tpu_torch.ops import compact, cuda, incremental, relax, select
-    from openr_tpu_torch.types import AdjacencyDatabase
+    from openr_tpu_torch.runtime.counters import counters
+    from openr_tpu_torch.types import (
+        AdjacencyDatabase,
+        PrefixDatabase,
+        PrefixEntry,
+    )
 
     t_start = time.perf_counter()
     dev = torch.device(DEVICE)
@@ -268,6 +707,42 @@ def main() -> int:
     # the cold path runs every kernel but the incremental ones
     cold_path = [n for n, (_, src, _) in wrappers.items()
                  if src != "incremental.cu"]
+    # variants of a kernel: (the wrapper's entry, what it replaces); their
+    # launches are the wrapper's counts on the path that runs the variant
+    variants = {
+        "K3:select_routes[lfa]": ("K3:select_routes",
+                                  "openr_tpu/decision/tpu_solver.py:533"),
+        "K4:compact_outputs[lfa]": ("K4:compact_outputs",
+                                    "openr_tpu/ops/stream.py:99"),
+        **{f"{n}[fused]": (n, "openr_tpu/decision/tpu_solver.py:693")
+           for n in cold_path},
+    }
+    variant_launches: dict = {}
+    results = {}
+
+    def record(name, err, fn, plain, nbytes, ops, reps=50, plain_reps=5,
+               library=None):
+        check(err == 0, f"{name}: kernel != plain (max abs err {err})")
+        b_ms, b_by = bound(nbytes, ops)
+        results[name] = {
+            "max_abs_err": err,
+            "ms": time_ms(torch, fn, reps),
+            "plain_ms": time_ms(torch, plain, plain_reps),
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None if library is None
+            else time_ms(torch, library, reps),
+        }
+        log(f"{name}: equal; {json.dumps(results[name])}")
+
+    def zero_counts():
+        for fn, _, _ in wrappers.values():
+            fn.launches = 0
+        return relax.read_flag.reads
+
+    def read_counts(reads0):
+        return ({name: fn.launches for name, (fn, _, _) in wrappers.items()},
+                relax.read_flag.reads - reads0)
 
     # -- 2. small cells: RIB parity, residual relaxation; also loads every
     # kernel's module, so the main path's first build times the solve ---------------------
@@ -280,21 +755,37 @@ def main() -> int:
     ]
     for name, gen, me in cells:
         c_dbs, c_states, c_ps = build_cell(topologies, gen)
-        c_solver = gpu_solver.GpuSpfSolver(me, device=dev)
+        lfa = name == "fabric10k"
+        c_solver = gpu_solver.GpuSpfSolver(me, device=dev, enable_lfa=lfa)
+        reads0 = zero_counts()
         got_db = c_solver.build_route_db(me, c_states, c_ps)
+        torch.cuda.synchronize()
+        c_launches, c_reads = read_counts(reads0)
         t0 = time.perf_counter()
-        want_db = SpfSolver(me).build_route_db(me, c_states, c_ps)
+        want_db = SpfSolver(me, enable_lfa=lfa).build_route_db(
+            me, c_states, c_ps)
         t_oracle = (time.perf_counter() - t0) * 1e3
         check(rib_equal(want_db, got_db), f"{name}: RIB != oracle")
         tm = c_solver.last_timing
         c_ad = c_solver._area_dev["0"]
+        n_lfa = sum(bool(r.lfa_nexthops)
+                    for r in want_db.unicast_routes.values())
         log(f"{name}: RIB == oracle ({len(want_db.unicast_routes)} routes, "
-            f"oracle {t_oracle:.0f} ms): " + json.dumps({
-                "k_res": c_ad.plan.k_res,
+            f"{n_lfa} with an LFA backup, oracle {t_oracle:.0f} ms): "
+            + json.dumps({
+                "lfa": lfa, "k_res": c_ad.plan.k_res,
+                "launches": c_launches, "flag_reads": c_reads,
                 **{k: tm.get(k) for k in (
                     "spf_kernel", "trips", "rounds", "sssp_ms", "tail_ms",
                     "compact_ms", "pipeline_wall_ms")},
             }))
+        if lfa:
+            for v in ("K3:select_routes[lfa]", "K4:compact_outputs[lfa]"):
+                variant_launches[v] = c_launches[variants[v][0]]
+                check(variant_launches[v] > 0,
+                      f"{v} never launched on the fabric10k LFA path")
+            lfa_kernels(torch, relax, select, compact, gpu_solver, record,
+                        c_solver, c_states, me)
         if c_ad.plan.k_res > 0:
             c_plan = c_ad.plan
             c_nbr, c_w, _ = c_plan.out_links(c_states["0"], me)
@@ -319,7 +810,8 @@ def main() -> int:
             # residual): one flap of adj_dbs[1] — a fabric switch of the
             # root's pod, whose links sit in the residual ELL
             c_inc = gpu_solver.GpuSpfSolver(me, device=dev,
-                                            incremental_spf=True)
+                                            incremental_spf=True,
+                                            enable_lfa=lfa)
             c_inc.build_route_db(me, c_states, c_ps)
             flap(AdjacencyDatabase, c_states, c_dbs,
                  {db.this_node_name: db for db in c_dbs}, 1, 0)
@@ -329,8 +821,9 @@ def main() -> int:
                   f"{name}: the flap must take the incremental solve")
             check(rib_equal(c_solver.build_route_db(me, c_states, c_ps),
                             got_db), f"{name}: incremental RIB != cold")
-            check(rib_equal(SpfSolver(me).build_route_db(me, c_states, c_ps),
-                            got_db), f"{name}: incremental RIB != oracle")
+            check(rib_equal(SpfSolver(me, enable_lfa=lfa).build_route_db(
+                me, c_states, c_ps), got_db),
+                f"{name}: incremental RIB != oracle")
             ci = churn_inputs(relax, incremental, c_inc)
             r_lim = c_plan.res_nbr.size
             check(int(((ci["rdi"] >= 0) & (ci["rdi"] < r_lim)).sum()) > 0,
@@ -350,6 +843,12 @@ def main() -> int:
                     k: st.get(k) for k in ("cone", "cone_trips", "trips",
                                            "rounds", "changed_rows")}))
 
+    # -- 2b. the fused path: 4 same-shape areas in one dispatch ------------
+    fused_phase(torch, gpu_solver, relax, select, compact, SpfSolver,
+                topologies, counters, (AdjacencyDatabase, PrefixDatabase,
+                                       PrefixEntry), dev, wrappers,
+                variants, variant_launches, record, zero_counts, read_counts)
+
     # -- 3. main path: lsdb100k cold solve x3 -------------------------------
     t0 = time.perf_counter()
     adj_dbs, states, ps = build_cell(
@@ -360,8 +859,7 @@ def main() -> int:
         f"{len(ps.prefixes())} prefixes, host build "
         f"{(time.perf_counter() - t0):.1f} s")
     solver = gpu_solver.GpuSpfSolver(LSDB100K_ROOT, device=dev)
-    for fn, _, _ in wrappers.values():
-        fn.launches = 0
+    zero_counts()
     dbs = []
     for i in range(3):
         t0 = time.perf_counter()
@@ -410,23 +908,6 @@ def main() -> int:
     n_cap, s_cap = plan.n_cap, plan.s_cap
     d_cap = root_nbr.shape[0]
     has_res = plan.k_res > 0
-    results = {}
-
-    def record(name, err, fn, plain, nbytes, ops, reps=50, plain_reps=5,
-               library=None):
-        check(err == 0, f"{name}: kernel != plain (max abs err {err})")
-        b_ms, b_by = bound(nbytes, ops)
-        results[name] = {
-            "max_abs_err": err,
-            "ms": time_ms(torch, fn, reps),
-            "plain_ms": time_ms(torch, plain, plain_reps),
-            "bound_ms": b_ms,
-            "bound_by": b_by,
-            "library_ms": None if library is None
-            else time_ms(torch, library, reps),
-        }
-        log(f"{name}: equal; {json.dumps(results[name])}")
-
     args = (ad.shift_w, ad.res_rows, ad.res_nbr, ad.res_w, root, root_nbr,
             root_w)
     got = relax.sssp_init(*args)
@@ -772,7 +1253,8 @@ def main() -> int:
     m_i, s3_i, nh_i, ok_i = select.select_routes(
         w_k[0], i_rw, i_root, i_mbuf, p_cap, a_cap, False)
     i_flags = i_mbuf[p_cap * a_cap:2 * p_cap * a_cap].view(p_cap, a_cap)
-    cargs = (m_i, s3_i, nh_i, ok_i, *ci["prev_out"], i_flags, w_k[1], w_k[4],
+    cargs = (m_i, s3_i, nh_i, ok_i, *ci["prev_out"][:3], i_flags, w_k[1],
+             w_k[4],
              gpu_solver.DELTA_BUDGET, True, (w_k[2], w_k[3]))
     got = compact.compact_outputs(*cargs)
     want = compact.compact_outputs_plain(*cargs)
@@ -795,6 +1277,16 @@ def main() -> int:
             "launches": cold_n + churn_launches[name],
             "launches_by_path": {"cold": cold_n,
                                  "churn": churn_launches[name]},
+            **results[name],
+        })
+    for name, (base, replaces) in variants.items():
+        _, src, _ = wrappers[base]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"openr_tpu_torch/csrc/{src}",
+            "replaces": replaces,
+            "launches": variant_launches[name],
             **results[name],
         })
     log(json.dumps({"kernels": kernels}))

@@ -11,8 +11,7 @@ from dataclasses import dataclass
 
 @dataclass
 class DecisionConfig:
-    # rfc5286 loop-free-alternate backup next hops; the GPU solver
-    # refuses True until LFA is ported
+    # rfc5286 loop-free-alternate backup next hops (K3's LFA branch)
     enable_lfa: bool = False
     # on-device unreachable / saturation counts riding the pull buffers
     enable_numerical_sentinels: bool = True
@@ -21,8 +20,13 @@ class DecisionConfig:
     # solve); the cone budget is this fraction of the area's node-lanes
     incremental_spf: bool = True
     incremental_cone_frac: float = 0.25
-    # areas whose padded node capacity exceeds this need the multichip
-    # tier, which the GPU solver refuses until it is ported
+    # same-shape areas of one vantage with at most this many node slots
+    # solve in one fused dispatch
+    fuse_n_cap: int = 4096
+    # an area whose padded node capacity exceeds this engages the
+    # multichip tier when two or more cards are visible (the GPU solver
+    # refuses that until the tier is ported); with one card, or a
+    # threshold <= 0, every area solves on the one card
     multichip_n_cap_threshold: int = 131072
     # "bucketed" Δ-stepping (falls back to "sync" on plans with no
     # usable Δ) or "sync" rounds everywhere; both reach the same fixpoint
@@ -35,6 +39,7 @@ class DecisionConfig:
             "enable_numerical_sentinels": self.enable_numerical_sentinels,
             "incremental_spf": self.incremental_spf,
             "incremental_cone_frac": self.incremental_cone_frac,
+            "fuse_n_cap": self.fuse_n_cap,
             "multichip_n_cap_threshold": self.multichip_n_cap_threshold,
             "spf_kernel": self.spf_kernel,
         }

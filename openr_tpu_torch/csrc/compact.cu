@@ -18,6 +18,12 @@
 // values of row p_cap - 1: the fixed-size nonzero fills with p_cap and
 // the gather clips it to the last row. After an incremental solve the
 // cone size and the fallback flag join the tail (ops/incremental.py).
+// With LFA the backup slot and metric columns join the diff and follow
+// the next-hop words in both payloads (ops/stream.py:79/99 and
+// tpu_solver.py:601-603 of the JAX package). With g > 1 stacked
+// same-shape areas (the vmap of _fused_pipeline) the lane is the grid's
+// y dimension (the scan's x), and each lane's trips and rounds come from
+// the device counters of its own loop (ops/relax.py::Lanes).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -36,11 +42,40 @@ struct Rows {
     const int* prev_s3w;
     const int* prev_nhw;
     const int* flags;  // [P, A] announcer flag plane, bit 0 = valid
+    // the LFA columns and their previous values, all null without LFA
+    const int* lfa_slot;
+    const int* lfa_metric;
+    const int* prev_lfa_slot;
+    const int* prev_lfa_metric;
     int p_cap, a_cap, wa, wd;
+    long long flags_stride;  // elements from one lane's flags to the next
 };
+
+// the rows of lane `lane` of g stacked areas
+__device__ __forceinline__ Rows lane_rows(Rows r, int lane) {
+    const long long p = r.p_cap;
+    r.metric += lane * p;
+    r.s3w += lane * p * r.wa;
+    r.nhw += lane * p * r.wd;
+    r.ok += lane * p;
+    r.prev_metric += lane * p;
+    r.prev_s3w += lane * p * r.wa;
+    r.prev_nhw += lane * p * r.wd;
+    r.flags += lane * r.flags_stride;
+    if (r.lfa_slot) {
+        r.lfa_slot += lane * p;
+        r.lfa_metric += lane * p;
+        r.prev_lfa_slot += lane * p;
+        r.prev_lfa_metric += lane * p;
+    }
+    return r;
+}
 
 __device__ __forceinline__ bool row_changed(const Rows& r, int p) {
     if (r.metric[p] != r.prev_metric[p]) return true;
+    if (r.lfa_slot && (r.lfa_slot[p] != r.prev_lfa_slot[p] ||
+                       r.lfa_metric[p] != r.prev_lfa_metric[p]))
+        return true;
     for (int w = 0; w < r.wa; ++w)
         if (r.s3w[(long long)p * r.wa + w] != r.prev_s3w[(long long)p * r.wa + w])
             return true;
@@ -54,6 +89,8 @@ __device__ __forceinline__ bool row_changed(const Rows& r, int p) {
 // unreachable rows (a live announcer, no finite metric), +3 saturated
 // rows (finite metric past 2^28)
 __global__ void compact_count_kernel(Rows r, int* __restrict__ blk) {
+    r = lane_rows(r, blockIdx.y);
+    blk += 4LL * gridDim.x * blockIdx.y;
     int p = blockIdx.x * blockDim.x + threadIdx.x;
     bool ch = false, ok = false, unreach = false, sat = false;
     if (p < r.p_cap) {
@@ -78,20 +115,31 @@ __global__ void compact_count_kernel(Rows r, int* __restrict__ blk) {
     }
 }
 
-// one block: exclusive scan of the per-block counts in place (blk[4b]
-// and blk[4b+1] become offsets) and the scalar fields of both buffers.
-// The block count is p_cap / 1024, so a serial scan by one thread is a
-// few hundred adds. The tail, back to front: rounds; the incremental
-// solve's (cone, fell_back), read from the device where K9 left them,
-// when `cone` is not null; the sentinel pair when `sentinels`.
+// one block a lane: exclusive scan of the per-block counts in place
+// (blk[4b] and blk[4b+1] become offsets) and the scalar fields of both
+// buffers. The block count is p_cap / 1024, so a serial scan by one
+// thread is a few hundred adds. trips and rounds are the arguments, or
+// the lane's counters tr[2 lane], tr[2 lane + 1] when `tr` is not null.
+// The tail, back to front: rounds; the incremental solve's (cone,
+// fell_back), read from the device where K9 left them, when `cone` is
+// not null; the sentinel pair when `sentinels`.
 __global__ void compact_scan_kernel(int* __restrict__ blk, int nblk,
                                     int* __restrict__ delta_buf,
                                     int* __restrict__ full_buf,
                                     int delta_len, int full_len, int trips,
                                     int rounds, int sentinels,
                                     const int* __restrict__ cone,
-                                    const int* __restrict__ fell) {
+                                    const int* __restrict__ fell,
+                                    const int* __restrict__ tr) {
     if (threadIdx.x != 0) return;
+    const int lane = blockIdx.x;
+    blk += 4LL * nblk * lane;
+    delta_buf += (long long)delta_len * lane;
+    full_buf += (long long)full_len * lane;
+    if (tr) {
+        trips = tr[2 * lane];
+        rounds = tr[2 * lane + 1];
+    }
     int ch = 0, ok = 0, unreach = 0, sat = 0;
     for (int b = 0; b < nblk; ++b) {
         int c0 = blk[4 * b], c1 = blk[4 * b + 1];
@@ -125,7 +173,8 @@ __global__ void compact_scan_kernel(int* __restrict__ blk, int nblk,
 }
 
 // write row `src` (its index is `idx`) into slot `pos` of a buffer laid
-// out as [count, trips, idx[cap], metric[cap], s3w[cap*wa], nhw[cap*wd]]
+// out as [count, trips, idx[cap], metric[cap], s3w[cap*wa], nhw[cap*wd]
+// (, lfa_slot[cap], lfa_metric[cap])]
 __device__ __forceinline__ void put_row(const Rows& r, int* buf, int cap,
                                         int pos, int idx, int src) {
     buf[2 + pos] = idx;
@@ -136,6 +185,11 @@ __device__ __forceinline__ void put_row(const Rows& r, int* buf, int cap,
     int* nh = s3 + (long long)cap * r.wa;
     for (int w = 0; w < r.wd; ++w)
         nh[(long long)pos * r.wd + w] = r.nhw[(long long)src * r.wd + w];
+    if (r.lfa_slot) {
+        int* lf = nh + (long long)cap * r.wd;
+        lf[pos] = r.lfa_slot[src];
+        lf[cap + pos] = r.lfa_metric[src];
+    }
 }
 
 // scatter: thread i places row i (when it is ok / changed) at its rank,
@@ -144,8 +198,14 @@ __device__ __forceinline__ void put_row(const Rows& r, int* buf, int cap,
 __global__ void compact_scatter_kernel(Rows r, const int* __restrict__ blk,
                                        int* __restrict__ delta_buf,
                                        int* __restrict__ full_buf,
-                                       int budget) {
+                                       int budget, int nblk, int delta_len,
+                                       int full_len) {
     __shared__ int warp_ch[WARPS], warp_ok[WARPS];
+    const int area = blockIdx.y;
+    r = lane_rows(r, area);
+    blk += 4LL * nblk * area;
+    delta_buf += (long long)delta_len * area;
+    full_buf += (long long)full_len * area;
     int i = blockIdx.x * blockDim.x + threadIdx.x;
     int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     bool ch = false, ok = false;
@@ -183,9 +243,14 @@ extern "C" {
 static Rows make_rows(const int* metric, const int* s3w, const int* nhw,
                       const uint8_t* ok, const int* prev_metric,
                       const int* prev_s3w, const int* prev_nhw,
-                      const int* flags, int p_cap, int a_cap, int wa,
-                      int wd) {
+                      const int* flags, const int* const* lfa, int p_cap,
+                      int a_cap, int wa, int wd, long long flags_stride) {
     Rows r;
+    r.lfa_slot = lfa[0];
+    r.lfa_metric = lfa[1];
+    r.prev_lfa_slot = lfa[2];
+    r.prev_lfa_metric = lfa[3];
+    r.flags_stride = flags_stride;
     r.metric = metric;
     r.s3w = s3w;
     r.nhw = nhw;
@@ -201,40 +266,54 @@ static Rows make_rows(const int* metric, const int* s3w, const int* nhw,
     return r;
 }
 
+// the lfa pointer array holds (lfa_slot, lfa_metric, prev_lfa_slot,
+// prev_lfa_metric), each null without LFA; flags_stride is the element
+// distance between two lanes' flag planes
 int compact_count(const int* metric, const int* s3w, const int* nhw,
                   const uint8_t* ok, const int* prev_metric,
                   const int* prev_s3w, const int* prev_nhw, const int* flags,
-                  int* blk, int p_cap, int a_cap, int wa, int wd,
-                  cudaStream_t stream) {
+                  const int* lfa_slot, const int* lfa_metric,
+                  const int* prev_lfa_slot, const int* prev_lfa_metric,
+                  int* blk, int p_cap, int a_cap, int wa, int wd, int g,
+                  long long flags_stride, cudaStream_t stream) {
+    const int* lfa[4] = {lfa_slot, lfa_metric, prev_lfa_slot,
+                         prev_lfa_metric};
     Rows r = make_rows(metric, s3w, nhw, ok, prev_metric, prev_s3w, prev_nhw,
-                       flags, p_cap, a_cap, wa, wd);
+                       flags, lfa, p_cap, a_cap, wa, wd, flags_stride);
     int nblk = (p_cap + THREADS - 1) / THREADS;
-    compact_count_kernel<<<nblk, THREADS, 0, stream>>>(r, blk);
+    compact_count_kernel<<<dim3(nblk, g), THREADS, 0, stream>>>(r, blk);
     return (int)cudaGetLastError();
 }
 
 int compact_scan(int* blk, int nblk, int* delta_buf, int* full_buf,
                  int delta_len, int full_len, int trips, int rounds,
                  int sentinels, const int* cone, const int* fell,
-                 cudaStream_t stream) {
-    compact_scan_kernel<<<1, 32, 0, stream>>>(blk, nblk, delta_buf, full_buf,
+                 const int* tr, int g, cudaStream_t stream) {
+    compact_scan_kernel<<<g, 32, 0, stream>>>(blk, nblk, delta_buf, full_buf,
                                               delta_len, full_len, trips,
-                                              rounds, sentinels, cone, fell);
+                                              rounds, sentinels, cone, fell,
+                                              tr);
     return (int)cudaGetLastError();
 }
 
 int compact_scatter(const int* metric, const int* s3w, const int* nhw,
                     const uint8_t* ok, const int* prev_metric,
                     const int* prev_s3w, const int* prev_nhw,
-                    const int* flags, const int* blk, int* delta_buf,
-                    int* full_buf, int p_cap, int a_cap, int wa, int wd,
-                    int budget, cudaStream_t stream) {
+                    const int* flags, const int* lfa_slot,
+                    const int* lfa_metric, const int* prev_lfa_slot,
+                    const int* prev_lfa_metric, const int* blk,
+                    int* delta_buf, int* full_buf, int p_cap, int a_cap,
+                    int wa, int wd, int budget, int delta_len, int full_len,
+                    int g, long long flags_stride, cudaStream_t stream) {
+    const int* lfa[4] = {lfa_slot, lfa_metric, prev_lfa_slot,
+                         prev_lfa_metric};
     Rows r = make_rows(metric, s3w, nhw, ok, prev_metric, prev_s3w, prev_nhw,
-                       flags, p_cap, a_cap, wa, wd);
+                       flags, lfa, p_cap, a_cap, wa, wd, flags_stride);
     int span = p_cap > budget ? p_cap : budget;
     int nblk = (span + THREADS - 1) / THREADS;
-    compact_scatter_kernel<<<nblk, THREADS, 0, stream>>>(r, blk, delta_buf,
-                                                         full_buf, budget);
+    int count_blk = (p_cap + THREADS - 1) / THREADS;
+    compact_scatter_kernel<<<dim3(nblk, g), THREADS, 0, stream>>>(
+        r, blk, delta_buf, full_buf, budget, count_blk, delta_len, full_len);
     return (int)cudaGetLastError();
 }
 

@@ -5,8 +5,11 @@
 //
 // Replaces (K3) the jitted XLA tail of decision/tpu_solver.py::
 // _make_pipeline (root distance + ECMP predicate, the reference-order
-// selection, the next-hop mask), _pack_words, and
-// ops/compact.py::route_ok_device.
+// selection, the next-hop mask, and with `lfa` the RFC 5286 loop-free
+// alternate branch at :533-566), _pack_words, and
+// ops/compact.py::route_ok_device. With g > 1 stacked same-shape areas
+// (the vmap of _fused_pipeline) the lane is the grid's y dimension and
+// each lane has its own root (roots[lane]).
 //
 // Bound: bytes. The node pass reads the [D, n_cap] plane once and
 // writes one distance and one ECMP bit word per node; the prefix pass
@@ -24,9 +27,9 @@
 #define NEG (-2147483647 - 1)
 #define THREADS 256
 
-static inline unsigned blocks_for(long long n) {
+static inline dim3 grid_for(long long n, int g) {
     long long b = (n + THREADS - 1) / THREADS;
-    return (unsigned)(b > 0 ? b : 1);
+    return dim3((unsigned)(b > 0 ? b : 1), (unsigned)g);
 }
 
 // node pass: via[d,u] = root_w[d] + dist_d[d,u]; dist[u] =
@@ -35,9 +38,15 @@ static inline unsigned blocks_for(long long n) {
 __global__ void select_nodes_kernel(
     const int* __restrict__ dist_d, const int* __restrict__ root_w,
     int* __restrict__ dist, uint32_t* __restrict__ onsp, int d_cap,
-    int n_cap, int w32, int root) {
+    int n_cap, int w32, int root, const int* __restrict__ roots) {
+    const int lane = blockIdx.y;
     int u = blockIdx.x * blockDim.x + threadIdx.x;
     if (u >= n_cap) return;
+    if (roots) root = roots[lane];
+    dist_d += lane * (long long)d_cap * n_cap;
+    root_w += lane * d_cap;
+    dist += (long long)lane * n_cap;
+    onsp += lane * (long long)n_cap * w32;
     int m = INF_E;
     for (int d = 0; d < d_cap; ++d)
         m = min(m, root_w[d] + dist_d[(long long)d * n_cap + u]);
@@ -58,15 +67,30 @@ __global__ void select_nodes_kernel(
 // prefix pass over the packed announcer matrix mbuf = six [P, A] int32
 // planes (ann_node, flags, path_pref, source_pref, dist_adv, min_nh);
 // flags bit 0 = valid, bit 1 = announcer drained, bit 2 (slot 0) = v4.
+// With `lfa`, also the backup slot and metric per row (dist_d / root_w
+// are then read; -1 and 0 when the row has no loop-free alternate).
 __global__ void select_prefixes_kernel(
     const int* __restrict__ mbuf, const int* __restrict__ dist,
     const uint32_t* __restrict__ onsp, int* __restrict__ metric_out,
     int* __restrict__ s3w, int* __restrict__ nhw,
     uint8_t* __restrict__ ok_out, int p_cap, int a_cap, int n_cap,
-    int d_cap, int w32, int root, int block_v4) {
+    int d_cap, int w32, int root, int block_v4, const int* __restrict__ roots,
+    int lfa, const int* __restrict__ dist_d, const int* __restrict__ root_w,
+    int* __restrict__ lfa_slot, int* __restrict__ lfa_metric) {
+    const int lane = blockIdx.y;
     int p = blockIdx.x * blockDim.x + threadIdx.x;
     if (p >= p_cap) return;
     const long long pa = (long long)p_cap * a_cap;
+    const int wa = (a_cap + 15) / 16;
+    const int wd = (d_cap + 15) / 16;
+    if (roots) root = roots[lane];
+    mbuf += lane * 6 * pa;
+    dist += (long long)lane * n_cap;
+    onsp += lane * (long long)n_cap * w32;
+    metric_out += (long long)lane * p_cap;
+    s3w += lane * (long long)p_cap * wa;
+    nhw += lane * (long long)p_cap * wd;
+    ok_out += (long long)lane * p_cap;
     const long long base = (long long)p * a_cap;
     const int* ann_node = mbuf + base;
     const int* flags = mbuf + pa + base;
@@ -99,8 +123,6 @@ __global__ void select_prefixes_kernel(
     for (int a = 0; a < a_cap; ++a)
         metric = min(metric, S3(a) ? ANN_DIST(a) : INF_E);
 
-    const int wa = (a_cap + 15) / 16;
-    const int wd = (d_cap + 15) / 16;
     bool any_s3 = false, self_ann = false;
     int eff_min = -1;
     for (int w = 0; w < wa; ++w) {
@@ -133,6 +155,30 @@ __global__ void select_prefixes_kernel(
         nhw[(long long)p * wd + w] = (int)word;
         nhc += __popc(word);
     }
+    if (lfa) {
+        // slot d backs up row p iff its link is up, it is no primary next
+        // hop, and its neighbour's own distance to the selected announcer
+        // set beats detouring back through the root (strict <)
+        dist_d += lane * (long long)d_cap * n_cap;
+        root_w += lane * d_cap;
+        int best = 1 << 30, slot = -1;
+        for (int d = 0; d < d_cap; ++d) {
+            const int rw = root_w[d];
+            if (rw >= INF_E) continue;
+            if ((nhw[(long long)p * wd + (d >> 4)] >> (d & 15)) & 1) continue;
+            const int* row = dist_d + (long long)d * n_cap;
+            int nbr = INF_E;
+            for (int a = 0; a < a_cap; ++a)
+                if (S3(a)) nbr = min(nbr, row[min(max(ann_node[a], 0), hi)]);
+            if (nbr >= INF_E || !(nbr < row[root] + metric)) continue;
+            if (rw + nbr < best) {
+                best = rw + nbr;
+                slot = d;
+            }
+        }
+        lfa_slot[(long long)lane * p_cap + p] = slot;
+        lfa_metric[(long long)lane * p_cap + p] = slot < 0 ? 0 : best;
+    }
 #undef ANN_DIST
 #undef REACH
 #undef S1
@@ -150,21 +196,24 @@ extern "C" {
 
 int select_nodes(const int* dist_d, const int* root_w, int* dist,
                  uint32_t* onsp, int d_cap, int n_cap, int root,
-                 cudaStream_t stream) {
+                 const int* roots, int g, cudaStream_t stream) {
     int w32 = (d_cap + 31) / 32;
-    select_nodes_kernel<<<blocks_for(n_cap), THREADS, 0, stream>>>(
-        dist_d, root_w, dist, onsp, d_cap, n_cap, w32, root);
+    select_nodes_kernel<<<grid_for(n_cap, g), THREADS, 0, stream>>>(
+        dist_d, root_w, dist, onsp, d_cap, n_cap, w32, root, roots);
     return (int)cudaGetLastError();
 }
 
 int select_prefixes(const int* mbuf, const int* dist, const uint32_t* onsp,
                     int* metric, int* s3w, int* nhw, uint8_t* ok,
                     int p_cap, int a_cap, int n_cap, int d_cap, int root,
-                    int block_v4, cudaStream_t stream) {
+                    int block_v4, const int* roots, int g, int lfa,
+                    const int* dist_d, const int* root_w, int* lfa_slot,
+                    int* lfa_metric, cudaStream_t stream) {
     int w32 = (d_cap + 31) / 32;
-    select_prefixes_kernel<<<blocks_for(p_cap), THREADS, 0, stream>>>(
+    select_prefixes_kernel<<<grid_for(p_cap, g), THREADS, 0, stream>>>(
         mbuf, dist, onsp, metric, s3w, nhw, ok, p_cap, a_cap, n_cap, d_cap,
-        w32, root, block_v4);
+        w32, root, block_v4, roots, lfa, dist_d, root_w, lfa_slot,
+        lfa_metric);
     return (int)cudaGetLastError();
 }
 

@@ -1,5 +1,5 @@
-"""GPU route-computation backend: the single-area Decision solve, cold
-and incremental.
+"""GPU route-computation backend: the Decision solve, cold and
+incremental, with LFA backup next hops and fused small-area groups.
 
 ``GpuSpfSolver.build_route_db(my_node, {area: LinkState}, PrefixState)``
 computes the same ``DecisionRouteDb`` as the CPU oracle
@@ -19,22 +19,30 @@ area whose prefixes are all single-area IP + SP_ECMP announcements
      cone exceeds ``cone_limit``.
   2. ``ops/select.select_routes`` (K3): true distances and the ECMP
      predicate from via = root_w + dist_d, reference-order best-route
-     selection, next-hop masks, 16-bit word packing, route-ok filter.
+     selection, next-hop masks, 16-bit word packing, route-ok filter,
+     and with ``enable_lfa`` the RFC 5286 backup slot and metric.
   3. ``ops/compact.compact_outputs`` (K4): the changed-rows delta
      payload against the vantage's previous resident outputs and the
      ok-rows full payload, sentinel counts in both tails.
 
-The host pulls ONE buffer — the full payload on a vantage's first solve
-(or after its matrix / shape changed), the delta payload after — and
-patches the vantage's ColumnarRib, whose lazy view becomes the RIB's
-unicast routes. Everything else (cross-area or non-fast-path prefixes,
-static routes, MPLS label routes) goes through the oracle, as in the
-JAX solver. Changelog churn reaches the resident weight planes as a
-K5 scatter of the drained dirty slots, journalled per drain epoch so a
-vantage's previous plane can be advanced across several drains. Not
-ported yet, and refused rather than approximated: LFA backup next hops
-(``enable_lfa``) and areas above ``multichip_n_cap_threshold``. The
-fused-area and streaming solves of the JAX solver are not ported
+Areas of one vantage that share a shape (``fuse_key``) and have at most
+``fuse_n_cap`` node slots run as ONE ``fused_pipeline`` call (the port
+of ``tpu_solver._fused_pipeline``): the cold pipeline with a leading
+area axis on every kernel, one launch per step for all of them, each
+area's loops counted on its own. Areas below ``small_graph_nodes`` go
+to the oracle.
+
+The host pulls ONE buffer per area — the full payload on a vantage's
+first solve (or after its matrix / shape changed), the delta payload
+after — and patches the vantage's ColumnarRib, whose lazy view becomes
+the RIB's unicast routes. Everything else (cross-area or non-fast-path
+prefixes, static routes, MPLS label routes) goes through the oracle, as
+in the JAX solver. Changelog churn reaches the resident weight planes
+as a K5 scatter of the drained dirty slots, journalled per drain epoch
+so a vantage's previous plane can be advanced across several drains.
+Not ported yet, and refused rather than approximated: the multichip
+tier (an area above ``multichip_n_cap_threshold`` with two or more
+cards visible). The streaming solve of the JAX solver is not ported
 either.
 
 ``device`` defaults to "cuda" and raises without a CUDA device unless
@@ -64,7 +72,12 @@ from openr_tpu_torch.ops.edgeplan import (
     sync_plan,
 )
 from openr_tpu_torch.ops.incremental import incremental_sssp, scatter_set
-from openr_tpu_torch.ops.relax import INF_E, max_trips, plan_sssp
+from openr_tpu_torch.ops.relax import (
+    INF_E,
+    max_trips,
+    plan_sssp,
+    plan_sssp_lanes,
+)
 from openr_tpu_torch.ops.select import select_routes
 from openr_tpu_torch.runtime.counters import counters
 from openr_tpu_torch.types import PrefixForwardingAlgorithm, PrefixForwardingType
@@ -72,6 +85,9 @@ from openr_tpu_torch.types import PrefixForwardingAlgorithm, PrefixForwardingTyp
 # rows shipped per delta pull; more changed rows fall back to the full
 # pull (the host reads the count first)
 DELTA_BUDGET = 4096
+
+# areas of at most this many node slots fuse into one dispatch
+FUSE_N_CAP = 4096
 
 # incremental-solve dirty buffers pad to one of these sizes (shared by
 # the shift and residual buffers); a larger merged dirty set takes the
@@ -178,8 +194,10 @@ class PipelineOut(NamedTuple):
     metric: torch.Tensor
     s3w: torch.Tensor
     nhw: torch.Tensor
-    trips: int
-    rounds: int
+    # host ints; 0-d int32 device tensors (the lane's own counters) for a
+    # lane of a fused solve
+    trips: object
+    rounds: object
     # CUDA events on a CUDA device, None on the CPU: [start, SSSP done,
     # selection done, compaction done] for a cold solve; [start, old
     # planes done, parent plane done, seed plane done, SSSP done,
@@ -190,22 +208,57 @@ class PipelineOut(NamedTuple):
     dist: Optional[torch.Tensor] = None
     # trips of the incremental solve's cone spread (0 for a cold solve)
     cone_trips: int = 0
+    # the LFA columns int32 [P] (the previous ones passed through when
+    # the solve ran without LFA)
+    lfa_slot: Optional[torch.Tensor] = None
+    lfa_metric: Optional[torch.Tensor] = None
+
+
+def _timing_events(t: torch.Tensor, n: int):
+    """(events or None, mark): ``n`` CUDA events on a CUDA device, and a
+    function that records the next one."""
+    events = None
+    if t.is_cuda:
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+    pending = iter(events or ())
+
+    def mark():
+        ev = next(pending, None)
+        if ev is not None:
+            ev.record()
+
+    return events, mark
+
+
+def _lfa_tail(sel, prev_lfa_slot, prev_lfa_metric, lfa: bool):
+    """-> (lfa_slot, lfa_metric, K4's lfa columns or None) from a
+    ``select_routes`` result: the new columns with ``lfa``, else the
+    previous ones passed through."""
+    if not lfa:
+        return prev_lfa_slot, prev_lfa_metric, None
+    slot, alt = sel[4:]
+    return slot, alt, (slot, alt, prev_lfa_slot, prev_lfa_metric)
 
 
 def pipeline(deltas, shift_w, res_rows, res_nbr, res_w, mbuf, root: int,
-             root_nbr, root_w, prev_metric, prev_s3w, prev_nhw, *,
+             root_nbr, root_w, prev_metric, prev_s3w, prev_nhw,
+             prev_lfa_slot=None, prev_lfa_metric=None, *,
              has_res: bool, block_v4: bool = False, sentinels: bool = True,
              kernel: str = "sync", delta_exp: int = 0,
              budget: int = DELTA_BUDGET, incr=None,
-             emit_dist: bool = False) -> PipelineOut:
+             emit_dist: bool = False, lfa: bool = False) -> PipelineOut:
     """One solve for one (area, vantage) on the device of its tensors.
     Inputs are the resident mirror (deltas [s_cap], shift_w [s_cap,
     n_cap], the residual ELL res_rows [r_cap] / res_nbr, res_w [r_cap,
     kr_cap]), the packed announcer matrix mbuf [6*P*A], the root's index
     and out-slot tables root_nbr / root_w [D], and the previous solve's
     outputs prev_metric [P], prev_s3w [P, ceil(A/16)], prev_nhw [P,
-    ceil(D/16)] (zeros before the first). All int32.
+    ceil(D/16)], prev_lfa_slot / prev_lfa_metric [P] (zeros before the
+    first; the LFA pair defaults to zeros) — the JAX pipeline's 14
+    inputs, in its order. All int32.
 
+    ``lfa`` adds the RFC 5286 backup columns to the selection, the diff
+    and both payloads; without it the previous LFA columns pass through.
     ``incr``, when given, is the incremental solve's ``(prev_dist [D,
     n_cap], s_dirty_idx, s_dirty_old, r_dirty_idx, r_dirty_old,
     cone_limit)`` (the JAX ``_incr_pipeline``'s six trailing inputs):
@@ -214,17 +267,10 @@ def pipeline(deltas, shift_w, res_rows, res_nbr, res_w, mbuf, root: int,
     with ``incr`` or ``emit_dist``."""
     p_cap = prev_metric.shape[0]
     a_cap = mbuf.numel() // (6 * p_cap)
-    events = None
-    if shift_w.is_cuda:
-        n_ev = 4 if incr is None else 7
-        events = [torch.cuda.Event(enable_timing=True) for _ in range(n_ev)]
-    pending = iter(events or ())
-
-    def mark():
-        ev = next(pending, None)
-        if ev is not None:
-            ev.record()
-
+    if prev_lfa_slot is None:
+        prev_lfa_slot = torch.zeros_like(prev_metric)
+        prev_lfa_metric = torch.zeros_like(prev_metric)
+    events, mark = _timing_events(shift_w, 4 if incr is None else 7)
     mark()
     incr_tail = None
     spread = {"cone_trips": 0}
@@ -242,20 +288,73 @@ def pipeline(deltas, shift_w, res_rows, res_nbr, res_w, mbuf, root: int,
         )
         incr_tail = (cone, fell_back)
     mark()
-    metric, s3w, nhw, ok = select_routes(
-        dist_d, root_w, root, mbuf, p_cap, a_cap, block_v4
-    )
+    sel = select_routes(dist_d, root_w, root, mbuf, p_cap, a_cap, block_v4,
+                        lfa)
+    metric, s3w, nhw, ok = sel[:4]
+    lfa_slot, lfa_metric, lfa_cols = _lfa_tail(sel, prev_lfa_slot,
+                                               prev_lfa_metric, lfa)
     mark()
     flags = mbuf[p_cap * a_cap:2 * p_cap * a_cap].view(p_cap, a_cap)
     delta_buf, full_buf = compact_outputs(
         metric, s3w, nhw, ok, prev_metric, prev_s3w, prev_nhw, flags,
-        trips, rounds, budget, sentinels, incr_tail,
+        trips, rounds, budget, sentinels, incr_tail, lfa_cols,
     )
     mark()
     keep = incr is not None or emit_dist
     return PipelineOut(delta_buf, full_buf, metric, s3w, nhw, trips, rounds,
                        events, dist_d if keep else None,
-                       spread["cone_trips"])
+                       spread["cone_trips"], lfa_slot, lfa_metric)
+
+
+def fused_pipeline(lane_args, *, has_res: bool, block_v4: bool = False,
+                   sentinels: bool = True, kernel: str = "sync",
+                   delta_exp: int = 0, budget: int = DELTA_BUDGET,
+                   lfa: bool = False) -> list:
+    """The cold ``pipeline`` for ``g`` same-shape areas in one dispatch
+    (the port of ``tpu_solver._fused_pipeline``, a vmap over stacked
+    areas). ``lane_args`` holds each area's 14 ``pipeline`` inputs, in
+    order (``root`` an int). They stack on a leading area axis and every
+    kernel of the solve — K1s, K1, K2, K3, K4 — launches once a step for
+    all of them; each area's loops stop and count on their own, so its
+    trips and rounds equal its unfused solve's. Always cold and without
+    a distance plane, as the JAX group dispatch. Returns one
+    ``PipelineOut`` an area, its tensors views of the stacked outputs
+    and its trips / rounds the area's own device counters."""
+    g = len(lane_args)
+    cols = list(zip(*lane_args))
+    ref = cols[0][0]
+    roots = torch.tensor([int(r) for r in cols[6]], dtype=torch.int32,
+                         device=ref.device)
+    (deltas, shift_w, res_rows, res_nbr, res_w, mbuf, _, root_nbr, root_w,
+     prev_metric, prev_s3w, prev_nhw, prev_lfa_slot, prev_lfa_metric) = [
+        None if i == 6 else torch.stack(c) for i, c in enumerate(cols)]
+    p_cap = prev_metric.shape[1]
+    a_cap = mbuf.shape[1] // (6 * p_cap)
+    events, mark = _timing_events(ref, 4)
+    mark()
+    dist_d, counts = plan_sssp_lanes(
+        deltas, shift_w, res_rows, res_nbr, res_w, roots, root_nbr, root_w,
+        has_res, kernel, delta_exp,
+    )
+    mark()
+    sel = select_routes(dist_d, root_w, roots, mbuf, p_cap, a_cap, block_v4,
+                        lfa)
+    metric, s3w, nhw, ok = sel[:4]
+    lfa_slot, lfa_metric, lfa_cols = _lfa_tail(sel, prev_lfa_slot,
+                                               prev_lfa_metric, lfa)
+    mark()
+    flags = mbuf.view(g, 6, p_cap, a_cap)[:, 1]
+    delta_buf, full_buf = compact_outputs(
+        metric, s3w, nhw, ok, prev_metric, prev_s3w, prev_nhw, flags,
+        counts, None, budget, sentinels, None, lfa_cols,
+    )
+    mark()
+    return [
+        PipelineOut(delta_buf[i], full_buf[i], metric[i], s3w[i], nhw[i],
+                    counts[i, 0], counts[i, 1], events, None, 0,
+                    lfa_slot[i], lfa_metric[i])
+        for i in range(g)
+    ]
 
 
 class _AreaDev:
@@ -304,7 +403,8 @@ class _VantageState:
     def __init__(self):
         self.shape_key = None
         self.matrix_version = -1
-        self.prev = None  # (metric, s3w, nhw) device tensors
+        # (metric, s3w, nhw, lfa_slot, lfa_metric) device tensors
+        self.prev = None
         self.crib: Optional[ColumnarRib] = None
         self.links_tuple: tuple = ()
         self.valid = False
@@ -331,6 +431,26 @@ class _PendingBuild:
         self.bytes_uploaded = bytes_uploaded
 
 
+def _memo_prefix_matrix(prefix_state: PrefixState, link_state: LinkState,
+                        node_index: dict, area: str,
+                        prefixes: list) -> PrefixMatrix:
+    """The area's announcer matrix, memoized on the PrefixState: it is a
+    pure derivation of (prefix generation, area, link_state.generation —
+    which pins the node-index mapping — and the prefix list), so a fresh
+    solver over live state (a restart in process, another vantage)
+    skips the 100k-prefix packing loop."""
+    cache = getattr(prefix_state, "_matrix_memo", None)
+    if cache is None:
+        cache = prefix_state._matrix_memo = {}
+    key = (prefix_state.generation, area, link_state.generation)
+    hit = cache.get(area)
+    if hit is not None and hit[0] == key and hit[1] == prefixes:
+        return hit[2]
+    matrix = build_prefix_matrix(prefix_state, node_index, area, prefixes)
+    cache[area] = (key, prefixes, matrix)
+    return matrix
+
+
 class GpuSpfSolver:
     """Drop-in for SpfSolver.build_route_db with the hot path on the
     GPU. Differentially tested against the CPU oracle and, input for
@@ -340,7 +460,10 @@ class GpuSpfSolver:
 
     def __init__(
         self, my_node_name: str, device="cuda",
+        small_graph_nodes: int = 0,
         enable_numerical_sentinels: bool = True,
+        fuse_small_areas: bool = True,
+        fuse_n_cap: int = FUSE_N_CAP,
         incremental_spf: bool = False,
         incremental_cone_frac: float = 0.25,
         spf_kernel: str = "bucketed",
@@ -351,6 +474,14 @@ class GpuSpfSolver:
         if spf_kernel not in ("sync", "bucketed"):
             raise ValueError(f"unknown spf_kernel {spf_kernel!r}")
         self.my_node_name = my_node_name
+        # a whole solve whose areas all have fewer nodes than this, and
+        # any such area of a larger solve, goes to the oracle: it beats
+        # a device round trip there
+        self.small_graph_nodes = int(small_graph_nodes)
+        # same-shape areas of at most fuse_n_cap node slots solve in one
+        # fused dispatch
+        self.fuse_small_areas = bool(fuse_small_areas)
+        self.fuse_n_cap = int(fuse_n_cap)
         # "bucketed" runs Δ-stepping wherever the plan derived a usable
         # Δ (plan.delta_exp > 0) and the sync rounds otherwise; "sync"
         # forces the sync rounds everywhere
@@ -360,17 +491,13 @@ class GpuSpfSolver:
         # previous distance plane and re-anchor only the affected cone;
         # the result is bit-identical to the cold solve. The cold solve
         # runs on a first solve, shape / root churn, a journal gap,
-        # zero-weight edges, an oversized dirty set, and — decided on
-        # the device — when the cone exceeds incremental_cone_frac of
-        # the area's node-lanes.
+        # zero-weight edges, an oversized dirty set, in a fused group,
+        # and — decided on the device — when the cone exceeds
+        # incremental_cone_frac of the area's node-lanes.
         self.incremental_spf = bool(incremental_spf)
         self.incremental_cone_frac = float(incremental_cone_frac)
         self.multichip_n_cap_threshold = int(multichip_n_cap_threshold)
         self.cpu = SpfSolver(my_node_name, **solver_kwargs)
-        if self.cpu.enable_lfa:
-            raise NotImplementedError(
-                "LFA backup next hops are not ported to the GPU solver yet"
-            )
         self._area_dev: dict[str, _AreaDev] = {}
         self._vstates: dict[tuple, _VantageState] = {}
         self._vantage_lru: OrderedDict[tuple, None] = OrderedDict()
@@ -382,7 +509,7 @@ class GpuSpfSolver:
         # numerical-health sentinels of the last solve, summed over areas
         self.last_sentinels: dict = {}
         # the last area's solve statistics (incremental, cone,
-        # fell_back, changed_rows, trips, rounds, ...)
+        # fell_back, changed_rows, trips, rounds, fused, ...)
         self.last_device_stats: dict = {}
         # wall-time and device-time breakdown of the last solve
         self.last_timing: dict = {}
@@ -444,20 +571,49 @@ class GpuSpfSolver:
         self._bytes_uploaded = 0
         self._scatter_events = []
         t_pipe0 = time.perf_counter()
+        if all(
+            ls.node_count() < self.small_graph_nodes
+            for ls in area_link_states.values()
+        ):
+            db = self.cpu.build_route_db(
+                my_node_name, area_link_states, prefix_state
+            )
+            return _PendingBuild(db, [], t_pipe0, 0)
         fast_by_area, slow = self._partition_prefixes(
             prefix_state, area_link_states
         )
         route_db = DecisionRouteDb()
-        areas = []
+        small: list[str] = []
+        preps: list[dict] = []
         for area, plist in fast_by_area.items():
             link_state = area_link_states[area]
             if not link_state.has_node(my_node_name):
                 continue  # unreachable area for this vantage: no routes
-            areas.append(self._dispatch_area(
+            if link_state.node_count() < self.small_graph_nodes:
+                small.extend(plist)
+                continue
+            preps.append(self._prep_vantage(
                 my_node_name, area, link_state, prefix_state, plist
             ))
+        # same-shape small areas batch into ONE dispatch; a group of one
+        # goes back to the singles
+        singles: list[dict] = []
+        groups: dict[tuple, list] = {}
+        for pv in preps:
+            if self.fuse_small_areas and pv["plan"].n_cap <= self.fuse_n_cap:
+                groups.setdefault(pv["fuse_key"], []).append(pv)
+            else:
+                singles.append(pv)
+        areas = []
+        for group in groups.values():
+            if len(group) < 2:
+                singles.extend(group)
+            else:
+                areas.extend(self._dispatch_fused(group))
+        areas.extend(self._dispatch_one(pv) for pv in singles)
         self._host_routes(
-            my_node_name, area_link_states, prefix_state, slow, route_db
+            my_node_name, area_link_states, prefix_state, slow + small,
+            route_db,
         )
         return _PendingBuild(route_db, areas, t_pipe0, self._bytes_uploaded)
 
@@ -480,7 +636,7 @@ class GpuSpfSolver:
         for ctx in pending.areas:
             view, timing, stats = self._collect_area(ctx)
             views.append(view)
-            area_timing[ctx["area"]] = timing
+            area_timing[ctx["pv"]["area"]] = timing
             for k, v in timing.items():
                 if v is not None:
                     totals[k] = totals.get(k, 0.0) + v
@@ -690,8 +846,8 @@ class GpuSpfSolver:
         # announcer matrix: keyed on prefix churn + node-index stability
         mkey = (prefix_state.generation, plan.index_version)
         if ad.matrix_key != mkey or ad.matrix is None:
-            ad.matrix = build_prefix_matrix(
-                prefix_state, plan.node_index, area, prefixes
+            ad.matrix = _memo_prefix_matrix(
+                prefix_state, link_state, plan.node_index, area, prefixes
             )
             ad.matrix_key = mkey
             ad.matrix_version += 1
@@ -716,16 +872,32 @@ class GpuSpfSolver:
 
     # -- the fast path -------------------------------------------------------
 
-    def _dispatch_area(self, my_node_name: str, area: str,
-                       link_state: LinkState, prefix_state: PrefixState,
-                       prefixes: list) -> dict:
+    def _mc_tier_engaged(self, n_cap: int) -> bool:
+        """Whether the reference would solve an area of ``n_cap`` node
+        slots on its multichip tier (``_mc_mesh_for``'s first rungs):
+        the threshold is set and exceeded, and two or more devices are
+        visible. Otherwise the area solves on the one device."""
+        thr = self.multichip_n_cap_threshold
+        if thr <= 0 or n_cap <= thr:
+            return False
+        if self.device.type != "cuda":
+            return False  # the CPU is one device
+        return torch.cuda.device_count() >= 2
+
+    def _prep_vantage(self, my_node_name: str, area: str,
+                      link_state: LinkState, prefix_state: PrefixState,
+                      prefixes: list) -> dict:
+        """Host half of a fast-path solve: mirror sync, out-link
+        extraction, vantage-state (re)init, the incremental gate. Returns
+        the context ``_dispatch_one`` / ``_dispatch_fused`` consume."""
         t0 = time.perf_counter()
         ad = self._sync_area(area, link_state, prefix_state, prefixes)
         plan, matrix = ad.plan, ad.matrix
-        if plan.n_cap > self.multichip_n_cap_threshold:
+        if self._mc_tier_engaged(plan.n_cap):
             raise NotImplementedError(
                 f"area {area!r}: n_cap {plan.n_cap} exceeds the one-card "
-                f"threshold {self.multichip_n_cap_threshold}; the multichip "
+                f"threshold {self.multichip_n_cap_threshold} with "
+                f"{torch.cuda.device_count()} cards visible; the multichip "
                 "tier is not ported to the GPU solver yet"
             )
         root_idx = plan.node_index[my_node_name]
@@ -748,6 +920,7 @@ class GpuSpfSolver:
         if vs is None:
             vs = self._vstates[vkey] = _VantageState()
         links_tuple = tuple(links)
+        lfa = self.cpu.enable_lfa
         block_v4 = not (self.cpu.enable_v4 or self.cpu.v4_over_v6_nexthop)
         if self.spf_kernel == "bucketed" and plan.delta_exp > 0:
             kernel, delta_exp = "bucketed", plan.delta_exp
@@ -766,12 +939,14 @@ class GpuSpfSolver:
                 self._upload(np.zeros(p_cap, np.int32)),
                 self._upload(np.zeros((p_cap, wa), np.int32)),
                 self._upload(np.zeros((p_cap, wd), np.int32)),
+                self._upload(np.zeros(p_cap, np.int32)),
+                self._upload(np.zeros(p_cap, np.int32)),
             )
             vs.shape_key = cache_key
             vs.matrix_version = ad.matrix_version
             vs.crib = ColumnarRib(
                 my_node_name, matrix, list(links), root_idx,
-                block_v4, not self.cpu.v4_over_v6_nexthop, False,
+                block_v4, not self.cpu.v4_over_v6_nexthop, lfa,
             )
             vs.links_tuple = links_tuple
             vs.valid = False
@@ -779,51 +954,88 @@ class GpuSpfSolver:
             vs.dist_epoch = -1
             vs.root_sig = None
         root_sig = (root_nbr.tobytes(), (root_w < INF_E).tobytes())
-        incr = self._incr_args(ad, vs, root_sig, d_cap)
-        root_nbr_t = self._upload(root_nbr)
-        root_w_t = self._upload(root_w)
         scatter_events, self._scatter_events = self._scatter_events, []
+        return {
+            "area": area, "ad": ad, "plan": plan, "vs": vs,
+            "root_idx": root_idx, "root_nbr": root_nbr, "root_w": root_w,
+            "fuse_key": (shape_key, lfa, block_v4, kernel, delta_exp),
+            "has_res": has_res, "lfa": lfa, "block_v4": block_v4,
+            "kernel": kernel, "delta_exp": delta_exp,
+            "d_cap": d_cap, "p_cap": p_cap, "a_cap": a_cap,
+            "incr": self._incr_args(ad, vs, root_sig, d_cap),
+            "root_sig": root_sig, "dist_epoch": ad.drain_epoch,
+            "scatter_events": scatter_events, "t0": t0,
+        }
+
+    def _lane_args(self, pv: dict) -> tuple:
+        """The area's resident mirror and matrix, its root, and the root
+        tables uploaded: the first nine ``pipeline`` inputs."""
+        ad = pv["ad"]
+        return (ad.deltas, ad.shift_w, ad.res_rows, ad.res_nbr, ad.res_w,
+                ad.mbuf, pv["root_idx"], self._upload(pv["root_nbr"]),
+                self._upload(pv["root_w"]))
+
+    def _dispatch_one(self, pv: dict) -> dict:
+        """Launch one area's pipeline (incremental where the gate
+        allowed)."""
+        vs = pv["vs"]
+        incr = None
+        if pv["incr"] is not None:
+            (sd_idx, sd_old, rd_idx, rd_old, cone_limit), _ = pv["incr"]
+            incr = (vs.prev_dist, self._upload(sd_idx), self._upload(sd_old),
+                    self._upload(rd_idx), self._upload(rd_old), cone_limit)
+        lane = self._lane_args(pv)
         t1 = time.perf_counter()
         out = pipeline(
-            ad.deltas, ad.shift_w, ad.res_rows, ad.res_nbr, ad.res_w,
-            ad.mbuf, root_idx, root_nbr_t, root_w_t, *vs.prev,
-            has_res=has_res, block_v4=block_v4,
-            sentinels=self.enable_sentinels, kernel=kernel,
-            delta_exp=delta_exp, incr=None if incr is None else incr[0],
-            emit_dist=self.incremental_spf,
+            *lane, *vs.prev, has_res=pv["has_res"], block_v4=pv["block_v4"],
+            sentinels=self.enable_sentinels, kernel=pv["kernel"],
+            delta_exp=pv["delta_exp"], incr=incr,
+            emit_dist=self.incremental_spf, lfa=pv["lfa"],
         )
         if incr is not None:
             # the inputs of the last incremental solve, for device-only
             # probes (chip_smoke.py): the lane tensors, the previous
             # outputs and the six incremental inputs
-            self._last_exec_incr = (
-                (ad.deltas, ad.shift_w, ad.res_rows, ad.res_nbr, ad.res_w,
-                 ad.mbuf, root_idx, root_nbr_t, root_w_t),
-                vs.prev, incr[0],
-            )
-        if incr is None:
+            self._last_exec_incr = (lane, vs.prev, incr)
+        else:
             counters.increment("decision.solver.full.solves")
             if self.incremental_spf:
                 # a first or ineligible solve, or a host-gate fallback
                 # (journal gap, root churn, zero-weight edges, oversized
                 # dirty set)
                 counters.increment("decision.solver.incr.full_fallbacks")
-        return {
-            "area": area, "vs": vs, "out": out, "kernel": kernel,
-            "d_cap": d_cap, "p_cap": p_cap, "a_cap": a_cap,
-            "incr_denom": None if incr is None else incr[1],
-            "root_sig": root_sig, "dist_epoch": ad.drain_epoch,
-            "scatter_events": scatter_events,
-            "t0": t0, "t1": t1, "t2": time.perf_counter(),
-        }
+        return {"pv": pv, "out": out, "fused": 0,
+                "incr_denom": None if incr is None else pv["incr"][1],
+                "t1": t1, "t2": time.perf_counter()}
+
+    def _dispatch_fused(self, group: list) -> list:
+        """ONE fused dispatch for a group of same-shape areas: the cold
+        pipeline with a leading area axis (``fused_pipeline``), whatever
+        the incremental gate said — as the JAX group dispatch."""
+        g = len(group)
+        pv0 = group[0]
+        lanes = [self._lane_args(pv) + pv["vs"].prev for pv in group]
+        self._bytes_uploaded += 4 * g  # the roots
+        t1 = time.perf_counter()
+        outs = fused_pipeline(
+            lanes, has_res=pv0["has_res"], block_v4=pv0["block_v4"],
+            sentinels=self.enable_sentinels, kernel=pv0["kernel"],
+            delta_exp=pv0["delta_exp"], lfa=pv0["lfa"],
+        )
+        t2 = time.perf_counter()
+        counters.increment("decision.device.fused_dispatches")
+        counters.increment("decision.device.fused_areas", g)
+        counters.increment("decision.solver.full.solves", g)
+        return [{"pv": pv, "out": out, "fused": g, "incr_denom": None,
+                 "t1": t1, "t2": t2} for pv, out in zip(group, outs)]
 
     def _incr_args(self, ad: _AreaDev, vs: _VantageState, root_sig: tuple,
                    d_cap: int):
         """The incremental gate: a resident distance plane whose epoch
         window the drain journal covers, an unchanged root out-link
         signature, no zero-weight edges and a dirty set that fits a
-        bucket. -> ((prev_dist, s_dirty_idx, s_dirty_old, r_dirty_idx,
-        r_dirty_old, cone_limit), cone denominator) or None (cold
+        bucket. -> ((s_dirty_idx, s_dirty_old, r_dirty_idx, r_dirty_old,
+        cone_limit) host arrays, cone denominator) or None (cold
         solve)."""
         plan = ad.plan
         if not (
@@ -853,16 +1065,16 @@ class GpuSpfSolver:
         rd_old[:len(r_map)] = list(r_map.values())
         denom = d_cap * plan.n_nodes
         cone_limit = int(np.int32(self.incremental_cone_frac * denom))
-        args = (vs.prev_dist, self._upload(sd_idx), self._upload(sd_old),
-                self._upload(rd_idx), self._upload(rd_old), cone_limit)
-        return args, denom
+        return (sd_idx, sd_old, rd_idx, rd_old, cone_limit), denom
 
     def _collect_area(self, ctx: dict):
         """Pull the one buffer this solve consumes and patch the
         vantage's ColumnarRib. prev advances here, atomically with the
         patch, so an aborted solve is never treated as applied."""
-        vs, out = ctx["vs"], ctx["out"]
-        d_cap, p_cap, a_cap = ctx["d_cap"], ctx["p_cap"], ctx["a_cap"]
+        pv, out = ctx["pv"], ctx["out"]
+        vs = pv["vs"]
+        d_cap, p_cap, a_cap = pv["d_cap"], pv["p_cap"], pv["a_cap"]
+        lfa = pv["lfa"]
         wa, wd = -(-a_cap // 16), -(-d_cap // 16)
         b = DELTA_BUDGET
         t2 = ctx["t2"]
@@ -883,9 +1095,14 @@ class GpuSpfSolver:
             oidx = fbuf[o:o + p_cap]; o += p_cap
             metric = fbuf[o:o + p_cap]; o += p_cap
             s3w = fbuf[o:o + p_cap * wa].reshape(p_cap, wa); o += p_cap * wa
-            nhw = fbuf[o:o + p_cap * wd].reshape(p_cap, wd)
+            nhw = fbuf[o:o + p_cap * wd].reshape(p_cap, wd); o += p_cap * wd
+            lfa_slot = lfa_metric = None
+            if lfa:
+                lfa_slot = fbuf[o:o + p_cap][:okc]; o += p_cap
+                lfa_metric = fbuf[o:o + p_cap][:okc]
             crib.set_full_packed(
-                oidx[:okc], metric[:okc], s3w[:okc], nhw[:okc], None, None
+                oidx[:okc], metric[:okc], s3w[:okc], nhw[:okc], lfa_slot,
+                lfa_metric,
             )
             vs.valid = True
         elif count:
@@ -893,26 +1110,33 @@ class GpuSpfSolver:
             cidx = dbuf[o:o + b]; o += b
             metric = dbuf[o:o + b]; o += b
             s3w = dbuf[o:o + b * wa].reshape(b, wa); o += b * wa
-            nhw = dbuf[o:o + b * wd].reshape(b, wd)
+            nhw = dbuf[o:o + b * wd].reshape(b, wd); o += b * wd
             live = cidx < p_cap
+            lfa_slot = lfa_metric = None
+            if lfa:
+                lfa_slot = dbuf[o:o + b][live][:count]; o += b
+                lfa_metric = dbuf[o:o + b][live][:count]
             crib.apply_rows(
                 cidx[live][:count], metric[live][:count],
-                s3w[live][:count], nhw[live][:count], None, None,
+                s3w[live][:count], nhw[live][:count], lfa_slot, lfa_metric,
             )
-        vs.prev = (out.metric, out.s3w, out.nhw)
+        vs.prev = (out.metric, out.s3w, out.nhw, out.lfa_slot,
+                   out.lfa_metric)
         if out.dist is not None:
             # the next solve's warm seed, stamped with the drain epoch
             # and root signature it was computed under
             vs.prev_dist = out.dist
-            vs.dist_epoch = ctx["dist_epoch"]
-            vs.root_sig = ctx["root_sig"]
+            vs.dist_epoch = pv["dist_epoch"]
+            vs.root_sig = pv["root_sig"]
         sbuf = fbuf if full_pull else dbuf
         stats = {
-            "trips": out.trips,
-            "rounds": out.rounds,
-            "spf_kernel": ctx["kernel"],
+            # both ride the buffer: [1] trips, [-1] rounds
+            "trips": int(sbuf[1]),
+            "rounds": int(sbuf[-1]),
+            "spf_kernel": pv["kernel"],
             "changed_rows": count,
             "full_pull": full_pull,
+            "fused": ctx["fused"],
             "bytes_downloaded": (0 if dbuf is None else int(dbuf.nbytes))
             + (0 if fbuf is None else int(fbuf.nbytes)),
         }
@@ -939,9 +1163,10 @@ class GpuSpfSolver:
             }
         t4 = time.perf_counter()
         timing = {
-            "sync_ms": (ctx["t1"] - ctx["t0"]) * 1e3,
+            "sync_ms": (ctx["t1"] - pv["t0"]) * 1e3,
             # host wall of the launches, the flag reads of the round
-            # loops included
+            # loops included (a fused group's launches count once for
+            # each of its areas)
             "exec_ms": (t2 - ctx["t1"]) * 1e3,
             "pull_ms": (t3 - t2) * 1e3,
             "unpack_ms": (t4 - t3) * 1e3,
@@ -955,6 +1180,6 @@ class GpuSpfSolver:
             for i, key in enumerate(phases):
                 timing[key] = ev[i].elapsed_time(ev[i + 1])
             timing["scatter_ms"] = sum(
-                a.elapsed_time(b) for a, b in ctx["scatter_events"]
+                a.elapsed_time(b) for a, b in pv["scatter_events"]
             )
         return crib.view(), timing, stats

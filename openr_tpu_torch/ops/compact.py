@@ -13,12 +13,20 @@ numerical-health sentinel counts and the trip / round scalars in their
 tails. Layouts (int32; B = budget, P = p_cap):
 
     delta_buf  count, trips, idx[B], metric[B], s3w[B*wa], nhw[B*wd],
-               (unreachable, saturated), (cone, fell_back), rounds
+               (lfa_slot[B], lfa_metric[B]), (unreachable, saturated),
+               (cone, fell_back), rounds
     full_buf   okc, trips, idx[P], metric[P], s3w[P*wa], nhw[P*wd],
-               (unreachable, saturated), (cone, fell_back), rounds
+               (lfa_slot[P], lfa_metric[P]), (unreachable, saturated),
+               (cone, fell_back), rounds
 
-The sentinel pair is there when sentinels are on, the cone pair when
-the solve was incremental; the host parses the tail back to front.
+The LFA columns are there with LFA (they join the column diff too), the
+sentinel pair when sentinels are on, the cone pair when the solve was
+incremental; the host parses the tail back to front.
+
+With a lane axis (a fused solve of ``g`` same-shape areas) every input
+is stacked [g, ...], both buffers come out [g, len], and each lane's
+trips and rounds are read on the device from the [g, 2] counters of its
+own loop (``ops/relax.Lanes``).
 
 Pad slots past the live count carry index P and the values of row
 P - 1 (a fixed-size nonzero fills with P, the gather clips it to the
@@ -56,20 +64,33 @@ def route_ok(metric, s3, nh_mask, ann_node, min_nh, v4_blocked, root: int):
 
 
 def buffer_lens(p_cap: int, wa: int, wd: int, budget: int,
-                sentinels: bool, incr: bool = False) -> tuple[int, int]:
+                sentinels: bool, incr: bool = False,
+                lfa: bool = False) -> tuple[int, int]:
     """(delta_buf, full_buf) int32 lengths."""
     tail = 1 + (2 if sentinels else 0) + (2 if incr else 0)
-    return (2 + budget * (2 + wa + wd) + tail,
-            2 + p_cap * (2 + wa + wd) + tail)
+    row = 2 + wa + wd + (2 if lfa else 0)
+    return 2 + budget * row + tail, 2 + p_cap * row + tail
 
 
 def compact_outputs_plain(metric, s3w, nhw, ok, prev_metric, prev_s3w,
-                          prev_nhw, flags, trips: int, rounds: int,
-                          budget: int, sentinels: bool, incr_tail=None):
+                          prev_nhw, flags, trips, rounds, budget: int,
+                          sentinels: bool, incr_tail=None, lfa=None):
+    if metric.dim() == 2:
+        counts = trips.tolist()
+        outs = [compact_outputs_plain(
+            metric[i], s3w[i], nhw[i], ok[i], prev_metric[i], prev_s3w[i],
+            prev_nhw[i], flags[i], *counts[i], budget, sentinels, None,
+            None if lfa is None else tuple(c[i] for c in lfa),
+        ) for i in range(metric.shape[0])]
+        return (torch.stack([o[0] for o in outs]),
+                torch.stack([o[1] for o in outs]))
     p_cap = metric.shape[0]
-    changed = column_diff(metric, s3w, nhw, prev_metric, prev_s3w, prev_nhw)
-    delta = compact_rows(changed, trips, metric, s3w, nhw, budget, p_cap)
-    full = compact_rows(ok, trips, metric, s3w, nhw, p_cap, p_cap)
+    changed = column_diff(metric, s3w, nhw, prev_metric, prev_s3w, prev_nhw,
+                          lfa)
+    cols = None if lfa is None else lfa[:2]
+    delta = compact_rows(changed, trips, metric, s3w, nhw, budget, p_cap,
+                         cols)
+    full = compact_rows(ok, trips, metric, s3w, nhw, p_cap, p_cap, cols)
     tail = []
     if sentinels:
         live = (flags & 1).bool().any(dim=1)
@@ -84,42 +105,74 @@ def compact_outputs_plain(metric, s3w, nhw, ok, prev_metric, prev_s3w,
 
 
 def compact_outputs(metric, s3w, nhw, ok, prev_metric, prev_s3w, prev_nhw,
-                    flags, trips: int, rounds: int, budget: int,
-                    sentinels: bool, incr_tail=None):
+                    flags, trips, rounds, budget: int, sentinels: bool,
+                    incr_tail=None, lfa=None):
     """-> (delta_buf, full_buf), laid out as the module docstring says.
     ``flags`` is the [P, A] announcer flag plane (bit 0 = valid).
     ``incr_tail`` is the incremental solve's (cone, fell_back), two
-    int32 0-d tensors on the device, or None for a cold solve."""
+    int32 0-d tensors on the device, or None for a cold solve. ``lfa``
+    is (lfa_slot, lfa_metric, prev_lfa_slot, prev_lfa_metric), int32
+    [P] each, or None without LFA.
+
+    With a lane axis (metric [g, P], the rest stacked alike; ``flags``
+    may be a strided [g, P, A] view of the lanes' announcer buffers)
+    ``trips`` is the int32 [g, 2] tensor of each lane's (trips, rounds)
+    and ``rounds`` is unused; a fused solve is never incremental."""
     if _is_cpu(metric):
         return compact_outputs_plain(
             metric, s3w, nhw, ok, prev_metric, prev_s3w, prev_nhw, flags,
-            trips, rounds, budget, sentinels, incr_tail,
+            trips, rounds, budget, sentinels, incr_tail, lfa,
         )
-    _int32(metric, s3w, nhw, prev_metric, prev_s3w, prev_nhw, flags)
+    _int32(metric, s3w, nhw, prev_metric, prev_s3w, prev_nhw)
     if ok.dtype != torch.bool or not ok.is_contiguous():
         raise ValueError("ok must be a contiguous bool tensor")
-    p_cap, wa = s3w.shape
-    wd = nhw.shape[1]
-    a_cap = flags.shape[1]
+    lanes = metric.dim() == 2
+    g = metric.shape[0] if lanes else 1
+    p_cap, wa = s3w.shape[-2:]
+    wd = nhw.shape[-1]
+    a_cap = flags.shape[-1]
+    if (flags.dtype != torch.int32 or not flags.is_cuda
+            or flags[0 if lanes else slice(None)].stride() != (a_cap, 1)):
+        raise ValueError("flags must be int32 [P, A] planes on the card")
+    flags_stride = flags.stride(0) if lanes else 0
+    if lanes:
+        if incr_tail is not None:
+            raise ValueError("a fused solve has no incremental tail")
+        _int32(trips)
+        if trips.shape != (g, 2):
+            raise ValueError("lanes need their [g, 2] (trips, rounds)")
     dev = metric.device
     incr = incr_tail is not None
-    n_delta, n_full = buffer_lens(p_cap, wa, wd, budget, sentinels, incr)
-    delta_buf = torch.empty(n_delta, dtype=torch.int32, device=dev)
-    full_buf = torch.empty(n_full, dtype=torch.int32, device=dev)
+    n_delta, n_full = buffer_lens(p_cap, wa, wd, budget, sentinels, incr,
+                                  lfa is not None)
+    lead = metric.shape[:-1]
+    delta_buf = torch.empty(lead + (n_delta,), dtype=torch.int32, device=dev)
+    full_buf = torch.empty(lead + (n_full,), dtype=torch.int32, device=dev)
     nblk = -(-p_cap // _BLOCK)
-    blk = torch.empty(4 * nblk, dtype=torch.int32, device=dev)
+    blk = torch.empty(g * 4 * nblk, dtype=torch.int32, device=dev)
     p = cuda.ptr
+    if lfa is not None:
+        _int32(*lfa)
+        lfa_ptrs = tuple(p(t) for t in lfa)
+    else:
+        lfa_ptrs = (0, 0, 0, 0)
     rows = (p(metric), p(s3w), p(nhw), p(ok), p(prev_metric), p(prev_s3w),
-            p(prev_nhw), p(flags))
-    cuda.launch("compact", "compact_count", "ppppppppp" + "iiii",
-                *rows, p(blk), p_cap, a_cap, wa, wd)
+            p(prev_nhw), flags.data_ptr(), *lfa_ptrs)
+    cuda.launch("compact", "compact_count", "pppppppppppp" + "piiiiiL",
+                *rows, p(blk), p_cap, a_cap, wa, wd, g, flags_stride)
     cone, fell = (p(t) for t in incr_tail) if incr else (0, 0)
-    cuda.launch("compact", "compact_scan", "pipp" + "iiiii" + "pp",
+    if lanes:
+        trips_i = rounds_i = 0
+        tr = p(trips)
+    else:
+        trips_i, rounds_i, tr = int(trips), int(rounds), 0
+    cuda.launch("compact", "compact_scan", "pipp" + "iiiii" + "pppi",
                 p(blk), nblk, p(delta_buf), p(full_buf), n_delta, n_full,
-                int(trips), int(rounds), int(sentinels), cone, fell)
-    cuda.launch("compact", "compact_scatter", "ppppppppppp" + "iiiii",
+                trips_i, rounds_i, int(sentinels), cone, fell, tr, g)
+    cuda.launch("compact", "compact_scatter",
+                "pppppppppppp" + "ppp" + "iiiiiiiiL",
                 *rows, p(blk), p(delta_buf), p(full_buf), p_cap, a_cap, wa,
-                wd, budget)
+                wd, budget, n_delta, n_full, g, flags_stride)
     compact_outputs.launches += 3
     return delta_buf, full_buf
 

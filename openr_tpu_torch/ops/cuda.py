@@ -36,7 +36,7 @@ NVCC_FLAGS = (
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[tuple, object] = {}
-_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int}
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "L": ctypes.c_longlong}
 
 
 def _nvcc() -> str:
@@ -101,8 +101,9 @@ def _lib(name: str) -> ctypes.CDLL:
 
 def launch(lib: str, fn: str, sig: str, *args) -> None:
     """Call the C entry point ``fn`` of ``csrc/<lib>.cu`` with ``args``
-    (``sig``: one letter per argument, ``p`` pointer / ``i`` int) plus
-    the current CUDA stream, and raise if the launch was refused."""
+    (``sig``: one letter per argument, ``p`` pointer, ``i`` int, ``L``
+    64-bit int) plus the current CUDA stream, and raise if the launch
+    was refused."""
     key = (lib, fn)
     f = _fns.get(key)
     if f is None:

@@ -21,12 +21,24 @@ Wrappers (``sssp_init``, ``relax_step``, ``ladder_classes``,
 tensor and run the plain version (``*_plain``) only on a CPU tensor.
 Each counts its kernel launches in ``<wrapper>.launches``.
 
+Fused solves (the port of ``tpu_solver._fused_pipeline``, a vmap of the
+cold pipeline over ``g`` same-shape areas) pass every plane with a
+leading lane axis — [g, D, n_cap] distances, [g, s_cap, n_cap] weights —
+and one launch covers every lane. Under vmap each lane's loop carry
+advances only while its own predicate holds, so a lane's trips and
+rounds equal its unfused run's; ``Lanes`` keeps that per lane on the
+device (change stamps and counters, ``Gate``) and the host still reads
+one flag word per trip: the OR over lanes. The plain versions loop over
+the lanes with the same gates.
+
 INF discipline (ops/edgeplan.py): weights <= 2^28, INF_E = 2^29, so
 ``dist + w <= 2^30`` and a rung composition ``w + w`` peaks at 2^30
 before its clip back to INF_E — int32-exact everywhere.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -96,10 +108,107 @@ def _int32(*ts) -> None:
             raise ValueError("expected contiguous int32 tensors")
 
 
+# -- lane gates of a fused solve ---------------------------------------------
+
+# a threshold every stamp passes, and a put stamp that is not stored
+ALWAYS = -(2**31)
+KEEP = -(2**31)
+
+
+class Gate(NamedTuple):
+    """Which lanes one launch of a fused solve runs, and what it records.
+    Lane l is open iff ``st[l, 0] >= thr[0]`` and ``st[l, 1] >= thr[1]``;
+    an open lane that changed stores ``put`` (``KEEP`` stores nothing)
+    and every open lane adds ``inc`` to ``cnt[l]``. ``st`` [g, 2] holds
+    the stamps of each lane's last change, ``cnt`` [g, 2] its (trips or
+    epochs, rounds)."""
+
+    st: torch.Tensor
+    cnt: torch.Tensor
+    thr: tuple = (ALWAYS, ALWAYS)
+    put: tuple = (KEEP, KEEP)
+    inc: tuple = (0, 0)
+
+    def is_open(self, lane: int) -> bool:
+        return bool(self.st[lane, 0] >= self.thr[0]
+                    and self.st[lane, 1] >= self.thr[1])
+
+    def close(self, lane: int, changed: bool) -> None:
+        if changed:
+            for j in (0, 1):
+                if self.put[j] != KEEP:
+                    self.st[lane, j] = self.put[j]
+        self.cnt[lane, 0] += self.inc[0]
+        self.cnt[lane, 1] += self.inc[1]
+
+
+class Lanes:
+    """Per-lane loop state of a fused solve of ``g`` areas, on the
+    device: change stamps (-1: every lane runs the first step) and the
+    (trips or epochs, rounds) counters K4 writes into each lane's
+    payload."""
+
+    def __init__(self, g: int, device):
+        self.st = torch.full((g, 2), -1, dtype=torch.int32, device=device)
+        self.cnt = torch.zeros((g, 2), dtype=torch.int32, device=device)
+
+    def gate(self, thr=(ALWAYS, ALWAYS), put=(KEEP, KEEP),
+             inc=(0, 0)) -> Gate:
+        return Gate(self.st, self.cnt, thr, put, inc)
+
+
+def _gate_args(gate: Optional[Gate]) -> tuple:
+    """The kernels' trailing gate arguments (null ``st``: no gating)."""
+    if gate is None:
+        return (0, 0, 0, 0, 0, 0, 0, 0)
+    return (cuda.ptr(gate.st), cuda.ptr(gate.cnt), *gate.thr, *gate.put,
+            *gate.inc)
+
+
+def _lanes_of(t: torch.Tensor, plane_dims: int) -> int:
+    """Number of stacked lanes of ``t`` (1 without a lane axis)."""
+    return t.shape[0] if t.dim() > plane_dims else 1
+
+
+def _each_lane(gate: Optional[Gate], flag, g: int, body) -> None:
+    """Plain lane loop: ``body(l, f)`` for each lane the gate opens, with
+    a fresh lane flag ``f`` that is ORed into ``flag`` and commits the
+    lane's gate."""
+    for lane in range(g):
+        if gate is not None and not gate.is_open(lane):
+            continue
+        f = torch.zeros(1, dtype=torch.int32,
+                        device=None if flag is None else flag.device)
+        body(lane, f)
+        if gate is not None:
+            gate.close(lane, bool(f))
+        if flag is not None:
+            flag |= f
+
+
+def _lane(x, lane: int):
+    """Lane ``lane`` of a stacked tensor, or of each tensor of a tuple
+    (None stays None)."""
+    if x is None:
+        return None
+    if isinstance(x, tuple):
+        return tuple(t[lane] for t in x)
+    return x[lane]
+
+
 # -- K1s: root masking + seed plane ----------------------------------------
 
-def sssp_init_plain(shift_w, res_rows, res_nbr, res_w, root: int,
-                    seeds_nbr, seeds_w):
+def sssp_init_plain(shift_w, res_rows, res_nbr, res_w, root, seeds_nbr,
+                    seeds_w):
+    if shift_w.dim() == 3:
+        roots = root.tolist()
+        outs = [sssp_init_plain(shift_w[lane], res_rows[lane],
+                                res_nbr[lane], res_w[lane], roots[lane],
+                                seeds_nbr[lane], seeds_w[lane])
+                for lane in range(shift_w.shape[0])]
+        return (torch.stack([o[0] for o in outs]),
+                tuple(torch.stack([o[1][j] for o in outs]) for j in range(3)),
+                torch.stack([o[2] for o in outs]))
     n_cap = shift_w.shape[1]
     sw = shift_w.clone()
     sw[:, root] = INF_E
@@ -118,31 +227,41 @@ def sssp_init_plain(shift_w, res_rows, res_nbr, res_w, root: int,
     return sw, (rows_c, nbr_c, rw), dist0
 
 
-def sssp_init(shift_w, res_rows, res_nbr, res_w, root: int, seeds_nbr,
+def sssp_init(shift_w, res_rows, res_nbr, res_w, root, seeds_nbr,
               seeds_w):
     """-> (sw, (rows_c, nbr_c, rw), dist0): the root-masked class
     weights (the root is never a transit node), the clipped and
     root-masked residual ELL, and the [D, n_cap] seed plane (0 at each
-    live out-neighbour, INF_E elsewhere)."""
+    live out-neighbour, INF_E elsewhere). With a lane axis every input
+    and output is stacked over ``g`` areas and ``root`` is an int32
+    tensor [g] of their roots."""
     if _is_cpu(shift_w):
         return sssp_init_plain(shift_w, res_rows, res_nbr, res_w, root,
                                seeds_nbr, seeds_w)
     _int32(shift_w, res_rows, res_nbr, res_w, seeds_nbr, seeds_w)
-    s_cap, n_cap = shift_w.shape
-    r_cap, kr_cap = res_nbr.shape
-    d_cap = seeds_nbr.shape[0]
+    g = _lanes_of(shift_w, 2)
+    s_cap, n_cap = shift_w.shape[-2:]
+    r_cap, kr_cap = res_nbr.shape[-2:]
+    d_cap = seeds_nbr.shape[-1]
+    if isinstance(root, torch.Tensor):
+        _int32(root)
+        if shift_w.dim() != 3 or root.shape != (g,):
+            raise ValueError("per-lane roots need stacked [g, ...] planes")
+        root_i, roots = 0, cuda.ptr(root)
+    else:
+        root_i, roots = int(root), 0
     sw = torch.empty_like(shift_w)
     rows_c = torch.empty_like(res_rows)
     nbr_c = torch.empty_like(res_nbr)
     rw = torch.empty_like(res_w)
-    dist0 = torch.empty((d_cap, n_cap), dtype=torch.int32,
+    dist0 = torch.empty(seeds_nbr.shape + (n_cap,), dtype=torch.int32,
                         device=shift_w.device)
     p = cuda.ptr
     cuda.launch(
-        "relax", "sssp_init", "pppppppppppiiiiii",
+        "relax", "sssp_init", "pppppppppppiiiiiipi",
         p(shift_w), p(sw), p(res_rows), p(res_nbr), p(res_w), p(rows_c),
         p(nbr_c), p(rw), p(seeds_nbr), p(seeds_w), p(dist0),
-        s_cap, n_cap, r_cap, kr_cap, d_cap, int(root),
+        s_cap, n_cap, r_cap, kr_cap, d_cap, root_i, roots, g,
     )
     sssp_init.launches += 1
     return sw, (rows_c, nbr_c, rw), dist0
@@ -153,11 +272,20 @@ sssp_init.launches = 0
 
 # -- K1: one Jacobi relaxation ---------------------------------------------
 
+_GATE_SIG = "ppiiiiii"
+
+
 def _roll(x, shift: int):
     return torch.roll(x, shift, dims=-1)
 
 
-def relax_step_plain(dist, out, flag, deltas, sw, residual) -> None:
+def relax_step_plain(dist, out, flag, deltas, sw, residual,
+                     gate: Optional[Gate] = None) -> None:
+    if dist.dim() == 3:
+        _each_lane(gate, flag, dist.shape[0], lambda lane, f: relax_step_plain(
+            dist[lane], out[lane], f, deltas[lane], sw[lane],
+            _lane(residual, lane)))
+        return
     acc = torch.full_like(dist, INF_E)
     for k, dk in enumerate(deltas.tolist()):
         acc = torch.minimum(acc, _roll(dist + sw[k], dk))
@@ -173,30 +301,38 @@ def relax_step_plain(dist, out, flag, deltas, sw, residual) -> None:
     out.copy_(new)
 
 
-def relax_step(dist, out, flag, deltas, sw, residual) -> None:
+def relax_step(dist, out, flag, deltas, sw, residual,
+               gate: Optional[Gate] = None) -> None:
     """out = min(dist, min_k roll(dist + sw[k], deltas[k]), residual
     scatter-min) computed from ``dist`` alone (Jacobi — ``out`` is a
     different buffer); ORs 1 into ``flag`` when any word decreased.
-    ``residual`` is None when the plan has no residual edges."""
+    ``residual`` is None when the plan has no residual edges. Stacked
+    [g, ...] inputs relax every lane the ``gate`` opens."""
     if _is_cpu(dist):
-        relax_step_plain(dist, out, flag, deltas, sw, residual)
+        relax_step_plain(dist, out, flag, deltas, sw, residual, gate)
         return
     _int32(dist, out, flag, deltas, sw)
-    d_cap, n_cap = dist.shape
+    g = _lanes_of(dist, 2)
+    d_cap, n_cap = dist.shape[-2:]
+    s_cap = sw.shape[-2]
     p = cuda.ptr
+    ga = _gate_args(gate)
     cuda.launch(
-        "relax", "relax_shift", "ppppiiip",
-        p(dist), p(out), p(deltas), p(sw), d_cap, n_cap, sw.shape[0],
-        p(flag),
+        "relax", "relax_shift", "ppppiiipi" + _GATE_SIG,
+        p(dist), p(out), p(deltas), p(sw), d_cap, n_cap, s_cap, p(flag), g,
+        *ga,
     )
     relax_step.launches += 1
     if residual is not None:
         rows_c, nbr_c, rw = residual
         _int32(rows_c, nbr_c, rw)
+        if gate is not None:
+            # the shift launch counted this step for every open lane
+            ga = _gate_args(gate._replace(inc=(0, 0)))
         cuda.launch(
-            "relax", "relax_residual", "pppppiiiip",
+            "relax", "relax_residual", "pppppiiiipi" + _GATE_SIG,
             p(dist), p(out), p(rows_c), p(nbr_c), p(rw), d_cap, n_cap,
-            nbr_c.shape[0], nbr_c.shape[1], p(flag),
+            nbr_c.shape[-2], nbr_c.shape[-1], p(flag), g, *ga,
         )
         relax_step.launches += 1
 
@@ -207,6 +343,11 @@ relax_step.launches = 0
 # -- K2: the Δ-stepping ladder ---------------------------------------------
 
 def ladder_classes_plain(sw, deltas, dq: int, s_lad: int):
+    if sw.dim() == 3:
+        outs = [ladder_classes_plain(sw[lane], deltas[lane], dq, s_lad)
+                for lane in range(sw.shape[0])]
+        return (torch.stack([o[0] for o in outs]),
+                torch.stack([o[1] for o in outs]))
     n_cap = sw.shape[1]
     score = (sw <= dq).sum(dim=1, dtype=torch.int32)
     lad = torch.sort(score, descending=True, stable=True).indices[:s_lad]
@@ -220,24 +361,31 @@ def ladder_classes(sw, deltas, dq: int, s_lad: int):
     """-> (w_base [s_lad, n_cap], d_base [s_lad]): the ``s_lad`` shift
     classes with the most light edges (weight <= dq; ties to the lower
     class, as ``lax.top_k``), their weights with heavy edges masked to
-    INF_E, and their shifts reduced mod n_cap."""
+    INF_E, and their shifts reduced mod n_cap. Stacked inputs pick per
+    lane ([g, s_lad, n_cap], [g, s_lad])."""
     if _is_cpu(sw):
         return ladder_classes_plain(sw, deltas, dq, s_lad)
     _int32(sw, deltas)
-    s_cap, n_cap = sw.shape
-    score = torch.empty(s_cap, dtype=torch.int32, device=sw.device)
+    g = _lanes_of(sw, 2)
+    s_cap, n_cap = sw.shape[-2:]
+    lead = sw.shape[:-2]
+    score = torch.empty(lead + (s_cap,), dtype=torch.int32, device=sw.device)
     p = cuda.ptr
-    cuda.launch("relax", "ladder_score", "ppiii",
-                p(sw), p(score), s_cap, n_cap, int(dq))
+    cuda.launch("relax", "ladder_score", "ppiiii",
+                p(sw), p(score), s_cap, n_cap, int(dq), g)
     ladder_classes.launches += 1
     # the only torch op on the queued path: picking <= 8 of s_cap scores
-    lad = torch.sort(score, descending=True, stable=True).indices[:s_lad]
+    # (per lane)
+    lad = torch.sort(score, dim=-1, descending=True,
+                     stable=True).indices[..., :s_lad]
     lad = lad.contiguous()
-    w_base = torch.empty((s_lad, n_cap), dtype=torch.int32, device=sw.device)
-    d_base = torch.empty(s_lad, dtype=torch.int32, device=sw.device)
-    cuda.launch("relax", "ladder_gather", "pppppiii",
-                p(sw), p(deltas), p(lad), p(w_base), p(d_base), s_lad,
-                n_cap, int(dq))
+    w_base = torch.empty(lead + (s_lad, n_cap), dtype=torch.int32,
+                         device=sw.device)
+    d_base = torch.empty(lead + (s_lad,), dtype=torch.int32,
+                         device=sw.device)
+    cuda.launch("relax", "ladder_gather", "pppppiiiii",
+                p(sw), p(deltas), p(lad), p(w_base), p(d_base), s_cap, s_lad,
+                n_cap, int(dq), g)
     ladder_classes.launches += 1
     return w_base, d_base
 
@@ -245,47 +393,62 @@ def ladder_classes(sw, deltas, dq: int, s_lad: int):
 ladder_classes.launches = 0
 
 
-def ladder_apply_plain(src, dst, w, d, k: int, flag) -> None:
+def ladder_apply_plain(src, dst, w, d, k: int, flag,
+                       gate: Optional[Gate] = None) -> None:
+    if src.dim() == 3:
+        _each_lane(gate, flag, src.shape[0], lambda lane, f: (
+            ladder_apply_plain(src[lane], dst[lane], w[lane], d[lane], k, f)))
+        return
     new = torch.minimum(src, _roll(src + w[k], int(d[k])))
     flag |= (new < src).any().to(torch.int32)
     dst.copy_(new)
 
 
-def ladder_apply(src, dst, w, d, k: int, flag) -> None:
+def ladder_apply(src, dst, w, d, k: int, flag,
+                 gate: Optional[Gate] = None) -> None:
     """One class application of a ladder pass: dst = min(src,
-    roll(src + w[k], d[k])); ORs ``flag`` on any decrease."""
+    roll(src + w[k], d[k])); ORs ``flag`` on any decrease. Stacked
+    inputs apply every lane the ``gate`` opens."""
     if _is_cpu(src):
-        ladder_apply_plain(src, dst, w, d, k, flag)
+        ladder_apply_plain(src, dst, w, d, k, flag, gate)
         return
     _int32(src, dst, w, d, flag)
-    d_cap, n_cap = src.shape
+    g = _lanes_of(src, 2)
+    d_cap, n_cap = src.shape[-2:]
     p = cuda.ptr
-    cuda.launch("relax", "ladder_apply", "ppppiiip",
-                p(src), p(dst), p(w), p(d), int(k), d_cap, n_cap, p(flag))
+    cuda.launch("relax", "ladder_apply", "ppppiiiipi" + _GATE_SIG,
+                p(src), p(dst), p(w), p(d), int(k), w.shape[-2], d_cap,
+                n_cap, p(flag), g, *_gate_args(gate))
     ladder_apply.launches += 1
 
 
 ladder_apply.launches = 0
 
 
-def ladder_rung_plain(w, d, w2, d2) -> None:
+def ladder_rung_plain(w, d, w2, d2, gate: Optional[Gate] = None) -> None:
+    if w.dim() == 3:
+        _each_lane(gate, None, w.shape[0], lambda lane, f: (
+            ladder_rung_plain(w[lane], d[lane], w2[lane], d2[lane])))
+        return
     n_cap = w.shape[1]
     for k, dk in enumerate(d.tolist()):
         w2[k] = torch.clamp_max(w[k] + _roll(w[k], -dk), INF_E)
     d2.copy_(torch.remainder(d * 2, n_cap))
 
 
-def ladder_rung(w, d, w2, d2) -> None:
+def ladder_rung(w, d, w2, d2, gate: Optional[Gate] = None) -> None:
     """Rung doubling into separate buffers: w2[k] = min(w[k] +
-    roll(w[k], -d[k]), INF_E), d2 = 2 d mod n_cap."""
+    roll(w[k], -d[k]), INF_E), d2 = 2 d mod n_cap. Stacked inputs double
+    the rungs of every lane the ``gate`` opens."""
     if _is_cpu(w):
-        ladder_rung_plain(w, d, w2, d2)
+        ladder_rung_plain(w, d, w2, d2, gate)
         return
     _int32(w, d, w2, d2)
-    s_lad, n_cap = w.shape
+    g = _lanes_of(w, 2)
+    s_lad, n_cap = w.shape[-2:]
     p = cuda.ptr
-    cuda.launch("relax", "ladder_rung", "ppppii",
-                p(w), p(d), p(w2), p(d2), s_lad, n_cap)
+    cuda.launch("relax", "ladder_rung", "ppppiii" + _GATE_SIG,
+                p(w), p(d), p(w2), p(d2), s_lad, n_cap, g, *_gate_args(gate))
     ladder_rung.launches += 1
 
 
@@ -306,18 +469,27 @@ def read_flag(flag) -> bool:
 read_flag.reads = 0
 
 
-def run_sync(step, dist0, bound: int):
+def run_sync(step, dist0, bound: int, lanes: Optional[Lanes] = None):
     """Synchronous rounds to fixpoint: ``UNROLL`` applications of
     ``step`` (the ``relax_step`` signature) per trip, exiting on the
     first no-change trip or at ``bound`` trips. ``dist0`` is consumed
     as scratch. Returns ``(dist, trips, rounds)``, rounds = trips *
-    UNROLL."""
+    UNROLL.
+
+    With ``lanes`` (a fused solve, ``dist0`` [g, D, n_cap]) ``step``
+    also takes a gate: lane l runs trip t iff it changed in trip t - 1,
+    and ``lanes.cnt[l]`` counts its own (trips, rounds); the returned
+    counts are the host loop's, the largest lane's."""
     cur, spare = dist0, torch.empty_like(dist0)
     flag = torch.zeros(1, dtype=torch.int32, device=dist0.device)
     trips = 0
     while True:
-        for _ in range(UNROLL):
-            step(cur, spare, flag)
+        for i in range(UNROLL):
+            if lanes is None:
+                step(cur, spare, flag)
+            else:
+                step(cur, spare, flag, lanes.gate(
+                    (trips - 1, ALWAYS), (trips, KEEP), (int(i == 0), 1)))
             cur, spare = spare, cur
         trips += 1
         if not read_flag(flag) or trips >= bound:
@@ -326,7 +498,8 @@ def run_sync(step, dist0, bound: int):
 
 def run_bucketed(step, dist0, deltas, sw, n_cap: int, s_cap: int,
                  delta_exp: int, classes=ladder_classes,
-                 apply=ladder_apply, rung=ladder_rung):
+                 apply=ladder_apply, rung=ladder_rung,
+                 lanes: Optional[Lanes] = None):
     """Bucketed Δ-stepping to the exact fixpoint. Per epoch: ladder
     passes (each applies every laddered class's current rung in order,
     then doubles the rungs) until a pass changes nothing or
@@ -335,7 +508,13 @@ def run_bucketed(step, dist0, deltas, sw, n_cap: int, s_cap: int,
     ``apply`` and ``rung`` default to the kernel wrappers; the plain
     versions slot in to run the whole loop as the reference. Returns
     ``(dist, epochs, rounds)`` with rounds = ladder passes + one
-    handoff per epoch."""
+    handoff per epoch.
+
+    With ``lanes`` (a fused solve) every launch takes a gate: lane l runs
+    epoch e iff it changed in epoch e - 1, and ladder pass j > 0 of it
+    iff it changed in pass j - 1 (stamps: the epoch, and a serial number
+    over all passes); ``lanes.cnt[l]`` counts its own (epochs, rounds).
+    The returned counts are the host loop's."""
     s_lad = min(s_cap, LADDER_WIDTH)
     j_cap = ladder_depth(n_cap)
     epoch_bound = max_trips(n_cap) * UNROLL
@@ -345,23 +524,36 @@ def run_bucketed(step, dist0, deltas, sw, n_cap: int, s_cap: int,
     d_bufs = (torch.empty_like(d_base), torch.empty_like(d_base))
     cur, spare = dist0, torch.empty_like(dist0)
     flag = torch.zeros(1, dtype=torch.int32, device=dist0.device)
+
+    def gate(*args):
+        return None if lanes is None else lanes.gate(*args)
+
     epochs = rounds = 0
+    q = 0  # ladder passes so far, over all epochs (the pass stamp)
     while True:
         epoch_changed = False
         w, d = w_base, d_base
         j = 0
         while True:
             for k in range(s_lad):
-                apply(cur, spare, w, d, k, flag)
+                apply(cur, spare, w, d, k, flag, gate(
+                    (epochs - 1, q - 1 if j else ALWAYS), (epochs, q),
+                    (0, int(k == 0))))
                 cur, spare = spare, cur
-            rung(w, d, w_bufs[j % 2], d_bufs[j % 2])
+            # only lanes that changed in this pass run the next one
+            rung(w, d, w_bufs[j % 2], d_bufs[j % 2], gate((epochs - 1, q)))
             w, d = w_bufs[j % 2], d_bufs[j % 2]
             j += 1
+            q += 1
             changed = read_flag(flag)
             epoch_changed |= changed
             if not changed or j >= j_cap:
                 break
-        step(cur, spare, flag)
+        if lanes is None:
+            step(cur, spare, flag)
+        else:
+            step(cur, spare, flag,
+                 gate((epochs - 1, ALWAYS), (epochs, KEEP), (1, 1)))
         cur, spare = spare, cur
         epoch_changed |= read_flag(flag)
         epochs += 1
@@ -371,21 +563,25 @@ def run_bucketed(step, dist0, deltas, sw, n_cap: int, s_cap: int,
 
 
 def solve_from(deltas, sw, residual, dist0, kernel: str = "sync",
-               delta_exp: int = 0, bound: int | None = None):
+               delta_exp: int = 0, bound: int | None = None,
+               lanes: Optional[Lanes] = None):
     """Relax the seed plane ``dist0`` [D, n_cap] to the fixpoint under
     the root-masked class weights ``sw`` and ``residual`` (K1s's
     outputs; None without residual edges), by the sync rounds (at most
     ``bound`` trips, ``max_trips(n_cap)`` by default) or the bucketed
     Δ-stepping epochs. ``dist0`` is consumed as scratch. Returns
-    ``(dist, trips, rounds)``; trips counts epochs under bucketed."""
+    ``(dist, trips, rounds)``; trips counts epochs under bucketed. With
+    ``lanes`` the inputs are stacked [g, ...] and each lane's own counts
+    land in ``lanes.cnt``."""
 
-    def step(dist, out, flag):
-        relax_step(dist, out, flag, deltas, sw, residual)
+    def step(dist, out, flag, gate=None):
+        relax_step(dist, out, flag, deltas, sw, residual, gate)
 
-    s_cap, n_cap = sw.shape
+    s_cap, n_cap = sw.shape[-2:]
     if kernel == "bucketed":
-        return run_bucketed(step, dist0, deltas, sw, n_cap, s_cap, delta_exp)
-    return run_sync(step, dist0, bound or max_trips(n_cap))
+        return run_bucketed(step, dist0, deltas, sw, n_cap, s_cap, delta_exp,
+                            lanes=lanes)
+    return run_sync(step, dist0, bound or max_trips(n_cap), lanes)
 
 
 def plan_sssp(deltas, shift_w, res_rows, res_nbr, res_w, root: int,
@@ -401,3 +597,21 @@ def plan_sssp(deltas, shift_w, res_rows, res_nbr, res_w, root: int,
     )
     return solve_from(deltas, sw, residual if has_res else None, dist0,
                       kernel, delta_exp)
+
+
+def plan_sssp_lanes(deltas, shift_w, res_rows, res_nbr, res_w, roots,
+                    seeds_nbr, seeds_w, has_res: bool, kernel: str = "sync",
+                    delta_exp: int = 0):
+    """``plan_sssp`` over ``g`` stacked same-shape areas in one launch a
+    step (the port of ``_fused_pipeline``'s vmapped SSSP): inputs with a
+    leading lane axis, ``roots`` an int32 tensor [g]. Returns ``(dist
+    [g, D, n_cap], counts)``: ``counts`` is the int32 [g, 2] tensor of
+    each lane's own (trips, rounds), on the device — equal to the lane's
+    unfused run."""
+    lanes = Lanes(shift_w.shape[0], shift_w.device)
+    sw, residual, dist0 = sssp_init(
+        shift_w, res_rows, res_nbr, res_w, roots, seeds_nbr, seeds_w
+    )
+    dist, _, _ = solve_from(deltas, sw, residual if has_res else None, dist0,
+                            kernel, delta_exp, lanes=lanes)
+    return dist, lanes.cnt

@@ -8,7 +8,17 @@ Then, per prefix row over its announcer slots, in the reference's order
 (path_preference desc, source_preference desc, advertised distance
 asc), the drained-announcer filter with all-drained fallback, the
 min-IGP announcer set and the union of their next-hop slots, packed 16
-bits per int32 word, and the route-level ok filter.
+bits per int32 word, and the route-level ok filter. With ``lfa``, the
+RFC 5286 loop-free alternate per row: slot d backs the row up iff its
+link is up, it carries no primary next hop, and its neighbour's own
+distance to the selected announcers (the min over s3 of dist_d[d, a])
+beats the detour back through the root (dist_d[d, root] + metric);
+the lowest alternate cost root_w[d] + that distance wins, the first
+slot on ties (-1 and 0 when the row has none).
+
+With a lane axis (a fused solve of ``g`` same-shape areas) every plane
+and output is stacked [g, ...] and ``root`` is an int32 tensor [g];
+one launch per kernel covers every lane.
 
 The announcer matrix arrives packed as ``mbuf`` = six [P, A] int32
 planes: ann_node, flags (bit 0 valid, bit 1 drained, bit 2 of slot 0
@@ -37,8 +47,14 @@ def pack_words(bits):
     return (padded.view(p, w, 16) * weights).sum(dim=2, dtype=torch.int32)
 
 
-def select_routes_plain(dist_d, root_w, root: int, mbuf, p_cap: int,
-                        a_cap: int, block_v4: bool):
+def select_routes_plain(dist_d, root_w, root, mbuf, p_cap: int,
+                        a_cap: int, block_v4: bool, lfa: bool = False):
+    if dist_d.dim() == 3:
+        roots = root.tolist()
+        outs = [select_routes_plain(dist_d[lane], root_w[lane], roots[lane],
+                                    mbuf[lane], p_cap, a_cap, block_v4, lfa)
+                for lane in range(dist_d.shape[0])]
+        return tuple(torch.stack(col) for col in zip(*outs))
     n_cap = dist_d.shape[1]
     via = root_w[:, None] + dist_d
     dist = torch.clamp_max(via.amin(dim=0), INF_E)
@@ -68,39 +84,73 @@ def select_routes_plain(dist_d, root_w, root: int, mbuf, p_cap: int,
     on_sp = (via == dist[None, :]).T  # [N, D]
     nh_mask = (s4[:, :, None] & on_sp[idx]).any(dim=1)  # [P, D]
     ok = route_ok(metric, s3, nh_mask, ann_node, min_nh, v4_blocked, root)
-    return metric, pack_words(s3), pack_words(nh_mask), ok
+    out = (metric, pack_words(s3), pack_words(nh_mask), ok)
+    if not lfa:
+        return out
+    d_root = dist_d[:, root]
+    ann_nd = dist_d.T[idx]  # [P, A, D]
+    nbr_pd = torch.where(s3[:, :, None], ann_nd, INF_E).amin(dim=1)
+    ok_lfa = (
+        (root_w < INF_E)[None, :]
+        & ~nh_mask
+        & (nbr_pd < INF_E)
+        & (nbr_pd < d_root[None, :] + metric[:, None])
+    )
+    alt = torch.where(ok_lfa, root_w[None, :] + nbr_pd, 1 << 30)
+    has = ok_lfa.any(dim=1)
+    # argmin returns the first minimum: the lowest slot breaks ties
+    slot = torch.where(has, alt.argmin(dim=1).to(torch.int32), -1)
+    alt_metric = torch.where(has, alt.amin(dim=1), 0)
+    return out + (slot.to(torch.int32), alt_metric.to(torch.int32))
 
 
-def select_routes(dist_d, root_w, root: int, mbuf, p_cap: int, a_cap: int,
-                  block_v4: bool):
+def select_routes(dist_d, root_w, root, mbuf, p_cap: int, a_cap: int,
+                  block_v4: bool, lfa: bool = False):
     """-> (metric int32 [P], s3w int32 [P, ceil(A/16)], nhw int32
-    [P, ceil(D/16)], ok bool [P])."""
+    [P, ceil(D/16)], ok bool [P]), and with ``lfa`` also (lfa_slot
+    int32 [P], lfa_metric int32 [P]). Stacked inputs ([g, D, n_cap]
+    planes, ``root`` an int32 tensor [g]) give stacked outputs."""
     if _is_cpu(dist_d):
         return select_routes_plain(dist_d, root_w, root, mbuf, p_cap, a_cap,
-                                   block_v4)
+                                   block_v4, lfa)
     _int32(dist_d, root_w, mbuf)
-    d_cap, n_cap = dist_d.shape
-    if mbuf.numel() != 6 * p_cap * a_cap or root_w.shape[0] != d_cap:
+    g = dist_d.shape[0] if dist_d.dim() == 3 else 1
+    d_cap, n_cap = dist_d.shape[-2:]
+    lead = dist_d.shape[:-2]
+    if (mbuf.shape[-1] != 6 * p_cap * a_cap or mbuf.numel() != g * 6 * p_cap
+            * a_cap or root_w.shape[-1] != d_cap):
         raise ValueError("mbuf / root_w do not match the plane shapes")
+    if isinstance(root, torch.Tensor):
+        _int32(root)
+        if dist_d.dim() != 3 or root.shape != (g,):
+            raise ValueError("per-lane roots need stacked [g, D, n] planes")
+        root_i, roots = 0, cuda.ptr(root)
+    else:
+        root_i, roots = int(root), 0
     dev = dist_d.device
-    dist = torch.empty(n_cap, dtype=torch.int32, device=dev)
-    onsp = torch.empty((n_cap, -(-d_cap // 32)), dtype=torch.int32,
-                       device=dev)
-    metric = torch.empty(p_cap, dtype=torch.int32, device=dev)
-    s3w = torch.empty((p_cap, -(-a_cap // 16)), dtype=torch.int32,
-                      device=dev)
-    nhw = torch.empty((p_cap, -(-d_cap // 16)), dtype=torch.int32,
-                      device=dev)
-    ok = torch.empty(p_cap, dtype=torch.bool, device=dev)
+
+    def empty(*shape, dtype=torch.int32):
+        return torch.empty(lead + shape, dtype=dtype, device=dev)
+
+    dist = empty(n_cap)
+    onsp = empty(n_cap, -(-d_cap // 32))
+    metric = empty(p_cap)
+    s3w = empty(p_cap, -(-a_cap // 16))
+    nhw = empty(p_cap, -(-d_cap // 16))
+    ok = empty(p_cap, dtype=torch.bool)
+    lfa_out = (empty(p_cap), empty(p_cap)) if lfa else None
     p = cuda.ptr
-    cuda.launch("select", "select_nodes", "ppppiii",
-                p(dist_d), p(root_w), p(dist), p(onsp), d_cap, n_cap,
-                int(root))
-    cuda.launch("select", "select_prefixes", "ppppppp" + "iiiiii",
+    cuda.launch("select", "select_nodes", "ppppiiipi",
+                p(dist_d), p(root_w), p(dist), p(onsp), d_cap, n_cap, root_i,
+                roots, g)
+    lfa_ptrs = (p(dist_d), p(root_w), *map(p, lfa_out)) if lfa else (0,) * 4
+    cuda.launch("select", "select_prefixes", "ppppppp" + "iiiiii" + "piipppp",
                 p(mbuf), p(dist), p(onsp), p(metric), p(s3w), p(nhw), p(ok),
-                p_cap, a_cap, n_cap, d_cap, int(root), int(block_v4))
+                p_cap, a_cap, n_cap, d_cap, root_i, int(block_v4), roots, g,
+                int(lfa), *lfa_ptrs)
     select_routes.launches += 2
-    return metric, s3w, nhw, ok
+    out = (metric, s3w, nhw, ok)
+    return out + lfa_out if lfa else out
 
 
 select_routes.launches = 0

@@ -38,8 +38,7 @@ def from_jax_state(args, device="cuda") -> dict:
     the incremental pipeline's six (``JAX_INCR_ARGS``). Returns the
     keyword arguments of ``gpu_solver.pipeline``: int32 tensors on
     ``device``, ``root`` as an int and, with the incremental six,
-    ``incr`` as their tuple (``cone_limit`` an int). The LFA passthrough
-    planes are dropped (the port's pipeline runs without LFA)."""
+    ``incr`` as their tuple (``cone_limit`` an int)."""
     n = len(JAX_ARGS)
     if len(args) not in (n, n + len(JAX_INCR_ARGS)):
         raise ValueError(
@@ -54,8 +53,6 @@ def from_jax_state(args, device="cuda") -> dict:
 
     out = {}
     for name, arr in zip(JAX_ARGS, args):
-        if name.startswith("prev_lfa"):
-            continue
         out[name] = int(np.asarray(arr)) if name == "root" else tensor(arr)
     if len(args) > n:
         *planes, cone_limit = args[n:]

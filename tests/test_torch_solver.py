@@ -282,8 +282,9 @@ def test_entry_points_refuse_cpu_default(port, monkeypatch):
         port.gpu_solver.GpuSpfSolver("a")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         weights.from_jax_state([np.zeros(1)] * len(weights.JAX_ARGS))
-    with pytest.raises(NotImplementedError):
-        port.gpu_solver.GpuSpfSolver("a", device="cpu", enable_lfa=True)
+    # LFA is ported: the option is taken, not refused
+    lfa = port.gpu_solver.GpuSpfSolver("a", device="cpu", enable_lfa=True)
+    assert lfa.cpu.enable_lfa
     assert port.gpu_solver.GpuSpfSolver("a", device="cpu").device.type == "cpu"
 
 
@@ -324,3 +325,65 @@ def test_port_imports_nothing_of_jax():
     )
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("threshold", [0, 16])
+def test_area_above_multichip_threshold_solves_on_one_card(port, threshold):
+    """With the multichip threshold off (0) or below the area's n_cap
+    (a 5 x 5 grid has 32 node slots), one device solves the area — as
+    the reference's ``_mc_mesh_for`` keeps its tier off below two
+    devices — and the RIB is the oracle's."""
+    adj_dbs, pdbs = topologies.grid(5)
+    (states, ps), (pstates, pps) = _both_states(port, adj_dbs, pdbs)
+    me = "node-2-2"
+    solver = port.gpu_solver.GpuSpfSolver(
+        me, device="cpu", multichip_n_cap_threshold=threshold)
+    got = solver.build_route_db(me, pstates, pps)
+    assert solver._area_dev["0"].plan.n_cap > threshold
+    assert_rib_equal(SpfSolver(me).build_route_db(me, states, ps), got)
+
+
+def test_multichip_tier_engages_only_with_two_cards(port, monkeypatch):
+    """The tier (still refused) engages only above a positive threshold
+    with two or more cards visible."""
+    torch = port.torch
+    solver = port.gpu_solver.GpuSpfSolver("a", device="cpu",
+                                          multichip_n_cap_threshold=64)
+    assert not solver._mc_tier_engaged(128)  # the CPU is one device
+    solver.device = torch.device("cuda")
+    for cards, n_cap, thr, want in ((1, 128, 64, False), (2, 128, 64, True),
+                                    (2, 64, 64, False), (4, 128, 0, False)):
+        monkeypatch.setattr(torch.cuda, "device_count", lambda c=cards: c)
+        solver.multichip_n_cap_threshold = thr
+        assert solver._mc_tier_engaged(n_cap) is want, (cards, n_cap, thr)
+
+
+def test_prefix_matrix_is_memoized_on_the_prefix_state(port, monkeypatch):
+    """Two solvers over one live PrefixState build the announcer matrix
+    once; a prefix change builds it again, once."""
+    gs = port.gpu_solver
+    builds = []
+    real = gs.build_prefix_matrix
+
+    def counting(*a, **k):
+        builds.append(a[2])
+        return real(*a, **k)
+
+    monkeypatch.setattr(gs, "build_prefix_matrix", counting)
+    adj_dbs, pdbs = topologies.grid(4)
+    (states, ps), (pstates, pps) = _both_states(port, adj_dbs, pdbs)
+    first = gs.GpuSpfSolver("node-0-0", device="cpu")
+    first.build_route_db("node-0-0", pstates, pps)
+    second = gs.GpuSpfSolver("node-1-1", device="cpu")
+    got = second.build_route_db("node-1-1", pstates, pps)
+    assert builds == ["0"]
+    assert second._area_dev["0"].matrix is first._area_dev["0"].matrix
+    assert_rib_equal(SpfSolver("node-1-1").build_route_db("node-1-1", states,
+                                                          ps), got)
+    db = prefix_db("node-3-3", "fd00::77/128")
+    ps.update_prefix_database(db)
+    pps.update_prefix_database(to_port(db, port.types))
+    for solver, me in ((first, "node-0-0"), (second, "node-1-1")):
+        got = solver.build_route_db(me, pstates, pps)
+        assert_rib_equal(SpfSolver(me).build_route_db(me, states, ps), got)
+    assert builds == ["0", "0"]
