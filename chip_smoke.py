@@ -55,11 +55,38 @@ prints no result line:
   7. the churn kernels (K5-K9, K4 with the incremental tail) and the
      whole incremental solve against their plain versions on the last
      flap step's own inputs, timed beside their bounds and, for K5 and
-     K7, the one PyTorch call that computes the same scatter.
+     K7, the one PyTorch call that computes the same scatter;
+  8. flapstorm100k (BASELINE config 5, bench.py's flapstorm lane): a
+     ``GpuSpfSolver(streaming_pipeline=True, small_graph_nodes=0)`` on
+     the lsdb100k cell takes a cold build and a warm-up flap of
+     ``adj_dbs[1]`` (round 7919), then 200 flaps asked at 100 Hz over
+     ``adj_dbs[1..8]``, each epoch ``dispatch_route_db``,
+     ``collect_route_db`` and ``calculate_update`` against the previous
+     RIB, with the counts zeroed before each epoch and read after it;
+     then a flap of the root's own links (over the 64-row budget: the
+     full pull, the budget grows), three quiet flaps (it settles back to
+     64) and an idle epoch (0 rows, exactly 1,308 B). The RIB at storm
+     epochs 0, 100 and 199 and at the idle epoch equals a fresh
+     solver's cold solve, the last also the oracle's. It prints every
+     epoch (changed rows, budget, overflow, bytes, launches, flag reads,
+     time split) and a summary: the p50 / p99 of flap-apply to RIB
+     delta, bytes per epoch, streamed epochs, overflows and the rate
+     achieved against the 100 Hz asked (the cold checks are not timed
+     as storm). K4
+     ``[stream]`` is held against its plain version on the main path's
+     selection outputs;
+  9. UCMP on fabric10k: 13 anycast VIPs announced by 4 remote rsws each
+     (weights 1-9, prefix-weight and adjacency-weight modes; one VIP
+     with weights past 2^24 whose path counts overflow), solved by
+     ``GpuSpfSolver(enable_ucmp=True)``: the RIB equals
+     ``SpfSolver(enable_ucmp=True)``'s, 12 VIPs resolve on the card and
+     the overflow one on the host walk; ``base_sssp`` and
+     ``ucmp_propagate`` against their plain versions on fabric10k and
+     on the lsdb100k grid (the deep DAG), timed on fabric10k.
 
 Output: phase lines, then one ``{"kernels": [...]}`` JSON line (every
-kernel and its LFA and fused variants, each with the launches of the path
-that runs it), the card's
+kernel and its LFA, fused and stream variants, each with the launches of
+the path that runs it), the card's
 name and power limit as nvidia-smi reports them, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -72,6 +99,7 @@ import random
 import subprocess
 import sys
 import time
+import types
 
 # device peaks of one H100 SXM (NVIDIA data sheet) used for the bounds:
 # HBM3 bytes/s, and the non-tensor-core 32-bit rate (the data sheet's
@@ -81,6 +109,9 @@ PEAK_OPS_S = 67e12
 
 LSDB100K_SIDE = 316
 LSDB100K_ROOT = "node-158-158"
+# fabric10k (bench.py:1131): 96 pods x 8 planes, 36 spines a plane, 64 rsws
+# a pod
+FABRIC = dict(pods=96, planes=8, ssws_per_plane=36, rsws_per_pod=64)
 # the fused cell: vantage "hub" in FUSED_AREAS grids of FUSED_SIDE^2
 # nodes (n_cap 4096, at the fuse_n_cap bound), each above Decision's
 # auto backend's small-graph cut of 2816 nodes (config.py:130)
@@ -88,6 +119,16 @@ FUSED_SIDE = 56
 FUSED_AREAS = 4
 AUTO_SMALL_GRAPH_NODES = 2816
 DEVICE = "cuda"
+# the flapstorm100k lane (bench.py:553-760, :1163): 200 flaps asked at 100 Hz
+STORM_FLAPS = 200
+STORM_HZ = 100.0
+# the kernels of each path (the wrappers' names)
+COLD_PATH = ("K1s:sssp_init", "K1:relax_step", "K2:ladder_classes",
+             "K2:ladder_apply", "K2:ladder_rung", "K3:select_routes",
+             "K4:compact_outputs")
+CHURN_PATH = COLD_PATH + ("K5:scatter_set", "K6:parent_plane",
+                          "K7:cone_seed", "K8:cone_step", "K9:cone_finish")
+UCMP_PATH = ("base_sssp", "ucmp_propagate")
 
 
 class SmokeError(RuntimeError):
@@ -645,6 +686,382 @@ def fused_kernels(torch, gpu_solver, relax, select, compact, record,
     log("fused pipeline equal to its plain run for every area")
 
 
+def quantile(xs, q: float) -> float:
+    """The q-quantile of ``xs`` (nearest rank, no interpolation)."""
+    s = sorted(xs)
+    return s[min(len(s) - 1, max(0, int(round(q * (len(s) - 1)))))]
+
+
+def stream_kernel(c, metric, s3w, nhw, ok, flags, wa, wd, a_cap) -> None:
+    """K4 [stream] (the bucketed delta with the ok column and the
+    incremental tail) against its plain version on the main path's
+    selection outputs: 41 changed rows (within budget 64, the case
+    timed), and 1,352 (over budget 64; within 4096)."""
+    torch, compact = c.torch, c.compact
+    p_cap = metric.shape[0]
+    tail = (torch.tensor(57, dtype=torch.int32, device=c.dev),
+            torch.tensor(0, dtype=torch.int32, device=c.dev))
+    errs, timed = [], None
+    for stride, budget in ((p_cap // 40, 64), (97, 64), (97, 4096)):
+        prev = (metric.clone(), s3w.clone(), nhw.clone())
+        prev[0][::stride] += 1
+        cargs = (metric, s3w, nhw, ok, *prev, flags, 3, 17, budget, True,
+                 tail, None, True)
+        timed = timed or cargs
+        got = compact.compact_outputs(*cargs)
+        errs.append(max_abs_err(torch, got,
+                                compact.compact_outputs_plain(*cargs)))
+        check(int(got[0][0]) == len(range(0, p_cap, stride)),
+              "K4[stream]: wrong changed-row count")
+        n_delta, _ = compact.buffer_lens(p_cap, wa, wd, budget, True, True,
+                                         False, True)
+        check(got[0].numel() == n_delta == c.stream.stream_payload_len(
+            budget, wa, wd, False, True), "K4[stream]: payload length")
+    n_delta, n_full = compact.buffer_lens(p_cap, wa, wd, 64, True, True,
+                                          False, True)
+    c.record(
+        "K4:compact_outputs[stream]", max(errs),
+        lambda: compact.compact_outputs(*timed),
+        lambda: compact.compact_outputs_plain(*timed),
+        nbytes=4 * (2 * p_cap * (1 + wa + wd) + p_cap * a_cap
+                    + n_delta + n_full) + 2 * p_cap,
+        ops=p_cap * (4 + 2 * (wa + wd) + a_cap),
+    )
+
+
+def flapstorm_phase(c, adj_dbs, states, ps) -> tuple:
+    """The flapstorm100k lane (module docstring, phase 8). Returns the
+    stream path's launches by kernel, and the streaming solver."""
+    torch, gs, relax = c.torch, c.gpu_solver, c.relax
+    by_name = {db.this_node_name: db for db in adj_dbs}
+    root_victim = next(i for i, db in enumerate(adj_dbs)
+                       if db.this_node_name == LSDB100K_ROOT)
+    solver = gs.GpuSpfSolver(LSDB100K_ROOT, device=c.dev,
+                             streaming_pipeline=True, small_graph_nodes=0)
+    solver.build_route_db(LSDB100K_ROOT, states, ps)
+    check(not solver.last_timing.get("stream"),
+          "flapstorm: a vantage's first build is cold")
+    flap(c.AdjacencyDatabase, states, adj_dbs, by_name, 1, 7919)
+    prev_db = solver.build_route_db(LSDB100K_ROOT, states, ps)
+    check(solver.last_timing.get("stream", {}).get("epochs") == 1,
+          "flapstorm: the warm-up flap must stream")
+    vs = solver._vstates[("0", LSDB100K_ROOT)]
+    wa = -(-vs.crib.matrix.ann_node.shape[1] // 16)
+    wd = -(-len(vs.links_tuple) // 16)
+    idle_bytes = 4 * c.stream.stream_payload_len(64, wa, wd, False, True)
+    launches = dict.fromkeys(c.wrappers, 0)
+    recs = []
+
+    def cold_check(label: str, with_oracle: bool) -> None:
+        """The last epoch's RIB against a fresh solver's cold solve."""
+        db = prev_db
+        fresh = gs.GpuSpfSolver(LSDB100K_ROOT, device=c.dev)
+        check(rib_equal(fresh.build_route_db(LSDB100K_ROOT, states, ps), db),
+              f"flapstorm {label}: RIB != a fresh cold solve")
+        if with_oracle:
+            ref = c.SpfSolver(LSDB100K_ROOT).build_route_db(
+                LSDB100K_ROOT, states, ps)
+            check(rib_equal(ref, db), f"flapstorm {label}: RIB != oracle")
+
+    def epoch(victim, i: int, label: str) -> dict:
+        nonlocal prev_db
+        for fn, _, _ in c.wrappers.values():
+            fn.launches = 0
+        reads0 = relax.read_flag.reads
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metric = None
+        if victim is not None:
+            metric = flap(c.AdjacencyDatabase, states, adj_dbs, by_name,
+                          victim, i)
+        t1 = time.perf_counter()
+        db = solver.collect_route_db(
+            solver.dispatch_route_db(LSDB100K_ROOT, states, ps))
+        upd = prev_db.calculate_update(db)
+        t2 = time.perf_counter()
+        for name, (fn, _, _) in c.wrappers.items():
+            launches[name] += fn.launches
+        tm, st = solver.last_timing, solver.last_device_stats
+        s = st.get("stream") or {}
+        rec = {
+            "epoch": label, "victim": victim, "metric": metric,
+            "flap_apply_ms": (t1 - t0) * 1e3,
+            "flap_to_delta_ms": (t2 - t1) * 1e3,
+            "streamed": bool(tm.get("stream")),
+            "changed_rows": st.get("changed_rows"),
+            "budget": s.get("budget"), "overflow": s.get("overflow"),
+            "next_budget": vs.stream_budget,
+            "bytes_down": tm["bytes_downloaded"],
+            "bytes_up": tm["bytes_uploaded"],
+            "update_rows": len(upd.unicast_routes_to_update)
+            + len(upd.unicast_routes_to_delete),
+            "launches": sum(fn.launches for fn, _, _ in c.wrappers.values()),
+            "flag_reads": relax.read_flag.reads - reads0,
+            **{k: tm.get(k) for k in ("sync_ms", "exec_ms", "pull_ms",
+                                      "unpack_ms")},
+            **{k: st.get(k) for k in ("cone", "fell_back", "trips",
+                                      "rounds")},
+        }
+        recs.append(rec)
+        prev_db = db
+        return rec
+
+    # the storm: 200 flaps asked at 100 Hz over adj_dbs[1..8]; the
+    # storm's clock (pacing and its own seconds) stops during the cold
+    # checks, so the achieved rate is the storm's alone
+    t_start = time.perf_counter()
+    checks_s = 0.0
+    storm = []
+    for i in range(STORM_FLAPS):
+        wait = t_start + checks_s + i / STORM_HZ - time.perf_counter()
+        if wait > 0:
+            time.sleep(wait)
+        storm.append(epoch(1 + i % 8, i, f"storm {i}"))
+        if i in (0, STORM_FLAPS // 2, STORM_FLAPS - 1):
+            t_check = time.perf_counter()
+            cold_check(f"epoch {i}", False)
+            checks_s += time.perf_counter() - t_check
+    storm_s = time.perf_counter() - t_start - checks_s
+    storm_launches = dict(launches)
+    check(all(r["streamed"] for r in storm),
+          "flapstorm: every storm epoch must stream")
+    # a flap of the root's own links moves every route: over budget
+    over = epoch(root_victim, STORM_FLAPS, "root links")
+    grown = (c.stream.stream_budget(over["changed_rows"])
+             or c.stream.STREAM_BUDGETS[-1])
+    check(over["overflow"] and over["changed_rows"] > over["budget"]
+          and over["next_budget"] == grown > 64,
+          f"flapstorm: the root-link flap must overflow: {over}")
+    settle = [epoch(1 + j, STORM_FLAPS + 1 + j, f"settle {j}")
+              for j in range(3)]
+    check(settle[0]["budget"] == grown
+          and not any(r["overflow"] for r in settle)
+          and settle[-1]["next_budget"] == 64
+          and settle[-1]["budget"] == 64,
+          f"flapstorm: the budget must settle back to 64: {settle}")
+    idle = epoch(None, 0, "idle")
+    check(idle["streamed"] and idle["changed_rows"] == 0
+          and idle["budget"] == 64 and idle["bytes_down"] == idle_bytes,
+          f"flapstorm: the idle epoch must pull {idle_bytes} B: {idle}")
+    cold_check("idle epoch", True)
+    for r in recs:
+        log("flapstorm100k epoch: " + json.dumps(r))
+    lat = [r["flap_to_delta_ms"] for r in storm]
+    byts = [r["bytes_down"] for r in storm]
+    log("flapstorm100k storm: " + json.dumps({
+        "epochs": len(storm), "seconds": storm_s,
+        "asked_rate_hz": STORM_HZ, "achieved_rate_hz": len(storm) / storm_s,
+        "cold_check_seconds": checks_s,
+        "streamed_epochs": sum(r["streamed"] for r in storm),
+        "overflows": sum(bool(r["overflow"]) for r in storm),
+        "flap_to_delta_ms_p50": quantile(lat, 0.5),
+        "flap_to_delta_ms_p99": quantile(lat, 0.99),
+        "flap_apply_ms_p50": quantile([r["flap_apply_ms"] for r in storm],
+                                      0.5),
+        "bytes_down_p50": quantile(byts, 0.5), "bytes_down_max": max(byts),
+        "changed_rows_p50": quantile([r["changed_rows"] for r in storm],
+                                     0.5),
+        "changed_rows_max": max(r["changed_rows"] for r in storm),
+        "launches_per_epoch_p50": quantile([r["launches"] for r in storm],
+                                           0.5),
+        "flag_reads_per_epoch_p50": quantile(
+            [r["flag_reads"] for r in storm], 0.5),
+        "launches_by_kernel": {k: v for k, v in storm_launches.items() if v},
+        "overflow_epoch_bytes_down": over["bytes_down"],
+        "idle_epoch_bytes_down": idle["bytes_down"],
+    }))
+    return storm_launches, solver
+
+
+UCMP_VIPS = 12
+
+
+def ucmp_cell(c):
+    """fabric10k with anycast VIPs over remote rsws (module docstring,
+    phase 9): -> (states, prefix state, VIP -> leaves, VIP -> mode)."""
+    adj_dbs, pdbs = c.topologies.fabric(**FABRIC)
+    states, ps = c.topologies.build_states(adj_dbs, pdbs)
+    pfa = c.PrefixForwardingAlgorithm
+    rng = random.Random(5)
+    vips, modes = {}, {}
+    for v in range(UCMP_VIPS + 1):
+        prefix = f"fd10::{v + 1:x}/128"
+        pods = rng.sample(range(1, FABRIC["pods"]), 4)
+        leaves = {
+            f"pod{p:03d}-rsw{rng.randrange(FABRIC['rsws_per_pod']):02d}":
+            rng.randint(1, 9) for p in pods}
+        mode = (pfa.SP_UCMP_PREFIX_WEIGHT_PROPAGATION if v % 2 == 0
+                else pfa.SP_UCMP_ADJ_WEIGHT_PROPAGATION)
+        if v == UCMP_VIPS:
+            # weighted path counts past 2^30: the device overflows and
+            # the host walk answers
+            leaves = {n: (1 << 24) + w for n, w in leaves.items()}
+            mode = pfa.SP_UCMP_PREFIX_WEIGHT_PROPAGATION
+        vips[prefix], modes[prefix] = leaves, mode
+        for node, w in leaves.items():
+            ps.update_prefix_database(c.PrefixDatabase(
+                this_node_name=node, area="0", prefix_entries=(
+                    c.PrefixEntry(prefix=prefix, forwarding_algorithm=mode,
+                                  weight=w),)))
+    return states, ps, vips, modes
+
+
+def ucmp_phase(c, lsdb) -> dict:
+    """UCMP on fabric10k and the kernels on lsdb100k (module docstring,
+    phase 9). ``lsdb`` is lsdb100k's (solver, states), the solver synced
+    to the states. Returns the ucmp path's launches by kernel."""
+    torch, gs, ksp2, ucmp, relax = (c.torch, c.gpu_solver, c.ksp2, c.ucmp,
+                                    c.relax)
+    t0 = time.perf_counter()
+    states, ps, vips, modes = ucmp_cell(c)
+    me = "pod000-rsw00"
+    log(f"ucmp cell: fabric10k, {len(vips)} anycast VIPs of 4 remote rsws, "
+        f"host build {(time.perf_counter() - t0):.1f} s")
+    solver = gs.GpuSpfSolver(me, device=c.dev, enable_ucmp=True)
+    reads0 = c.zero_counts()
+    t0 = time.perf_counter()
+    db = solver.build_route_db(me, states, ps)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launches, reads = c.read_counts(reads0)
+    t0 = time.perf_counter()
+    want = c.SpfSolver(me, enable_ucmp=True).build_route_db(me, states, ps)
+    t_oracle = (time.perf_counter() - t0) * 1e3
+    check(rib_equal(want, db), "ucmp: RIB != SpfSolver(enable_ucmp=True)")
+    results = solver._ucmp_accel.results
+    engaged = [v for v in results.values()
+               if v is not None and v is not NotImplemented]
+    fell = [k for k, v in results.items() if v is NotImplemented]
+    check(len(engaged) >= 2, "ucmp: the device resolver did not answer")
+    check(len(fell) == 1 and solver.last_sentinels.get("ucmp_overflow") == 1,
+          "ucmp: the overflow VIP must fall back to the host walk")
+    for name in UCMP_PATH:
+        check(launches[name] > 0, f"kernel {name} never launched on the "
+              "ucmp path")
+    log("fabric10k UCMP: RIB == oracle, " + json.dumps({
+        "build_ms": wall, "oracle_ms": t_oracle,
+        "resolved_on_card": len(engaged), "host_walk": len(fell),
+        "launches": {k: v for k, v in launches.items() if v},
+        "flag_reads": reads,
+        "ucmp_weights": [db.unicast_routes[p].ucmp_weight for p in vips],
+        "sentinels": solver.last_sentinels,
+    }))
+    ad = solver._area_dev["0"]
+    plan = ad.plan
+    ridx = plan.node_index[me]
+    edges = solver._ucmp_accel.edges["0"][2]
+    base = (ad.deltas, ad.shift_w, ad.res_rows, ad.res_nbr, ad.res_w, ridx,
+            plan.k_res > 0)
+    d_k, trips = ksp2.base_sssp(*base)
+    d_p, trips_p = ksp2.base_sssp_plain(*base)
+    err_b = max_abs_err(torch, d_k, d_p)
+    check(trips == trips_p, "base_sssp: kernel and plain trips differ")
+
+    def leaves_of(prefix):
+        leaf = torch.zeros(plan.n_cap, dtype=torch.bool, device=c.dev)
+        leaf_w = torch.zeros(plan.n_cap, dtype=torch.int32, device=c.dev)
+        for n, w in vips[prefix].items():
+            leaf[plan.node_index[n]] = True
+            leaf_w[plan.node_index[n]] = w
+        return leaf, leaf_w
+
+    def fixpoint_pair(etens, dist, leaf, leaf_w, prefix, max_deg, what):
+        got = ucmp.ucmp_propagate(etens, dist, leaf, leaf_w, prefix, max_deg)
+        ref = ucmp.ucmp_propagate_plain(etens, dist, leaf, leaf_w, prefix,
+                                        max_deg)
+        err = max_abs_err(torch, (got[0].int(), got[1]),
+                          (ref[0].int(), ref[1]))
+        check(got[2:] == ref[2:], f"ucmp {what}: overflow / rounds differ")
+        return err, got
+
+    errs, info = [err_b], {}
+    for prefix in list(vips)[:2] + [list(vips)[-1]]:
+        pmode = modes[prefix].name.startswith("SP_UCMP_PREFIX")
+        err, got = fixpoint_pair(edges.tensors(), d_k, *leaves_of(prefix),
+                                 pmode, edges.max_deg, prefix)
+        errs.append(err)
+        info[prefix] = {"prefix_mode": pmode, "overflow": got[2],
+                        "rounds": got[3]}
+    # the deep DAG: lsdb100k's grid, leaves equidistant from the root
+    l_solver, l_states = lsdb
+    l_ad = l_solver._area_dev["0"]
+    l_plan = l_ad.plan
+    l_root = l_plan.node_index[LSDB100K_ROOT]
+    l_base = (l_ad.deltas, l_ad.shift_w, l_ad.res_rows, l_ad.res_nbr,
+              l_ad.res_w, l_root, l_plan.k_res > 0)
+    t0 = time.perf_counter()
+    l_dk, l_trips = ksp2.base_sssp(*l_base)
+    torch.cuda.synchronize()
+    t_base = (time.perf_counter() - t0) * 1e3
+    l_dp, l_trips_p = ksp2.base_sssp_plain(*l_base)
+    errs.append(max_abs_err(torch, l_dk, l_dp))
+    check(l_trips == l_trips_p, "base_sssp on lsdb100k: trips differ")
+    l_edges = ucmp.UcmpEdges(l_states["0"], l_plan.node_overloaded,
+                             l_plan.n_cap, device=c.dev)
+    leaf = torch.zeros(l_plan.n_cap, dtype=torch.bool, device=c.dev)
+    leaf_w = torch.zeros(l_plan.n_cap, dtype=torch.int32, device=c.dev)
+    mid = LSDB100K_SIDE // 2
+    for k, n in enumerate((f"node-0-{mid}", f"node-{mid}-0",
+                           f"node-{mid // 2}-{mid - mid // 2}")):
+        leaf[l_plan.node_index[n]] = True
+        leaf_w[l_plan.node_index[n]] = 3 + k
+    for pmode in (True, False):
+        t0 = time.perf_counter()
+        err, got = fixpoint_pair(l_edges.tensors(), l_dk, leaf, leaf_w, pmode,
+                                 l_edges.max_deg, f"lsdb100k {pmode}")
+        errs.append(err)
+        info[f"lsdb100k {'prefix' if pmode else 'adj'}"] = {
+            "overflow": got[2], "rounds": got[3]}
+    check(max(errs) == 0, f"ucmp kernels != plain (max abs err {max(errs)})")
+    log("ucmp kernels equal to plain on fabric10k and lsdb100k: " + json.dumps(
+        {"base_trips": {"fabric10k": trips, "lsdb100k": l_trips},
+         "lsdb100k_base_host_wall_ms": t_base, "fixpoints": info}))
+    # timed on the ucmp path's own inputs: fabric10k, the first VIP
+    n_cap, s_cap = plan.n_cap, plan.s_cap
+    res_words = ad.res_rows.numel() + 2 * ad.res_nbr.numel()
+    steps = 8 * trips
+    step_bytes = 4 * (2 * n_cap + s_cap * n_cap + s_cap) + 4 * res_words
+    c.record(
+        "base_sssp", err_b, lambda: ksp2.base_sssp(*base),
+        lambda: ksp2.base_sssp_plain(*base),
+        nbytes=4 * n_cap + steps * step_bytes,
+        ops=steps * (2 * n_cap * s_cap + 2 * ad.res_nbr.numel()),
+        reps=5, plain_reps=2,
+    )
+    first = list(vips)[0]
+    leaf, leaf_w = leaves_of(first)
+    e_cap = edges.e_cap
+    e2 = edges.order.numel()
+    rounds = info[first]["rounds"]
+    init_bytes = 4 * 3 * e_cap + 4 * 2 * e_cap + e_cap + 5 * n_cap + 9 * n_cap
+    round_bytes = (4 * (n_cap + 1) + 4 * 2 * e2 + e2 + 9 * e2 + 5 * n_cap
+                   + 18 * n_cap)
+    et = edges.tensors()
+    c.record(
+        "ucmp_propagate", max(errs[1:]),
+        lambda: ucmp.ucmp_propagate(et, d_k, leaf, leaf_w, True,
+                                    edges.max_deg),
+        lambda: ucmp.ucmp_propagate_plain(et, d_k, leaf, leaf_w, True,
+                                          edges.max_deg),
+        nbytes=init_bytes + rounds * round_bytes,
+        ops=4 * e_cap + rounds * 4 * e2, reps=5, plain_reps=2,
+    )
+    # one round beside the nearest library call: the segment sum of one
+    # round as index_add_ (it computes the sum only, not reach or the
+    # float shadow, so it is no library_ms of the fixpoint)
+    dag, state = ucmp.ucmp_init_plain(et[0], et[1], et[2], d_k, leaf, leaf_w)
+    per_edge = torch.where(dag, state[1][et[1].long()], 0)
+    acc = torch.zeros(n_cap, dtype=torch.int32, device=c.dev)
+    src_l = et[0].long()
+    log("ucmp one round vs index_add_ (fabric10k): " + json.dumps({
+        "fixpoint_ms": c.results["ucmp_propagate"]["ms"],
+        "rounds": rounds,
+        "index_add_ms": time_ms(torch, lambda: acc.index_add_(0, src_l,
+                                                              per_edge), 50),
+    }))
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -654,12 +1071,22 @@ def main() -> int:
     from openr_tpu_torch.decision import gpu_solver
     from openr_tpu_torch.decision.spf_solver import SpfSolver
     from openr_tpu_torch.models import topologies
-    from openr_tpu_torch.ops import compact, cuda, incremental, relax, select
+    from openr_tpu_torch.ops import (
+        compact,
+        cuda,
+        incremental,
+        ksp2,
+        relax,
+        select,
+        stream,
+        ucmp,
+    )
     from openr_tpu_torch.runtime.counters import counters
     from openr_tpu_torch.types import (
         AdjacencyDatabase,
         PrefixDatabase,
         PrefixEntry,
+        PrefixForwardingAlgorithm,
     )
 
     t_start = time.perf_counter()
@@ -703,10 +1130,11 @@ def main() -> int:
                          "openr_tpu/ops/incremental.py:128"),
         "K9:cone_finish": (incremental.cone_finish, "incremental.cu",
                            "openr_tpu/ops/incremental.py:128"),
+        "base_sssp": (ksp2.base_sssp, "relax.cu", "openr_tpu/ops/ksp2.py:128"),
+        "ucmp_propagate": (ucmp.ucmp_propagate, "ucmp.cu",
+                           "openr_tpu/ops/ucmp.py:54"),
     }
-    # the cold path runs every kernel but the incremental ones
-    cold_path = [n for n, (_, src, _) in wrappers.items()
-                 if src != "incremental.cu"]
+    cold_path = list(COLD_PATH)
     # variants of a kernel: (the wrapper's entry, what it replaces); their
     # launches are the wrapper's counts on the path that runs the variant
     variants = {
@@ -716,6 +1144,8 @@ def main() -> int:
                                     "openr_tpu/ops/stream.py:99"),
         **{f"{n}[fused]": (n, "openr_tpu/decision/tpu_solver.py:693")
            for n in cold_path},
+        "K4:compact_outputs[stream]": ("K4:compact_outputs",
+                                       "openr_tpu/decision/tpu_solver.py:826"),
     }
     variant_launches: dict = {}
     results = {}
@@ -744,14 +1174,23 @@ def main() -> int:
         return ({name: fn.launches for name, (fn, _, _) in wrappers.items()},
                 relax.read_flag.reads - reads0)
 
+    c = types.SimpleNamespace(
+        torch=torch, dev=dev, gpu_solver=gpu_solver, relax=relax,
+        compact=compact, stream=stream, ksp2=ksp2, ucmp=ucmp,
+        topologies=topologies, SpfSolver=SpfSolver,
+        AdjacencyDatabase=AdjacencyDatabase, PrefixDatabase=PrefixDatabase,
+        PrefixEntry=PrefixEntry,
+        PrefixForwardingAlgorithm=PrefixForwardingAlgorithm,
+        wrappers=wrappers, record=record, results=results,
+        zero_counts=zero_counts, read_counts=read_counts,
+    )
+
     # -- 2. small cells: RIB parity, residual relaxation; also loads every
     # kernel's module, so the main path's first build times the solve ---------------------
     cells = [
         ("tg1k", lambda: topologies.grid(32, node_labels=False),
          "node-16-16"),
-        ("fabric10k", lambda: topologies.fabric(
-            pods=96, planes=8, ssws_per_plane=36, rsws_per_pod=64),
-         "pod000-rsw00"),
+        ("fabric10k", lambda: topologies.fabric(**FABRIC), "pod000-rsw00"),
     ]
     for name, gen, me in cells:
         c_dbs, c_states, c_ps = build_cell(topologies, gen)
@@ -1065,7 +1504,7 @@ def main() -> int:
                     + n_delta + n_full) + p_cap,
         ops=p_cap * (4 + 2 * (wa + wd) + a_cap),
     )
-
+    stream_kernel(c, metric, s3w, nhw, ok, flags, wa, wd, a_cap)
 
     # -- 6. the churn path: incremental solves at lsdb100k ------------------
     by_name = {db.this_node_name: db for db in adj_dbs}
@@ -1140,8 +1579,9 @@ def main() -> int:
           and rec["cone"] > 0,
           "the cone_frac=0 step must fall back on the device")
     log(f"lsdb100k churn launches over 9 steps: {json.dumps(churn_launches)}")
-    for name, n in churn_launches.items():
-        check(n > 0, f"kernel {name} never launched on the churn path")
+    for name in CHURN_PATH:
+        check(churn_launches[name] > 0,
+              f"kernel {name} never launched on the churn path")
 
     # -- 7. the churn kernels against their plain versions -----------------
     ci = churn_inputs(relax, incremental, inc_solver)
@@ -1265,18 +1705,31 @@ def main() -> int:
     results["K4:compact_outputs"]["incr_tail_max_abs_err"] = err
     log("K4:compact_outputs with the incremental tail equal to plain")
 
+    # -- 8. flapstorm100k: streaming epochs --------------------------------
+    stream_launches, s_solver = flapstorm_phase(c, adj_dbs, states, ps)
+    for name in CHURN_PATH:
+        check(stream_launches[name] > 0,
+              f"kernel {name} never launched on the stream path")
+    variant_launches["K4:compact_outputs[stream]"] = stream_launches[
+        "K4:compact_outputs"]
+
+    # -- 9. UCMP on the card ------------------------------------------------
+    ucmp_launches = ucmp_phase(c, (s_solver, states))
+
     # -- result ----------------------------------------------------------
     kernels = []
     for name, (fn, src, replaces) in wrappers.items():
-        cold_n = launches.get(name, 0)
+        by_path = {"cold": launches.get(name, 0),
+                   "churn": churn_launches[name],
+                   "stream": stream_launches[name],
+                   "ucmp": ucmp_launches[name]}
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": f"openr_tpu_torch/csrc/{src}",
             "replaces": replaces,
-            "launches": cold_n + churn_launches[name],
-            "launches_by_path": {"cold": cold_n,
-                                 "churn": churn_launches[name]},
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             **results[name],
         })
     for name, (base, replaces) in variants.items():

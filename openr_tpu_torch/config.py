@@ -31,6 +31,17 @@ class DecisionConfig:
     # "bucketed" Δ-stepping (falls back to "sync" on plans with no
     # usable Δ) or "sync" rounds everywhere; both reach the same fixpoint
     spf_kernel: str = "bucketed"
+    # streaming churn epochs: each incremental solve pulls a bucketed
+    # changed-rows payload carrying the device route-ok bit, and the
+    # vantage's two plane sets swap in place (implies incremental_spf)
+    streaming_pipeline: bool = False
+
+    def __post_init__(self):
+        if not isinstance(self.streaming_pipeline, bool):
+            raise ValueError(
+                f"decision streaming_pipeline must be a bool, got "
+                f"{self.streaming_pipeline!r}"
+            )
 
     def solver_kwargs(self) -> dict:
         """Keyword arguments for ``GpuSpfSolver``."""
@@ -42,4 +53,5 @@ class DecisionConfig:
             "fuse_n_cap": self.fuse_n_cap,
             "multichip_n_cap_threshold": self.multichip_n_cap_threshold,
             "spf_kernel": self.spf_kernel,
+            "streaming_pipeline": self.streaming_pipeline,
         }

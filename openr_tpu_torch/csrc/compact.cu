@@ -24,6 +24,14 @@
 // same-shape areas (the vmap of _fused_pipeline) the lane is the grid's
 // y dimension (the scan's x), and each lane's trips and rounds come from
 // the device counters of its own loop (ops/relax.py::Lanes).
+//
+// The streaming epoch (decision/tpu_solver.py::_stream_pipeline, K4
+// [stream]) is the same three launches with a small bucketed delta budget
+// and one more delta column: the route-ok bit of each changed row, after
+// the next-hop words and before the LFA columns (ops/stream.py layout),
+// so the host applies the rows without unpacking words. Pad slots take
+// row p_cap - 1's ok bit, as they take its other columns. The full
+// payload never carries it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -174,9 +182,10 @@ __global__ void compact_scan_kernel(int* __restrict__ blk, int nblk,
 
 // write row `src` (its index is `idx`) into slot `pos` of a buffer laid
 // out as [count, trips, idx[cap], metric[cap], s3w[cap*wa], nhw[cap*wd]
-// (, lfa_slot[cap], lfa_metric[cap])]
+// (, ok[cap] when `with_ok`) (, lfa_slot[cap], lfa_metric[cap])]
 __device__ __forceinline__ void put_row(const Rows& r, int* buf, int cap,
-                                        int pos, int idx, int src) {
+                                        int pos, int idx, int src,
+                                        bool with_ok) {
     buf[2 + pos] = idx;
     buf[2 + cap + pos] = r.metric[src];
     int* s3 = buf + 2 + 2 * (long long)cap;
@@ -185,10 +194,14 @@ __device__ __forceinline__ void put_row(const Rows& r, int* buf, int cap,
     int* nh = s3 + (long long)cap * r.wa;
     for (int w = 0; w < r.wd; ++w)
         nh[(long long)pos * r.wd + w] = r.nhw[(long long)src * r.wd + w];
+    int* rest = nh + (long long)cap * r.wd;
+    if (with_ok) {
+        rest[pos] = r.ok[src] != 0;
+        rest += cap;
+    }
     if (r.lfa_slot) {
-        int* lf = nh + (long long)cap * r.wd;
-        lf[pos] = r.lfa_slot[src];
-        lf[cap + pos] = r.lfa_metric[src];
+        rest[pos] = r.lfa_slot[src];
+        rest[cap + pos] = r.lfa_metric[src];
     }
 }
 
@@ -199,7 +212,7 @@ __global__ void compact_scatter_kernel(Rows r, const int* __restrict__ blk,
                                        int* __restrict__ delta_buf,
                                        int* __restrict__ full_buf,
                                        int budget, int nblk, int delta_len,
-                                       int full_len) {
+                                       int full_len, int stream) {
     __shared__ int warp_ch[WARPS], warp_ok[WARPS];
     const int area = blockIdx.y;
     r = lane_rows(r, area);
@@ -227,15 +240,18 @@ __global__ void compact_scatter_kernel(Rows r, const int* __restrict__ blk,
         rok += warp_ok[w];
     }
     const int last = r.p_cap - 1;
-    if (ok) put_row(r, full_buf, r.p_cap, blk[4 * blockIdx.x + 1] + rok, i, i);
+    const bool with_ok = stream != 0;
+    if (ok)
+        put_row(r, full_buf, r.p_cap, blk[4 * blockIdx.x + 1] + rok, i, i,
+                false);
     if (ch) {
         int pos = blk[4 * blockIdx.x] + rch;
-        if (pos < budget) put_row(r, delta_buf, budget, pos, i, i);
+        if (pos < budget) put_row(r, delta_buf, budget, pos, i, i, with_ok);
     }
     if (i < r.p_cap && i >= full_buf[0])
-        put_row(r, full_buf, r.p_cap, i, r.p_cap, last);
+        put_row(r, full_buf, r.p_cap, i, r.p_cap, last, false);
     if (i < budget && i >= delta_buf[0])
-        put_row(r, delta_buf, budget, i, r.p_cap, last);
+        put_row(r, delta_buf, budget, i, r.p_cap, last, with_ok);
 }
 
 extern "C" {
@@ -304,7 +320,8 @@ int compact_scatter(const int* metric, const int* s3w, const int* nhw,
                     const int* prev_lfa_metric, const int* blk,
                     int* delta_buf, int* full_buf, int p_cap, int a_cap,
                     int wa, int wd, int budget, int delta_len, int full_len,
-                    int g, long long flags_stride, cudaStream_t stream) {
+                    int with_ok, int g, long long flags_stride,
+                    cudaStream_t stream) {
     const int* lfa[4] = {lfa_slot, lfa_metric, prev_lfa_slot,
                          prev_lfa_metric};
     Rows r = make_rows(metric, s3w, nhw, ok, prev_metric, prev_s3w, prev_nhw,
@@ -313,7 +330,8 @@ int compact_scatter(const int* metric, const int* s3w, const int* nhw,
     int nblk = (span + THREADS - 1) / THREADS;
     int count_blk = (p_cap + THREADS - 1) / THREADS;
     compact_scatter_kernel<<<dim3(nblk, g), THREADS, 0, stream>>>(
-        r, blk, delta_buf, full_buf, budget, count_blk, delta_len, full_len);
+        r, blk, delta_buf, full_buf, budget, count_blk, delta_len, full_len,
+        with_ok);
     return (int)cudaGetLastError();
 }
 

@@ -8,6 +8,8 @@
 //   K1s  decision/tpu_solver.py::_plan_sssp      root masking + seed plane
 //   K1   ops/relax.py::make_relax / run_sync     one Jacobi min-plus step
 //   K2   ops/relax.py::run_bucketed             Δ-stepping light ladder
+// K1s (seed plane only) and K1 over the unmasked planes also carry the
+// single-root SSSP of ops/ksp2.py::_base_sssp_fn (ops/ksp2.py::base_sssp),
 // and, with g > 1 lanes, their vmap in decision/tpu_solver.py::
 // _fused_pipeline: every kernel takes `g` stacked same-shape areas and
 // runs them as the grid's y dimension, so one launch covers every lane.
@@ -88,7 +90,10 @@ __device__ __forceinline__ void gate_close(const Gate& g, int lane,
 // residual indices clipped into range; dist0[d, clip(seed_d)] = 0 for
 // live seeds, INF_E elsewhere. One flat index space over the four
 // outputs so the whole init is a single launch; lane = blockIdx.y, its
-// root roots[lane] (or `root` when roots is null).
+// root roots[lane] (or `root` when roots is null). With s_cap = r_cap =
+// 0 only the seed plane is written: the unmasked single-root SSSP
+// (ops/ksp2.py::base_sssp) seeds its one row so and relaxes the
+// resident planes as they are.
 __global__ void sssp_init_kernel(
     const int* __restrict__ shift_w, int* __restrict__ sw,
     const int* __restrict__ res_rows, const int* __restrict__ res_nbr,
@@ -175,7 +180,9 @@ __global__ void relax_shift_kernel(
 
 // K1 residual part: the row-compact ELL tail scatter-min'd into `out`
 // after relax_shift_kernel wrote it. Candidates read the incoming plane
-// `dist` (Jacobi). Pad rows were clipped to row 0 and carry INF_E
+// `dist` (Jacobi). Indices are clipped into range here too (K1s's
+// clipped copies are idempotent under it), so the unmasked SSSP passes
+// the resident ELL as it is. Pad rows clip to row 0 and carry INF_E
 // weights, and real rows may repeat, so the scatter is an atomicMin —
 // exact on int32 in any order.
 __global__ void relax_residual_kernel(
@@ -198,12 +205,13 @@ __global__ void relax_residual_kernel(
         int d = (int)(i / r_cap);
         int r = (int)(i - (long long)d * r_cap);
         const int* row = dist + (long long)d * n_cap;
+        const int hi = n_cap - 1;
         int cand = INF_E << 1;
         for (int j = 0; j < kr_cap; ++j) {
             long long e = (long long)r * kr_cap + j;
-            cand = min(cand, row[nbr_c[e]] + rw[e]);
+            cand = min(cand, row[min(max(nbr_c[e], 0), hi)] + rw[e]);
         }
-        int v = rows_c[r];
+        int v = min(max(rows_c[r], 0), hi);
         if (cand < row[v]) {
             atomicMin(out + (long long)d * n_cap + v, cand);
             changed = 1;

@@ -1,5 +1,6 @@
-"""GPU route-computation backend: the Decision solve, cold and
-incremental, with LFA backup next hops and fused small-area groups.
+"""GPU route-computation backend: the Decision solve, cold,
+incremental and streaming, with LFA backup next hops, fused small-area
+groups and UCMP weights.
 
 ``GpuSpfSolver.build_route_db(my_node, {area: LinkState}, PrefixState)``
 computes the same ``DecisionRouteDb`` as the CPU oracle
@@ -40,10 +41,24 @@ prefixes, static routes, MPLS label routes) goes through the oracle, as
 in the JAX solver. Changelog churn reaches the resident weight planes
 as a K5 scatter of the drained dirty slots, journalled per drain epoch
 so a vantage's previous plane can be advanced across several drains.
+With ``streaming_pipeline`` every epoch the incremental gate passes is
+a streaming epoch (the port of ``tpu_solver._dispatch_stream``): the
+delta payload takes the vantage's bucketed budget
+(``ops/stream.STREAM_BUDGETS``) and carries the device route-ok bit per
+changed row, so the host applies the rows with ``apply_rows_packed``
+and unpacks no words; an over-budget epoch pulls the full buffer too
+and grows the budget. The vantage keeps two plane sets and swaps them
+at dispatch (the JAX solver donates its buffers).
+
+With ``enable_ucmp`` the oracle's UCMP weight walk is answered on the
+device (``_UcmpAccel``, the oracle's ``ucmp_resolver``): the root's
+unmasked distance field (``ops/ksp2.base_sssp``) and the DAG weight
+fixpoint (``ops/ucmp.py``), with the host walk whenever the device
+cannot answer exactly.
+
 Not ported yet, and refused rather than approximated: the multichip
 tier (an area above ``multichip_n_cap_threshold`` with two or more
-cards visible). The streaming solve of the JAX solver is not ported
-either.
+cards visible).
 
 ``device`` defaults to "cuda" and raises without a CUDA device unless
 the caller passes ``device="cpu"``, which runs each kernel's plain
@@ -60,7 +75,7 @@ import numpy as np
 import torch
 
 from openr_tpu_torch.decision.columnar_rib import ColumnarRib, LazyUnicastRoutes
-from openr_tpu_torch.decision.link_state import LinkState
+from openr_tpu_torch.decision.link_state import LinkState, NodeUcmpResult
 from openr_tpu_torch.decision.prefix_state import PrefixState
 from openr_tpu_torch.decision.rib import DecisionRouteDb
 from openr_tpu_torch.decision.spf_solver import SpfSolver
@@ -72,6 +87,7 @@ from openr_tpu_torch.ops.edgeplan import (
     sync_plan,
 )
 from openr_tpu_torch.ops.incremental import incremental_sssp, scatter_set
+from openr_tpu_torch.ops.ksp2 import base_sssp
 from openr_tpu_torch.ops.relax import (
     INF_E,
     max_trips,
@@ -79,6 +95,8 @@ from openr_tpu_torch.ops.relax import (
     plan_sssp_lanes,
 )
 from openr_tpu_torch.ops.select import select_routes
+from openr_tpu_torch.ops.stream import STREAM_BUDGETS, stream_budget
+from openr_tpu_torch.ops.ucmp import UcmpEdges, propagate
 from openr_tpu_torch.runtime.counters import counters
 from openr_tpu_torch.types import PrefixForwardingAlgorithm, PrefixForwardingType
 
@@ -175,6 +193,18 @@ def _pack_matrix(matrix: PrefixMatrix, node_over: np.ndarray) -> tuple:
     return flags, mbuf
 
 
+def _ucmp_weight_anomalies(w) -> int:
+    """Numerically unhealthy entries of an int32 UCMP weight field: the
+    negative ones (int32 wraparound)."""
+    return 0 if w is None else int((np.asarray(w) < 0).sum())
+
+
+_UCMP_ALGOS = (
+    PrefixForwardingAlgorithm.SP_UCMP_ADJ_WEIGHT_PROPAGATION,
+    PrefixForwardingAlgorithm.SP_UCMP_PREFIX_WEIGHT_PROPAGATION,
+)
+
+
 def _fast_path_eligible(entries) -> bool:
     """Device fast path covers IP + SP_ECMP announcements without prepend
     labels; anything else routes through the CPU oracle."""
@@ -246,7 +276,8 @@ def pipeline(deltas, shift_w, res_rows, res_nbr, res_w, mbuf, root: int,
              has_res: bool, block_v4: bool = False, sentinels: bool = True,
              kernel: str = "sync", delta_exp: int = 0,
              budget: int = DELTA_BUDGET, incr=None,
-             emit_dist: bool = False, lfa: bool = False) -> PipelineOut:
+             emit_dist: bool = False, lfa: bool = False, stream: int = 0,
+             out=None) -> PipelineOut:
     """One solve for one (area, vantage) on the device of its tensors.
     Inputs are the resident mirror (deltas [s_cap], shift_w [s_cap,
     n_cap], the residual ELL res_rows [r_cap] / res_nbr, res_w [r_cap,
@@ -264,7 +295,15 @@ def pipeline(deltas, shift_w, res_rows, res_nbr, res_w, mbuf, root: int,
     cone_limit)`` (the JAX ``_incr_pipeline``'s six trailing inputs):
     the SSSP starts from the previous plane, and (cone, fell_back) join
     both buffers' tails. The distance plane is returned in ``dist``
-    with ``incr`` or ``emit_dist``."""
+    with ``incr`` or ``emit_dist``.
+
+    ``stream`` (a ``STREAM_BUDGETS`` bucket, with ``incr``) makes this
+    the streaming epoch (the port of ``tpu_solver._stream_pipeline``):
+    the delta payload takes that budget and carries the route-ok bit of
+    each changed row (``ops/stream.py`` layout). ``out`` is the plane
+    set K3 writes the published columns into — (metric, s3w, nhw,
+    lfa_slot, lfa_metric), a set no input aliases — instead of new
+    tensors."""
     p_cap = prev_metric.shape[0]
     a_cap = mbuf.numel() // (6 * p_cap)
     if prev_lfa_slot is None:
@@ -289,7 +328,8 @@ def pipeline(deltas, shift_w, res_rows, res_nbr, res_w, mbuf, root: int,
         incr_tail = (cone, fell_back)
     mark()
     sel = select_routes(dist_d, root_w, root, mbuf, p_cap, a_cap, block_v4,
-                        lfa)
+                        lfa, None if out is None
+                        else out[:3] + (tuple(out[3:5]) if lfa else ()))
     metric, s3w, nhw, ok = sel[:4]
     lfa_slot, lfa_metric, lfa_cols = _lfa_tail(sel, prev_lfa_slot,
                                                prev_lfa_metric, lfa)
@@ -297,7 +337,8 @@ def pipeline(deltas, shift_w, res_rows, res_nbr, res_w, mbuf, root: int,
     flags = mbuf[p_cap * a_cap:2 * p_cap * a_cap].view(p_cap, a_cap)
     delta_buf, full_buf = compact_outputs(
         metric, s3w, nhw, ok, prev_metric, prev_s3w, prev_nhw, flags,
-        trips, rounds, budget, sentinels, incr_tail, lfa_cols,
+        trips, rounds, stream or budget, sentinels, incr_tail, lfa_cols,
+        bool(stream),
     )
     mark()
     keep = incr is not None or emit_dist
@@ -396,15 +437,21 @@ class _VantageState:
     """Per-(area, vantage) output state: the previous solve's resident
     outputs + the columnar RIB the host patches from pulls."""
 
-    __slots__ = ("shape_key", "matrix_version", "prev", "crib",
+    __slots__ = ("shape_key", "matrix_version", "prev", "spare", "crib",
                  "links_tuple", "valid", "prev_dist", "dist_epoch",
-                 "root_sig")
+                 "root_sig", "stream_budget")
 
     def __init__(self):
         self.shape_key = None
         self.matrix_version = -1
         # (metric, s3w, nhw, lfa_slot, lfa_metric) device tensors
         self.prev = None
+        # the streaming epoch's second plane set: an epoch's K3 writes
+        # into it while its K4 diff reads ``prev``, then the two swap
+        self.spare = None
+        # streaming changed-rows budget (an ops/stream.STREAM_BUDGETS
+        # bucket): grows past an overflow, settles back on quiet epochs
+        self.stream_budget = STREAM_BUDGETS[0]
         self.crib: Optional[ColumnarRib] = None
         self.links_tuple: tuple = ()
         self.valid = False
@@ -416,6 +463,146 @@ class _VantageState:
         self.prev_dist = None
         self.dist_epoch = -1
         self.root_sig = None
+
+
+class _UcmpAccel:
+    """The oracle's ``ucmp_resolver`` (the port of the JAX solver's
+    ``_UcmpAccel``): resolves UCMP weights with the device fixpoint
+    (``ops/ucmp.py``) over the root's unmasked distance field
+    (``ops/ksp2.base_sssp``) instead of the host heap walk. It answers
+    ``NotImplemented`` — the host walk then runs — whenever its area
+    state is stale (a single-prefix rebuild, an area solved entirely by
+    the oracle, a cross-area prefix) or the fixpoint overflowed."""
+
+    def __init__(self, solver: "GpuSpfSolver"):
+        self.solver = solver
+        # area -> (generation, plan, UcmpEdges)
+        self.edges: dict[str, tuple] = {}
+        # (area, root) -> (generation, plan, device field, host field)
+        self.base: dict[tuple, tuple] = {}
+        # per-generation memo: anycast prefixes share one announcer set,
+        # so identical (leaves, mode) resolve once
+        self.results: dict[tuple, object] = {}
+        self._results_gen: dict[str, int] = {}
+
+    def _base_for(self, area: str, root: str, ridx: int, link_state,
+                  ad: "_AreaDev"):
+        gen = link_state.generation
+        plan = ad.plan
+        mine = self.base.get((area, root))
+        if mine is not None and mine[0] == gen and mine[1] is plan:
+            return mine[2], mine[3]
+        d_base, _ = base_sssp(ad.deltas, ad.shift_w, ad.res_rows, ad.res_nbr,
+                              ad.res_w, ridx, plan.k_res > 0)
+        base_np = d_base.cpu().numpy()
+        self.base[(area, root)] = (gen, plan, d_base, base_np)
+        return d_base, base_np
+
+    def _edges_for(self, area: str, link_state, plan) -> UcmpEdges:
+        gen = link_state.generation
+        hit = self.edges.get(area)
+        if hit is not None and hit[0] == gen and hit[1] is plan:
+            return hit[2]
+        edges = UcmpEdges(link_state, plan.node_overloaded, plan.n_cap,
+                          upload=self.solver._upload)
+        self.edges[area] = (gen, plan, edges)
+        return edges
+
+    def __call__(self, root, area, link_state, dst_weights,
+                 use_prefix_weight):
+        solver = self.solver
+        ad = solver._area_dev.get(area)
+        gen = link_state.generation
+        if (
+            not dst_weights
+            or ad is None
+            or ad.plan is None
+            or ad.plan.synced_generation != gen
+            or link_state.is_node_overloaded(root)
+        ):
+            return NotImplemented
+        plan = ad.plan
+        ridx = plan.node_index.get(root)
+        if ridx is None:
+            return NotImplemented
+        if self._results_gen.get(area) != gen:
+            self.results = {
+                k: v for k, v in self.results.items() if k[0] != area
+            }
+            self._results_gen[area] = gen
+        rkey = (
+            area, root, tuple(sorted(dst_weights.items())),
+            bool(use_prefix_weight),
+        )
+        if rkey in self.results:
+            return self.results[rkey]
+        d_base, base_np = self._base_for(area, root, ridx, link_state, ad)
+        # the caller filtered the leaves to the best metric, so they are
+        # equidistant; the host walk's guard, mirrored
+        leaf_metrics = {
+            int(base_np[plan.node_index[n]])
+            for n in dst_weights
+            if n in plan.node_index
+        }
+        if len(leaf_metrics) != 1 or INF_E in leaf_metrics:
+            self.results[rkey] = None
+            return None
+        edges = self._edges_for(area, link_state, plan)
+        reach, w, overflow = propagate(edges, d_base, dst_weights,
+                                       use_prefix_weight)
+        if solver.enable_sentinels:
+            if overflow:
+                solver.last_sentinels["ucmp_overflow"] = (
+                    solver.last_sentinels.get("ucmp_overflow", 0) + 1
+                )
+                counters.increment("decision.sentinel.ucmp_overflow")
+            bad = _ucmp_weight_anomalies(w)
+            if bad:
+                solver.last_sentinels["ucmp_bad_weights"] = (
+                    solver.last_sentinels.get("ucmp_bad_weights", 0) + bad
+                )
+                counters.increment("decision.sentinel.ucmp_bad_weights",
+                                   bad)
+        if overflow:
+            # the host walk's Python ints are exact; memoized so sibling
+            # anycast prefixes skip the device round trip
+            self.results[rkey] = NotImplemented
+            return NotImplemented
+        res = self._assemble(root, ridx, link_state, plan, base_np, reach, w,
+                             dst_weights)
+        self.results[rkey] = res
+        return res
+
+    @staticmethod
+    def _assemble(root, ridx, link_state, plan, base_np, reach, w,
+                  dst_weights):
+        """The root-local finish: per-interface next-hop weights from the
+        propagated field, gcd-normalized (O(degree(root)))."""
+        res = NodeUcmpResult(0)
+        if root in dst_weights:
+            # the root announces: its weight is its own advertisement,
+            # and equidistant leaves cannot chain (as the host walk)
+            res.weight = dst_weights[root]
+            return res
+        if not reach[ridx]:
+            return None
+        my_dist = int(base_np[ridx])
+        index = plan.node_index
+        for link in link_state.ordered_links_from_node(root):
+            if not link.is_up():
+                continue
+            nbr = link.other_node(root)
+            j = index.get(nbr)
+            if j is None or not reach[j]:
+                continue
+            if my_dist + link.metric_from_node(root) != int(base_np[j]):
+                continue  # not a shortest-path DAG edge
+            res.add_next_hop_link(
+                link.iface_from_node(root), link, nbr, int(w[j])
+            )
+        res.weight = int(w[ridx])
+        res.normalize_next_hop_weights()
+        return res
 
 
 class _PendingBuild:
@@ -468,9 +655,15 @@ class GpuSpfSolver:
         incremental_cone_frac: float = 0.25,
         spf_kernel: str = "bucketed",
         multichip_n_cap_threshold: int = 131072,
+        streaming_pipeline: bool = False,
         **solver_kwargs,
     ):
         self.device = resolve_device(device)
+        if not isinstance(streaming_pipeline, bool):
+            raise ValueError(
+                f"streaming_pipeline must be a bool, got "
+                f"{streaming_pipeline!r}"
+            )
         if spf_kernel not in ("sync", "bucketed"):
             raise ValueError(f"unknown spf_kernel {spf_kernel!r}")
         self.my_node_name = my_node_name
@@ -494,10 +687,20 @@ class GpuSpfSolver:
         # zero-weight edges, an oversized dirty set, in a fused group,
         # and — decided on the device — when the cone exceeds
         # incremental_cone_frac of the area's node-lanes.
-        self.incremental_spf = bool(incremental_spf)
+        # streaming epochs: an incremental solve that pulls a bucketed
+        # changed-rows payload with the device route-ok bit and swaps the
+        # vantage's two plane sets in place. Implies incremental_spf;
+        # every epoch the incremental gate refuses (first solve, shape /
+        # root churn, journal gaps, fused groups) takes the classic path
+        self.streaming_pipeline = streaming_pipeline
+        self.incremental_spf = bool(incremental_spf) or streaming_pipeline
         self.incremental_cone_frac = float(incremental_cone_frac)
         self.multichip_n_cap_threshold = int(multichip_n_cap_threshold)
         self.cpu = SpfSolver(my_node_name, **solver_kwargs)
+        # UCMP weights resolve on the device through the oracle's
+        # resolver hook (the host walk answers when the hook cannot)
+        self._ucmp_accel = _UcmpAccel(self)
+        self.cpu.ucmp_resolver = self._ucmp_accel
         self._area_dev: dict[str, _AreaDev] = {}
         self._vstates: dict[tuple, _VantageState] = {}
         self._vantage_lru: OrderedDict[tuple, None] = OrderedDict()
@@ -611,6 +814,9 @@ class GpuSpfSolver:
             else:
                 areas.extend(self._dispatch_fused(group))
         areas.extend(self._dispatch_one(pv) for pv in singles)
+        if self.cpu.enable_ucmp:
+            self._prime_ucmp(my_node_name, area_link_states, prefix_state,
+                             slow, fast_by_area)
         self._host_routes(
             my_node_name, area_link_states, prefix_state, slow + small,
             route_db,
@@ -633,6 +839,7 @@ class GpuSpfSolver:
         trips = rounds = 0
         bytes_dl = 0
         kernels = set()
+        stream = {"epochs": 0, "changed_rows": 0, "overflows": 0}
         for ctx in pending.areas:
             view, timing, stats = self._collect_area(ctx)
             views.append(view)
@@ -644,6 +851,10 @@ class GpuSpfSolver:
             rounds += stats["rounds"]
             bytes_dl += stats["bytes_downloaded"]
             kernels.add(stats["spf_kernel"])
+            if "stream" in stats:
+                stream["epochs"] += 1
+                stream["changed_rows"] += stats["changed_rows"] or 0
+                stream["overflows"] += int(stats["stream"]["overflow"])
             self.last_device_stats = stats
             for sk, sv in stats.get("sentinels", {}).items():
                 self.last_sentinels[sk] = self.last_sentinels.get(sk, 0) + sv
@@ -662,7 +873,54 @@ class GpuSpfSolver:
             "bytes_uploaded": float(pending.bytes_uploaded),
             "bytes_downloaded": float(bytes_dl),
         }
+        if stream["epochs"]:
+            self.last_timing["stream"] = {**stream,
+                                          "bytes_downloaded": bytes_dl}
         return route_db
+
+    def _prime_ucmp(self, my_node_name, area_link_states, prefix_state,
+                    slow, fast_by_area) -> None:
+        """Before the oracle loop reaches the UCMP prefixes: sync their
+        areas' device mirrors and prime each LinkState's SPF memo from
+        the device base field, so the oracle's ``get_spf_result(root)``
+        answers without a host Dijkstra and the resolver hook finds
+        fresh area state."""
+        by_area: set = set()
+        for prefix in slow:
+            entries = prefix_state.entries_for(prefix) or {}
+            areas = {a for _, a in entries}
+            if len(areas) != 1:
+                continue  # cross-area: the oracle's host path
+            if any(e.forwarding_algorithm in _UCMP_ALGOS
+                   for e in entries.values()):
+                by_area.add(next(iter(areas)))
+        for area in sorted(by_area):
+            link_state = area_link_states.get(area)
+            if (
+                link_state is None
+                or not link_state.has_node(my_node_name)
+                or link_state.node_count() < self.small_graph_nodes
+                or link_state.is_node_overloaded(my_node_name)
+            ):
+                continue
+            ad = self._sync_area(area, link_state, prefix_state,
+                                 fast_by_area.get(area, []))
+            ridx = ad.plan.node_index.get(my_node_name)
+            if ridx is None:
+                continue
+            _, base_np = self._ucmp_accel._base_for(
+                area, my_node_name, ridx, link_state, ad
+            )
+            node_index = ad.plan.node_index
+
+            def metric_of(n, _idx=node_index, _base=base_np):
+                j = _idx.get(n)
+                if j is None:
+                    return None
+                v = int(_base[j])
+                return None if v >= INF_E else v
+
+            link_state.prime_spf_metrics(my_node_name, metric_of)
 
     # -- partition + host routes -----------------------------------------
 
@@ -950,6 +1208,7 @@ class GpuSpfSolver:
             )
             vs.links_tuple = links_tuple
             vs.valid = False
+            vs.spare = None
             vs.prev_dist = None
             vs.dist_epoch = -1
             vs.root_sig = None
@@ -977,22 +1236,53 @@ class GpuSpfSolver:
 
     def _dispatch_one(self, pv: dict) -> dict:
         """Launch one area's pipeline (incremental where the gate
-        allowed)."""
+        allowed). With ``streaming_pipeline`` an incremental solve is a
+        streaming epoch (the port of ``_dispatch_stream``): its delta
+        payload takes the vantage's bucketed budget and carries the
+        device route-ok bit. Where the JAX solver donates the previous
+        planes, the vantage keeps two plane sets: this epoch's K3 writes
+        the spare set while its K4 diff reads ``prev``, and the sets
+        swap right after the dispatch. The vantage stays invalid until
+        the collect commits, so an abandoned collect costs one full
+        rebuild on the next solve, never a RIB that has diverged from
+        the resident planes."""
         vs = pv["vs"]
         incr = None
         if pv["incr"] is not None:
-            (sd_idx, sd_old, rd_idx, rd_old, cone_limit), _ = pv["incr"]
-            incr = (vs.prev_dist, self._upload(sd_idx), self._upload(sd_old),
-                    self._upload(rd_idx), self._upload(rd_old), cone_limit)
+            incr = self._incr_tensors(pv)
+        sbudget, spare = 0, None
+        if incr is not None and self.streaming_pipeline:
+            sbudget = int(vs.stream_budget) or STREAM_BUDGETS[0]
+            spare = vs.spare
+            if spare is None:
+                spare = tuple(torch.empty_like(t) for t in vs.prev)
         lane = self._lane_args(pv)
         t1 = time.perf_counter()
         out = pipeline(
             *lane, *vs.prev, has_res=pv["has_res"], block_v4=pv["block_v4"],
             sentinels=self.enable_sentinels, kernel=pv["kernel"],
             delta_exp=pv["delta_exp"], incr=incr,
-            emit_dist=self.incremental_spf, lfa=pv["lfa"],
+            emit_dist=self.incremental_spf, lfa=pv["lfa"], stream=sbudget,
+            out=spare,
         )
-        if incr is not None:
+        ctx = {"pv": pv, "out": out, "fused": 0, "stream": sbudget,
+               "was_valid": vs.valid,
+               "incr_denom": None if incr is None else pv["incr"][1],
+               "t1": t1, "t2": time.perf_counter()}
+        if sbudget:
+            # swap the plane sets: the set this epoch diffed against is
+            # the next epoch's spare. The LFA columns pass through
+            # without LFA, and then both sets share them, unwritten.
+            vs.spare = vs.prev
+            vs.prev = (out.metric, out.s3w, out.nhw, out.lfa_slot,
+                       out.lfa_metric)
+            vs.prev_dist = out.dist
+            vs.dist_epoch = pv["dist_epoch"]
+            vs.root_sig = pv["root_sig"]
+            vs.valid = False
+            # the probe's planes are the spare set two epochs on
+            self._last_exec_incr = None
+        elif incr is not None:
             # the inputs of the last incremental solve, for device-only
             # probes (chip_smoke.py): the lane tensors, the previous
             # outputs and the six incremental inputs
@@ -1004,9 +1294,15 @@ class GpuSpfSolver:
                 # (journal gap, root churn, zero-weight edges, oversized
                 # dirty set)
                 counters.increment("decision.solver.incr.full_fallbacks")
-        return {"pv": pv, "out": out, "fused": 0,
-                "incr_denom": None if incr is None else pv["incr"][1],
-                "t1": t1, "t2": time.perf_counter()}
+        return ctx
+
+    def _incr_tensors(self, pv: dict) -> tuple:
+        """The incremental solve's six inputs: the vantage's distance
+        plane, the dirty tuples uploaded, the cone budget."""
+        (sd_idx, sd_old, rd_idx, rd_old, cone_limit), _ = pv["incr"]
+        return (pv["vs"].prev_dist, self._upload(sd_idx),
+                self._upload(sd_old), self._upload(rd_idx),
+                self._upload(rd_old), cone_limit)
 
     def _dispatch_fused(self, group: list) -> list:
         """ONE fused dispatch for a group of same-shape areas: the cold
@@ -1026,7 +1322,8 @@ class GpuSpfSolver:
         counters.increment("decision.device.fused_dispatches")
         counters.increment("decision.device.fused_areas", g)
         counters.increment("decision.solver.full.solves", g)
-        return [{"pv": pv, "out": out, "fused": g, "incr_denom": None,
+        return [{"pv": pv, "out": out, "fused": g, "stream": 0,
+                 "was_valid": pv["vs"].valid, "incr_denom": None,
                  "t1": t1, "t2": t2} for pv, out in zip(group, outs)]
 
     def _incr_args(self, ad: _AreaDev, vs: _VantageState, root_sig: tuple,
@@ -1076,9 +1373,10 @@ class GpuSpfSolver:
         d_cap, p_cap, a_cap = pv["d_cap"], pv["p_cap"], pv["a_cap"]
         lfa = pv["lfa"]
         wa, wd = -(-a_cap // 16), -(-d_cap // 16)
-        b = DELTA_BUDGET
+        stream = ctx["stream"]
+        b = stream or DELTA_BUDGET
         t2 = ctx["t2"]
-        was_valid = vs.valid
+        was_valid = ctx["was_valid"]
         dbuf = fbuf = None
         count = None
         if was_valid:
@@ -1112,17 +1410,27 @@ class GpuSpfSolver:
             s3w = dbuf[o:o + b * wa].reshape(b, wa); o += b * wa
             nhw = dbuf[o:o + b * wd].reshape(b, wd); o += b * wd
             live = cidx < p_cap
+            if stream:
+                okb = dbuf[o:o + b][live][:count].astype(bool); o += b
             lfa_slot = lfa_metric = None
             if lfa:
                 lfa_slot = dbuf[o:o + b][live][:count]; o += b
                 lfa_metric = dbuf[o:o + b][live][:count]
-            crib.apply_rows(
-                cidx[live][:count], metric[live][:count],
-                s3w[live][:count], nhw[live][:count], lfa_slot, lfa_metric,
-            )
-        vs.prev = (out.metric, out.s3w, out.nhw, out.lfa_slot,
-                   out.lfa_metric)
-        if out.dist is not None:
+            rows = (cidx[live][:count], metric[live][:count],
+                    s3w[live][:count], nhw[live][:count])
+            if stream:
+                # the device route-ok bit rides the payload: no unpack
+                crib.apply_rows_packed(*rows, okb, lfa_slot, lfa_metric)
+            else:
+                crib.apply_rows(*rows, lfa_slot, lfa_metric)
+        if stream:
+            # the planes swapped at dispatch; the patch above committed,
+            # so the resident planes and the RIB agree again
+            vs.valid = True
+        else:
+            vs.prev = (out.metric, out.s3w, out.nhw, out.lfa_slot,
+                       out.lfa_metric)
+        if out.dist is not None and not stream:
             # the next solve's warm seed, stamped with the drain epoch
             # and root signature it was computed under
             vs.prev_dist = out.dist
@@ -1140,6 +1448,17 @@ class GpuSpfSolver:
             "bytes_downloaded": (0 if dbuf is None else int(dbuf.nbytes))
             + (0 if fbuf is None else int(fbuf.nbytes)),
         }
+        if stream:
+            stats["stream"] = {"budget": b, "overflow": full_pull}
+            # the next epoch's bucket follows this one's churn
+            vs.stream_budget = stream_budget(count or 0) or STREAM_BUDGETS[-1]
+            counters.increment("decision.stream.epochs")
+            counters.add_stat_value("decision.stream.changed_rows",
+                                    count or 0)
+            counters.add_stat_value("decision.stream.bytes_downloaded",
+                                    stats["bytes_downloaded"])
+            if full_pull:
+                counters.increment("decision.stream.overflows")
         # the tail, back to front: [-1] rounds; after an incremental
         # solve [-3] cone and [-2] fell_back; the sentinels before those
         denom = ctx["incr_denom"]

@@ -13,15 +13,18 @@ numerical-health sentinel counts and the trip / round scalars in their
 tails. Layouts (int32; B = budget, P = p_cap):
 
     delta_buf  count, trips, idx[B], metric[B], s3w[B*wa], nhw[B*wd],
-               (lfa_slot[B], lfa_metric[B]), (unreachable, saturated),
-               (cone, fell_back), rounds
+               (ok[B]), (lfa_slot[B], lfa_metric[B]),
+               (unreachable, saturated), (cone, fell_back), rounds
     full_buf   okc, trips, idx[P], metric[P], s3w[P*wa], nhw[P*wd],
                (lfa_slot[P], lfa_metric[P]), (unreachable, saturated),
                (cone, fell_back), rounds
 
 The LFA columns are there with LFA (they join the column diff too), the
 sentinel pair when sentinels are on, the cone pair when the solve was
-incremental; the host parses the tail back to front.
+incremental; the host parses the tail back to front. The delta
+payload's ok column is there only on the streaming epoch (``stream``,
+B a ``STREAM_BUDGETS`` bucket; ``ops/stream.py`` has its layout): the
+classic delta payload stays byte-stable without it.
 
 With a lane axis (a fused solve of ``g`` same-shape areas) every input
 is stacked [g, ...], both buffers come out [g, len], and each lane's
@@ -65,16 +68,19 @@ def route_ok(metric, s3, nh_mask, ann_node, min_nh, v4_blocked, root: int):
 
 def buffer_lens(p_cap: int, wa: int, wd: int, budget: int,
                 sentinels: bool, incr: bool = False,
-                lfa: bool = False) -> tuple[int, int]:
-    """(delta_buf, full_buf) int32 lengths."""
+                lfa: bool = False, stream: bool = False) -> tuple[int, int]:
+    """(delta_buf, full_buf) int32 lengths; ``stream`` adds the delta
+    payload's ok column."""
     tail = 1 + (2 if sentinels else 0) + (2 if incr else 0)
     row = 2 + wa + wd + (2 if lfa else 0)
-    return 2 + budget * row + tail, 2 + p_cap * row + tail
+    return (2 + budget * (row + int(stream)) + tail,
+            2 + p_cap * row + tail)
 
 
 def compact_outputs_plain(metric, s3w, nhw, ok, prev_metric, prev_s3w,
                           prev_nhw, flags, trips, rounds, budget: int,
-                          sentinels: bool, incr_tail=None, lfa=None):
+                          sentinels: bool, incr_tail=None, lfa=None,
+                          stream: bool = False):
     if metric.dim() == 2:
         counts = trips.tolist()
         outs = [compact_outputs_plain(
@@ -89,7 +95,7 @@ def compact_outputs_plain(metric, s3w, nhw, ok, prev_metric, prev_s3w,
                           lfa)
     cols = None if lfa is None else lfa[:2]
     delta = compact_rows(changed, trips, metric, s3w, nhw, budget, p_cap,
-                         cols)
+                         cols, ok if stream else None)
     full = compact_rows(ok, trips, metric, s3w, nhw, p_cap, p_cap, cols)
     tail = []
     if sentinels:
@@ -106,7 +112,7 @@ def compact_outputs_plain(metric, s3w, nhw, ok, prev_metric, prev_s3w,
 
 def compact_outputs(metric, s3w, nhw, ok, prev_metric, prev_s3w, prev_nhw,
                     flags, trips, rounds, budget: int, sentinels: bool,
-                    incr_tail=None, lfa=None):
+                    incr_tail=None, lfa=None, stream: bool = False):
     """-> (delta_buf, full_buf), laid out as the module docstring says.
     ``flags`` is the [P, A] announcer flag plane (bit 0 = valid).
     ``incr_tail`` is the incremental solve's (cone, fell_back), two
@@ -117,11 +123,14 @@ def compact_outputs(metric, s3w, nhw, ok, prev_metric, prev_s3w, prev_nhw,
     With a lane axis (metric [g, P], the rest stacked alike; ``flags``
     may be a strided [g, P, A] view of the lanes' announcer buffers)
     ``trips`` is the int32 [g, 2] tensor of each lane's (trips, rounds)
-    and ``rounds`` is unused; a fused solve is never incremental."""
+    and ``rounds`` is unused; a fused solve is never incremental.
+
+    ``stream`` (a streaming epoch, always incremental and single-lane)
+    adds the route-ok bit of each changed row to the delta payload."""
     if _is_cpu(metric):
         return compact_outputs_plain(
             metric, s3w, nhw, ok, prev_metric, prev_s3w, prev_nhw, flags,
-            trips, rounds, budget, sentinels, incr_tail, lfa,
+            trips, rounds, budget, sentinels, incr_tail, lfa, stream,
         )
     _int32(metric, s3w, nhw, prev_metric, prev_s3w, prev_nhw)
     if ok.dtype != torch.bool or not ok.is_contiguous():
@@ -144,7 +153,7 @@ def compact_outputs(metric, s3w, nhw, ok, prev_metric, prev_s3w, prev_nhw,
     dev = metric.device
     incr = incr_tail is not None
     n_delta, n_full = buffer_lens(p_cap, wa, wd, budget, sentinels, incr,
-                                  lfa is not None)
+                                  lfa is not None, stream)
     lead = metric.shape[:-1]
     delta_buf = torch.empty(lead + (n_delta,), dtype=torch.int32, device=dev)
     full_buf = torch.empty(lead + (n_full,), dtype=torch.int32, device=dev)
@@ -170,9 +179,9 @@ def compact_outputs(metric, s3w, nhw, ok, prev_metric, prev_s3w, prev_nhw,
                 p(blk), nblk, p(delta_buf), p(full_buf), n_delta, n_full,
                 trips_i, rounds_i, int(sentinels), cone, fell, tr, g)
     cuda.launch("compact", "compact_scatter",
-                "pppppppppppp" + "ppp" + "iiiiiiiiL",
+                "pppppppppppp" + "ppp" + "iiiiiiiiiL",
                 *rows, p(blk), p(delta_buf), p(full_buf), p_cap, a_cap, wa,
-                wd, budget, n_delta, n_full, g, flags_stride)
+                wd, budget, n_delta, n_full, int(stream), g, flags_stride)
     compact_outputs.launches += 3
     return delta_buf, full_buf
 

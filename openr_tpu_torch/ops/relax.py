@@ -270,6 +270,22 @@ def sssp_init(shift_w, res_rows, res_nbr, res_w, root, seeds_nbr,
 sssp_init.launches = 0
 
 
+def _launch_seed(root: int, n_cap: int, device) -> torch.Tensor:
+    """K1s with no class and no ELL extent: one launch that writes only
+    the [1, n_cap] seed plane of a single-root SSSP (0 at ``root``,
+    INF_E elsewhere) — the caller relaxes the planes unmasked."""
+    seeds_nbr = torch.tensor([root], dtype=torch.int32, device=device)
+    seeds_w = torch.zeros(1, dtype=torch.int32, device=device)
+    dist0 = torch.empty(1, n_cap, dtype=torch.int32, device=device)
+    p = cuda.ptr
+    cuda.launch(
+        "relax", "sssp_init", "pppppppppppiiiiiipi",
+        0, 0, 0, 0, 0, 0, 0, 0, p(seeds_nbr), p(seeds_w), p(dist0),
+        0, n_cap, 0, 0, 1, root, 0, 1,
+    )
+    return dist0
+
+
 # -- K1: one Jacobi relaxation ---------------------------------------------
 
 _GATE_SIG = "ppiiiiii"
@@ -311,6 +327,14 @@ def relax_step(dist, out, flag, deltas, sw, residual,
     if _is_cpu(dist):
         relax_step_plain(dist, out, flag, deltas, sw, residual, gate)
         return
+    relax_step.launches += _launch_relax(dist, out, flag, deltas, sw,
+                                         residual, gate)
+
+
+def _launch_relax(dist, out, flag, deltas, sw, residual,
+                  gate: Optional[Gate] = None) -> int:
+    """Launch K1 (the shift kernel, then the residual one when there is
+    a residual) and return the number of launches."""
     _int32(dist, out, flag, deltas, sw)
     g = _lanes_of(dist, 2)
     d_cap, n_cap = dist.shape[-2:]
@@ -322,19 +346,19 @@ def relax_step(dist, out, flag, deltas, sw, residual,
         p(dist), p(out), p(deltas), p(sw), d_cap, n_cap, s_cap, p(flag), g,
         *ga,
     )
-    relax_step.launches += 1
-    if residual is not None:
-        rows_c, nbr_c, rw = residual
-        _int32(rows_c, nbr_c, rw)
-        if gate is not None:
-            # the shift launch counted this step for every open lane
-            ga = _gate_args(gate._replace(inc=(0, 0)))
-        cuda.launch(
-            "relax", "relax_residual", "pppppiiiipi" + _GATE_SIG,
-            p(dist), p(out), p(rows_c), p(nbr_c), p(rw), d_cap, n_cap,
-            nbr_c.shape[-2], nbr_c.shape[-1], p(flag), g, *ga,
-        )
-        relax_step.launches += 1
+    if residual is None:
+        return 1
+    rows_c, nbr_c, rw = residual
+    _int32(rows_c, nbr_c, rw)
+    if gate is not None:
+        # the shift launch counted this step for every open lane
+        ga = _gate_args(gate._replace(inc=(0, 0)))
+    cuda.launch(
+        "relax", "relax_residual", "pppppiiiipi" + _GATE_SIG,
+        p(dist), p(out), p(rows_c), p(nbr_c), p(rw), d_cap, n_cap,
+        nbr_c.shape[-2], nbr_c.shape[-1], p(flag), g, *ga,
+    )
+    return 2
 
 
 relax_step.launches = 0

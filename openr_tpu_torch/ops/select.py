@@ -104,15 +104,30 @@ def select_routes_plain(dist_d, root_w, root, mbuf, p_cap: int,
     return out + (slot.to(torch.int32), alt_metric.to(torch.int32))
 
 
+def _into(got: tuple, out) -> tuple:
+    """The plain outputs copied into ``out`` (metric, s3w, nhw and, with
+    LFA, the two LFA columns), or as they are without ``out``."""
+    if out is None:
+        return got
+    for o, g in zip(out, got[:3] + got[4:]):
+        o.copy_(g)
+    return tuple(out[:3]) + (got[3],) + tuple(out[3:])
+
+
 def select_routes(dist_d, root_w, root, mbuf, p_cap: int, a_cap: int,
-                  block_v4: bool, lfa: bool = False):
+                  block_v4: bool, lfa: bool = False, out=None):
     """-> (metric int32 [P], s3w int32 [P, ceil(A/16)], nhw int32
     [P, ceil(D/16)], ok bool [P]), and with ``lfa`` also (lfa_slot
     int32 [P], lfa_metric int32 [P]). Stacked inputs ([g, D, n_cap]
-    planes, ``root`` an int32 tensor [g]) give stacked outputs."""
+    planes, ``root`` an int32 tensor [g]) give stacked outputs.
+
+    ``out``, when given, is (metric, s3w, nhw) — and with ``lfa`` the
+    two LFA columns — of those shapes: the published planes are written
+    there instead of into new tensors (the streaming epoch's second
+    plane set)."""
     if _is_cpu(dist_d):
-        return select_routes_plain(dist_d, root_w, root, mbuf, p_cap, a_cap,
-                                   block_v4, lfa)
+        return _into(select_routes_plain(dist_d, root_w, root, mbuf, p_cap,
+                                         a_cap, block_v4, lfa), out)
     _int32(dist_d, root_w, mbuf)
     g = dist_d.shape[0] if dist_d.dim() == 3 else 1
     d_cap, n_cap = dist_d.shape[-2:]
@@ -134,11 +149,20 @@ def select_routes(dist_d, root_w, root, mbuf, p_cap: int, a_cap: int,
 
     dist = empty(n_cap)
     onsp = empty(n_cap, -(-d_cap // 32))
-    metric = empty(p_cap)
-    s3w = empty(p_cap, -(-a_cap // 16))
-    nhw = empty(p_cap, -(-d_cap // 16))
+    if out is None:
+        metric = empty(p_cap)
+        s3w = empty(p_cap, -(-a_cap // 16))
+        nhw = empty(p_cap, -(-d_cap // 16))
+        lfa_out = (empty(p_cap), empty(p_cap)) if lfa else None
+    else:
+        _int32(*out)
+        metric, s3w, nhw = out[:3]
+        lfa_out = tuple(out[3:5]) if lfa else None
+        if (metric.shape != lead + (p_cap,)
+                or s3w.shape != lead + (p_cap, -(-a_cap // 16))
+                or nhw.shape != lead + (p_cap, -(-d_cap // 16))):
+            raise ValueError("out planes do not match the outputs' shapes")
     ok = empty(p_cap, dtype=torch.bool)
-    lfa_out = (empty(p_cap), empty(p_cap)) if lfa else None
     p = cuda.ptr
     cuda.launch("select", "select_nodes", "ppppiiipi",
                 p(dist_d), p(root_w), p(dist), p(onsp), d_cap, n_cap, root_i,

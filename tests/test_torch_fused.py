@@ -34,6 +34,7 @@ from tests.test_link_state import adj
 from tests.test_torch_lfa import _weighted
 from tests.test_torch_pipeline import jax_inputs
 from tests.test_torch_solver import assert_rib_equal, to_port
+from tests.torch_jax_state import jax_state_barrier  # noqa: F401
 
 FIELDS = ("delta_buf", "full_buf", "metric", "s3w", "nhw", "lfa_slot",
           "lfa_metric")

@@ -35,6 +35,7 @@ from openr_tpu.ops import relax as jrelax
 from openr_tpu.ops.csr import build_prefix_matrix
 from openr_tpu.ops.edgeplan import build_plan, drain_dirty, sync_plan
 from openr_tpu.types import Adjacency, AdjacencyDatabase
+from tests.torch_jax_state import jax_state_barrier  # noqa: F401
 
 INF_E = 1 << 29
 DIRTY_CAP = 64

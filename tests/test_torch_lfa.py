@@ -38,6 +38,7 @@ from tests.test_link_state import adj, adj_db
 from tests.test_spf_solver import prefix_db
 from tests.test_torch_pipeline import jax_inputs
 from tests.test_torch_solver import assert_rib_equal, to_port
+from tests.torch_jax_state import jax_state_barrier  # noqa: F401
 
 DIRTY_CAP = 64
 FIELDS = ("delta_buf", "full_buf", "metric", "s3w", "nhw", "lfa_slot",

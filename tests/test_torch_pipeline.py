@@ -27,6 +27,7 @@ from openr_tpu.ops.csr import build_prefix_matrix
 from openr_tpu.ops.edgeplan import build_plan
 from openr_tpu.types import AdjacencyDatabase, PrefixMetrics
 from tests.test_spf_solver import prefix_db
+from tests.torch_jax_state import jax_state_barrier  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -23,6 +23,7 @@ from openr_tpu.decision.tpu_solver import _plan_sssp
 from openr_tpu.models import topologies
 from openr_tpu.ops import relax as jrelax
 from openr_tpu.ops.edgeplan import build_plan
+from tests.torch_jax_state import jax_state_barrier  # noqa: F401
 
 INF_E = 1 << 29
 

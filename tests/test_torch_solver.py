@@ -30,6 +30,7 @@ from openr_tpu.types import (
 )
 from tests.test_link_state import adj, adj_db
 from tests.test_spf_solver import prefix_db
+from tests.torch_jax_state import jax_state_barrier  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 
