@@ -82,11 +82,46 @@ prints no result line:
      ``SpfSolver(enable_ucmp=True)``'s, 12 VIPs resolve on the card and
      the overflow one on the host walk; ``base_sssp`` and
      ``ucmp_propagate`` against their plain versions on fabric10k and
-     on the lsdb100k grid (the deep DAG), timed on fabric10k.
+     on the lsdb100k grid (the deep DAG), timed on fabric10k;
+  10. KSP2 (BASELINE config 4): first a small WAN (8 regions of 16 x
+     16, 64 KSP2 destinations) whose whole RIB equals the oracle's; then
+     wan50k (bench.py:1138-1145: 48 regions of 32 x 32, 49,152 nodes,
+     64 SR_MPLS + KSP2_ED_ECMP prefixes, root ``r00-n08-08``) through
+     ``GpuSpfSolver.build_route_db``: a cold build and 3 churn rounds
+     (every link of a root neighbour to 90, of a far region's hub to
+     40, of a node beside the root to 3), each on the delta path, with
+     ``LinkState.run_spf`` wrapped to count calls (0), every fast-path
+     route and every 8th KSP2 route (sorted) equal to the oracle's on a
+     separate copy of the LSDB, and each round's ``ksp2_*`` timings and
+     delta stats printed; the counts are zeroed before the cold build
+     and read after the last round. Then K10 ``overlay_planes``, K11
+     ``masked_delta`` (also at k_cap 4, where rows overflow) and K1
+     over the lane planes against their plain versions, the whole
+     masked batch (8 rows) against its plain run on CPU copies, and
+     ``masked_rows_update`` through its chunked
+     stateless path (a lowered ``_MAX_RESIDENT_ROWS``) equal to the
+     resident rows;
+  11. what-if sweeps: whatif1k (``grid(32, node_labels=False)``, root
+     ``node-16-16``) ``WhatIfEngine.sweep(order=1)``: 1,984 scenarios in
+     one dispatch of 2,048 lanes, with the solver's bucketed and then
+     sync kernel (the same rows), 16 sampled verdicts equal to a host
+     ``run_spf`` without the link; K10, K12 ``sweep_verdicts`` and K1
+     over the lanes on the dispatch's own inputs against their plain
+     versions, and the whole sweep on its first 64 lanes against its
+     plain run on CPU copies; fabric10k
+     (root ``pod000-rsw00``): ``max_scenarios=2048`` in two dispatches
+     of 1,024 scenarios over the residual ELL (2,048 lanes each: the
+     baseline lane makes 1,025, padded to a power of two as the
+     reference pads), the sweep's peak device memory, 4 sampled
+     verdicts and a spine and a link drain against the host; on the
+     first dispatch's own inputs, sliced to 64 lanes, K10 (shift and
+     residual planes), one K1 step over the per-lane residual weights
+     with the shared index tables, K12 and the whole sweep against their
+     plain versions.
 
 Output: phase lines, then one ``{"kernels": [...]}`` JSON line (every
-kernel and its LFA, fused and stream variants, each with the launches of
-the path that runs it), the card's
+kernel and its LFA, fused, stream, ksp2 and sweep variants, each with
+the launches of the path that runs it), the card's
 name and power limit as nvidia-smi reports them, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -177,6 +212,21 @@ def max_abs_err(torch, got, want) -> int:
             return 0
         return int((got.long() - want.long()).abs().max())
     return max(max_abs_err(torch, g, w) for g, w in zip(got, want))
+
+
+def on_cpu(args) -> tuple:
+    """CPU copies of the tensors among ``args``: a wrapper given them runs
+    its plain version."""
+    return tuple(a.cpu() if hasattr(a, "cpu") else a for a in args)
+
+
+def plain_residual(residual, n_cap: int):
+    """The residual tuple the plain K1 takes (index tables clipped, as
+    the kernel clips them as it reads) from the one the kernel takes."""
+    if residual is None:
+        return None
+    rows, nbr, w = residual
+    return rows.clamp(0, n_cap - 1), nbr.clamp(0, n_cap - 1), w
 
 
 def build_cell(topologies, gen):
@@ -1062,13 +1112,549 @@ def ucmp_phase(c, lsdb) -> dict:
     return launches
 
 
+# -- 10. wan50k KSP2 (BASELINE config 4) --------------------------------------
+
+# bench.py:1138-1145: 48 metro regions of 32 x 32, 64 KSP2 destinations
+WAN50K = dict(regions=48, region_side=32, ksp2_every=768)
+WAN50K_ROOT = "r00-n08-08"
+# every KSP2 destination against the oracle on a smaller WAN
+WAN_SMALL = dict(regions=8, region_side=16, ksp2_every=32)
+WAN_SMALL_ROOT = "r00-n04-04"
+# churn: (victim, metric of all its links) — a root neighbour, a far
+# region's hub, a node beside the root
+WAN_CHURN = (("r00-n08-07", 90), ("r05-n16-16", 40), ("r00-n07-08", 3))
+KSP2_PATH = ("K10:overlay_planes", "K11:masked_delta", "K1s:sssp_init",
+             "K1:relax_step", "base_sssp")
+
+
+def set_metric(adb_cls, states_list, adj_dbs, victim: str, metric: int):
+    """Every link of ``victim`` to ``metric`` in each of ``states_list``."""
+    db = next(d for d in adj_dbs if d.this_node_name == victim)
+    new = adb_cls(this_node_name=victim, adjacencies=tuple(
+        dataclasses.replace(a, metric=metric) for a in db.adjacencies),
+        node_label=db.node_label, area="0")
+    for states in states_list:
+        states["0"].update_adjacency_database(new)
+
+
+def count_spf(link_state) -> dict:
+    """Wrap ``run_spf`` of a LinkState to count its calls."""
+    calls = {"spf": 0}
+    orig = link_state.run_spf
+
+    def counting(*a, **k):
+        calls["spf"] += 1
+        return orig(*a, **k)
+
+    link_state.run_spf = counting
+    return calls
+
+
+def ksp2_phase(c) -> dict:
+    """wan50k KSP2 (module docstring, phase 10). Returns the ksp2 path's
+    launches by kernel."""
+    import numpy as np
+
+    torch, gs, ksp2, relax = c.torch, c.gpu_solver, c.ksp2, c.relax
+    t_phase = time.perf_counter()
+    # the small WAN first: every KSP2 destination against the oracle
+    gen = lambda: c.topologies.wan(**WAN_SMALL)  # noqa: E731
+    _, s_states, s_ps = build_cell(c.topologies, gen)
+    _, o_states, o_ps = build_cell(c.topologies, gen)
+    calls = count_spf(s_states["0"])
+    got = gs.GpuSpfSolver(WAN_SMALL_ROOT, device=c.dev).build_route_db(
+        WAN_SMALL_ROOT, s_states, s_ps)
+    want = c.SpfSolver(WAN_SMALL_ROOT).build_route_db(WAN_SMALL_ROOT,
+                                                      o_states, o_ps)
+    check(calls["spf"] == 0, "small WAN: the KSP2 build ran a host Dijkstra")
+    check(rib_equal(want, got), "small WAN: KSP2 RIB != oracle")
+    log(f"small WAN (2,048 nodes, 64 KSP2 destinations): RIB == oracle, "
+        f"0 host Dijkstras, {time.perf_counter() - t_phase:.1f} s")
+
+    t0 = time.perf_counter()
+    gen = lambda: c.topologies.wan(**WAN50K)  # noqa: E731
+    adj_dbs, states, ps = build_cell(c.topologies, gen)
+    _, o_states, o_ps = build_cell(c.topologies, gen)
+    log(f"wan50k: {states['0'].node_count()} nodes, {len(ps.prefixes())} "
+        f"prefixes, host build of two copies {time.perf_counter() - t0:.1f} s")
+    calls = count_spf(states["0"])
+    solver = gs.GpuSpfSolver(WAN50K_ROOT, device=c.dev)
+    oracle = c.SpfSolver(WAN50K_ROOT)
+    reads0 = c.zero_counts()
+
+    def build(label):
+        t0 = time.perf_counter()
+        db = solver.build_route_db(WAN50K_ROOT, states, ps)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        tm = solver.last_timing
+        log(f"wan50k {label}: " + json.dumps({
+            "build_ms": wall,
+            **{k: v for k, v in tm.items() if k.startswith("ksp2_")},
+            **{k: tm.get(k) for k in ("sssp_ms", "pipeline_wall_ms",
+                                      "spf_kernel")},
+            "host_run_spf": calls["spf"],
+            "launches_so_far": {k: c.wrappers[k][0].launches for k in (
+                "K10:overlay_planes", "K11:masked_delta", "base_sssp")}}))
+        check(calls["spf"] == 0, f"wan50k {label}: a host Dijkstra ran")
+        return db
+
+    def sampled_ksp2(db, label):
+        t0 = time.perf_counter()
+        oracle.best_routes_cache.clear()
+        for prefix in ksp2_sample:
+            want = oracle.create_route_for_prefix(WAN50K_ROOT, o_states, o_ps,
+                                                  prefix)
+            check(want == db.unicast_routes.get(prefix),
+                  f"wan50k {label}: KSP2 route {prefix} != oracle")
+        return (time.perf_counter() - t0) * 1e3
+
+    db = build("cold build")
+    _, fast, _, ksp2_all, _ = solver._partition
+    ksp2_sample = sorted(ksp2_all)[::8]
+    ad = solver._area_dev["0"]
+    plan = ad.plan
+    n_nodes = states["0"].node_count()
+    check(len(ksp2_all) == -(-n_nodes // WAN50K["ksp2_every"]),
+          "wan50k: one KSP2 prefix every ksp2_every nodes")
+    log("wan50k plan: " + json.dumps({
+        "n_cap": plan.n_cap, "s_cap": plan.s_cap,
+        "res": list(plan.res_nbr.shape), "k_res": plan.k_res}))
+    t0 = time.perf_counter()
+    oracle.best_routes_cache.clear()
+    for prefix in fast["0"]:
+        want = oracle.create_route_for_prefix(WAN50K_ROOT, o_states, o_ps,
+                                              prefix)
+        check(want == db.unicast_routes.get(prefix),
+              f"wan50k: fast-path route {prefix} != oracle")
+    t_fast = (time.perf_counter() - t0) * 1e3
+    t_k = sampled_ksp2(db, "cold build")
+    log(f"wan50k cold build: {len(fast['0'])} fast-path routes and 8 of 64 "
+        f"KSP2 routes == oracle (oracle host {t_fast:.0f} ms and "
+        f"{t_k:.0f} ms)")
+    rstate = solver._ksp2_rows[("0", WAN50K_ROOT)]
+    prev_rows = None
+    for rnd, (victim, metric) in enumerate(WAN_CHURN, start=1):
+        set_metric(c.AdjacencyDatabase, (states, o_states), adj_dbs, victim,
+                   metric)
+        prev_rows = rstate.d_prev
+        db = build(f"churn round {rnd} ({victim} to {metric})")
+        check("ksp2_init" not in solver.last_timing,
+              f"wan50k churn round {rnd} must take the delta path")
+        t_k = sampled_ksp2(db, f"churn round {rnd}")
+        log(f"wan50k churn round {rnd}: 8 KSP2 routes == oracle "
+            f"(oracle host {t_k:.0f} ms)")
+    torch.cuda.synchronize()
+    launches, reads = c.read_counts(reads0)
+    log(f"wan50k launches over the cold build and 3 churn rounds: "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}, "
+        f"flag reads {reads}")
+    for name in KSP2_PATH:
+        check(launches[name] > 0, f"kernel {name} never launched on the "
+              "ksp2 path")
+    c.variant_launches["K1:relax_step[ksp2]"] = launches["K1:relax_step"]
+
+    # the kernels against their plain versions at wan50k's shapes
+    n_cap, s_cap = plan.n_cap, plan.s_cap
+    r_cap, kr_cap = plan.res_nbr.shape
+    b, ms_cap = rstate.mask_s.shape
+    mr_cap = rstate.mask_r.shape[1]
+    ms_t = torch.from_numpy(rstate.mask_s).to(c.dev)
+    mr_t = torch.from_numpy(rstate.mask_r).to(c.dev)
+    has_res = plan.k_res > 0
+    over = (ad.shift_w, ad.res_w, ms_t, None, mr_t, None)
+    words = s_cap * n_cap + r_cap * kr_cap
+    c.record(
+        "K10:overlay_planes",
+        max_abs_err(torch, ksp2.overlay_planes(*over),
+                    ksp2.overlay_planes_plain(*over)),
+        lambda: ksp2.overlay_planes(*over),
+        lambda: ksp2.overlay_planes_plain(*over),
+        nbytes=4 * (words + b * words + b * (ms_cap + mr_cap)),
+        ops=b * (ms_cap + mr_cap), reps=20, plain_reps=3,
+    )
+    lanes = torch.arange(b, device=c.dev)[:, None].expand(b, ms_cap)
+    keep = ms_t < s_cap * n_cap
+    li, fi = lanes[keep], ms_t[keep].long()
+
+    def repeat_index_put():
+        flat = ad.shift_w.reshape(1, -1).repeat(b, 1)
+        flat.index_put_((li, fi), torch.tensor(relax.INF_E, dtype=torch.int32,
+                                               device=c.dev))
+        return flat
+
+    log("K10 beside its nearest PyTorch pair, repeat then index_put_ "
+        "(shift planes only; not one call, so no library_ms): " + json.dumps({
+            "K10_ms": c.results["K10:overlay_planes"]["ms"],
+            "repeat_index_put_ms": time_ms(torch, repeat_index_put, 20)}))
+    errs = []
+    for k_cap in (4, min(ksp2._DELTA_K, n_cap)):
+        errs.append(max_abs_err(
+            torch, ksp2.masked_delta(rstate.d_prev, prev_rows, k_cap),
+            ksp2.masked_delta_plain(rstate.d_prev, prev_rows, k_cap)))
+    cnt = ksp2.masked_delta(rstate.d_prev, prev_rows, 4)[:, 0]
+    check(int((cnt > 4).sum()) > 0, "K11 check: k_cap 4 must overflow a row")
+    k_cap = min(ksp2._DELTA_K, n_cap)
+    c.record(
+        "K11:masked_delta", max(errs),
+        lambda: ksp2.masked_delta(rstate.d_prev, prev_rows, k_cap),
+        lambda: ksp2.masked_delta_plain(rstate.d_prev, prev_rows, k_cap),
+        nbytes=4 * (2 * b * n_cap + b * (1 + 2 * k_cap)),
+        ops=3 * b * n_cap, reps=20, plain_reps=3,
+    )
+    # K1 over the lane planes: one step from a mid-solve wavefront
+    deltas_b, sw, res_k = ksp2.lane_inputs(
+        ad.deltas, ad.shift_w, ad.res_rows, ad.res_nbr, ad.res_w, ms_t, None,
+        mr_t, None, has_res)
+    res_p = plain_residual(res_k, n_cap)
+    root = plan.node_index[WAN50K_ROOT]
+    roots = torch.tensor([root], dtype=torch.int32, device=c.dev)
+    mid = ksp2.seed_rows(roots, b, n_cap)
+    check(max_abs_err(torch, mid, ksp2.seed_rows_plain(roots, b, n_cap)) == 0,
+          "K1s seed rows != plain")
+    spare = torch.empty_like(mid)
+    flag = torch.zeros(1, dtype=torch.int32, device=c.dev)
+    for _ in range(4):
+        relax.relax_step(mid, spare, flag, deltas_b, sw, res_k)
+        mid, spare = spare, mid
+    o_k, o_p = torch.empty_like(mid), torch.empty_like(mid)
+    f_k, f_p = torch.zeros_like(flag), torch.zeros_like(flag)
+    relax.relax_step(mid, o_k, f_k, deltas_b, sw, res_k)
+    relax.relax_step_plain(mid, o_p, f_p, deltas_b, sw, res_p)
+    check(int(f_k) == 1, "K1 lanes: a wavefront step must change the rows")
+    c.record(
+        "K1:relax_step[ksp2]", max_abs_err(torch, (o_k, f_k), (o_p, f_p)),
+        lambda: relax.relax_step(mid, o_k, f_k, deltas_b, sw, res_k),
+        lambda: relax.relax_step_plain(mid, o_p, f_p, deltas_b, sw, res_p),
+        nbytes=4 * (2 * b * n_cap + b * words + b * s_cap
+                    + (2 * r_cap * kr_cap + r_cap if has_res else 0)),
+        ops=2 * b * (n_cap * s_cap + (r_cap * kr_cap if has_res else 0)),
+        reps=20, plain_reps=2,
+    )
+    # the whole masked batch, kernels vs plain, on 8 rows
+    sub = (ad.deltas, ad.shift_w, ad.res_rows, ad.res_nbr, ad.res_w, root,
+           ms_t[:8].contiguous(), mr_t[:8].contiguous(), has_res)
+    t0 = time.perf_counter()
+    rows_k = ksp2.masked_rows(*sub)
+    torch.cuda.synchronize()
+    t_rows = (time.perf_counter() - t0) * 1e3
+    check(max_abs_err(torch, rows_k.cpu(), ksp2.masked_rows(*on_cpu(sub)))
+          == 0, "masked_rows: kernels != plain (CPU copies)")
+    check(max_abs_err(torch, rows_k, rstate.d_prev[:8]) == 0,
+          "masked_rows != the solver's resident rows")
+    # the chunked stateless path: b_cap past a lowered resident-row bound
+    locs = _mask_locs(rstate, plan)
+    saved = ksp2._MAX_RESIDENT_ROWS
+    chunk = max(4, rstate.b_cap // 4)
+    ksp2._MAX_RESIDENT_ROWS = chunk
+    try:
+        chunked = ksp2.MaskedRowsState()
+        ch = ksp2.masked_rows_update(
+            chunked, plan, ad.shift_w, ad.res_rows, ad.res_nbr, ad.res_w,
+            ad.deltas, root, rstate.dest_key, locs)
+    finally:
+        ksp2._MAX_RESIDENT_ROWS = saved
+    n_rows = len(rstate.dest_key)
+    check(ch == [True] * n_rows and chunked.d_prev is None,
+          "the chunked path must run stateless")
+    check(np.array_equal(chunked.host_rows, rstate.host_rows[:n_rows]),
+          "chunked masked rows != the resident rows")
+    log(f"masked rows equal to plain (8 rows, {t_rows:.1f} ms host wall) and, "
+        f"through the chunked path ({-(-n_rows // chunk)} chunks of {chunk}), "
+        f"to the "
+        f"resident rows; phase 10 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def _mask_locs(rstate, plan) -> list:
+    """The edge locations of a MaskedRowsState's last masks, row by row
+    (pads dropped): what masked_rows_update rebuilds them from."""
+    n_cap = plan.n_cap
+    r_cap, kr_cap = plan.res_nbr.shape
+    rows = []
+    for i in range(len(rstate.dest_key)):
+        row = [("s", int(f) // n_cap, int(f) % n_cap)
+               for f in rstate.mask_s[i] if f < plan.s_cap * n_cap]
+        row += [("r", int(f) // kr_cap, int(f) % kr_cap)
+                for f in rstate.mask_r[i] if f < r_cap * kr_cap]
+        rows.append(row)
+    return rows
+
+
+# -- 11. what-if sweeps: whatif1k and fabric10k -------------------------------
+
+WHATIF1K_SIDE = 32
+WHATIF1K_ROOT = "node-16-16"
+# scenarios checked against the host: whatif1k, fabric10k
+WHATIF_SAMPLES = (16, 4)
+
+
+def host_verdict(link_state, root, links, base, keep=None) -> dict:
+    """A scenario's verdicts from the host: run_spf without ``links``
+    against the unperturbed field ``base`` ({node: metric}); node
+    ``keep`` keeps its base metric (a drained node is still reached)."""
+    spf = link_state.run_spf(root, True, set(links))
+    after = {n: spf[n].metric for n in spf}
+    if keep is not None:
+        after[keep] = base[keep]
+    lost = [n for n in base if n not in after]
+    return {
+        "unreachable_pairs": len(lost),
+        "max_stretch": max([0] + [after[n] - base[n] for n in base
+                                  if n in after]),
+        "changed_nodes": sum(after.get(n) != m for n, m in base.items()),
+    }
+
+
+def check_verdicts(ls, root, out, n: int, seed: int, label: str) -> None:
+    spf = ls.run_spf(root)
+    base = {name: spf[name].metric for name in spf}
+    links = {f"{ln.n1}|{ln.n2}": ln for ln in ls.ordered_all_links()
+             if ln.is_up()}
+    rows = sorted(out["rows"], key=lambda r: r["scenario"])
+    for row in random.Random(seed).sample(rows, n):
+        want = host_verdict(ls, root, {links[row["scenario"]]}, base)
+        got = {k: row[k] for k in want}
+        check(got == want, f"{label}: {row['scenario']} verdicts {got} != "
+              f"host {want}")
+
+
+def sweep_kernels(c, a, k, timed: bool) -> None:
+    """The sweep's kernels against their plain versions (tolerance 0) on
+    one dispatch's own inputs ``a`` / ``k``: K10 (the shift planes and,
+    with a residual, the residual planes), one K1 step from a mid-solve
+    wavefront over the lane planes, K12 on the dispatch's distances, and
+    the whole sweep on the first 64 lanes against its plain run on CPU
+    copies. ``timed`` records the kernels under their ``[sweep]`` names
+    (whatif1k's dispatch); else they are only checked (fabric10k's
+    residual dispatch, sliced to 64 lanes by the caller)."""
+    torch, ksp2, relax, sweep = c.torch, c.ksp2, c.relax, c.sweep
+    (deltas, shift_w, res_rows, res_nbr, res_w, roots, sh_idx, sh_val,
+     rs_idx, rs_val) = a
+    has_res = k["has_res"]
+    b, es = sh_idx.shape
+    s_cap, n_cap = shift_w.shape
+    over = (shift_w, res_w if has_res else None, sh_idx, sh_val,
+            rs_idx if has_res else None, rs_val)
+    got, want = ksp2.overlay_planes(*over), ksp2.overlay_planes_plain(*over)
+    err = max_abs_err(torch, got[0], want[0])
+    if has_res:
+        err = max(err, max_abs_err(torch, got[1], want[1]))
+    del got, want
+    deltas_b, sw, res_k = ksp2.lane_inputs(
+        deltas, shift_w, res_rows, res_nbr, res_w, sh_idx, sh_val, rs_idx,
+        rs_val, has_res)
+    res_p = plain_residual(res_k, n_cap)
+    mid = ksp2.seed_rows(roots, b, n_cap)
+    spare = torch.empty_like(mid)
+    flag = torch.zeros(1, dtype=torch.int32, device=c.dev)
+    for _ in range(4):
+        relax.relax_step(mid, spare, flag, deltas_b, sw, res_k)
+        mid, spare = spare, mid
+    o_k, o_p = torch.empty_like(mid), torch.empty_like(mid)
+    f_k, f_p = torch.zeros_like(flag), torch.zeros_like(flag)
+    relax.relax_step(mid, o_k, f_k, deltas_b, sw, res_k)
+    relax.relax_step_plain(mid, o_p, f_p, deltas_b, sw, res_p)
+    check(int(f_k) == 1, "K1 sweep lanes: a wavefront step must change")
+    step_err = max_abs_err(torch, (o_k, f_k), (o_p, f_p))
+    full = sweep.sweep(*a, **{**k, "return_dist": True})
+    dist = full[4]
+    v_err = max_abs_err(torch, sweep.sweep_verdicts(dist),
+                        sweep.sweep_verdicts_plain(dist))
+    res_words = res_w.numel() if has_res else 0
+    if timed:
+        c.record(
+            "K10:overlay_planes[sweep]", err,
+            lambda: ksp2.overlay_planes(*over),
+            lambda: ksp2.overlay_planes_plain(*over),
+            nbytes=4 * ((s_cap * n_cap + res_words) * (1 + b) + 2 * b * es),
+            ops=b * es,
+        )
+        c.record(
+            "K12:sweep_verdicts", v_err,
+            lambda: sweep.sweep_verdicts(dist),
+            lambda: sweep.sweep_verdicts_plain(dist),
+            nbytes=4 * (dist.numel() + dist[0].numel() + 3 * b),
+            ops=6 * dist.numel(),
+        )
+        c.record(
+            "K1:relax_step[sweep]", step_err,
+            lambda: relax.relax_step(mid, o_k, f_k, deltas_b, sw, res_k),
+            lambda: relax.relax_step_plain(mid, o_p, f_p, deltas_b, sw,
+                                           res_p),
+            nbytes=4 * (2 * mid.numel() + b * s_cap * n_cap + b * s_cap),
+            ops=2 * mid.numel() * s_cap, reps=20, plain_reps=2,
+        )
+    else:
+        check(err == 0 and step_err == 0 and v_err == 0,
+              f"sweep kernels != plain (K10 {err}, K1 {step_err}, "
+              f"K12 {v_err})")
+    del deltas_b, sw, res_k, res_p, mid, spare, o_k, o_p
+    # the whole sweep on the first 64 lanes: kernels vs CPU copies
+    sub = (*a[:6], *(t[:64].contiguous() for t in a[6:]))
+    t0 = time.perf_counter()
+    got = sweep.sweep(*sub, **{**k, "return_dist": True})
+    want = sweep.sweep(*on_cpu(sub), **{**k, "return_dist": True})
+    plain_s = time.perf_counter() - t0
+    check(max_abs_err(torch, [t.cpu() for t in got[:3] + (got[4],)],
+                      want[:3] + (want[4],)) == 0
+          and (got[3], got[5]) == (want[3], want[5]),
+          "sweep: kernels != plain on 64 lanes")
+    check(max_abs_err(torch, got[4], dist[:64]) == 0,
+          "sweep: 64 lanes != the same lanes of the dispatch")
+    log(f"sweep kernels equal to plain ({b} lanes, residual {has_res}: K10, "
+        f"K1, K12; the whole sweep on 64 lanes, {plain_s:.1f} s with its "
+        f"CPU run)")
+
+
+def whatif_phase(c) -> dict:
+    """The what-if sweeps (module docstring, phase 11). Returns the sweep
+    path's launches by kernel."""
+    torch, gs, ksp2, relax, sweep, whatif = (c.torch, c.gpu_solver, c.ksp2,
+                                             c.relax, c.sweep, c.whatif)
+    t_phase = time.perf_counter()
+    _, states, ps = build_cell(c.topologies, lambda: c.topologies.grid(
+        WHATIF1K_SIDE, node_labels=False))
+    solver = gs.GpuSpfSolver(WHATIF1K_ROOT, device=c.dev)
+    solver.build_route_db(WHATIF1K_ROOT, states, ps)
+    eng = whatif.WhatIfEngine(solver)
+    n_links = 2 * WHATIF1K_SIDE * (WHATIF1K_SIDE - 1)
+    lanes = 2
+    while lanes < n_links + 1:
+        lanes *= 2
+    captured = []
+    real = whatif.sweep
+
+    def spy(*a, **k):
+        captured.append((a, k))
+        return real(*a, **k)
+
+    whatif.sweep = spy
+    reads0 = c.zero_counts()
+    out = {}
+    try:
+        for kernel in ("bucketed", "sync"):
+            solver.spf_kernel = kernel
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            job = eng.plan_sweep(states, ps, order=1)
+            out[kernel] = job.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            o = out[kernel]
+            log(f"whatif1k sweep ({kernel} solver): " + json.dumps({
+                "scenarios": o["scenarios"], "dispatches": o["dispatches"],
+                "lanes": captured[-1][0][6].shape[0], "trips": o["trips"],
+                "rounds": job.rounds, "sweep_ms": o["sweep_ms"],
+                "scenarios_per_s": o["scenarios"] / wall,
+                "partitioned": o["partitioned"]}))
+            check(o["scenarios"] == n_links and o["dispatches"] == 1
+                  and captured[-1][0][6].shape[0] == lanes,
+                  f"whatif1k: {n_links} scenarios in one dispatch of "
+                  f"{lanes} lanes")
+    finally:
+        whatif.sweep = real
+        solver.spf_kernel = "bucketed"
+    torch.cuda.synchronize()
+    launches, reads = c.read_counts(reads0)
+    check(out["sync"]["rows"] == out["bucketed"]["rows"],
+          "whatif1k: the sync and bucketed solvers' sweeps differ")
+    check_verdicts(states["0"], WHATIF1K_ROOT, out["sync"],
+                   WHATIF_SAMPLES[0], 1, "whatif1k")
+    log(f"whatif1k: {WHATIF_SAMPLES[0]} sampled verdicts == host run_spf; "
+        f"launches {json.dumps({k: v for k, v in launches.items() if v})}, "
+        f"flag reads {reads}")
+    for name in ("K10:overlay_planes", "K1s:sssp_init", "K1:relax_step",
+                 "K12:sweep_verdicts"):
+        check(launches[name] > 0, f"kernel {name} never launched on the "
+              "sweep path")
+    c.variant_launches["K1:relax_step[sweep]"] = launches["K1:relax_step"]
+    c.variant_launches["K10:overlay_planes[sweep]"] = launches[
+        "K10:overlay_planes"]
+
+    sweep_kernels(c, *captured[-1], timed=True)
+    log(f"whatif1k sweep kernels equal to plain; phase 11a took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+    # fabric10k: the residual ELL, two dispatches, drains
+    t0 = time.perf_counter()
+    me = "pod000-rsw00"
+    _, f_states, f_ps = build_cell(c.topologies,
+                                   lambda: c.topologies.fabric(**FABRIC))
+    f_solver = gs.GpuSpfSolver(me, device=c.dev)
+    f_solver.build_route_db(me, f_states, f_ps)
+    f_eng = whatif.WhatIfEngine(f_solver)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated()
+    captured.clear()
+    whatif.sweep = spy
+    try:
+        t1 = time.perf_counter()
+        f_out = f_eng.sweep(f_states, f_ps, order=1, max_scenarios=2048)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    finally:
+        whatif.sweep = real
+    plan = f_solver._area_dev["0"].plan
+    log("fabric10k sweep: " + json.dumps({
+        "scenarios": f_out["scenarios"], "dispatches": f_out["dispatches"],
+        "truncated": f_out["truncated"], "trips": f_out["trips"],
+        "sweep_ms": f_out["sweep_ms"],
+        "scenarios_per_s": f_out["scenarios"] / wall,
+        "k_res": plan.k_res, "res": list(plan.res_nbr.shape),
+        "live_bytes_before": live,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "sweep_peak_bytes": torch.cuda.max_memory_allocated() - live}))
+    cap = f_eng._batch_cap(plan.n_cap, 1)
+    check(f_out["scenarios"] == min(2048, f_out["scenarios"]
+                                    + f_out["truncated"])
+          and f_out["dispatches"] == -(-f_out["scenarios"] // cap)
+          and plan.k_res > 0,
+          f"fabric10k: the scenarios in dispatches of {cap} scenarios "
+          "over the residual")
+    check_verdicts(f_states["0"], me, f_out, WHATIF_SAMPLES[1], 2,
+                   "fabric10k")
+    fa, fk = captured[0]
+    check(fk["has_res"], "fabric10k: the sweep must carry the residual")
+    sweep_kernels(c, (*fa[:6], *(t[:64].contiguous() for t in fa[6:])), fk,
+                  timed=False)
+    del captured[:], fa
+    f_ls = f_states["0"]
+    spf = f_ls.run_spf(me)
+    base = {n: spf[n].metric for n in spf}
+    spine = "zspine00-ssw00"
+    links = {f"{ln.n1}|{ln.n2}": ln for ln in f_ls.ordered_all_links()}
+    link_name = sorted(n for n in links if me in n.split("|"))[0]
+    for kw in ({"node": spine}, {"link": link_name}):
+        d = f_eng.drain(f_states, f_ps, top=8, **kw)
+        if "link" in kw:
+            want = host_verdict(f_ls, me, {links[link_name]}, base)
+        else:
+            # a drained node keeps its in-edges: every other node sees
+            # the graph without the node's links, the node itself is
+            # reached as before
+            want = host_verdict(f_ls, me, f_ls.links_from_node(spine), base,
+                                keep=spine)
+        got = {k: d[k] for k in want}
+        check(got == want, f"fabric10k drain {kw}: {got} != host {want}")
+        log(f"fabric10k drain {kw}: " + json.dumps({
+            k: d[k] for k in ("unreachable_pairs", "max_stretch",
+                              "changed_nodes", "drain_ms")}
+            | {"impacted": len(d["impacted"])}))
+    log(f"fabric10k sweep verdicts ({WHATIF_SAMPLES[1]} sampled) == host "
+        f"run_spf; 11b took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    from openr_tpu_torch.decision import gpu_solver
+    from openr_tpu_torch.decision import gpu_solver, whatif
     from openr_tpu_torch.decision.spf_solver import SpfSolver
     from openr_tpu_torch.models import topologies
     from openr_tpu_torch.ops import (
@@ -1079,6 +1665,7 @@ def main() -> int:
         relax,
         select,
         stream,
+        sweep,
         ucmp,
     )
     from openr_tpu_torch.runtime.counters import counters
@@ -1133,6 +1720,12 @@ def main() -> int:
         "base_sssp": (ksp2.base_sssp, "relax.cu", "openr_tpu/ops/ksp2.py:128"),
         "ucmp_propagate": (ucmp.ucmp_propagate, "ucmp.cu",
                            "openr_tpu/ops/ucmp.py:54"),
+        "K10:overlay_planes": (ksp2.overlay_planes, "ksp2.cu",
+                               "openr_tpu/ops/ksp2.py:144"),
+        "K11:masked_delta": (ksp2.masked_delta, "ksp2.cu",
+                             "openr_tpu/ops/ksp2.py:163"),
+        "K12:sweep_verdicts": (sweep.sweep_verdicts, "sweep.cu",
+                               "openr_tpu/ops/sweep.py:59"),
     }
     cold_path = list(COLD_PATH)
     # variants of a kernel: (the wrapper's entry, what it replaces); their
@@ -1146,6 +1739,10 @@ def main() -> int:
            for n in cold_path},
         "K4:compact_outputs[stream]": ("K4:compact_outputs",
                                        "openr_tpu/decision/tpu_solver.py:826"),
+        "K1:relax_step[ksp2]": ("K1:relax_step", "openr_tpu/ops/ksp2.py:144"),
+        "K1:relax_step[sweep]": ("K1:relax_step", "openr_tpu/ops/sweep.py:59"),
+        "K10:overlay_planes[sweep]": ("K10:overlay_planes",
+                                      "openr_tpu/ops/sweep.py:59"),
     }
     variant_launches: dict = {}
     results = {}
@@ -1176,7 +1773,8 @@ def main() -> int:
 
     c = types.SimpleNamespace(
         torch=torch, dev=dev, gpu_solver=gpu_solver, relax=relax,
-        compact=compact, stream=stream, ksp2=ksp2, ucmp=ucmp,
+        compact=compact, stream=stream, ksp2=ksp2, ucmp=ucmp, sweep=sweep,
+        whatif=whatif, variant_launches=variant_launches,
         topologies=topologies, SpfSolver=SpfSolver,
         AdjacencyDatabase=AdjacencyDatabase, PrefixDatabase=PrefixDatabase,
         PrefixEntry=PrefixEntry,
@@ -1716,13 +2314,21 @@ def main() -> int:
     # -- 9. UCMP on the card ------------------------------------------------
     ucmp_launches = ucmp_phase(c, (s_solver, states))
 
+    # -- 10. wan50k KSP2 ------------------------------------------------------
+    ksp2_launches = ksp2_phase(c)
+
+    # -- 11. what-if sweeps ---------------------------------------------------
+    sweep_launches = whatif_phase(c)
+
     # -- result ----------------------------------------------------------
     kernels = []
     for name, (fn, src, replaces) in wrappers.items():
         by_path = {"cold": launches.get(name, 0),
                    "churn": churn_launches[name],
                    "stream": stream_launches[name],
-                   "ucmp": ucmp_launches[name]}
+                   "ucmp": ucmp_launches[name],
+                   "ksp2": ksp2_launches[name],
+                   "sweep": sweep_launches[name]}
         kernels.append({
             "name": name,
             "route": "cuda",

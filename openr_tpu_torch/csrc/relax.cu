@@ -184,20 +184,25 @@ __global__ void relax_shift_kernel(
 // clipped copies are idempotent under it), so the unmasked SSSP passes
 // the resident ELL as it is. Pad rows clip to row 0 and carry INF_E
 // weights, and real rows may repeat, so the scatter is an atomicMin —
-// exact on int32 in any order.
+// exact on int32 in any order. With `shared` set, every lane reads the
+// one resident row / neighbour index table and only the weights `rw`
+// are per lane: the masked KSP2 rows and the what-if lanes
+// (csrc/ksp2.cu's overlay_planes) override weights, never indices.
 __global__ void relax_residual_kernel(
     const int* __restrict__ dist, int* __restrict__ out,
     const int* __restrict__ rows_c, const int* __restrict__ nbr_c,
     const int* __restrict__ rw, int d_cap, int n_cap, int r_cap,
-    int kr_cap, int* __restrict__ flag, Gate gate) {
+    int kr_cap, int shared, int* __restrict__ flag, Gate gate) {
     const int lane = blockIdx.y;
     if (!gate_open(gate, lane)) return;
     const long long plane = (long long)d_cap * n_cap;
     const long long ell = (long long)r_cap * kr_cap;
     dist += lane * plane;
     out += lane * plane;
-    rows_c += (long long)lane * r_cap;
-    nbr_c += lane * ell;
+    if (!shared) {
+        rows_c += (long long)lane * r_cap;
+        nbr_c += lane * ell;
+    }
     rw += lane * ell;
     long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     int changed = 0;
@@ -355,12 +360,13 @@ int relax_shift(const int* dist, int* out, const int* deltas,
 
 int relax_residual(const int* dist, int* out, const int* rows_c,
                    const int* nbr_c, const int* rw, int d_cap, int n_cap,
-                   int r_cap, int kr_cap, int* flag, int g, int* st,
-                   int* cnt, int thr0, int thr1, int put0, int put1,
-                   int inc0, int inc1, cudaStream_t stream) {
+                   int r_cap, int kr_cap, int shared, int* flag, int g,
+                   int* st, int* cnt, int thr0, int thr1, int put0,
+                   int put1, int inc0, int inc1, cudaStream_t stream) {
     relax_residual_kernel<<<grid_for((long long)d_cap * r_cap, g), THREADS,
                             0, stream>>>(
-        dist, out, rows_c, nbr_c, rw, d_cap, n_cap, r_cap, kr_cap, flag,
+        dist, out, rows_c, nbr_c, rw, d_cap, n_cap, r_cap, kr_cap, shared,
+        flag,
         make_gate(st, cnt, thr0, thr1, put0, put1, inc0, inc1));
     return (int)cudaGetLastError();
 }

@@ -56,6 +56,16 @@ unmasked distance field (``ops/ksp2.base_sssp``) and the DAG weight
 fixpoint (``ops/ucmp.py``), with the host walk whenever the device
 cannot answer exactly.
 
+KSP2 prefixes (SR_MPLS + KSP2_ED_ECMP, ``_ksp2_eligible``) of a single
+area have that area primed on the device before the oracle assembles
+their routes (``_prime_ksp2``, the port of the JAX solver's): the
+root's unmasked field backs the oracle's SPF memo, and every
+destination's second-pass field (its first paths' links removed) comes
+from one masked batch (``ops/ksp2.masked_rows_update``: K10 overlays,
+K1 rows, K11 deltas against the previous generation's rows), traced on
+the host into the k-paths cache. The oracle's selection, canonical
+trace and label assembly then run unchanged, with no host Dijkstra.
+
 Not ported yet, and refused rather than approximated: the multichip
 tier (an area above ``multichip_n_cap_threshold`` with two or more
 cards visible).
@@ -81,13 +91,23 @@ from openr_tpu_torch.decision.rib import DecisionRouteDb
 from openr_tpu_torch.decision.spf_solver import SpfSolver
 from openr_tpu_torch.ops.compact import compact_outputs
 from openr_tpu_torch.ops.csr import PrefixMatrix, build_prefix_matrix
+from openr_tpu_torch.ops import ksp2 as ksp2_ops
 from openr_tpu_torch.ops.edgeplan import (
+    _ensure_edge_loc,
     drain_dirty,
+    edge_loc_of,
     prewarm_edge_loc,
     sync_plan,
 )
 from openr_tpu_torch.ops.incremental import incremental_sssp, scatter_set
-from openr_tpu_torch.ops.ksp2 import base_sssp
+from openr_tpu_torch.ops.ksp2 import (
+    MaskedRowsState,
+    base_sssp,
+    masked_rows_dispatch,
+    masked_rows_update,
+    pull_async,
+    pull_wait,
+)
 from openr_tpu_torch.ops.relax import (
     INF_E,
     max_trips,
@@ -213,6 +233,21 @@ def _fast_path_eligible(entries) -> bool:
             entry.forwarding_type != PrefixForwardingType.IP
             or entry.forwarding_algorithm != PrefixForwardingAlgorithm.SP_ECMP
             or entry.prepend_label is not None
+        ):
+            return False
+    return True
+
+
+def _ksp2_eligible(entries) -> bool:
+    """KSP2 prefixes (SR_MPLS + KSP2_ED_ECMP on every announcement) get
+    the device-assisted path: the batched masked SSSP for the
+    per-destination second pass, the oracle's code for selection, trace
+    and label assembly."""
+    for entry in entries.values():
+        if (
+            entry.forwarding_type != PrefixForwardingType.SR_MPLS
+            or entry.forwarding_algorithm
+            != PrefixForwardingAlgorithm.KSP2_ED_ECMP
         ):
             return False
     return True
@@ -489,6 +524,10 @@ class _UcmpAccel:
                   ad: "_AreaDev"):
         gen = link_state.generation
         plan = ad.plan
+        # the KSP2 prime of this generation computed the same field
+        cached = self.solver._ksp2_base.get((area, root))
+        if cached is not None and cached[0] == gen and cached[1] is plan:
+            return cached[2], cached[3]
         mine = self.base.get((area, root))
         if mine is not None and mine[0] == gen and mine[1] is plan:
             return mine[2], mine[3]
@@ -609,13 +648,17 @@ class _PendingBuild:
     """A solve between dispatch_route_db (LSDB reads + device work) and
     collect_route_db (the buffer pulls + RIB patch)."""
 
-    __slots__ = ("route_db", "areas", "t_pipe0", "bytes_uploaded")
+    __slots__ = ("route_db", "areas", "t_pipe0", "bytes_uploaded",
+                 "ksp2_timing")
 
-    def __init__(self, route_db, areas, t_pipe0, bytes_uploaded):
+    def __init__(self, route_db, areas, t_pipe0, bytes_uploaded,
+                 ksp2_timing=None):
         self.route_db = route_db
         self.areas = areas
         self.t_pipe0 = t_pipe0
         self.bytes_uploaded = bytes_uploaded
+        # the ksp2_* keys of this build's KSP2 prime (last_timing)
+        self.ksp2_timing = ksp2_timing or {}
 
 
 def _memo_prefix_matrix(prefix_state: PrefixState, link_state: LinkState,
@@ -644,6 +687,7 @@ class GpuSpfSolver:
     input, against the JAX package's pipeline."""
 
     _MAX_FOREIGN_VANTAGES = 4
+    _MAX_KSP2_STATES = 4
 
     def __init__(
         self, my_node_name: str, device="cuda",
@@ -704,7 +748,17 @@ class GpuSpfSolver:
         self._area_dev: dict[str, _AreaDev] = {}
         self._vstates: dict[tuple, _VantageState] = {}
         self._vantage_lru: OrderedDict[tuple, None] = OrderedDict()
-        self._partition = None  # ((generation, areas), fast_by_area, slow)
+        # ((generation, areas), fast_by_area, slow, ksp2, ksp2_by_area)
+        self._partition = None
+        # KSP2 state per (area, vantage), the last _MAX_KSP2_STATES
+        # vantages kept: the base field (generation, plan, device field,
+        # host field), the resident masked rows, the trace-reuse
+        # certificates
+        self._ksp2_base: dict[tuple, tuple] = {}
+        self._ksp2_rows: dict[tuple, MaskedRowsState] = {}
+        self._ksp2_certs: dict[tuple, dict] = {}
+        self._ksp2_lru: OrderedDict[tuple, None] = OrderedDict()
+        self._ksp2_timing: dict = {}
         self._bytes_uploaded = 0
         # CUDA event pairs around the dirty-weight scatters of this solve
         self._scatter_events: list = []
@@ -782,7 +836,7 @@ class GpuSpfSolver:
                 my_node_name, area_link_states, prefix_state
             )
             return _PendingBuild(db, [], t_pipe0, 0)
-        fast_by_area, slow = self._partition_prefixes(
+        fast_by_area, slow, ksp2, ksp2_by_area = self._partition_prefixes(
             prefix_state, area_link_states
         )
         route_db = DecisionRouteDb()
@@ -814,14 +868,28 @@ class GpuSpfSolver:
             else:
                 areas.extend(self._dispatch_fused(group))
         areas.extend(self._dispatch_one(pv) for pv in singles)
+        # the per-destination second passes batch on the device and prime
+        # the k-paths cache; the oracle loop below then assembles the
+        # KSP2 routes through its unchanged code. A KSP2 prefix announced
+        # in a single area primes that area.
+        self._ksp2_timing = {}
+        for area, plist in ksp2_by_area.items():
+            link_state = area_link_states[area]
+            if not link_state.has_node(my_node_name):
+                continue
+            if link_state.node_count() < self.small_graph_nodes:
+                continue  # host Dijkstras beat a device batch here
+            self._prime_ksp2(my_node_name, area, link_state, prefix_state,
+                             plist, fast_by_area.get(area, []))
         if self.cpu.enable_ucmp:
             self._prime_ucmp(my_node_name, area_link_states, prefix_state,
                              slow, fast_by_area)
         self._host_routes(
-            my_node_name, area_link_states, prefix_state, slow + small,
-            route_db,
+            my_node_name, area_link_states, prefix_state,
+            slow + ksp2 + small, route_db,
         )
-        return _PendingBuild(route_db, areas, t_pipe0, self._bytes_uploaded)
+        return _PendingBuild(route_db, areas, t_pipe0, self._bytes_uploaded,
+                             self._ksp2_timing)
 
     def collect_route_db(
         self, pending: Optional[_PendingBuild]
@@ -832,6 +900,7 @@ class GpuSpfSolver:
             return None
         route_db = pending.route_db
         if not pending.areas:
+            self.last_timing = dict(pending.ksp2_timing)
             return route_db
         views = []
         totals: dict[str, float] = {}
@@ -872,6 +941,7 @@ class GpuSpfSolver:
             "spf_kernel": "bucketed" if "bucketed" in kernels else "sync",
             "bytes_uploaded": float(pending.bytes_uploaded),
             "bytes_downloaded": float(bytes_dl),
+            **pending.ksp2_timing,
         }
         if stream["epochs"]:
             self.last_timing["stream"] = {**stream,
@@ -922,28 +992,277 @@ class GpuSpfSolver:
 
             link_state.prime_spf_metrics(my_node_name, metric_of)
 
+    def _prime_ksp2(self, my_node_name, area, link_state, prefix_state,
+                    prefixes, fast) -> None:
+        """Prime the LinkState's SPF memo and k-paths cache from device
+        distance fields, so the oracle's unchanged KSP2 assembly
+        (selection, canonical trace, label stacks) runs with no host
+        Dijkstra (the port of the JAX solver's ``_prime_ksp2``):
+
+          1. the unmasked base field (``base_sssp``), pulled once per
+             (vantage, topology generation), backs a lazy SPF result —
+             the reachability filter and the k = 1 trace metrics;
+          2. every destination's second-pass field (its first paths'
+             links removed) comes from one masked batch
+             (``masked_rows_update``), shipped as deltas against the
+             previous generation's rows.
+
+        Parity is structural: the fields equal run_spf's metrics (SSSP
+        values are unique) and the canonical trace reads only those
+        values."""
+        dests = sorted({
+            node
+            for pfx in prefixes
+            for (node, a) in (prefix_state.entries_for(pfx) or {})
+            if a == area
+            and node != my_node_name
+            and link_state.has_node(node)
+        })
+        if all(
+            (my_node_name, d, 2) in link_state._kth_paths for d in dests
+        ) and (my_node_name, True) in link_state._spf_results:
+            return  # warm: nothing to prime, no device work
+
+        t0 = time.perf_counter()
+        ad = self._sync_area(area, link_state, prefix_state, fast)
+        plan = ad.plan
+        _ensure_edge_loc(plan)
+        root_idx = plan.node_index[my_node_name]
+        node_index = plan.node_index
+
+        d_shift_w, d_res_w = ad.shift_w, ad.res_w
+        root_overloaded = link_state.is_node_overloaded(my_node_name)
+        if root_overloaded:
+            # run_spf exempts the root from its own transit drain; the
+            # mirror folded the drain into the root's out-edge weights,
+            # so uploaded copies restore them (the resident planes, and
+            # every other vantage, never see them)
+            sw = plan.shift_w.copy()
+            rw = plan.res_w.copy()
+            for link in link_state.links_from_node(my_node_name):
+                if not link.is_up():
+                    continue
+                w = min(link.metric_from_node(my_node_name), 1 << 28)
+                kind, a, b = edge_loc_of(plan, link, my_node_name)
+                if kind == "s":
+                    sw[a, b] = w
+                else:
+                    rw[a, b] = w
+            d_shift_w = self._upload(sw)
+            d_res_w = self._upload(rw)
+
+        # base (k = 1) field: one device SSSP and one [n_cap] pull per
+        # (vantage, topology generation). The masked batch dispatches
+        # speculatively (previous masks) right behind it, so its device
+        # work and its copy overlap the base pull and the host traces.
+        bkey = (area, my_node_name)
+        self._touch_ksp2_state(bkey)
+        gen = link_state.generation
+        cached = None if root_overloaded else self._ksp2_base.get(bkey)
+        rstate = self._ksp2_rows.get(bkey)
+        if rstate is None:
+            rstate = self._ksp2_rows[bkey] = MaskedRowsState()
+        planes = (d_shift_w, ad.res_rows, ad.res_nbr, d_res_w, ad.deltas)
+        if cached is not None and cached[0] == gen and cached[1] is plan:
+            d_base, base_np = cached[2], cached[3]
+            spec = None  # same generation: the rows are current
+        else:
+            d_base, _ = base_sssp(ad.deltas, d_shift_w, ad.res_rows,
+                                  ad.res_nbr, d_res_w, root_idx,
+                                  plan.k_res > 0)
+            pending = pull_async(d_base)
+            spec = masked_rows_dispatch(rstate, plan, *planes, root_idx)
+            base_np = pull_wait(pending)
+            if not root_overloaded:
+                self._ksp2_base[bkey] = (gen, plan, d_base, base_np)
+        t1 = time.perf_counter()
+
+        def metric_of(n, _idx=node_index, _base=base_np):
+            j = _idx.get(n)
+            if j is None:
+                return None
+            v = int(_base[j])
+            return None if v >= INF_E else v
+
+        link_state.prime_spf_metrics(my_node_name, metric_of)
+
+        # -- trace-reuse certificates -----------------------------------
+        # A canonical trace is a pure function of (the dist values it
+        # read, the link attributes at the nodes it visited). Each
+        # destination's read set is kept; if since the last prime (a)
+        # only "links" changelog events occurred, (b) no flapped link's
+        # endpoint and no base-field change touches the read set, and (c)
+        # for k = 2 the masked row is value-identical (device-verified),
+        # the previous paths are primed again without a trace.
+        certs = None if root_overloaded else self._ksp2_certs.get(bkey)
+        reusable = certs is not None and certs["plan"] is plan
+        flap_dirty: set = set()
+        dirty: set = set()
+        if reusable:
+            events = link_state.events_since(certs["gen"])
+            reusable = events is not None and all(
+                ev[0] == "links" for ev in events
+            )
+            if reusable:
+                for _kind, links in events:
+                    for lk in links:
+                        flap_dirty.add(lk.n1)
+                        flap_dirty.add(lk.n2)
+                dirty = set(flap_dirty)
+                prev_base = certs["base_np"]
+                if prev_base is not base_np:
+                    names = plan.node_names
+                    for j in np.nonzero(base_np != prev_base)[0]:
+                        if j < len(names):
+                            dirty.add(names[j])
+        cert_dests = certs["dests"] if reusable else {}
+
+        new_dests: dict = {}
+        jobs = []  # (dest, ignore set, mask locs, cert, reads1, paths1)
+        for dest in dests:
+            if (my_node_name, dest, 2) in link_state._kth_paths:
+                continue
+            c = cert_dests.get(dest)
+            reads1 = None
+            paths1 = link_state._kth_paths.get((my_node_name, dest, 1))
+            if paths1 is None:
+                if (
+                    c is not None
+                    and c["reads1"] is not None
+                    and not (c["reads1"] & dirty)
+                ):
+                    paths1, reads1 = c["paths1"], c["reads1"]
+                else:
+                    reads1 = set()
+
+                    def rd1(n, _r=reads1, _m=metric_of):
+                        _r.add(n)
+                        return _m(n)
+
+                    paths1 = link_state.trace_paths_on_dist(
+                        my_node_name, dest, rd1, set()
+                    )
+                link_state.prime_kth_paths(my_node_name, dest, 1, paths1)
+            if not paths1:
+                link_state.prime_kth_paths(my_node_name, dest, 2, [])
+                new_dests[dest] = {
+                    "reads1": reads1, "paths1": paths1,
+                    "locs": None, "reads2": set(), "paths2": [],
+                }
+                continue
+            ignore = link_state.kth_paths_ignore_set(my_node_name, dest, 2)
+            locs = []
+            for link in ignore:
+                locs.append(edge_loc_of(plan, link, link.n1))
+                locs.append(edge_loc_of(plan, link, link.n2))
+            jobs.append((dest, ignore, locs, c, reads1, paths1))
+        t2 = time.perf_counter()
+        if not jobs:
+            if not root_overloaded:
+                self._ksp2_certs[bkey] = {
+                    "gen": link_state.generation, "plan": plan,
+                    "base_np": base_np, "dests": new_dests,
+                }
+            self._ksp2_timing = {
+                "ksp2_base_ms": (t1 - t0) * 1e3,
+                "ksp2_k1_ms": (t2 - t1) * 1e3,
+            }
+            return
+
+        changed = masked_rows_update(
+            rstate, plan, *planes, root_idx,
+            tuple(j[0] for j in jobs), [j[2] for j in jobs], spec=spec,
+        )
+        t3 = time.perf_counter()
+        node_names = plan.node_names
+        reused_traces = 0
+        for i, (dest, ignore, locs, c, reads1, paths1) in enumerate(jobs):
+            ch = changed[i]
+            reuse = (
+                c is not None
+                and ch is not True
+                and c["locs"] == locs
+                and not (c["reads2"] & flap_dirty)
+            )
+            if reuse and ch is not None:
+                # the row changed, but maybe nowhere this trace looked
+                reuse = not any(
+                    node_names[j] in c["reads2"]
+                    for j in ch.tolist()
+                    if j < len(node_names)
+                )
+            if reuse:
+                paths2, reads2 = c["paths2"], c["reads2"]
+                reused_traces += 1
+            else:
+                reads2 = set()
+                row = rstate.host_rows[i]
+
+                def dist_of(n, _r=reads2, _row=row, _idx=node_index):
+                    _r.add(n)
+                    j = _idx.get(n)
+                    if j is None:
+                        return None
+                    v = int(_row[j])
+                    return None if v >= INF_E else v
+
+                paths2 = link_state.trace_paths_on_dist(
+                    my_node_name, dest, dist_of, ignore
+                )
+            link_state.prime_kth_paths(my_node_name, dest, 2, paths2)
+            new_dests[dest] = {
+                "reads1": reads1 if reads1 is not None else (
+                    c["reads1"] if c else None
+                ),
+                "paths1": paths1, "locs": locs,
+                "reads2": reads2, "paths2": paths2,
+            }
+        if not root_overloaded:
+            self._ksp2_certs[bkey] = {
+                "gen": link_state.generation, "plan": plan,
+                "base_np": base_np, "dests": new_dests,
+            }
+        self._ksp2_timing = dict(
+            ksp2_base_ms=(t1 - t0) * 1e3,
+            ksp2_k1_ms=(t2 - t1) * 1e3,
+            ksp2_batch_ms=(t3 - t2) * 1e3,
+            ksp2_trace_ms=(time.perf_counter() - t3) * 1e3,
+            ksp2_reused_traces=reused_traces,
+            **{f"ksp2_{k}": v for k, v in ksp2_ops.last_stats.items()},
+        )
+
     # -- partition + host routes -----------------------------------------
 
     def _partition_prefixes(self, prefix_state, area_link_states):
         """-> (fast prefixes grouped by their single announcer area,
-        prefixes for the oracle). Cached per (generation, area set)."""
+        prefixes for the oracle — ineligible attributes or announcers
+        spanning areas —, every KSP2 prefix, the KSP2 prefixes grouped by
+        their single announcer area for the device prime). Cached per
+        (prefix generation, area set)."""
         key = (prefix_state.generation, tuple(sorted(area_link_states)))
         if self._partition is not None and self._partition[0] == key:
             return self._partition[1:]
         fast_by_area: dict[str, list] = {}
-        slow = []
+        ksp2_by_area: dict[str, list] = {}
+        slow, ksp2 = [], []
         for prefix, entries in prefix_state.prefixes().items():
             areas = {a for _, a in entries}
             single = next(iter(areas)) if len(areas) == 1 else None
-            if (
-                single in area_link_states
-                and _fast_path_eligible(entries)
-            ):
-                fast_by_area.setdefault(single, []).append(prefix)
+            if single not in area_link_states:
+                single = None
+            if _fast_path_eligible(entries):
+                if single is not None:
+                    fast_by_area.setdefault(single, []).append(prefix)
+                else:
+                    slow.append(prefix)
+            elif _ksp2_eligible(entries):
+                ksp2.append(prefix)
+                if single is not None:
+                    ksp2_by_area.setdefault(single, []).append(prefix)
             else:
                 slow.append(prefix)
-        self._partition = (key, fast_by_area, slow)
-        return fast_by_area, slow
+        self._partition = (key, fast_by_area, slow, ksp2, ksp2_by_area)
+        return fast_by_area, slow, ksp2, ksp2_by_area
 
     def _host_routes(
         self, my_node_name, area_link_states, prefix_state, slow, route_db
@@ -1119,6 +1438,16 @@ class GpuSpfSolver:
                 ad.flags = flags
                 ad.mbuf = self._upload(mbuf)
         return ad
+
+    def _touch_ksp2_state(self, bkey: tuple) -> None:
+        lru = self._ksp2_lru
+        lru[bkey] = None
+        lru.move_to_end(bkey)
+        while len(lru) > self._MAX_KSP2_STATES:
+            old, _ = lru.popitem(last=False)
+            self._ksp2_rows.pop(old, None)
+            self._ksp2_base.pop(old, None)
+            self._ksp2_certs.pop(old, None)
 
     def _touch_foreign_vantage(self, vkey: tuple) -> None:
         lru = self._vantage_lru

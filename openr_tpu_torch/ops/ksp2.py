@@ -1,37 +1,89 @@
-"""The unmasked single-root SSSP: the distance field UCMP propagates over.
+"""Single-root and masked SSSP: the device half of KSP2 (k = 2
+edge-disjoint paths) and the distance field UCMP propagates over.
 
-``base_sssp`` is the port of ``ops/ksp2.py::_base_sssp_fn`` (its body
-``_make_one_sssp`` without edge masks) of the JAX package: one [n_cap]
-row of shortest distances from ``root`` over the shift-decomposed
-mirror. Unlike the ECMP pipeline's SSSP (G minus the root, one lane per
-out-neighbour) the root may transit and the weights are the resident
-planes unmasked. The loop is the JAX one: ``UNROLL`` Jacobi
-relaxations a trip, exit on the first trip that changes nothing, at
-most ``max(2, ceil(n_cap / 8) + 2)`` trips — ``relax.max_trips``.
+The reference computes k-shortest edge-disjoint paths by re-running
+Dijkstra per destination with that destination's first-path links
+removed (``LinkState.get_kth_paths``). Here, as in the JAX package's
+``ops/ksp2.py``, the second-pass fields of many destinations compute in
+one batch over the shift-decomposed mirror: each row masks its own
+destination's excluded directed edges in a private copy of the weight
+planes and relaxes to its fixpoint.
 
-It runs on the kernels of ``csrc/relax.cu``: K1s with no class and no
-ELL extent writes only the one-row seed plane (0 at the root), then K1
-``relax_shift`` / ``relax_residual`` relax it over the resident planes
-as they are — no masked copy, the residual kernel clips the ELL's pad
-indices as it reads them. The wrapper counts its own launches in
-``base_sssp.launches``. The masked batch of KSP2 (``_masked_rows_fn``,
-``_masked_rows_delta_fn``) is not ported yet.
+- ``base_sssp`` (the port of ``_base_sssp_fn``): one [n_cap] row of
+  shortest distances from ``root``, the planes unmasked, the root a
+  transit node. K1s with no class writes the one-row seed plane, then
+  K1 relaxes it over the resident planes as they are (the residual
+  kernel clips the ELL's pad indices as it reads them).
+- ``masked_rows`` (``_masked_rows_fn``): int32 [b_cap, n_cap], row i the
+  field with row i's edges removed. K10 ``overlay_planes``
+  (``csrc/ksp2.cu``) writes the ``b_cap`` masked plane copies, K1s seeds
+  every row with 0 at ``root``, and K1 relaxes all rows with a leading
+  lane axis, one launch a step.
+- ``masked_rows_delta`` (``_masked_rows_delta_fn``): the same rows, and
+  K11 ``masked_delta`` packs per row ``[cnt | idx | val]`` against the
+  previous generation's rows.
+
+The loop is the JAX one: ``UNROLL`` Jacobi relaxations a trip, exit on
+the first trip that changes nothing, at most ``max(2, ceil(n_cap / 8) +
+2)`` trips. Under ``vmap`` each masked row stops at its own fixpoint;
+neither KSP2 function returns a trip count and a row at its fixpoint
+does not change under another relaxation, so the batch runs without
+per-lane gates and stops on the first trip in which no row changed —
+the same rows, bit for bit.
+
+``masked_rows_update`` keeps the previous generation's rows resident on
+the device and mirrored on the host, and ships each refresh as the
+compacted (idx, val) pairs; rows past the budget come back whole. Path
+extraction stays on the host (``link_state.trace_paths_on_dist``).
+
+Each wrapper counts its own launches (``<wrapper>.launches``): K1s and
+K1 of the masked batch count in ``relax.sssp_init`` / ``relax_step``,
+the unmasked field's in ``base_sssp``. On a CPU tensor every wrapper
+runs its plain PyTorch version (``*_plain``).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from openr_tpu_torch.ops import cuda
+from openr_tpu_torch.ops.edgeplan import _next_pow2
 from openr_tpu_torch.ops.relax import (
     INF_E,
+    _int32,
     _is_cpu,
     _launch_relax,
-    _launch_seed,
     max_trips,
+    relax_step,
     relax_step_plain,
     run_sync,
+    sssp_init,
 )
 
+# (idx, val) pairs budgeted per masked row in the delta pull (the
+# reference is the previous generation's same row, so steady-state counts
+# are small); rows touching more nodes come back whole
+_DELTA_K = 1024
+
+# sticky shape caps: pow2 caps only ever grow per base shape, so a flap
+# that lengthens one first path by a few links keeps the batch's shape
+_cap_highwater: dict = {}
+
+# diagnostics of the last masked_rows_update call (row / overflow
+# counts), surfaced through the solver's timing breakdown
+last_stats: dict = {}
+
+
+def _sticky_cap(kind: str, base_key: tuple, needed: int, floor: int) -> int:
+    cap = _next_pow2(max(needed, 1), floor)
+    key = (kind, base_key)
+    cap = max(cap, _cap_highwater.get(key, 0))
+    _cap_highwater[key] = cap
+    return cap
+
+
+# -- the unmasked field -------------------------------------------------------
 
 def base_sssp_plain(deltas, shift_w, res_rows, res_nbr, res_w, root: int,
                     has_res: bool):
@@ -60,7 +112,8 @@ def base_sssp(deltas, shift_w, res_rows, res_nbr, res_w, root: int,
         return base_sssp_plain(deltas, shift_w, res_rows, res_nbr, res_w,
                                root, has_res)
     n_cap = shift_w.shape[1]
-    dist0 = _launch_seed(root, n_cap, shift_w.device)
+    roots = torch.tensor([root], dtype=torch.int32, device=shift_w.device)
+    dist0 = _launch_seed(roots, 1, n_cap)[0]
     base_sssp.launches += 1
     residual = (res_rows, res_nbr, res_w) if has_res else None
 
@@ -73,3 +126,425 @@ def base_sssp(deltas, shift_w, res_rows, res_nbr, res_w, root: int,
 
 
 base_sssp.launches = 0
+
+
+# -- K10: per-lane overlays of the resident planes ----------------------------
+
+def overlay_planes_plain(shift_w, res_w, s_idx, s_val, r_idx, r_val):
+    b = s_idx.shape[0]
+
+    def one(plane, idx, val):
+        flat = plane.reshape(1, -1).repeat(b, 1)
+        n = flat.shape[1]
+        keep = (idx >= 0) & (idx < n)
+        lanes = torch.arange(b, device=idx.device)[:, None].expand_as(idx)
+        v = (torch.full_like(idx, INF_E) if val is None else val)[keep]
+        flat[lanes[keep], idx[keep].long()] = v
+        return flat.view((b,) + tuple(plane.shape))
+
+    sw = one(shift_w, s_idx, s_val)
+    rw = None if res_w is None else one(res_w, r_idx, r_val)
+    return sw, rw
+
+
+def overlay_planes(shift_w, res_w, s_idx, s_val, r_idx, r_val):
+    """-> (sw [b, s_cap, n_cap], rw [b, r_cap, kr_cap] or None): ``b``
+    private copies of the resident class weights shift_w [s_cap, n_cap]
+    (and of the residual weights res_w [r_cap, kr_cap] unless it is
+    None), lane i with its overrides written in: s_idx [b, es] flat into
+    [s_cap * n_cap] with values s_val [b, es], r_idx / r_val [b, er] flat
+    into [r_cap * kr_cap]. A value array of None writes INF_E (a removed
+    edge). Indices past the plane are pads and drop."""
+    if _is_cpu(shift_w):
+        return overlay_planes_plain(shift_w, res_w, s_idx, s_val, r_idx,
+                                    r_val)
+    _int32(shift_w, s_idx)
+    b, es = s_idx.shape
+    n_s = shift_w.numel()
+    sw = torch.empty((b,) + tuple(shift_w.shape), dtype=torch.int32,
+                     device=shift_w.device)
+    rw, n_r, er = None, 0, 0
+    p = cuda.ptr
+    res_p = rw_p = r_idx_p = r_val_p = 0
+    if res_w is not None:
+        _int32(res_w, r_idx)
+        n_r, er = res_w.numel(), r_idx.shape[1]
+        rw = torch.empty((b,) + tuple(res_w.shape), dtype=torch.int32,
+                         device=res_w.device)
+        res_p, rw_p, r_idx_p = p(res_w), p(rw), p(r_idx)
+        r_val_p = 0 if r_val is None else p(r_val)
+    cuda.launch(
+        "ksp2", "overlay_planes", "ppppLLppippii",
+        p(shift_w), res_p, p(sw), rw_p, n_s, n_r, p(s_idx),
+        0 if s_val is None else p(s_val), es, r_idx_p, r_val_p, er, b,
+    )
+    overlay_planes.launches += 1
+    return sw, rw
+
+
+overlay_planes.launches = 0
+
+
+# -- K1s: the seed rows of a batch --------------------------------------------
+
+def seed_rows_plain(roots, b: int, n_cap: int):
+    r = roots.shape[0]
+    dist0 = torch.full((b, r, n_cap), INF_E, dtype=torch.int32,
+                       device=roots.device)
+    dist0[:, torch.arange(r, device=roots.device),
+          roots.clamp(0, n_cap - 1).long()] = 0
+    return dist0
+
+
+def _launch_seed(roots, g: int, n_cap: int):
+    """K1s with no class and no ELL extent: one launch that writes only
+    the seed plane int32 [g, r, n_cap] of ``g`` lanes of ``r`` rows (row
+    j 0 at clip(roots[j]), INF_E elsewhere); the caller relaxes it."""
+    r = roots.shape[0]
+    seeds = roots.reshape(1, r).expand(g, r).contiguous()
+    seeds_w = torch.zeros_like(seeds)
+    dist0 = torch.empty((g, r, n_cap), dtype=torch.int32,
+                        device=roots.device)
+    p = cuda.ptr
+    cuda.launch(
+        "relax", "sssp_init", "pppppppppppiiiiiipi",
+        0, 0, 0, 0, 0, 0, 0, 0, p(seeds), p(seeds_w), p(dist0),
+        0, n_cap, 0, 0, r, 0, 0, g,
+    )
+    return dist0
+
+
+def seed_rows(roots, b: int, n_cap: int):
+    """-> int32 [b, r, n_cap]: every lane's r rows, row j 0 at
+    clip(roots[j]) and INF_E elsewhere (roots int32 [r]). On the card,
+    one K1s launch, counted in ``relax.sssp_init.launches``."""
+    if _is_cpu(roots):
+        return seed_rows_plain(roots, b, n_cap)
+    dist0 = _launch_seed(roots, b, n_cap)
+    sssp_init.launches += 1
+    return dist0
+
+
+# -- the batch: K10 + K1s + K1 ------------------------------------------------
+
+def lane_inputs(deltas, shift_w, res_rows, res_nbr, res_w, s_idx, s_val,
+                r_idx, r_val, has_res: bool):
+    """The per-lane relaxation inputs of a batch of ``s_idx.shape[0]``
+    overlays: (deltas [b, s_cap], sw [b, s_cap, n_cap], residual or None
+    — the shared (rows, nbr) index tables beside per-lane weights). K10
+    on the card."""
+    b = s_idx.shape[0]
+    sw, rw = overlay_planes(shift_w, res_w if has_res else None, s_idx,
+                            s_val, r_idx if has_res else None, r_val)
+    residual = None
+    if has_res:
+        if _is_cpu(shift_w):
+            n_cap = shift_w.shape[1]
+            residual = (res_rows.clamp(0, n_cap - 1),
+                        res_nbr.clamp(0, n_cap - 1), rw)
+        else:
+            residual = (res_rows, res_nbr, rw)  # K1 clips as it reads
+    return deltas.reshape(1, -1).expand(b, -1).contiguous(), sw, residual
+
+
+def masked_rows(deltas, shift_w, res_rows, res_nbr, res_w, root: int,
+                mask_s_idx, mask_r_idx, has_res: bool):
+    """-> int32 [b_cap, n_cap]: row i the shortest distances from
+    ``root`` with row i's directed edges removed — mask_s_idx [b_cap,
+    ms_cap] flat into [s_cap * n_cap] (pad s_cap * n_cap), mask_r_idx
+    [b_cap, mr_cap] flat into [r_cap * kr_cap] (pad r_cap * kr_cap). The
+    root transits; no root mask applies."""
+    n_cap = shift_w.shape[1]
+    deltas_b, sw, residual = lane_inputs(
+        deltas, shift_w, res_rows, res_nbr, res_w, mask_s_idx, None,
+        mask_r_idx, None, has_res)
+    roots = torch.tensor([root], dtype=torch.int32, device=shift_w.device)
+    b = mask_s_idx.shape[0]
+    dist0 = seed_rows(roots, b, n_cap)
+
+    def step(dist, out, flag):
+        relax_step(dist, out, flag, deltas_b, sw, residual)
+
+    dist, _, _ = run_sync(step, dist0, max_trips(n_cap))
+    return dist.view(b, n_cap)
+
+
+# -- K11: the delta compaction ------------------------------------------------
+
+def masked_delta_plain(dist, prev, k_cap: int):
+    b, n_cap = dist.shape
+    diff = dist != prev
+    cnt = diff.sum(dim=1, dtype=torch.int32)
+    rank = torch.cumsum(diff, dim=1) - 1
+    slot = torch.where(diff & (rank < k_cap), rank, k_cap)
+    idx = torch.full((b, k_cap + 1), n_cap, dtype=torch.int64,
+                     device=dist.device)
+    nodes = torch.arange(n_cap, device=dist.device).expand(b, n_cap)
+    idx.scatter_(1, slot, torch.where(slot < k_cap, nodes, n_cap))
+    idx = idx[:, :k_cap]
+    val = dist.gather(1, idx.clamp(0, n_cap - 1))
+    return torch.cat([cnt[:, None], idx.to(torch.int32), val], dim=1)
+
+
+def masked_delta(dist, prev, k_cap: int):
+    """-> int32 [b, 1 + 2 k_cap]: per row ``[cnt | idx | val]`` — cnt the
+    number of nodes whose value differs from prev's (every one, past
+    k_cap too), idx the first k_cap of them in ascending order padded
+    with n_cap, val = dist[clip(idx, 0, n_cap - 1)]."""
+    if _is_cpu(dist):
+        return masked_delta_plain(dist, prev, k_cap)
+    _int32(dist, prev)
+    b, n_cap = dist.shape
+    packed = torch.empty((b, 1 + 2 * k_cap), dtype=torch.int32,
+                         device=dist.device)
+    p = cuda.ptr
+    cuda.launch("ksp2", "masked_delta", "pppiii",
+                p(dist), p(prev), p(packed), n_cap, k_cap, b)
+    masked_delta.launches += 1
+    return packed
+
+
+masked_delta.launches = 0
+
+
+def masked_rows_delta(deltas, shift_w, res_rows, res_nbr, res_w, root: int,
+                      mask_s_idx, mask_r_idx, prev, has_res: bool,
+                      k_cap: int):
+    """Masked rows shipped as deltas against ``prev`` [b_cap, n_cap], the
+    previous generation's rows (device-resident): -> (packed [b_cap, 1 +
+    2 k_cap], dist [b_cap, n_cap])."""
+    dist = masked_rows(deltas, shift_w, res_rows, res_nbr, res_w, root,
+                       mask_s_idx, mask_r_idx, has_res)
+    return masked_delta(dist, prev, k_cap), dist
+
+
+# -- host transfers -----------------------------------------------------------
+
+def pull_async(t: torch.Tensor):
+    """Start a device -> host copy of ``t`` into pinned memory on the
+    current stream; a CPU tensor needs none. The token goes to
+    ``pull_wait``."""
+    if t.device.type == "cpu":
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    ev = torch.cuda.Event()
+    ev.record()
+    return host, ev
+
+
+def pull_wait(token) -> np.ndarray:
+    """The host array of a ``pull_async`` token, once its copy landed
+    (read-only use: on the CPU it shares the tensor's memory)."""
+    host, ev = token
+    if ev is not None:
+        ev.synchronize()
+    return host.numpy()
+
+
+def _host_copy(t: torch.Tensor) -> np.ndarray:
+    """A host array the caller may mutate: never a view of ``t`` (on the
+    CPU ``t.cpu()`` is ``t`` itself)."""
+    return t.numpy().copy() if t.device.type == "cpu" else t.cpu().numpy()
+
+
+# -- resident masked-row state ------------------------------------------------
+
+class MaskedRowsState:
+    """Per-(area, vantage) resident masked-row state.
+
+    The device keeps the previous generation's [b_cap, n_cap] rows; the
+    host mirrors them as one numpy matrix (trace reads are plain array
+    indexing). Steady-state refreshes ship as (idx, val) deltas against
+    the previous rows. The delta reference is a compression dictionary
+    only: correctness requires that host_rows mirrors the device rows,
+    which the update keeps by applying exactly the deltas the device
+    reported and copying every whole-row pull."""
+
+    __slots__ = ("dest_key", "plan", "d_prev", "host_rows", "b_cap",
+                 "ms_cap", "mr_cap", "mask_s", "mask_r")
+
+    def __init__(self):
+        self.dest_key: tuple = ()
+        self.plan = None
+        self.d_prev = None
+        self.host_rows: np.ndarray | None = None
+        self.b_cap = self.ms_cap = self.mr_cap = 0
+        # last generation's mask arrays: the speculative dispatch reuses
+        # them before the new masks are known
+        self.mask_s: np.ndarray | None = None
+        self.mask_r: np.ndarray | None = None
+
+
+# beyond this many rows the resident prev matrix stops paying for itself
+# in device memory; the stateless chunked path takes over
+_MAX_RESIDENT_ROWS = 512
+
+# device-memory budget of one batch: each row materializes a private
+# masked copy of shift_w [s_cap, n_cap] int32, so the rows per launch are
+# bounded by bytes, not a fixed constant
+_BATCH_BYTES_BUDGET = 1 << 30
+
+
+def _max_batch_rows(plan) -> int:
+    per_row = max(1, 4 * plan.s_cap * plan.n_cap)
+    return max(4, min(_MAX_RESIDENT_ROWS, _BATCH_BYTES_BUDGET // per_row))
+
+
+def _masks(arr: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(arr, np.int32)).to(device)
+
+
+def masked_rows_dispatch(state: MaskedRowsState, plan, d_shift_w,
+                         d_res_rows, d_res_nbr, d_res_w, d_deltas,
+                         root_idx: int, k_budget: int = 0):
+    """Speculative dispatch of the delta batch on the PREVIOUS
+    generation's masks, callable before the new first paths (and so the
+    new masks) are known: its device work and its copy to pinned host
+    memory overlap the base-field pull and the host trace work.
+    ``masked_rows_update`` consumes the token iff the new masks turn out
+    identical, and discards it otherwise (``d_prev`` untouched). None
+    when there is no previous state to speculate from."""
+    if state.d_prev is None or state.mask_s is None or state.plan is not plan:
+        return None
+    k_cap = k_budget or min(_DELTA_K, _next_pow2(plan.n_cap, 64))
+    dev = d_shift_w.device
+    packed, dist = masked_rows_delta(
+        d_deltas, d_shift_w, d_res_rows, d_res_nbr, d_res_w, root_idx,
+        _masks(state.mask_s, dev), _masks(state.mask_r, dev), state.d_prev,
+        plan.k_res > 0, k_cap,
+    )
+    return (packed, dist, k_cap, pull_async(packed))
+
+
+def masked_rows_update(state: MaskedRowsState, plan, d_shift_w,
+                       d_res_rows, d_res_nbr, d_res_w, d_deltas,
+                       root_idx: int, dest_key: tuple, mask_locs: list,
+                       k_budget: int = 0, spec=None) -> list:
+    """Refresh the masked second-pass rows for ``dest_key``; afterwards
+    state.host_rows[i] is row i's full [n_cap] distance field. Returns
+    changed[i] per row: None when row i equals the previous generation's,
+    else the index array of the nodes that changed (True when unknown:
+    init, chunked rows, budget overflow).
+
+    ``spec``: a ``masked_rows_dispatch`` token, consumed iff the new
+    masks equal the speculated ones. ``mask_locs[i]``: the ("s", k, u) |
+    ("r", row, col) directed-edge locations (``edgeplan.edge_loc_of``)
+    row i removes. Shape caps grow sticky."""
+    n_cap, s_cap = plan.n_cap, plan.s_cap
+    r_cap, kr_cap = plan.res_nbr.shape
+    has_res = plan.k_res > 0
+    s_pad = s_cap * n_cap
+    r_pad = r_cap * kr_cap
+    shape_base = (n_cap, s_cap, r_cap, kr_cap)
+    k_cap = k_budget or min(_DELTA_K, _next_pow2(n_cap, 64))
+    dev = d_shift_w.device
+
+    b = len(mask_locs)
+    ms = max((sum(1 for t in ls if t[0] == "s") for ls in mask_locs),
+             default=0)
+    mr = max((sum(1 for t in ls if t[0] == "r") for ls in mask_locs),
+             default=0)
+    ms_cap = _sticky_cap("ms", shape_base, ms, 16)
+    mr_cap = _sticky_cap("mr", shape_base, mr, 16)
+    b_cap = _sticky_cap("b", shape_base, b, 4)
+    mask_s = np.full((b_cap, ms_cap), s_pad, np.int32)
+    mask_r = np.full((b_cap, mr_cap), r_pad, np.int32)
+    for i, ls in enumerate(mask_locs):
+        si = ri = 0
+        for t in ls:
+            if t[0] == "s":
+                mask_s[i, si] = t[1] * n_cap + t[2]
+                si += 1
+            else:
+                mask_r[i, ri] = t[1] * kr_cap + t[2]
+                ri += 1
+
+    last_stats.clear()
+    last_stats["rows"] = b
+    args = (d_deltas, d_shift_w, d_res_rows, d_res_nbr, d_res_w, root_idx)
+    max_rows = _max_batch_rows(plan)
+    init = (
+        state.plan is not plan
+        or state.dest_key != dest_key
+        or state.d_prev is None
+        or state.b_cap != b_cap
+        or state.ms_cap != ms_cap
+        or state.mr_cap != mr_cap
+        or b_cap > max_rows
+    )
+    if init:
+        if b_cap > max_rows:
+            # each row materializes private masked planes: huge batches
+            # run chunked and stateless instead of one launch that would
+            # blow the device-memory budget
+            state.host_rows = np.empty((b, n_cap), np.int32)
+            for start in range(0, b, max_rows):
+                cb = min(max_rows, b - start)
+                cb_cap = _next_pow2(cb, 4)
+                pad = np.full((cb_cap, ms_cap), s_pad, np.int32)
+                pad[:cb] = mask_s[start:start + cb]
+                pad_r = np.full((cb_cap, mr_cap), r_pad, np.int32)
+                pad_r[:cb] = mask_r[start:start + cb]
+                dist = masked_rows(*args, _masks(pad, dev),
+                                   _masks(pad_r, dev), has_res)
+                state.host_rows[start:start + cb] = dist[:cb].cpu().numpy()
+            state.d_prev = None  # too big to keep resident
+            state.mask_s = state.mask_r = None
+            last_stats["init"] = 1
+            return [True] * b
+        dist = masked_rows(*args, _masks(mask_s, dev), _masks(mask_r, dev),
+                           has_res)
+        state.host_rows = _host_copy(dist)  # cold: one full pull
+        state.d_prev = dist
+        state.plan = plan
+        state.dest_key = dest_key
+        state.b_cap, state.ms_cap, state.mr_cap = b_cap, ms_cap, mr_cap
+        state.mask_s, state.mask_r = mask_s, mask_r
+        last_stats["init"] = 1
+        return [True] * b
+
+    spec_hit = (
+        spec is not None
+        and spec[2] == k_cap
+        and np.array_equal(state.mask_s, mask_s)
+        and np.array_equal(state.mask_r, mask_r)
+    )
+    if spec_hit:
+        _, dist, _, token = spec  # the copy is already in flight
+        packed = pull_wait(token)
+        last_stats["spec_hit"] = 1
+    else:
+        packed_dev, dist = masked_rows_delta(
+            *args, _masks(mask_s, dev), _masks(mask_r, dev), state.d_prev,
+            has_res, k_cap,
+        )
+        packed = packed_dev.cpu().numpy()  # ONE pull: [b_cap, 1 + 2K]
+    state.d_prev = dist
+    state.mask_s, state.mask_r = mask_s, mask_r
+    changed: list = []
+    overflow = []
+    rows_mat = state.host_rows
+    for i in range(b):
+        cnt = int(packed[i, 0])
+        if cnt > k_cap:
+            overflow.append(i)
+            changed.append(True)  # contents unknown without the pull
+        elif cnt:
+            idx = packed[i, 1:1 + cnt]
+            rows_mat[i, idx] = packed[i, 1 + k_cap:1 + k_cap + cnt]
+            changed.append(idx)
+        else:
+            changed.append(None)
+    if overflow:
+        # rare: a flap rerouted more of a row than the budget — pull
+        # those rows whole from the resident matrix
+        sel = torch.tensor(overflow, dtype=torch.long, device=dist.device)
+        full = dist[sel].cpu().numpy()
+        for j, i in enumerate(overflow):
+            rows_mat[i] = full[j]
+    cnts = packed[:b, 0]
+    last_stats["delta_sum"] = int(cnts.sum())
+    last_stats["delta_max"] = int(cnts.max(initial=0))
+    last_stats["overflow_rows"] = len(overflow)
+    return changed

@@ -196,6 +196,21 @@ def _lane(x, lane: int):
     return x[lane]
 
 
+def _shared_residual(dist, residual) -> bool:
+    """Whether a stacked solve's residual ELL shares one index table
+    (rows_c [r_cap], nbr_c [r_cap, kr_cap]) across its lanes, with only
+    the weights rw [g, r_cap, kr_cap] per lane."""
+    return residual is not None and dist.dim() == 3 and residual[1].dim() == 2
+
+
+def _lane_residual(dist, residual, lane: int):
+    """Lane ``lane``'s residual tuple (shared index tables stay whole)."""
+    if _shared_residual(dist, residual):
+        rows_c, nbr_c, rw = residual
+        return rows_c, nbr_c, rw[lane]
+    return _lane(residual, lane)
+
+
 # -- K1s: root masking + seed plane ----------------------------------------
 
 def sssp_init_plain(shift_w, res_rows, res_nbr, res_w, root, seeds_nbr,
@@ -270,22 +285,6 @@ def sssp_init(shift_w, res_rows, res_nbr, res_w, root, seeds_nbr,
 sssp_init.launches = 0
 
 
-def _launch_seed(root: int, n_cap: int, device) -> torch.Tensor:
-    """K1s with no class and no ELL extent: one launch that writes only
-    the [1, n_cap] seed plane of a single-root SSSP (0 at ``root``,
-    INF_E elsewhere) — the caller relaxes the planes unmasked."""
-    seeds_nbr = torch.tensor([root], dtype=torch.int32, device=device)
-    seeds_w = torch.zeros(1, dtype=torch.int32, device=device)
-    dist0 = torch.empty(1, n_cap, dtype=torch.int32, device=device)
-    p = cuda.ptr
-    cuda.launch(
-        "relax", "sssp_init", "pppppppppppiiiiiipi",
-        0, 0, 0, 0, 0, 0, 0, 0, p(seeds_nbr), p(seeds_w), p(dist0),
-        0, n_cap, 0, 0, 1, root, 0, 1,
-    )
-    return dist0
-
-
 # -- K1: one Jacobi relaxation ---------------------------------------------
 
 _GATE_SIG = "ppiiiiii"
@@ -300,7 +299,7 @@ def relax_step_plain(dist, out, flag, deltas, sw, residual,
     if dist.dim() == 3:
         _each_lane(gate, flag, dist.shape[0], lambda lane, f: relax_step_plain(
             dist[lane], out[lane], f, deltas[lane], sw[lane],
-            _lane(residual, lane)))
+            _lane_residual(dist, residual, lane)))
         return
     acc = torch.full_like(dist, INF_E)
     for k, dk in enumerate(deltas.tolist()):
@@ -323,7 +322,9 @@ def relax_step(dist, out, flag, deltas, sw, residual,
     scatter-min) computed from ``dist`` alone (Jacobi — ``out`` is a
     different buffer); ORs 1 into ``flag`` when any word decreased.
     ``residual`` is None when the plan has no residual edges. Stacked
-    [g, ...] inputs relax every lane the ``gate`` opens."""
+    [g, ...] inputs relax every lane the ``gate`` opens; their residual
+    index tables may be one shared pair ([r_cap], [r_cap, kr_cap]) beside
+    per-lane weights."""
     if _is_cpu(dist):
         relax_step_plain(dist, out, flag, deltas, sw, residual, gate)
         return
@@ -354,9 +355,10 @@ def _launch_relax(dist, out, flag, deltas, sw, residual,
         # the shift launch counted this step for every open lane
         ga = _gate_args(gate._replace(inc=(0, 0)))
     cuda.launch(
-        "relax", "relax_residual", "pppppiiiipi" + _GATE_SIG,
+        "relax", "relax_residual", "pppppiiiiipi" + _GATE_SIG,
         p(dist), p(out), p(rows_c), p(nbr_c), p(rw), d_cap, n_cap,
-        nbr_c.shape[-2], nbr_c.shape[-1], p(flag), g, *ga,
+        nbr_c.shape[-2], nbr_c.shape[-1],
+        int(_shared_residual(dist, residual)), p(flag), g, *ga,
     )
     return 2
 

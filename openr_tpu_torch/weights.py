@@ -6,7 +6,10 @@ previous solve's outputs — and, for the incremental solve, the previous
 distance plane, the dirty tuples and the cone budget. ``from_jax_state``
 converts those arrays, as numpy arrays in the JAX pipeline's argument
 order, into the port's tensors, so a test can feed the same device
-inputs to both pipelines.
+inputs to both pipelines. ``masked_rows_state_from_jax`` carries a
+vantage's resident KSP2 rows (``ops/ksp2.MaskedRowsState``) across, so
+the port's next refresh is a delta step against the rows the JAX
+solver left.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import numpy as np
 import torch
 
 from openr_tpu_torch.decision.gpu_solver import resolve_device
+from openr_tpu_torch.ops.ksp2 import MaskedRowsState
 
 # the JAX pipeline's positional arguments, in order
 JAX_ARGS = (
@@ -59,3 +63,31 @@ def from_jax_state(args, device="cuda") -> dict:
         out["incr"] = (*(tensor(a) for a in planes),
                        int(np.asarray(cone_limit)))
     return out
+
+
+def masked_rows_state_from_jax(jstate, plan=None,
+                               device="cuda") -> MaskedRowsState:
+    """The port's ``MaskedRowsState`` holding what a JAX
+    ``ops/ksp2.MaskedRowsState`` holds: its resident rows ``d_prev``
+    (anything ``np.asarray`` takes) as an int32 tensor on ``device``,
+    copies of its host mirror and of its last masks, its caps and its
+    destination key. ``plan`` is the plan the state is next refreshed
+    with (the JAX state's own by default): the refresh takes the delta
+    path only for the plan object the state names."""
+    dev = resolve_device(device)
+    state = MaskedRowsState()
+    state.dest_key = tuple(jstate.dest_key)
+    state.plan = jstate.plan if plan is None else plan
+    if jstate.d_prev is not None:
+        state.d_prev = torch.tensor(
+            np.ascontiguousarray(np.asarray(jstate.d_prev), dtype=np.int32),
+            device=dev,
+        )
+    if jstate.host_rows is not None:
+        state.host_rows = np.array(jstate.host_rows, np.int32)
+    state.b_cap, state.ms_cap, state.mr_cap = (
+        jstate.b_cap, jstate.ms_cap, jstate.mr_cap)
+    for name in ("mask_s", "mask_r"):
+        arr = getattr(jstate, name)
+        setattr(state, name, None if arr is None else np.array(arr, np.int32))
+    return state

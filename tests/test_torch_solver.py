@@ -273,6 +273,40 @@ def test_payload_bytes_match_tpu_solver(port, monkeypatch, aot_off, name,
     assert gpu.last_sentinels == tpu.last_sentinels == {}
 
 
+@pytest.mark.parametrize("me", ["node-1-2", "node-3-3"])
+def test_payload_bytes_match_tpu_solver_default_class(port, monkeypatch,
+                                                      aot_off, me):
+    """The solvers' defaults on grid(4), at an interior and a corner
+    vantage: sentinels on and the bucketed kernel, the shape class most
+    of the JAX suite solves in. The module barrier has dropped any
+    executable the AOT cache installed for it, so the reference compiles
+    its own here too."""
+    adj_dbs, pdbs = topologies.grid(4, node_labels=False)
+    (states, ps), (pstates, pps) = _both_states(port, adj_dbs, pdbs)
+    tpu = TpuSpfSolver(me, small_graph_nodes=0, aot_cache_dir=None)
+    want_db = tpu.build_route_db(me, states, ps)
+    run, lane_args, prev = tpu._last_exec
+    zeros = [np.zeros(np.shape(p), np.int32) for p in prev]
+    want = [np.asarray(b) for b in run(*lane_args, *zeros)[:2]]
+
+    outs = []
+    real = port.gpu_solver.pipeline
+
+    def spy(*a, **k):
+        outs.append(real(*a, **k))
+        return outs[-1]
+
+    monkeypatch.setattr(port.gpu_solver, "pipeline", spy)
+    gpu = port.gpu_solver.GpuSpfSolver(me, device="cpu")
+    got_db = gpu.build_route_db(me, pstates, pps)
+    assert len(outs) == 1 and outs[0].rounds > 0
+    np.testing.assert_array_equal(outs[0].delta_buf.numpy(), want[0])
+    np.testing.assert_array_equal(outs[0].full_buf.numpy(), want[1])
+    assert_rib_equal(want_db, got_db, f"grid4/{me}")
+    assert gpu.last_timing["rounds"] == int(want[1][-1])
+    assert gpu.last_sentinels == tpu.last_sentinels
+
+
 def test_entry_points_refuse_cpu_default(port, monkeypatch):
     """No silent CPU fallback: without CUDA the entry points raise
     unless the caller asks for the CPU."""

@@ -149,8 +149,11 @@ def _stream_case(port, name, kernel, lfa):
 @pytest.mark.parametrize("name,kernel,lfa,sbudget", [
     ("grid", "sync", False, 64),
     ("grid", "bucketed", True, 256),
+    ("grid", "bucketed", False, 1024),
     ("fat_tree", "sync", True, 64),
+    ("fat_tree", "sync", False, 256),
     ("mesh", "bucketed", False, 256),
+    ("mesh", "sync", True, 64),
 ])
 def test_stream_pipeline_bytes_match_jax(port, name, kernel, lfa, sbudget):
     """The port's streaming epoch against ``_stream_pipeline`` called
