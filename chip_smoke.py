@@ -42,12 +42,12 @@ prints no result line:
      equality, tolerance 0), timed with CUDA events beside its plain
      version and its bound;
   6. the churn path: a second lsdb100k solver with ``incremental_spf``
-     takes a cold first build, then 8 flap steps (the victim
+     takes a cold first build, then 4 flap steps (the victim
      ``adj_dbs[1]``'s links, both directions, metric 50 + i % 5, through
      the changelog path: K5 scatter, then the incremental solve), and a
      fresh solver with ``incremental_cone_frac=0.0`` one more step, so
      the cone fallback runs on the card. Every step's RIB equals a cold
-     solve of the same state, two equal the oracle; the 8 flap steps
+     solve of the same state, two equal the oracle; the 4 flap steps
      are incremental and do not fall back, the last one does. Each
      step prints its time split, cone, trips, rounds, launches, flag
      reads and bytes moved; the counts are zeroed before each
@@ -91,7 +91,7 @@ prints no result line:
      (every link of a root neighbour to 90, of a far region's hub to
      40, of a node beside the root to 3), each on the delta path, with
      ``LinkState.run_spf`` wrapped to count calls (0), every fast-path
-     route and every 8th KSP2 route (sorted) equal to the oracle's on a
+     route and every 16th KSP2 route (sorted) equal to the oracle's on a
      separate copy of the LSDB, and each round's ``ksp2_*`` timings and
      delta stats printed; the counts are zeroed before the cold build
      and read after the last round. Then K10 ``overlay_planes``, K11
@@ -118,10 +118,27 @@ prints no result line:
      residual planes), one K1 step over the per-lane residual weights
      with the shared index tables, K12 and the whole sweep against their
      plain versions.
+  12. differentiable TE, on phase 11's solvers: whatif1k (1,024 demands
+     from 32 seeded sources, volumes 1-9) and fabric10k (1,024 demands
+     from 64 sources; residual rows) through ``WhatIfEngine.optimize``
+     at its defaults (40 iterations, lr 2.0, tau 1.0), the counts zeroed
+     before each and read after: each TE kernel (K13-K17, ``csrc/te.cu``)
+     launched once a step (K14s twice), the loss curve finite; each
+     prints ``optimize_ms``, ``te_step_ms`` with its split by kernel,
+     launches, flag reads, peak device bytes and the head of its loss
+     curve. ``te_step`` on the card is held against ``te_step_plain`` on
+     CPU copies (fabric10k: its first 2 sources) within rel 1e-4 of each
+     output's largest magnitude (loss, cost, util) and 1e-3 (grad); each
+     TE kernel against its plain version on the card tensors within rel
+     1e-4 (K13 / K15 on 4 mid-run trips, K14 / K16 over the whole run,
+     K14s / K17 on the step's buffers), timed on whatif1k. Then the
+     diamond of tests/test_whatif.py:353 (lr 0.05, 30 iterations): its
+     loss falls and a metric moves.
 
 Output: phase lines, then one ``{"kernels": [...]}`` JSON line (every
 kernel and its LFA, fused, stream, ksp2 and sweep variants, each with
-the launches of the path that runs it), the card's
+the launches of the path that runs it; the TE kernels with their
+largest relative error beside the absolute one), the card's
 name and power limit as nvidia-smi reports them, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -164,6 +181,10 @@ COLD_PATH = ("K1s:sssp_init", "K1:relax_step", "K2:ladder_classes",
 CHURN_PATH = COLD_PATH + ("K5:scatter_set", "K6:parent_plane",
                           "K7:cone_seed", "K8:cone_step", "K9:cone_finish")
 UCMP_PATH = ("base_sssp", "ucmp_propagate")
+# incremental flap steps of the churn phase (each held to a cold solve of
+# the same state, ~3 s of host RIB build at lsdb100k; 8 until the TE
+# phase joined the script)
+CHURN_STEPS = 4
 
 
 class SmokeError(RuntimeError):
@@ -1123,6 +1144,10 @@ WAN_SMALL_ROOT = "r00-n04-04"
 # churn: (victim, metric of all its links) — a root neighbour, a far
 # region's hub, a node beside the root
 WAN_CHURN = (("r00-n08-07", 90), ("r05-n16-16", 40), ("r00-n07-08", 3))
+# every WAN_KSP2_SAMPLE-th KSP2 route (sorted) of each wan50k generation is
+# held to the oracle's (~1 s of host Dijkstra a route; the small WAN holds
+# every one)
+WAN_KSP2_SAMPLE = 16
 KSP2_PATH = ("K10:overlay_planes", "K11:masked_delta", "K1s:sssp_init",
              "K1:relax_step", "base_sssp")
 
@@ -1211,7 +1236,7 @@ def ksp2_phase(c) -> dict:
 
     db = build("cold build")
     _, fast, _, ksp2_all, _ = solver._partition
-    ksp2_sample = sorted(ksp2_all)[::8]
+    ksp2_sample = sorted(ksp2_all)[::WAN_KSP2_SAMPLE]
     ad = solver._area_dev["0"]
     plan = ad.plan
     n_nodes = states["0"].node_count()
@@ -1229,8 +1254,9 @@ def ksp2_phase(c) -> dict:
               f"wan50k: fast-path route {prefix} != oracle")
     t_fast = (time.perf_counter() - t0) * 1e3
     t_k = sampled_ksp2(db, "cold build")
-    log(f"wan50k cold build: {len(fast['0'])} fast-path routes and 8 of 64 "
-        f"KSP2 routes == oracle (oracle host {t_fast:.0f} ms and "
+    log(f"wan50k cold build: {len(fast['0'])} fast-path routes and "
+        f"{len(ksp2_sample)} of {len(ksp2_all)} KSP2 routes == oracle "
+        f"(oracle host {t_fast:.0f} ms and "
         f"{t_k:.0f} ms)")
     rstate = solver._ksp2_rows[("0", WAN50K_ROOT)]
     prev_rows = None
@@ -1242,8 +1268,8 @@ def ksp2_phase(c) -> dict:
         check("ksp2_init" not in solver.last_timing,
               f"wan50k churn round {rnd} must take the delta path")
         t_k = sampled_ksp2(db, f"churn round {rnd}")
-        log(f"wan50k churn round {rnd}: 8 KSP2 routes == oracle "
-            f"(oracle host {t_k:.0f} ms)")
+        log(f"wan50k churn round {rnd}: {len(ksp2_sample)} KSP2 routes == "
+            f"oracle (oracle host {t_k:.0f} ms)")
     torch.cuda.synchronize()
     launches, reads = c.read_counts(reads0)
     log(f"wan50k launches over the cold build and 3 churn rounds: "
@@ -1508,9 +1534,10 @@ def sweep_kernels(c, a, k, timed: bool) -> None:
         f"CPU run)")
 
 
-def whatif_phase(c) -> dict:
+def whatif_phase(c) -> tuple[dict, dict]:
     """The what-if sweeps (module docstring, phase 11). Returns the sweep
-    path's launches by kernel."""
+    path's launches by kernel and the cells' (solver, states, prefix
+    state), which the TE phase goes on with."""
     torch, gs, ksp2, relax, sweep, whatif = (c.torch, c.gpu_solver, c.ksp2,
                                              c.relax, c.sweep, c.whatif)
     t_phase = time.perf_counter()
@@ -1645,7 +1672,358 @@ def whatif_phase(c) -> dict:
             | {"impacted": len(d["impacted"])}))
     log(f"fabric10k sweep verdicts ({WHATIF_SAMPLES[1]} sampled) == host "
         f"run_spf; 11b took {time.perf_counter() - t0:.1f} s")
-    return launches
+    return launches, {"whatif1k": (solver, states, ps),
+                      "fabric10k": (f_solver, f_states, f_ps)}
+
+
+# -- 12. differentiable TE: whatif1k, fabric10k, the diamond -----------------
+
+# demand sources and demands of the TE cells (whatif1k, fabric10k); the
+# volumes are seeded integers 1-9
+TE_SOURCES = (32, 64)
+TE_DEMANDS = 1024
+TE_SEED = 11
+# fabric10k's te_step against its plain run on CPU copies: its first
+# sources only (the plain residual softmin is [S, 8192, 128] a trip)
+TE_CPU_SOURCES = 2
+# float32 tolerance, relative to each output's largest magnitude; grad is
+# second order, summed over the trips
+TE_TOL = {"loss": 1e-4, "cost": 1e-4, "util": 1e-4, "grad": 1e-3}
+# trips in each kernel's slice check, and each kernel's tolerance there
+# (relative to its outputs' largest magnitude)
+TE_SLICE = 4
+TE_KERNEL_TOL = 1e-4
+TE_PATH = ("K13:te_relax", "K14:te_relax_vjp", "K14s:te_link_sum",
+           "K17:te_loss", "K15:te_relax_jvp", "K16:te_relax_vjp_jvp")
+
+
+def te_demands(names: list, n_src: int, n_dem: int, seed: int) -> list:
+    """``n_dem`` demands from ``n_src`` seeded sources (round robin) to
+    seeded destinations over the sorted node names, volumes 1-9."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    srcs = sorted(int(i) for i in rng.choice(len(names), n_src,
+                                             replace=False))
+    out = []
+    for i in range(n_dem):
+        s, d = srcs[i % n_src], int(rng.integers(len(names)))
+        out.append({"src": names[s], "dst": names[d if d != s else
+                                                   (d + 1) % len(names)],
+                    "volume": float(rng.integers(1, 10))})
+    return out
+
+
+def te_err(torch, got, want) -> tuple[float, float]:
+    """-> (max |got - want|, that over want's largest magnitude), in
+    float64."""
+    got, want = got.double().cpu(), want.double().cpu()
+    check(got.shape == want.shape, f"shape {got.shape} != {want.shape}")
+    if want.numel() == 0:
+        return 0.0, 0.0
+    err = float((got - want).abs().max())
+    return err, err / max(float(want.abs().max()), 1e-30)
+
+
+def te_check(torch, got, want, names, label) -> dict:
+    errs = {}
+    for name, g, w in zip(names, got, want):
+        errs[name] = te_err(torch, g, w)[1]
+        check(errs[name] <= TE_TOL[name], f"{label}: {name} rel err "
+              f"{errs[name]} > {TE_TOL[name]}")
+    return errs
+
+
+def te_plan_copy(c, tp, device, n_src: int):
+    """``tp`` on ``device``, restricted to its first ``n_src`` sources and
+    their demands (the others' volumes 0)."""
+    torch = c.torch
+    keep = tp.dem_row < n_src
+    arrays = [t.cpu().numpy() for t in (
+        tp.deltas, tp.res_rows, tp.res_nbr, tp.sh_flat, tp.sh_link,
+        tp.rs_flat, tp.rs_link, tp.srcs[:n_src],
+        torch.where(keep, tp.dem_row, 0), tp.dem_dst,
+        torch.where(keep, tp.dem_vol, 0.0))]
+    return c.te.te_plan(*arrays, n_cap=tp.n_cap, l_cap=tp.l_cap,
+                        trips=tp.trips, has_res=tp.has_res, device=device)
+
+
+def te_step_split(c, tp, theta, tau: float, tau_u: float) -> dict:
+    """One te_step on the card with CUDA events between its stages: ->
+    {kernel: ms}."""
+    torch, te = c.torch, c.te
+    s, n = tp.srcs.numel(), tp.n_cap
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=c.dev)
+
+    fields = empty(tp.trips + 1, s, n)
+    lam, lam_t = empty(s, n), empty(s, n)
+    ct = (empty(s, tp.sh_link.numel()), empty(s, tp.rs_link.numel()))
+    tfields = torch.empty_like(fields)
+    torch.cuda.synchronize()
+    ev[0].record()
+    te.te_relax(tp, theta, fields, tau)
+    ev[1].record()
+    te.te_relax_vjp(tp, theta, fields, lam, *ct, tau)
+    ev[2].record()
+    util = te.te_link_sum(tp, *ct)
+    ev[3].record()
+    _, v = te.te_loss(tp, util, fields[-1], tau_u)
+    ev[4].record()
+    te.te_relax_jvp(tp, theta, v, fields, tfields, tau)
+    ev[5].record()
+    te.te_relax_vjp_jvp(tp, theta, v, fields, tfields, lam, lam_t, *ct, tau)
+    ev[6].record()
+    te.te_link_sum(tp, *ct)
+    ev[7].record()
+    torch.cuda.synchronize()
+    t = [ev[i].elapsed_time(ev[i + 1]) for i in range(7)]
+    return {"K13:te_relax": t[0], "K14:te_relax_vjp": t[1],
+            "K14s:te_link_sum": t[2] + t[6], "K17:te_loss": t[3],
+            "K15:te_relax_jvp": t[4], "K16:te_relax_vjp_jvp": t[5]}
+
+
+def te_kernels(c, tp, theta, timed: bool, label: str) -> None:
+    """Each TE kernel against its plain version (run on the same card
+    tensors) within TE_KERNEL_TOL: K13 and K15 over TE_SLICE trips from
+    the middle of the run, K14 and K16 over the whole run (their
+    cotangents seeded from the demands, as in a step), K14s and K17 on
+    the whole run's buffers. ``timed`` records them at the step's own
+    shapes (the whole trip count) beside their bounds."""
+    torch, te = c.torch, c.te
+    tau = tau_u = 1.0
+    s, n, T = tp.srcs.numel(), tp.n_cap, tp.trips
+    n_sh, n_rs = tp.sh_link.numel(), tp.rs_link.numel()
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=c.dev)
+
+    fields = empty(T + 1, s, n)
+    te.te_relax(tp, theta, fields, tau)
+    lam, lam_t = empty(s, n), empty(s, n)
+    ct = (empty(s, n_sh), empty(s, n_rs))
+    te.te_relax_vjp(tp, theta, fields, lam, *ct, tau)
+    util = te.te_link_sum(tp, *ct)
+    lc, v = te.te_loss(tp, util, fields[-1], tau_u)
+    tfields = torch.empty_like(fields)
+    te.te_relax_jvp(tp, theta, v, fields, tfields, tau)
+    errs = {}
+    # K13 / K15 on a mid-run slice
+    t0 = T // 2
+    sl = slice(t0, t0 + TE_SLICE + 1)
+    f_k, f_p = fields[sl].clone(), fields[sl].clone()
+    te.te_relax(tp, theta, f_k, tau, seed=False)
+    te.te_relax_plain(tp, theta, f_p, tau, seed=False)
+    errs["K13:te_relax"] = te_err(torch, f_k, f_p)
+    g_k, g_p = tfields[sl].clone(), tfields[sl].clone()
+    te.te_relax_jvp(tp, theta, v, fields[sl], g_k, tau, seed=False)
+    te.te_relax_jvp_plain(tp, theta, v, fields[sl], g_p, tau, seed=False)
+    errs["K15:te_relax_jvp"] = te_err(torch, g_k, g_p)
+    # K14 / K16 over the whole run: a tie between a node's residual
+    # candidate and its own distance (the common case at convergence)
+    # splits its cotangent 1:3 under the reference's rules and sends all
+    # of it to the candidate one ulp away, so which of the two a
+    # recomputed trip takes moves cotangent between a slice's first field
+    # and its theta slots — the sums over every trip do not move. K16's
+    # tangent of the cotangent on trip 0's field is 0 but for rounding
+    # (that cotangent is each source's total volume, whatever theta is):
+    # it is reported, not held to a relative tolerance
+
+    def adj(fn, *extra):
+        outs = []
+        for f in (fn, getattr(te, fn.__name__ + "_plain")):
+            bufs = [empty(s, n) for _ in range(2 if extra else 1)] + [
+                empty(s, n_sh), empty(s, n_rs)]
+            if extra:
+                f(tp, theta, v, fields, tfields, *bufs, tau)
+            else:
+                f(tp, theta, fields, *bufs, tau)
+            outs.append(bufs)
+        es = [te_err(torch, a, b) for a, b in zip(*outs)]
+        if extra:
+            errs["K16 lam_t (abs, rel)"] = es.pop(1)
+        return max(es, key=lambda e: e[1])
+
+    errs["K14:te_relax_vjp"] = adj(te.te_relax_vjp)
+    errs["K16:te_relax_vjp_jvp"] = adj(te.te_relax_vjp_jvp, True)
+    errs["K14s:te_link_sum"] = te_err(torch, util,
+                                      te.te_link_sum_plain(tp, *ct))
+    lc_p, v_p = te.te_loss_plain(tp, util, fields[-1], tau_u)
+    errs["K17:te_loss"] = max(te_err(torch, lc, lc_p), te_err(torch, v, v_p),
+                              key=lambda e: e[1])
+    for name, (_, rel) in errs.items():
+        check(rel <= TE_KERNEL_TOL or name.startswith("K16 lam_t"),
+              f"{label} {name}: rel err {rel} > {TE_KERNEL_TOL}")
+    log(f"{label}: TE kernels == plain ([abs, rel] err; K13 / K15 on "
+        f"{TE_SLICE} trips): " + json.dumps(errs))
+    if not timed:
+        return
+    # the bounds: every input read once, every output written once; the
+    # operations each (trip, source, node) does (exp / log1p counted as
+    # one operation each, as the float32 rate counts an add)
+    C, (R, K) = tp.deltas.numel(), tp.res_nbr.shape
+    rows = int((tp.row_of >= 0).sum())
+    live, L, D = tp.inv_ent.numel(), tp.l_cap, tp.dem_row.numel()
+    field = (T + 1) * s * n * 4
+    tables = 4 * (2 * C * n + n + 3 * R * K + R + n + 1 + live + s
+                  + 3 * D + L)
+    fwd_ops = T * s * (n * C * 12 + live * 8 + rows * 6 + n * 4)
+    adj_ops = T * s * (n * C * 20 + live * 14 + rows * 10 + n * 8)
+    ct_bytes = 4 * s * (n_sh + n_rs)
+    lam_bytes = 4 * s * n
+    ff, tt = empty(T + 1, s, n), empty(T + 1, s, n)
+    bl = [empty(s, n), empty(s, n), empty(s, n_sh), empty(s, n_rs)]
+    specs = {
+        "K13:te_relax": (
+            lambda: te.te_relax(tp, theta, ff, tau),
+            lambda: te.te_relax_plain(tp, theta, ff, tau),
+            tables + field, fwd_ops),
+        "K14:te_relax_vjp": (
+            lambda: te.te_relax_vjp(tp, theta, fields, bl[0], *bl[2:], tau),
+            lambda: te.te_relax_vjp_plain(tp, theta, fields, bl[0],
+                                          *bl[2:], tau),
+            tables + field + lam_bytes + ct_bytes, adj_ops),
+        "K14s:te_link_sum": (
+            lambda: te.te_link_sum(tp, *ct),
+            lambda: te.te_link_sum_plain(tp, *ct),
+            ct_bytes + 4 * (L + 1 + n_sh + n_rs) + 4 * L, s * (n_sh + n_rs)),
+        "K17:te_loss": (
+            lambda: te.te_loss(tp, util, fields[-1], tau_u),
+            lambda: te.te_loss_plain(tp, util, fields[-1], tau_u),
+            4 * (2 * L + 4 * D + 2), 6 * L + 2 * D),
+        "K15:te_relax_jvp": (
+            lambda: te.te_relax_jvp(tp, theta, v, fields, tt, tau),
+            lambda: te.te_relax_jvp_plain(tp, theta, v, fields, tt, tau),
+            tables + 2 * field + 4 * L, 2 * fwd_ops),
+        "K16:te_relax_vjp_jvp": (
+            lambda: te.te_relax_vjp_jvp(tp, theta, v, fields, tfields,
+                                        *bl, tau),
+            lambda: te.te_relax_vjp_jvp_plain(tp, theta, v, fields,
+                                              tfields, *bl, tau),
+            tables + 2 * field + 2 * lam_bytes + ct_bytes + 4 * L,
+            2 * adj_ops),
+    }
+    for name, (fn, plain, nbytes, ops) in specs.items():
+        c.record_float(name, *errs[name], fn, plain, nbytes, ops)
+
+
+def te_cell(c, label: str, cell, n_src: int, seed: int,
+            cpu_sources: int) -> dict:
+    """One TE cell — ``cell``, a solved (solver, states, prefix state) —
+    through ``WhatIfEngine.optimize`` (defaults: 40 iterations, lr 2.0,
+    tau 1.0) with the counts zeroed before it and read after, then
+    ``te_step`` on the card against ``te_step_plain`` on CPU copies
+    (``cpu_sources`` sources). Returns the cell's launches, plans and
+    result."""
+    torch, te = c.torch, c.te
+    t_cell = time.perf_counter()
+    solver, states, ps = cell
+    eng = c.whatif.WhatIfEngine(solver)
+    demands = te_demands(sorted(states["0"].node_names()), n_src,
+                         TE_DEMANDS, seed)
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reads0 = c.zero_counts()
+    t0 = time.perf_counter()
+    job = eng.plan_optimize(states, ps, demands)
+    out = job.run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launches, reads = c.read_counts(reads0)
+    peak = torch.cuda.max_memory_allocated() - live
+    tp, theta0 = job.te_plan()
+    theta = torch.from_numpy(theta0).to(c.dev)
+    step_ms = time_ms(torch, lambda: te.te_step(tp, theta, 1.0, 1.0), 5)
+    split = te_step_split(c, tp, theta, 1.0, 1.0)
+    curve = out["loss_curve"]
+    log(f"{label} TE: " + json.dumps({
+        "nodes": len(job.ad.plan.node_names), "n_cap": tp.n_cap,
+        "classes": tp.deltas.numel(), "sources": tp.srcs.numel(),
+        "demands": out["demands"], "links": len(job.link_names),
+        "res": list(tp.res_nbr.shape) if tp.has_res else [0, 0],
+        "live_res_entries": tp.inv_ent.numel(), "trips": out["trips"],
+        "iters": out["iters"], "optimize_ms": out["optimize_ms"],
+        "wall_ms": wall, "te_step_ms": step_ms, "te_step_split_ms": split,
+        "launches": {k: v for k, v in launches.items() if v},
+        "flag_reads": reads, "peak_bytes": peak,
+        "loss_first": curve[0], "loss_last": curve[-1],
+        "loss_curve_head": curve[:5],
+        "max_util_before": out["max_util_before"],
+        "max_util_after": out["max_util_after"],
+        "changes": len(out["changes"])}))
+    check(len(curve) == out["iters"] and all(
+        x == x and abs(x) < float("inf") for x in curve),
+        f"{label}: the loss curve must be finite, one value an iteration")
+    steps = out["iters"] + 1
+    for name in TE_PATH:
+        want = 2 * steps if name == "K14s:te_link_sum" else steps
+        check(launches[name] == want, f"{label}: {name} launched "
+              f"{launches[name]} times, not {want}")
+    check(launches["K1:relax_step"] > 0,
+          f"{label}: the baseline sweep never launched K1")
+    # the whole step on the card against its plain run on CPU copies
+    k = min(cpu_sources, tp.srcs.numel())
+    cpu_tp, dev_tp = (te_plan_copy(c, tp, d, k) for d in ("cpu", c.dev))
+    t0 = time.perf_counter()
+    got = te.te_step(dev_tp, theta, 1.0, 1.0)
+    torch.cuda.synchronize()
+    t_card = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    want = te.te_step_plain(cpu_tp, theta.cpu(), 1.0, 1.0)
+    t_cpu = time.perf_counter() - t0
+    errs = te_check(torch, got, want, ("loss", "grad", "util", "cost"),
+                    f"{label} te_step")
+    log(f"{label}: te_step on the card == plain on CPU copies "
+        f"({cpu_tp.srcs.numel()} sources, {t_card:.1f} ms card / "
+        f"{t_cpu:.1f} s CPU), rel err: " + json.dumps(errs))
+    return types.SimpleNamespace(launches=launches, tp=tp, theta=theta,
+                                 sub=dev_tp, out=out,
+                                 seconds=time.perf_counter() - t_cell)
+
+
+def te_diamond(c) -> None:
+    """tests/test_whatif.py:353's diamond on the card: lr 0.05, 30
+    iterations; the loss must fall and a metric must move."""
+    t = c.topologies
+    nodes = {"s": ["a", "b"], "a": ["s", "t"], "b": ["s", "t"],
+             "t": ["a", "b"]}
+    metric = {("s", "b"): 4, ("b", "s"): 4, ("b", "t"): 4, ("t", "b"): 4}
+    adj_dbs, prefix_dbs = t._mk_dbs(
+        {n: [t._adj(n, o, metric=metric.get((n, o), 1)) for o in p]
+         for n, p in nodes.items()},
+        "0", c.PrefixForwardingAlgorithm.SP_ECMP, True)
+    states, ps = t.build_states(adj_dbs, prefix_dbs)
+    solver = c.gpu_solver.GpuSpfSolver("s", device=c.dev)
+    solver.build_route_db("s", states, ps)
+    out = c.whatif.WhatIfEngine(solver).optimize(
+        states, ps, [{"src": "s", "dst": "t", "volume": 10.0}], iters=30,
+        lr=0.05, tau=1.0)
+    log("diamond TE: " + json.dumps({k: out[k] for k in (
+        "trips", "max_util_before", "max_util_after", "changes")}
+        | {"loss_first": out["loss_curve"][0],
+           "loss_last": out["loss_curve"][-1]}))
+    check(out["loss_curve"][-1] < out["loss_curve"][0] and out["changes"],
+          "diamond: the loss must fall and a metric must move")
+
+
+def te_phase(c, cells: dict) -> dict:
+    """Differentiable TE (module docstring, phase 12) on the solvers of
+    phase 11 (``cells``). Returns the TE path's launches by kernel (both
+    cells)."""
+    t_phase = time.perf_counter()
+    w = te_cell(c, "whatif1k", cells["whatif1k"], TE_SOURCES[0], TE_SEED,
+                TE_SOURCES[0])
+    te_kernels(c, w.tp, w.theta, True, "whatif1k")
+    f = te_cell(c, "fabric10k", cells["fabric10k"], TE_SOURCES[1],
+                TE_SEED + 1, TE_CPU_SOURCES)
+    te_kernels(c, f.sub, f.theta, False, "fabric10k")
+    te_diamond(c)
+    log(f"TE phase took {time.perf_counter() - t_phase:.1f} s (whatif1k "
+        f"{w.seconds:.1f} s, fabric10k {f.seconds:.1f} s)")
+    return {k: w.launches[k] + f.launches[k] for k in w.launches}
 
 
 def main() -> int:
@@ -1666,6 +2044,7 @@ def main() -> int:
         select,
         stream,
         sweep,
+        te,
         ucmp,
     )
     from openr_tpu_torch.runtime.counters import counters
@@ -1726,6 +2105,16 @@ def main() -> int:
                              "openr_tpu/ops/ksp2.py:163"),
         "K12:sweep_verdicts": (sweep.sweep_verdicts, "sweep.cu",
                                "openr_tpu/ops/sweep.py:59"),
+        "K13:te_relax": (te.te_relax, "te.cu", "openr_tpu/ops/sweep.py:204"),
+        "K14:te_relax_vjp": (te.te_relax_vjp, "te.cu",
+                             "openr_tpu/ops/sweep.py:227"),
+        "K14s:te_link_sum": (te.te_link_sum, "te.cu",
+                             "openr_tpu/ops/sweep.py:227"),
+        "K17:te_loss": (te.te_loss, "te.cu", "openr_tpu/ops/sweep.py:229"),
+        "K15:te_relax_jvp": (te.te_relax_jvp, "te.cu",
+                             "openr_tpu/ops/sweep.py:233"),
+        "K16:te_relax_vjp_jvp": (te.te_relax_vjp_jvp, "te.cu",
+                                 "openr_tpu/ops/sweep.py:233"),
     }
     cold_path = list(COLD_PATH)
     # variants of a kernel: (the wrapper's entry, what it replaces); their
@@ -1762,6 +2151,23 @@ def main() -> int:
         }
         log(f"{name}: equal; {json.dumps(results[name])}")
 
+    def record_float(name, err, rel_err, fn, plain, nbytes, ops, reps=10,
+                     plain_reps=1):
+        """``record`` for a float32 kernel: ``err`` / ``rel_err`` its
+        largest absolute / relative difference from its plain version,
+        already held to its tolerance."""
+        b_ms, b_by = bound(nbytes, ops)
+        results[name] = {
+            "max_abs_err": err,
+            "max_rel_err": rel_err,
+            "ms": time_ms(torch, fn, reps),
+            "plain_ms": time_ms(torch, plain, plain_reps),
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None,
+        }
+        log(f"{name}: within tolerance; {json.dumps(results[name])}")
+
     def zero_counts():
         for fn, _, _ in wrappers.values():
             fn.launches = 0
@@ -1775,6 +2181,7 @@ def main() -> int:
         torch=torch, dev=dev, gpu_solver=gpu_solver, relax=relax,
         compact=compact, stream=stream, ksp2=ksp2, ucmp=ucmp, sweep=sweep,
         whatif=whatif, variant_launches=variant_launches,
+        te=te, record_float=record_float,
         topologies=topologies, SpfSolver=SpfSolver,
         AdjacencyDatabase=AdjacencyDatabase, PrefixDatabase=PrefixDatabase,
         PrefixEntry=PrefixEntry,
@@ -1783,6 +2190,8 @@ def main() -> int:
         zero_counts=zero_counts, read_counts=read_counts,
     )
 
+    log(f"-- phase 2 starts at "
+        f"{time.perf_counter() - t_start:.1f} s")
     # -- 2. small cells: RIB parity, residual relaxation; also loads every
     # kernel's module, so the main path's first build times the solve ---------------------
     cells = [
@@ -1880,12 +2289,16 @@ def main() -> int:
                     k: st.get(k) for k in ("cone", "cone_trips", "trips",
                                            "rounds", "changed_rows")}))
 
+    log(f"-- phase 2b starts at "
+        f"{time.perf_counter() - t_start:.1f} s")
     # -- 2b. the fused path: 4 same-shape areas in one dispatch ------------
     fused_phase(torch, gpu_solver, relax, select, compact, SpfSolver,
                 topologies, counters, (AdjacencyDatabase, PrefixDatabase,
                                        PrefixEntry), dev, wrappers,
                 variants, variant_launches, record, zero_counts, read_counts)
 
+    log(f"-- phase 3 starts at "
+        f"{time.perf_counter() - t_start:.1f} s")
     # -- 3. main path: lsdb100k cold solve x3 -------------------------------
     t0 = time.perf_counter()
     adj_dbs, states, ps = build_cell(
@@ -1922,6 +2335,8 @@ def main() -> int:
     check(solver.last_timing["spf_kernel"] == "bucketed",
           "lsdb100k must run the bucketed kernel")
 
+    log(f"-- phase 4 starts at "
+        f"{time.perf_counter() - t_start:.1f} s")
     # -- 4. the lsdb100k RIB against the oracle ---------------------------
     t0 = time.perf_counter()
     oracle = SpfSolver(LSDB100K_ROOT).build_route_db(LSDB100K_ROOT, states, ps)
@@ -1934,6 +2349,8 @@ def main() -> int:
     log(f"lsdb100k RIB == oracle for all 3 builds ({n_routes} routes; "
         f"oracle host solve {t_oracle:.0f} ms)")
 
+    log(f"-- phase 5 starts at "
+        f"{time.perf_counter() - t_start:.1f} s")
     # -- 5. every kernel against its plain version at lsdb100k shapes -------
     ad = solver._area_dev["0"]
     plan = ad.plan
@@ -2104,6 +2521,8 @@ def main() -> int:
     )
     stream_kernel(c, metric, s3w, nhw, ok, flags, wa, wd, a_cap)
 
+    log(f"-- phase 6 starts at "
+        f"{time.perf_counter() - t_start:.1f} s")
     # -- 6. the churn path: incremental solves at lsdb100k ------------------
     by_name = {db.this_node_name: db for db in adj_dbs}
     inc_solver = gpu_solver.GpuSpfSolver(LSDB100K_ROOT, device=dev,
@@ -2161,8 +2580,9 @@ def main() -> int:
         steps.append(rec)
         return rec
 
-    for i in range(8):
-        rec = churn_step(inc_solver, i, f"step {i}", i in (0, 7))
+    for i in range(CHURN_STEPS):
+        rec = churn_step(inc_solver, i, f"step {i}",
+                         i in (0, CHURN_STEPS - 1))
         check(rec["incremental"] is True and rec["fell_back"] is False,
               f"churn step {i} must be incremental without fallback")
         check(rec["bytes_uploaded"] < whole_plane,
@@ -2172,15 +2592,18 @@ def main() -> int:
         incremental_cone_frac=0.0,
     )
     fb_solver.build_route_db(LSDB100K_ROOT, states, ps)  # its cold build
-    rec = churn_step(fb_solver, 8, "fallback step", False)
+    rec = churn_step(fb_solver, CHURN_STEPS, "fallback step", False)
     check(rec["incremental"] is True and rec["fell_back"] is True
           and rec["cone"] > 0,
           "the cone_frac=0 step must fall back on the device")
-    log(f"lsdb100k churn launches over 9 steps: {json.dumps(churn_launches)}")
+    log(f"lsdb100k churn launches over {CHURN_STEPS + 1} steps: "
+        f"{json.dumps(churn_launches)}")
     for name in CHURN_PATH:
         check(churn_launches[name] > 0,
               f"kernel {name} never launched on the churn path")
 
+    log(f"-- phase 7 starts at "
+        f"{time.perf_counter() - t_start:.1f} s")
     # -- 7. the churn kernels against their plain versions -----------------
     ci = churn_inputs(relax, incremental, inc_solver)
     (i_deltas, i_shift, i_rows, i_nbr, i_resw, i_mbuf, i_root, i_rnbr,
@@ -2303,6 +2726,8 @@ def main() -> int:
     results["K4:compact_outputs"]["incr_tail_max_abs_err"] = err
     log("K4:compact_outputs with the incremental tail equal to plain")
 
+    log(f"-- phase 8 starts at "
+        f"{time.perf_counter() - t_start:.1f} s")
     # -- 8. flapstorm100k: streaming epochs --------------------------------
     stream_launches, s_solver = flapstorm_phase(c, adj_dbs, states, ps)
     for name in CHURN_PATH:
@@ -2311,14 +2736,25 @@ def main() -> int:
     variant_launches["K4:compact_outputs[stream]"] = stream_launches[
         "K4:compact_outputs"]
 
+    log(f"-- phase 9 starts at "
+        f"{time.perf_counter() - t_start:.1f} s")
     # -- 9. UCMP on the card ------------------------------------------------
     ucmp_launches = ucmp_phase(c, (s_solver, states))
 
+    log(f"-- phase 10 starts at "
+        f"{time.perf_counter() - t_start:.1f} s")
     # -- 10. wan50k KSP2 ------------------------------------------------------
     ksp2_launches = ksp2_phase(c)
 
+    log(f"-- phase 11 starts at "
+        f"{time.perf_counter() - t_start:.1f} s")
     # -- 11. what-if sweeps ---------------------------------------------------
-    sweep_launches = whatif_phase(c)
+    sweep_launches, whatif_cells = whatif_phase(c)
+
+    log(f"-- phase 12 starts at "
+        f"{time.perf_counter() - t_start:.1f} s")
+    # -- 12. differentiable TE ------------------------------------------------
+    te_launches = te_phase(c, whatif_cells)
 
     # -- result ----------------------------------------------------------
     kernels = []
@@ -2328,7 +2764,8 @@ def main() -> int:
                    "stream": stream_launches[name],
                    "ucmp": ucmp_launches[name],
                    "ksp2": ksp2_launches[name],
-                   "sweep": sweep_launches[name]}
+                   "sweep": sweep_launches[name],
+                   "te": te_launches[name]}
         kernels.append({
             "name": name,
             "route": "cuda",

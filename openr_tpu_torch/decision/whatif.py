@@ -1,6 +1,6 @@
-"""What-if engine: batched N-k failure sweeps and drain previews on the
-solver's resident graph (the port of the JAX package's
-``decision/whatif.py``, without its differentiable TE half).
+"""What-if engine: batched N-k failure sweeps, drain previews and
+gradient-descent link-weight optimization on the solver's resident graph
+(the port of the JAX package's ``decision/whatif.py``).
 
 The engine is a read-only consumer of ``GpuSpfSolver``'s device state:
 it syncs the area through the solver's own ``_sync_area`` (a sweep never
@@ -20,6 +20,10 @@ Scenario kinds:
   drain_node  every out-edge of a node -> INF (its in-edges stand, as a
               transit drain; drain previews look AT it, not FROM it)
   drain_link  alias of fail for a single link
+
+``optimize`` (``plan_optimize`` + ``OptimizeJob.run``) runs the softmin
+TE surrogate of ``ops/te.py``: one ``te_step`` a gradient step, its trip
+count bounded by a baseline sweep of the demand sources.
 """
 
 from __future__ import annotations
@@ -32,12 +36,14 @@ import numpy as np
 import torch
 
 from openr_tpu_torch.ops.edgeplan import (
+    MAX_METRIC,
     _ensure_edge_loc,
     _next_pow2,
     edge_loc_of,
 )
-from openr_tpu_torch.ops.relax import INF_E
+from openr_tpu_torch.ops.relax import INF_E, UNROLL
 from openr_tpu_torch.ops.sweep import sweep, sweep_max_trips
+from openr_tpu_torch.ops.te import te_plan, te_step
 from openr_tpu_torch.runtime.counters import counters
 from openr_tpu_torch.runtime.faults import maybe_fail
 from openr_tpu_torch.runtime.tracing import tracer
@@ -478,4 +484,269 @@ class WhatIfEngine:
             return out
         except Exception:
             tracer.end_trace(ctx, status="error")
+            raise
+
+    # -- differentiable TE -------------------------------------------------
+
+    def plan_optimize(self, area_link_states, prefix_state, demands,
+                      area: Optional[str] = None, iters: int = 40,
+                      lr: float = 2.0, tau: float = 1.0,
+                      tau_util: Optional[float] = None) -> "OptimizeJob":
+        """Stage a gradient-descent link-weight optimization against an
+        operator demand matrix ([{src, dst, volume}]). Planning reads
+        the LSDB; the returned job's run() touches only device/host
+        arrays."""
+        maybe_fail("solver.whatif")
+        if not demands:
+            raise ValueError("empty demand matrix")
+        area = self._pick_area(area, area_link_states)
+        ctx = tracer.start_trace(
+            "whatif.optimize", node=self.my_node_name, area=area,
+            demands=len(demands), iters=iters,
+        )
+        try:
+            with tracer.span(ctx, "whatif.snapshot"):
+                ad = self._snapshot(area, area_link_states, prefix_state)
+            plan = ad.plan
+            n_cap = plan.n_cap
+            kr_cap = plan.res_nbr.shape[1]
+
+            links = [ln for ln in plan._links_sorted if ln.is_up()]
+            if not links:
+                raise ValueError("no up links to optimize")
+            theta0, sh_idx, sh_link, rs_idx, rs_link = [], [], [], [], []
+            link_names = []
+            for li, ln in enumerate(links):
+                link_names.append(_link_name(ln))
+                theta0.append(
+                    float(min(ln.metric_from_node(ln.n1), MAX_METRIC))
+                )
+                for src in (ln.n1, ln.n2):
+                    loc = edge_loc_of(plan, ln, src)
+                    if loc is None:
+                        continue
+                    kind, a, b = loc
+                    # skip slots the mirror holds at INF (drained src):
+                    # the optimizer must not resurrect them
+                    if kind == "s":
+                        if plan.shift_w[a, b] >= INF_E:
+                            continue
+                        sh_idx.append(a * n_cap + b)
+                        sh_link.append(li)
+                    else:
+                        if plan.res_w[a, b] >= INF_E:
+                            continue
+                        rs_idx.append(a * kr_cap + b)
+                        rs_link.append(li)
+
+            dem, bad = [], []
+            for d in demands:
+                si = plan.node_index.get(d["src"])
+                di = plan.node_index.get(d["dst"])
+                if si is None or di is None or si == di:
+                    bad.append(d)
+                    continue
+                dem.append((si, di, float(d.get("volume", 1.0))))
+            if not dem:
+                raise ValueError("no resolvable demands in this area")
+
+            # baseline int sweep (identity overlay) for the measured trip
+            # bound: the float surrogate's scan length rides the real
+            # diameter instead of a blind n_cap (the port's sweep always
+            # runs synchronous rounds, as the reference's forced one)
+            base_job = SweepJob(
+                self, area, ad,
+                np.asarray(sorted({s for s, _, _ in dem}), np.int32),
+                [], True, ctx, meta={},
+            )
+            base_job.roots_dev = self._roots_dev(base_job.roots)
+            base_chunk = _Chunk(base_job, [], [])
+            base_job.chunks.append(base_chunk)
+            base_chunk.dispatch()
+            base_chunk.collect()
+            base = base_job.dist_planes[0][0]  # [S, N]
+            src_row = {
+                int(s): i for i, s in enumerate(base_job.roots)
+            }
+            reachable = []
+            for si, di, vol in dem:
+                if base[src_row[si], di] >= INF_E:
+                    bad.append({"src_idx": si, "dst_idx": di})
+                    continue
+                reachable.append((si, di, vol))
+            if not reachable:
+                raise ValueError("no demand pair is reachable")
+            trips = min(256, max(8, base_job.trips * UNROLL + 2))
+
+            return OptimizeJob(
+                self, area, ad, ctx, link_names,
+                np.asarray(theta0, np.float32),
+                np.asarray(sh_idx, np.int32), np.asarray(sh_link, np.int32),
+                np.asarray(rs_idx, np.int32), np.asarray(rs_link, np.int32),
+                reachable, src_row, bad, trips,
+                iters=int(iters), lr=float(lr), tau=float(tau),
+                tau_util=float(tau_util or tau),
+            )
+        except Exception:
+            tracer.end_trace(ctx, status="error")
+            raise
+
+    def optimize(self, area_link_states, prefix_state, demands,
+                 **kw) -> dict:
+        return self.plan_optimize(
+            area_link_states, prefix_state, demands, **kw
+        ).run()
+
+
+class OptimizeJob:
+    """Gradient-descent loop over the softmin TE surrogate. No LSDB
+    access after planning: run() is executor-safe."""
+
+    def __init__(self, engine, area, ad, ctx, link_names, theta0,
+                 sh_idx, sh_link, rs_idx, rs_link, demands, src_row,
+                 rejected, trips, iters, lr, tau, tau_util):
+        self.engine = engine
+        self.area = area
+        self.ad = ad
+        self.ctx = ctx
+        self.link_names = link_names
+        self.theta0 = theta0
+        self.sh = (sh_idx, sh_link)
+        self.rs = (rs_idx, rs_link)
+        self.demands = demands
+        self.src_row = src_row
+        self.rejected = rejected
+        self.trips = trips
+        self.iters = iters
+        self.lr = lr
+        self.tau = tau
+        self.tau_util = tau_util
+
+    def arrays(self) -> tuple:
+        """The reference job's padded step inputs: -> (theta [l_cap],
+        sh_idx, sh_link [es], rs_idx, rs_link [er], srcs [s_cap], dem_row,
+        dem_dst [d_cap] int32, dem_vol [d_cap] float32), numpy."""
+        plan = self.ad.plan
+        n_cap, s_cap = plan.n_cap, plan.s_cap
+        r_cap, kr_cap = plan.res_nbr.shape
+        L = len(self.theta0)
+        l_cap = _next_pow2(L, 4)
+        es = _next_pow2(max(1, len(self.sh[0])), 4)
+        er = _next_pow2(max(1, len(self.rs[0])), 4)
+        srcs = np.asarray(
+            sorted({s for s, _, _ in self.demands}), np.int32
+        )
+        row_of = {int(s): i for i, s in enumerate(srcs)}
+        s_cap_d = _next_pow2(len(srcs), 2)
+        d_cap = _next_pow2(len(self.demands), 2)
+
+        theta = np.ones(l_cap, np.float32)
+        theta[:L] = self.theta0
+        sh_idx = np.full(es, s_cap * n_cap, np.int32)
+        sh_idx[: len(self.sh[0])] = self.sh[0]
+        sh_link = np.zeros(es, np.int32)
+        sh_link[: len(self.sh[1])] = self.sh[1]
+        rs_idx = np.full(er, r_cap * kr_cap, np.int32)
+        rs_idx[: len(self.rs[0])] = self.rs[0]
+        rs_link = np.zeros(er, np.int32)
+        rs_link[: len(self.rs[1])] = self.rs[1]
+        srcs_p = np.zeros(s_cap_d, np.int32)
+        srcs_p[: len(srcs)] = srcs
+        dem_row = np.zeros(d_cap, np.int32)
+        dem_dst = np.zeros(d_cap, np.int32)
+        dem_vol = np.zeros(d_cap, np.float32)
+        for i, (si, di, vol) in enumerate(self.demands):
+            dem_row[i] = row_of[si]
+            dem_dst[i] = di
+            dem_vol[i] = vol
+        return (theta, sh_idx, sh_link, rs_idx, rs_link, srcs_p, dem_row,
+                dem_dst, dem_vol)
+
+    def te_plan(self):
+        """-> (the step's ``TePlan`` on the area's device, theta0 padded
+        to l_cap, numpy)."""
+        plan = self.ad.plan
+        (theta, sh_idx, sh_link, rs_idx, rs_link, srcs_p, dem_row,
+         dem_dst, dem_vol) = self.arrays()
+        tp = te_plan(
+            plan.deltas, plan.res_rows, plan.res_nbr, sh_idx, sh_link,
+            rs_idx, rs_link, srcs_p, dem_row, dem_dst, dem_vol,
+            n_cap=plan.n_cap, l_cap=len(theta), trips=self.trips,
+            has_res=plan.k_res > 0, device=self.ad.shift_w.device,
+        )
+        return tp, theta
+
+    def run(self) -> dict:
+        t0 = time.perf_counter()
+        try:
+            L = len(self.theta0)
+            tp, theta = self.te_plan()
+            dev = tp.srcs.device
+            name = (
+                f"te_step[l={tp.l_cap},s={tp.srcs.numel()},"
+                f"d={tp.dem_row.numel()},n={tp.n_cap},t={self.trips}"
+                + (",res" if tp.has_res else "") + "]"
+            )
+
+            def step(th):
+                loss, grad, util, cost = te_step(
+                    tp, torch.from_numpy(th).to(dev), self.tau,
+                    self.tau_util,
+                )
+                return (float(loss), grad.cpu().numpy(), util.cpu().numpy(),
+                        float(cost))
+
+            util0 = None
+            loss_curve = []
+            with tracer.span(
+                self.ctx, "whatif.gd", kernel=name, iters=self.iters,
+            ):
+                for it in range(self.iters):
+                    loss, grad, util, _ = step(theta)
+                    if util0 is None:
+                        util0 = util
+                    loss_curve.append(round(loss, 4))
+                    theta = np.clip(
+                        theta - self.lr * grad, 1.0, float(MAX_METRIC),
+                    ).astype(np.float32)
+            # final utilization under the proposed weights
+            _, _, util1, _ = step(theta)
+            before = float(util0[:L].max()) if L else 0.0
+            after = float(util1[:L].max()) if L else 0.0
+            proposed = np.clip(
+                np.rint(theta[:L]), 1, MAX_METRIC
+            ).astype(int)
+            changes = [
+                {
+                    "link": self.link_names[i],
+                    "metric": int(round(self.theta0[i])),
+                    "proposed": int(proposed[i]),
+                    "utilization": round(float(util1[i]), 3),
+                }
+                for i in range(L)
+                if int(proposed[i]) != int(round(self.theta0[i]))
+            ]
+            ms = (time.perf_counter() - t0) * 1e3
+            counters.increment("whatif.optimizes")
+            counters.add_stat_value("whatif.optimize_ms", ms)
+            out = {
+                "area": self.area,
+                "iters": self.iters,
+                "trips": self.trips,
+                "tau": self.tau,
+                "demands": len(self.demands),
+                "rejected_demands": len(self.rejected),
+                "max_util_before": round(before, 3),
+                "max_util_after": round(after, 3),
+                "predicted_max_util_delta": round(after - before, 3),
+                "loss_curve": loss_curve,
+                "changes": changes,
+                "optimize_ms": round(ms, 2),
+            }
+            tracer.end_trace(self.ctx, status=_TRACE_STATUS)
+            self.ctx = None
+            return out
+        except Exception:
+            tracer.end_trace(self.ctx, status="error")
+            self.ctx = None
             raise

@@ -28,7 +28,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("relax", "select", "compact", "incremental", "ucmp", "ksp2",
-           "sweep")
+           "sweep", "te")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -37,7 +37,8 @@ NVCC_FLAGS = (
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[tuple, object] = {}
-_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "L": ctypes.c_longlong}
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "L": ctypes.c_longlong,
+           "f": ctypes.c_float}
 
 
 def _nvcc() -> str:
@@ -103,8 +104,8 @@ def _lib(name: str) -> ctypes.CDLL:
 def launch(lib: str, fn: str, sig: str, *args) -> None:
     """Call the C entry point ``fn`` of ``csrc/<lib>.cu`` with ``args``
     (``sig``: one letter per argument, ``p`` pointer, ``i`` int, ``L``
-    64-bit int) plus the current CUDA stream, and raise if the launch
-    was refused."""
+    64-bit int, ``f`` float) plus the current CUDA stream, and raise if
+    the launch was refused."""
     key = (lib, fn)
     f = _fns.get(key)
     if f is None:

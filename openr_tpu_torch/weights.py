@@ -9,7 +9,8 @@ order, into the port's tensors, so a test can feed the same device
 inputs to both pipelines. ``masked_rows_state_from_jax`` carries a
 vantage's resident KSP2 rows (``ops/ksp2.MaskedRowsState``) across, so
 the port's next refresh is a delta step against the rows the JAX
-solver left.
+solver left. ``te_inputs_from_jax`` turns the padded arrays of a JAX TE
+step (``ops/sweep.py::te_step``) into the port's ``te_step`` arguments.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 
 from openr_tpu_torch.decision.gpu_solver import resolve_device
 from openr_tpu_torch.ops.ksp2 import MaskedRowsState
+from openr_tpu_torch.ops.te import TePlan, te_plan
 
 # the JAX pipeline's positional arguments, in order
 JAX_ARGS = (
@@ -91,3 +93,36 @@ def masked_rows_state_from_jax(jstate, plan=None,
         arr = getattr(jstate, name)
         setattr(state, name, None if arr is None else np.array(arr, np.int32))
     return state
+
+
+# the JAX TE step's positional arguments, in order
+JAX_TE_ARGS = (
+    "theta", "deltas", "res_rows", "res_nbr", "sh_idx", "sh_link",
+    "rs_idx", "rs_link", "srcs", "dem_row", "dem_dst", "dem_vol", "tau",
+    "tau_util",
+)
+
+
+def te_inputs_from_jax(args, *, n_cap: int, trips: int, has_res: bool,
+                       device="cuda") -> tuple[TePlan, torch.Tensor, float,
+                                               float]:
+    """``args``: a JAX TE step's inputs (numpy arrays or anything
+    ``np.asarray`` takes) in ``JAX_TE_ARGS`` order, padded as
+    ``OptimizeJob.run`` pads them; ``n_cap``, ``trips`` and ``has_res``
+    are the step's static arguments. Returns the port's ``te_step``
+    arguments: ``(plan, theta, tau, tau_util)``, the tensors on
+    ``device``."""
+    if len(args) != len(JAX_TE_ARGS):
+        raise ValueError(
+            f"expected {len(JAX_TE_ARGS)} arrays, got {len(args)}")
+    a = dict(zip(JAX_TE_ARGS, (np.asarray(x) for x in args)))
+    dev = resolve_device(device)
+    theta = torch.tensor(np.ascontiguousarray(a["theta"], np.float32),
+                         device=dev)
+    plan = te_plan(
+        a["deltas"], a["res_rows"], a["res_nbr"], a["sh_idx"], a["sh_link"],
+        a["rs_idx"], a["rs_link"], a["srcs"], a["dem_row"], a["dem_dst"],
+        a["dem_vol"], n_cap=n_cap, l_cap=theta.numel(), trips=trips,
+        has_res=has_res, device=dev,
+    )
+    return plan, theta, float(a["tau"]), float(a["tau_util"])
