@@ -134,10 +134,49 @@ prints no result line:
      K14s / K17 on the step's buffers), timed on whatif1k. Then the
      diamond of tests/test_whatif.py:353 (lr 0.05, 30 iterations): its
      loss falls and a metric moves.
+  13. the all-roots paths. (a) The legacy ELL pipeline
+     (``gpu_solver.legacy_pipeline``: K18 ``ell_relax``, K19
+     ``ell_next_hop``, K20 ``ell_select``, ``csrc/legacy.cu``) on
+     ``build_ell`` of the lsdb100k LSDB as phase 8 left it, root
+     node-158-158, the counts zeroed before it and read after: every
+     prefix's metric and route equal a fresh oracle RIB's, the distances
+     equal the main path's (phase 8's solver's resident mirror); the
+     whole K18 and K19 loops (through ``legacy.run_rounds`` with the
+     plain round) and one round of each and K20 against their plain
+     versions. Then ``sssp_all_pairs`` from all 7,200 fabric10k roots
+     ([7200, 8192] int32), its own counts: the first 64 roots' rows equal
+     the plain loop's, 8 seeded rows a host ``run_spf``; it prints
+     ``allpairs_ms``, roots/s, trips and peak device bytes, and holds and
+     times K18 over every root (``[allpairs]``; plain 256 roots a call).
+     (b) Whole-fabric RIBs (``GpuSpfSolver.build_fabric_route_dbs``;
+     ``ops/fabric.py``: K1s seeds and K3 selection with a root axis, K21
+     ``fabric_relax``, K21e ``fabric_extent``, ``csrc/fabric.cu``) on
+     tg1k (all 1,024 vantages of ``grid(32)``), tg1k-lfa (the same grid
+     with seeded link metrics 1-16, LFA on) and fabric10k (the 4,096 rsws
+     of pods 0-63, LFA on), cold solvers (trip bound 2, retries by the
+     vote) and warm ones (a single-vantage build first), each build in
+     its own count window; the path read is fabric10k's cold build. Then
+     the array-level ``parallel/sharding.sharded_fabric_step`` on
+     fabric10k, its own counts (it also unpacks the masks, K22
+     ``unpack_bits``). Every 64th tg1k vantage's RIB equals the
+     oracle's, the warm RIBs the cold ones, every 128th tg1k-lfa RIB the
+     LFA oracle's (with backups), fabric10k's ``pod063-rsw63`` RIB the
+     oracle's (LFA) and every 2048th the single-vantage device solve's;
+     the step's arrays equal the plain step's on the first 64 roots
+     (tg1k, tg1k-lfa, which must hold backups) and on all 4,096
+     (fabric10k, 256 roots a call), and ``sharded_fabric_step``'s the
+     solver's step; each fabric kernel against its plain version over
+     all 4,096 fabric10k roots, timed there (K3 also with skewed uplink
+     costs, which must leave backups). Each build prints ``fabric_ms``
+     and its split (sync, exec, the CUDA-event SSSP and tail, pull, RIBs,
+     host routes), trips, the bound and its retries, bytes moved, peak
+     device bytes, its launches and the wall of full garbage collections
+     inside it.
 
 Output: phase lines, then one ``{"kernels": [...]}`` JSON line (every
-kernel and its LFA, fused, stream, ksp2 and sweep variants, each with
-the launches of the path that runs it; the TE kernels with their
+kernel and its LFA, fused, stream, ksp2, sweep, all-pairs and fabric
+variants, each with the launches of the path that runs it; the TE
+kernels with their
 largest relative error beside the absolute one), the card's
 name and power limit as nvidia-smi reports them, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -146,6 +185,7 @@ name and power limit as nvidia-smi reports them, and last
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import random
 import subprocess
@@ -200,12 +240,12 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(torch, fn, reps: int) -> float:
+def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     """Mean device time of ``fn`` over ``reps`` calls (CUDA events),
-    after two warm-up calls. The main path's planes fit the 50 MB L2,
-    as they do inside its round loops, so the cache is left warm."""
-    fn()
-    fn()
+    after ``warmup`` warm-up calls. The main path's planes fit the 50 MB
+    L2, as they do inside its round loops, so the cache is left warm."""
+    for _ in range(warmup):
+        fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
@@ -2026,6 +2066,654 @@ def te_phase(c, cells: dict) -> dict:
     return {k: w.launches[k] + f.launches[k] for k in w.launches}
 
 
+# -- phase 13: the all-roots paths -------------------------------------------
+
+# fabric10k all-pairs rows held to a host run_spf (seeded), and the roots
+# whose whole loop is held to the plain loop on the card
+ALLPAIRS_SPF_ROOTS = 8
+ALLPAIRS_PLAIN_ROOTS = 64
+# whole-fabric cells: tg1k every vantage, fabric10k the rsws of the first
+# FABRIC_POD_VANTAGES pods (4,096, get_fabric_route_dbs' cap)
+FABRIC_POD_VANTAGES = 64
+# RIB samples: tg1k every TG1K_ORACLE_EVERY-th vantage against the
+# oracle; fabric10k the FABRIC_ORACLE vantages against the oracle (LFA,
+# ~5 s of host Dijkstras each) and every FABRIC_SINGLE_EVERY-th against
+# the single-vantage device solve (which phase 2 holds to the oracle;
+# ~0.9 s each with its RIB comparison)
+TG1K_ORACLE_EVERY = 64
+TG1K_SIDE = 32
+FABRIC_ORACLE = ("pod063-rsw63",)
+FABRIC_SINGLE_EVERY = 2048
+# tg1k-lfa: grid(TG1K_SIDE) with seeded symmetric link metrics in
+# 1..LFA_METRIC_MAX and LFA on (fabric10k's unit metrics tie every
+# detour with its primary, so its RIBs hold no backup); every
+# LFA_ORACLE_EVERY-th vantage against the LFA oracle
+LFA_METRIC_MAX = 16
+LFA_SEED = 17
+LFA_ORACLE_EVERY = 128
+# roots of the tg1k and tg1k-lfa steps held to the plain step (fabric10k's
+# step and kernels are held over every root)
+FABRIC_PLAIN_ROOTS = 64
+# roots per call of a plain version run over many roots (rows are
+# independent; one gather over every root would not fit)
+PLAIN_CHUNK = 256
+LEGACY_PATH = ("K18:ell_relax", "K19:ell_next_hop", "K20:ell_select")
+FABRIC_PATH = ("K1s:sssp_init", "K21e:fabric_extent", "K21:fabric_relax",
+               "K3:select_routes")
+# the array-level entry also unpacks the masks on the card
+STEP_PATH = FABRIC_PATH + ("K22:unpack_bits",)
+
+
+def by_roots(torch, n: int, fn):
+    """``fn(s)`` over consecutive slices ``s`` of PLAIN_CHUNK of ``n``
+    roots; tensor results are joined along the root axis."""
+    outs = [fn(slice(i, min(i + PLAIN_CHUNK, n)))
+            for i in range(0, n, PLAIN_CHUNK)]
+    if outs[0] is None:
+        return None
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(o) for o in zip(*outs))
+    return torch.cat(outs)
+
+
+def plain_ell_sssp(c, mirror, roots):
+    """The K18 loop of ``legacy.ell_sssp`` through the plain version on
+    the card's tensors -> (dist, trips)."""
+    n_cap = mirror[0].shape[0]
+    plane = c.torch.empty((roots.shape[0], n_cap), dtype=c.torch.int32,
+                          device=c.dev)
+    return c.legacy.run_rounds(
+        lambda s, d, f, seed: c.legacy.ell_relax_plain(s, d, f, *mirror,
+                                                       roots, seed),
+        plane, c.relax.max_trips(n_cap))
+
+
+def plain_ell_next_hops(c, dist, mirror, root, rtab):
+    """The K19 loop of ``legacy.ell_next_hops`` through the plain
+    version on the card's tensors -> (nh, trips)."""
+    n_cap = mirror[0].shape[0]
+    plane = c.torch.empty((n_cap, rtab[0].shape[0]), dtype=c.torch.bool,
+                          device=c.dev)
+    return c.legacy.run_rounds(
+        lambda s, d, f, seed: c.legacy.ell_next_hop_plain(
+            s, d, f, dist, *mirror, root, *rtab, seed),
+        plane, c.relax.max_trips(n_cap))
+
+
+def seeded_metrics(adj_dbs, seed: int, top: int) -> list:
+    """``adj_dbs`` with each link's metric drawn from 1..``top`` (seeded,
+    the same both ways)."""
+    rng = random.Random(seed)
+    cost: dict = {}
+    out = []
+    for db in adj_dbs:
+        adjs = []
+        for a in db.adjacencies:
+            key = tuple(sorted((db.this_node_name, a.other_node_name)))
+            adjs.append(dataclasses.replace(
+                a, metric=cost.setdefault(key, rng.randint(1, top))))
+        out.append(dataclasses.replace(db, adjacencies=tuple(adjs)))
+    return out
+
+
+def legacy_phase(c, lsdb, fcell) -> tuple:
+    """The legacy pipeline at lsdb100k and the fabric10k all-pairs SSSP
+    (module docstring, phase 13a). ``lsdb`` is lsdb100k's (solver synced
+    to the states, states, prefix state) as phase 8 left them, ``fcell``
+    fabric10k's (states, prefix state). Returns the legacy and all-pairs
+    launches by kernel."""
+    import numpy as np
+
+    torch, dev, legacy, gpu_solver = c.torch, c.dev, c.legacy, c.gpu_solver
+    solver, states, ps = lsdb
+    ls = states["0"]
+    t0 = time.perf_counter()
+    graph = c.csr.build_ell(ls)
+    matrix = c.csr.build_prefix_matrix(ps, graph.node_index, "0")
+    root = graph.node_index[LSDB100K_ROOT]
+    r_nbr, r_w, r_up, _ = graph.out_table(root)
+    mirror = legacy.ell_tensors(graph, dev)
+    planes = legacy.to_device(dev, matrix.ann_node, matrix.ann_valid,
+                              matrix.path_pref, matrix.source_pref,
+                              matrix.dist_adv)
+    rtab = legacy.to_device(dev, r_nbr, r_w, r_up)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    reads0 = c.zero_counts()
+    t0 = time.perf_counter()
+    dist, metric, _, _, has_route = gpu_solver.legacy_pipeline(
+        *mirror, root, *rtab, *planes)
+    torch.cuda.synchronize()
+    legacy_ms = (time.perf_counter() - t0) * 1e3
+    launches, reads = c.read_counts(reads0)
+    for name in LEGACY_PATH:
+        check(launches[name] > 0,
+              f"kernel {name} never launched on the legacy path")
+    # every prefix: the oracle's metric, a route iff the oracle has one
+    # (the root's own loopback: metric 0, not in the oracle's RIB); the
+    # churn phases moved metrics since phase 4, so the oracle runs anew
+    t0 = time.perf_counter()
+    oracle = c.SpfSolver(LSDB100K_ROOT).build_route_db(LSDB100K_ROOT, states,
+                                                       ps)
+    oracle_ms = (time.perf_counter() - t0) * 1e3
+    met, hr = metric.cpu().numpy(), has_route.cpu().numpy()
+    routes = oracle.unicast_routes
+    own = 0
+    for p, pfx in enumerate(matrix.prefix_list):
+        r = routes.get(pfx)
+        if r is None:
+            own += 1
+            check(hr[p] and met[p] == 0, f"legacy: {pfx} has no route")
+        else:
+            check(hr[p] and int(met[p]) == r.igp_cost,
+                  f"legacy: {pfx} metric {met[p]} != {r.igp_cost}")
+    check(own == 1, f"legacy: {own} prefixes without an oracle route")
+    # the distances of the main path's fast path (its shift mirror)
+    ad = solver._area_dev["0"]
+    plan = ad.plan
+    base, _ = c.ksp2.base_sssp(ad.deltas, ad.shift_w, ad.res_rows,
+                               ad.res_nbr, ad.res_w,
+                               plan.node_index[LSDB100K_ROOT],
+                               plan.k_res > 0)
+    perm = np.array([plan.node_index[nm] for nm in graph.node_names])
+    want = base.cpu().numpy()[perm]
+    want = np.where(want >= 1 << 29, legacy.INF, want)
+    check(np.array_equal(dist.cpu().numpy()[:graph.n_nodes], want),
+          "legacy: distances != the main path's")
+    log("legacy lsdb100k: metrics / routes == oracle, distances == the "
+        "main path's: " + json.dumps({
+            "nodes": graph.n_nodes, "n_cap": graph.n_cap,
+            "k_cap": graph.k_cap, "prefixes": len(matrix.prefix_list),
+            "legacy_ms": legacy_ms, "host_mirror_ms": host_ms,
+            "oracle_ms": oracle_ms,
+            "launches": {k: launches[k] for k in LEGACY_PATH},
+            "flag_reads": reads}))
+
+    # each kernel against its plain version on the card
+    roots1 = torch.tensor([root], dtype=torch.int32, device=dev)
+    d_k, tr_k = legacy.ell_sssp(*mirror, roots1)
+    d_p, tr_p = plain_ell_sssp(c, mirror, roots1)
+    check(max_abs_err(torch, d_k, d_p) == 0 and tr_k == tr_p,
+          "K18 loop != plain")
+    nh_k, nt_k = legacy.ell_next_hops(d_k[0], *mirror, root, *rtab)
+    nh_p, nt_p = plain_ell_next_hops(c, d_k[0], mirror, root, rtab)
+    check(max_abs_err(torch, nh_k, nh_p) == 0 and nt_k == nt_p,
+          "K19 loop != plain")
+    n_cap, k_cap = graph.in_nbr.shape
+    live = int((graph.in_nbr >= 0).sum())
+    ell_bytes = 9 * n_cap * k_cap + n_cap
+
+    def mid_plane(step, plane, rounds):
+        """``rounds`` rounds of ``step(src, dst, flag, seed)`` from the
+        seed: a wavefront plane."""
+        spare = torch.empty_like(plane)
+        flag = torch.zeros(1, dtype=torch.int32, device=dev)
+        for i in range(rounds):
+            step(plane, spare, flag, i == 0)
+            plane, spare = spare, plane
+        return plane
+
+    mid = mid_plane(lambda s, d, f, seed: legacy.ell_relax(
+        s, d, f, *mirror, roots1, seed), torch.empty_like(d_k), 40)
+    o_k, o_p = torch.empty_like(mid), torch.empty_like(mid)
+    f_k = torch.zeros(1, dtype=torch.int32, device=dev)
+    f_p = torch.zeros_like(f_k)
+    legacy.ell_relax(mid, o_k, f_k, *mirror, roots1)
+    legacy.ell_relax_plain(mid, o_p, f_p, *mirror, roots1)
+    check(int(f_k) == 1, "K18 on a wavefront must change the plane")
+    c.record(
+        "K18:ell_relax", max_abs_err(torch, (o_k, f_k), (o_p, f_p)),
+        lambda: legacy.ell_relax(mid, o_k, f_k, *mirror, roots1),
+        lambda: legacy.ell_relax_plain(mid, o_p, f_p, *mirror, roots1),
+        nbytes=ell_bytes + 8 * n_cap, ops=4 * live)
+    d_cap = r_nbr.shape[0]
+    nmid = mid_plane(lambda s, d, f, seed: legacy.ell_next_hop(
+        s, d, f, d_k[0], *mirror, root, *rtab, seed),
+        torch.empty_like(nh_k), 40)
+    h_k, h_p = torch.empty_like(nmid), torch.empty_like(nmid)
+    f_k.zero_()
+    f_p.zero_()
+    legacy.ell_next_hop(nmid, h_k, f_k, d_k[0], *mirror, root, *rtab)
+    legacy.ell_next_hop_plain(nmid, h_p, f_p, d_k[0], *mirror, root, *rtab)
+    check(int(f_k) == 1, "K19 on a wavefront must change the plane")
+    c.record(
+        "K19:ell_next_hop", max_abs_err(torch, (h_k, f_k), (h_p, f_p)),
+        lambda: legacy.ell_next_hop(nmid, h_k, f_k, d_k[0], *mirror, root,
+                                    *rtab),
+        lambda: legacy.ell_next_hop_plain(nmid, h_p, f_p, d_k[0], *mirror,
+                                          root, *rtab),
+        nbytes=ell_bytes + 4 * n_cap + 2 * n_cap * d_cap,
+        ops=5 * live * d_cap)
+    p_cap, a_cap = matrix.ann_node.shape
+    sel = (d_k[0], nh_k, mirror[3], *planes)
+    c.record(
+        "K20:ell_select", max_abs_err(torch, legacy.ell_select(*sel),
+                                      legacy.ell_select_plain(*sel)),
+        lambda: legacy.ell_select(*sel), lambda: legacy.ell_select_plain(*sel),
+        nbytes=p_cap * a_cap * (17 + 4 + d_cap)
+        + p_cap * (4 + a_cap + d_cap + 1), ops=12 * p_cap * a_cap * d_cap)
+
+    # -- fabric10k all-pairs -----------------------------------------------
+    fls = fcell[0]["0"]
+    fgraph = c.csr.build_ell(fls)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    reads0 = c.zero_counts()
+    t0 = time.perf_counter()
+    ap = gpu_solver.sssp_all_pairs(fgraph, device=dev)
+    torch.cuda.synchronize()
+    allpairs_ms = (time.perf_counter() - t0) * 1e3
+    ap_launches, ap_reads = c.read_counts(reads0)
+    check(ap_launches["K18:ell_relax"] > 0,
+          "K18 never launched on the all-pairs path")
+    peak = torch.cuda.max_memory_allocated() - mem0
+    n_roots = fgraph.n_nodes
+    check(tuple(ap.shape) == (n_roots, fgraph.n_cap), "all-pairs shape")
+    fmirror = legacy.ell_tensors(fgraph, dev)
+    sub = torch.arange(ALLPAIRS_PLAIN_ROOTS, dtype=torch.int32, device=dev)
+    d_p, _ = plain_ell_sssp(c, fmirror, sub)
+    check(max_abs_err(torch, ap[:ALLPAIRS_PLAIN_ROOTS], d_p) == 0,
+          "all-pairs: K18 != plain on the first roots")
+    rng = random.Random(13)
+    sample = rng.sample(range(n_roots), ALLPAIRS_SPF_ROOTS)
+    t0 = time.perf_counter()
+    rows = ap[sample].cpu().numpy()
+    for i, r in enumerate(sample):
+        spf = fls.run_spf(fgraph.node_names[r])
+        want = [spf[nm].metric if nm in spf else legacy.INF
+                for nm in fgraph.node_names]
+        check(rows[i, :n_roots].tolist() == want,
+              f"all-pairs: row of {fgraph.node_names[r]} != run_spf")
+    spf_ms = (time.perf_counter() - t0) * 1e3
+    log("all-pairs fabric10k: the first roots == plain, sampled rows == "
+        "run_spf: " + json.dumps({
+            "roots": n_roots, "n_cap": fgraph.n_cap, "k_cap": fgraph.k_cap,
+            "allpairs_ms": allpairs_ms,
+            "roots_per_s": n_roots / (allpairs_ms / 1e3),
+            "trips": ap_reads, "launches": ap_launches["K18:ell_relax"],
+            "dist_bytes": ap.numel() * 4, "peak_bytes": peak,
+            "run_spf_rows": ALLPAIRS_SPF_ROOTS, "run_spf_ms": spf_ms}))
+    # K18 over every root, one round from a wavefront plane
+    aroots = torch.arange(n_roots, dtype=torch.int32, device=dev)
+    amid = mid_plane(lambda s, d, f, seed: legacy.ell_relax(
+        s, d, f, *fmirror, aroots, seed), torch.empty_like(ap), 2)
+    del ap
+    o_k, o_p = torch.empty_like(amid), torch.empty_like(amid)
+
+    def relax_plain():
+        by_roots(torch, n_roots, lambda s: legacy.ell_relax_plain(
+            amid[s], o_p[s], f_p, *fmirror, aroots[s]))
+
+    f_k.zero_()
+    f_p.zero_()
+    legacy.ell_relax(amid, o_k, f_k, *fmirror, aroots)
+    relax_plain()
+    check(int(f_k) == 1, "K18 on the all-pairs wavefront must change it")
+    flive = int((fgraph.in_nbr >= 0).sum())
+    c.record(
+        "K18:ell_relax[allpairs]", max_abs_err(torch, (o_k, f_k), (o_p, f_p)),
+        lambda: legacy.ell_relax(amid, o_k, f_k, *fmirror, aroots),
+        relax_plain,
+        nbytes=9 * fgraph.in_nbr.size + 8 * amid.numel(),
+        ops=4 * flive * n_roots, reps=10, plain_reps=2)
+    c.variant_launches["K18:ell_relax[allpairs]"] = ap_launches[
+        "K18:ell_relax"]
+    return launches, ap_launches
+
+
+def fabric_step_args(c, solver, names, ls, lfa):
+    """The whole-fabric step's tensor arguments for ``names`` on the
+    solver's resident mirror (after a fabric build synced it)."""
+    torch, dev = c.torch, c.dev
+    ad = solver._area_dev["0"]
+    roots, out_nbr, out_w, _ = c.fabric.root_tables(ad.plan, ls, names)
+    p_cap, a_cap = ad.matrix.ann_node.shape
+    args = (ad.deltas, ad.shift_w, ad.res_rows, ad.res_nbr, ad.res_w,
+            ad.mbuf, *(torch.tensor(a, device=dev)
+                       for a in (roots, out_nbr, out_w)))
+    kw = dict(has_res=ad.plan.k_res > 0, p_cap=p_cap, a_cap=a_cap, lfa=lfa,
+              block_v4=block_v4(solver))
+    return args, kw
+
+
+def block_v4(solver) -> bool:
+    return not (solver.cpu.enable_v4 or solver.cpu.v4_over_v6_nexthop)
+
+
+def fabric_build(c, solver, states, ps, names) -> tuple:
+    """One build_fabric_route_dbs, timed, the counts zeroed just before
+    it and read just after: -> (RIBs, stats with the host wall, the peak
+    device bytes above what was resident and the launches, launches by
+    kernel)."""
+    torch = c.torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    # the host wall of Python's full (generation 2) collections inside
+    # the build: they walk every object alive, RIBs of earlier builds too
+    gc2 = []
+
+    def on_gc(phase, info):
+        if info["generation"] == 2:
+            gc2.append(time.perf_counter() * (1 if phase == "stop" else -1))
+
+    reads0 = c.zero_counts()
+    gc.callbacks.append(on_gc)
+    t0 = time.perf_counter()
+    try:
+        dbs = solver.build_fabric_route_dbs(names, states, ps)
+        torch.cuda.synchronize()
+    finally:
+        gc.callbacks.remove(on_gc)
+    build_ms = (time.perf_counter() - t0) * 1e3
+    launches, reads = c.read_counts(reads0)
+    st = dict(solver.last_fabric_stats)
+    st["build_ms"] = build_ms
+    st["gc2_passes"] = len(gc2) // 2
+    st["gc2_ms"] = sum(gc2) * 1e3
+    st["peak_bytes"] = torch.cuda.max_memory_allocated() - mem0
+    st["launches"] = {k: v for k, v in launches.items() if v}
+    st["flag_reads"] = reads
+    return dbs, st, launches
+
+
+def fabric_vs_plain(c, label, solver, ls, names, lfa, n_plain) -> tuple:
+    """The step over every vantage on the card against the plain step on
+    the first ``n_plain`` (per-root results are independent; the plain
+    step runs PLAIN_CHUNK roots a call). Returns the kernel step's
+    outputs and its (args, kw)."""
+    torch, fabric = c.torch, c.fabric
+    args, kw = fabric_step_args(c, solver, names, ls, lfa)
+    n_trips = solver.last_fabric_stats["n_trips"]
+    t0 = time.perf_counter()
+    got = fabric.fabric_step(*args, n_trips=n_trips, **kw)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+
+    def plain(s):
+        want = fabric.fabric_step_plain(*args[:6], *(a[s] for a in args[6:]),
+                                        n_trips=n_trips, **kw)
+        return (*want[:7], torch.from_numpy(want.converged))
+
+    t0 = time.perf_counter()
+    want = by_roots(torch, n_plain, plain)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max_abs_err(torch, tuple(t[:n_plain] for t in got[:7]), want[:7])
+    check(err == 0
+          and got.converged[:n_plain].tolist() == want[7].tolist(),
+          f"{label}: the whole-fabric step != plain on {n_plain} roots")
+    log(f"{label}: the step over {len(names)} roots on the card == the "
+        f"plain step on the first {n_plain} (host wall {step_ms:.1f} ms, "
+        f"plain {plain_ms:.1f} ms, "
+        f"{int((got.lfa_slot >= 0).sum())} rows with an LFA backup)")
+    return got, args, kw
+
+
+def fabric_kernels(c, args, kw, n_trips: int) -> None:
+    """The fabric path's kernels against their plain versions on every
+    root of the fabric10k step (the plain versions PLAIN_CHUNK roots a
+    call), timed at that shape."""
+    torch, dev, fabric, relax, select = (c.torch, c.dev, c.fabric, c.relax,
+                                        c.select)
+    deltas, shift_w, res_rows, res_nbr, res_w, mbuf, roots, nbr, w = args
+    rt, d_cap = nbr.shape
+    s_cap, n_cap = shift_w.shape
+    p_cap, a_cap, lfa = kw["p_cap"], kw["a_cap"], kw["lfa"]
+    check(lfa, "the fabric10k step runs with LFA")
+    residual = None
+    if kw["has_res"]:
+        ext = fabric.fabric_extent(res_w)
+        c.record(
+            "K21e:fabric_extent",
+            max_abs_err(torch, ext, fabric.fabric_extent_plain(res_w)),
+            lambda: fabric.fabric_extent(res_w),
+            lambda: fabric.fabric_extent_plain(res_w),
+            nbytes=4 * (res_w.numel() + res_w.shape[0]),
+            ops=2 * res_w.numel())
+        residual = (res_rows, res_nbr, res_w, ext)
+
+    def none(*shape):
+        return torch.empty((rt,) + shape, dtype=torch.int32, device=dev)
+
+    iargs = (none(0, n_cap), none(0), none(0, 0), none(0, 0), roots, nbr, w)
+
+    def init_plain():
+        return by_roots(torch, rt, lambda s: relax.sssp_init_plain(
+            *(a[s] for a in iargs))[2])
+
+    d0 = relax.sssp_init(*iargs)[2]
+    c.record(
+        "K1s:sssp_init[fabric]", max_abs_err(torch, d0, init_plain()),
+        lambda: relax.sssp_init(*iargs), init_plain,
+        nbytes=4 * (rt * d_cap * n_cap + 2 * rt * d_cap),
+        ops=rt * d_cap * n_cap, reps=10, plain_reps=1, plain_warmup=0)
+    # a wavefront plane: 2 relaxations from the seeds (rsws of other
+    # pods are 3 hops from an uplink's seed)
+    mid, spare = d0, torch.empty_like(d0)
+    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    for _ in range(2):
+        fabric.fabric_relax(mid, spare, flag, deltas, shift_w, residual,
+                            roots)
+        mid, spare = spare, mid
+    del spare
+    o_k, o_p = torch.empty_like(mid), torch.empty_like(mid)
+    f_k = torch.zeros(1, dtype=torch.int32, device=dev)
+    f_p = torch.zeros_like(f_k)
+
+    def relax_plain():
+        by_roots(torch, rt, lambda s: fabric.fabric_relax_plain(
+            mid[s], o_p[s], f_p, deltas, shift_w, residual, roots[s]))
+
+    fabric.fabric_relax(mid, o_k, f_k, deltas, shift_w, residual, roots)
+    relax_plain()
+    check(int(f_k) == 1, "K21 on a wavefront must change the planes")
+    # the work this data needs: every shift class, the live entries
+    live = int((res_w < (1 << 29)).sum()) if residual else 0
+    c.record(
+        "K21:fabric_relax", max_abs_err(torch, (o_k, f_k), (o_p, f_p)),
+        lambda: fabric.fabric_relax(mid, o_k, f_k, deltas, shift_w, residual,
+                                    roots),
+        relax_plain,
+        nbytes=4 * (2 * mid.numel() + s_cap * n_cap + s_cap)
+        + (4 * (2 * res_rows.numel() + 2 * live) if residual else 0),
+        ops=2 * mid.numel() * s_cap + 2 * rt * d_cap * live,
+        reps=10, plain_reps=1, plain_warmup=0)
+    del mid, o_k, o_p
+    # K3 on the step's converged planes, with the uplink costs as they
+    # are and skewed 1, 2, 3, ... (as phase 3: on the unit-metric fabric
+    # every detour ties its primary, so only the skew leaves backups)
+    planes, conv, _ = fabric.fabric_sssp(
+        deltas, shift_w, residual and residual[:3], roots, nbr, w, n_trips)
+    check(conv.all(), "fabric10k: the step's SSSP did not converge")
+    dist_k = torch.empty((rt, n_cap), dtype=torch.int32, device=dev)
+    dist_p = torch.empty_like(dist_k)
+
+    def sel_plain(ww):
+        return by_roots(torch, rt, lambda s: select.select_routes_plain(
+            planes[s], ww[s], roots[s], mbuf, p_cap, a_cap, kw["block_v4"],
+            lfa, dist_out=dist_p[s]))
+
+    def sel(ww):
+        return select.select_routes(planes, ww, roots, mbuf, p_cap, a_cap,
+                                    kw["block_v4"], lfa, dist_out=dist_k)
+
+    skew = torch.where(w < relax.INF_E,
+                       w + torch.arange(d_cap, dtype=torch.int32,
+                                        device=dev), w)
+    errs, backups = [], []
+    for ww in (skew, w):
+        got = sel(ww)
+        want = sel_plain(ww)
+        errs.append(max_abs_err(torch, got + (dist_k,), want + (dist_p,)))
+        backups.append(int((got[4] >= 0).sum()))
+    check(backups[0] > 0, "fabric10k step: no row has an LFA backup with "
+          "skewed uplink costs")
+    log(f"fabric10k step: K3 over {rt} roots with LFA equal to plain "
+        f"({backups[1]} rows with a backup, {backups[0]} with skewed "
+        f"uplink costs)")
+    wa, wd = got[1].shape[-1], got[2].shape[-1]
+    c.record(
+        "K3:select_routes[fabric]", max(errs),
+        lambda: sel(w), lambda: sel_plain(w),
+        nbytes=4 * (planes.numel() + rt * d_cap + 6 * p_cap * a_cap
+                    + rt * (n_cap + 4 * p_cap * a_cap
+                            + p_cap * (3 + wa + wd))) + rt * p_cap,
+        ops=rt * (3 * d_cap * n_cap + 15 * p_cap * a_cap * d_cap),
+        reps=10, plain_reps=1, plain_warmup=0)
+    nhw = got[2]
+    c.record(
+        "K22:unpack_bits",
+        max_abs_err(torch, fabric.unpack_bits(nhw, d_cap),
+                    fabric.unpack_bits_plain(nhw, d_cap)),
+        lambda: fabric.unpack_bits(nhw, d_cap),
+        lambda: fabric.unpack_bits_plain(nhw, d_cap),
+        nbytes=4 * nhw.numel() + rt * p_cap * d_cap,
+        ops=2 * rt * p_cap * d_cap, reps=20, plain_reps=2)
+
+
+def fabric_phase(c, fcell) -> tuple:
+    """The whole-fabric cells (module docstring, phase 13b); ``fcell``
+    is fabric10k's (states, prefix state). Returns the launches by
+    kernel of fabric10k's cold build and of the array-level step."""
+    torch, dev, gpu_solver = c.torch, c.dev, c.gpu_solver
+    t0 = time.perf_counter()
+    _, tstates, tps = build_cell(
+        c.topologies, lambda: c.topologies.grid(TG1K_SIDE, node_labels=False))
+
+    def lfa_grid():
+        adj_dbs, pdbs = c.topologies.grid(TG1K_SIDE, node_labels=False)
+        return seeded_metrics(adj_dbs, LFA_SEED, LFA_METRIC_MAX), pdbs
+
+    _, lstates, lps = build_cell(c.topologies, lfa_grid)
+    fstates, fps = fcell
+    tnames = sorted(tstates["0"].get_adjacency_databases())
+    fnames = [f"pod{p:03d}-rsw{i:02d}" for p in range(FABRIC_POD_VANTAGES)
+              for i in range(FABRIC["rsws_per_pod"])]
+    check(all(fstates["0"].has_node(nm) for nm in fnames),
+          "fabric10k: a vantage is not in the LSDB")
+    # the warm solvers' single-vantage solves measure their trips first
+    t_mid = f"node-{TG1K_SIDE // 2}-{TG1K_SIDE // 2}"
+    t_warm = gpu_solver.GpuSpfSolver(t_mid, device=dev)
+    t_warm.build_route_db(t_mid, tstates, tps)
+    f_warm = gpu_solver.GpuSpfSolver("pod000-rsw00", device=dev,
+                                     enable_lfa=True)
+    f_warm.build_route_db("pod000-rsw00", fstates, fps)
+    t_cold = gpu_solver.GpuSpfSolver(tnames[0], device=dev)
+    l_cold = gpu_solver.GpuSpfSolver(tnames[0], device=dev, enable_lfa=True)
+    f_cold = gpu_solver.GpuSpfSolver(fnames[0], device=dev, enable_lfa=True)
+    torch.cuda.synchronize()
+    log(f"whole-fabric cells: host build and warm-up solves "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    runs = {}
+    # the path this phase reads: fabric10k's cold build alone, first
+    f_dbs, runs["fabric10k cold"], launches = fabric_build(
+        c, f_cold, fstates, fps, fnames)
+    for name in FABRIC_PATH:
+        check(launches[name] > 0,
+              f"kernel {name} never launched on the fabric path")
+    f_wdbs, runs["fabric10k warm"], _ = fabric_build(c, f_warm, fstates,
+                                                     fps, fnames)
+    t_dbs, runs["tg1k cold"], _ = fabric_build(c, t_cold, tstates, tps,
+                                               tnames)
+    t_wdbs, runs["tg1k warm"], _ = fabric_build(c, t_warm, tstates, tps,
+                                                tnames)
+    l_dbs, runs["tg1k-lfa cold"], _ = fabric_build(c, l_cold, lstates, lps,
+                                                   tnames)
+    for label, st in runs.items():
+        log(f"whole-fabric {label}: " + json.dumps(st))
+
+    # the array-level entry (the reference's sharded_fabric_step) on the
+    # same cell, its own counts
+    fad = f_cold._area_dev["0"]
+    froots, fnbr, fw, _ = c.fabric.root_tables(fad.plan, fstates["0"],
+                                               fnames)
+    torch.cuda.synchronize()
+    reads0 = c.zero_counts()
+    t0 = time.perf_counter()
+    api = c.sharding.sharded_fabric_step(
+        None, fad.plan, fad.matrix, froots, fnbr, fw,
+        runs["fabric10k cold"]["n_trips"], lfa=True,
+        block_v4=block_v4(f_cold), with_ok=True, device=dev)
+    torch.cuda.synchronize()
+    api_ms = (time.perf_counter() - t0) * 1e3
+    step_launches, reads = c.read_counts(reads0)
+    for name in STEP_PATH:
+        check(step_launches[name] > 0,
+              f"kernel {name} never launched on the array-level step")
+    log("fabric10k sharded_fabric_step: " + json.dumps({
+        "roots": len(fnames), "host_ms": api_ms, "flag_reads": reads,
+        "launches": {k: v for k, v in step_launches.items() if v}}))
+
+    # RIBs: tg1k samples against the oracle, warm == cold; tg1k-lfa
+    # samples against the LFA oracle
+    t0 = time.perf_counter()
+    for nm in tnames[::TG1K_ORACLE_EVERY]:
+        want = c.SpfSolver(nm).build_route_db(nm, tstates, tps)
+        check(rib_equal(want, t_dbs[nm]), f"tg1k fabric: {nm} != oracle")
+        check(rib_equal(t_dbs[nm], t_wdbs[nm]), f"tg1k fabric: {nm} warm")
+    tg1k_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    l_lfa = 0
+    for nm in tnames[::LFA_ORACLE_EVERY]:
+        want = c.SpfSolver(nm, enable_lfa=True).build_route_db(nm, lstates,
+                                                               lps)
+        check(rib_equal(want, l_dbs[nm]), f"tg1k-lfa fabric: {nm} != oracle")
+        l_lfa += sum(bool(r.lfa_nexthops)
+                     for r in l_dbs[nm].unicast_routes.values())
+    check(l_lfa > 0, "tg1k-lfa: no sampled route has an LFA backup")
+    lfa_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    for nm in FABRIC_ORACLE:
+        want = c.SpfSolver(nm, enable_lfa=True).build_route_db(nm, fstates,
+                                                               fps)
+        check(rib_equal(want, f_dbs[nm]), f"fabric10k fabric: {nm} != oracle")
+    oracle_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    single = gpu_solver.GpuSpfSolver(fnames[0], device=dev, enable_lfa=True)
+    for nm in fnames[::FABRIC_SINGLE_EVERY]:
+        want = single.build_route_db(nm, fstates, fps)
+        check(rib_equal(want, f_dbs[nm]),
+              f"fabric10k fabric: {nm} != its single-vantage solve")
+        check(rib_equal(f_dbs[nm], f_wdbs[nm]), f"fabric10k fabric: {nm} warm")
+    single_ms = (time.perf_counter() - t0) * 1e3
+    n_lfa = sum(bool(r.lfa_nexthops)
+                for r in f_dbs[FABRIC_ORACLE[0]].unicast_routes.values())
+    log("whole-fabric RIBs: " + json.dumps({
+        "tg1k_oracle_vantages": len(tnames[::TG1K_ORACLE_EVERY]),
+        "tg1k_check_ms": tg1k_ms,
+        "tg1k_lfa_oracle_vantages": len(tnames[::LFA_ORACLE_EVERY]),
+        "tg1k_lfa_routes_with_lfa": l_lfa, "tg1k_lfa_check_ms": lfa_ms,
+        "fabric10k_oracle_vantages": len(FABRIC_ORACLE),
+        "fabric10k_oracle_ms": oracle_ms,
+        "fabric10k_single_vantages": len(fnames[::FABRIC_SINGLE_EVERY]),
+        "fabric10k_single_ms": single_ms,
+        "routes_with_lfa_at_" + FABRIC_ORACLE[0]: n_lfa}))
+
+    # the steps' arrays against the plain step, then each kernel
+    fabric_vs_plain(c, "tg1k", t_cold, tstates["0"], tnames, False,
+                    FABRIC_PLAIN_ROOTS)
+    got, _, _ = fabric_vs_plain(c, "tg1k-lfa", l_cold, lstates["0"], tnames,
+                                True, FABRIC_PLAIN_ROOTS)
+    check(int((got.lfa_slot[:FABRIC_PLAIN_ROOTS] >= 0).sum()) > 0,
+          "tg1k-lfa: no row of the plain-checked roots has a backup")
+    got, args, kw = fabric_vs_plain(c, "fabric10k", f_cold, fstates["0"],
+                                    fnames, True, len(fnames))
+    # the array-level entry: its unpacked masks are the step's words
+    unpack = c.fabric.unpack_bits_plain
+    check(max_abs_err(torch, api, (
+        got.dist, got.metric, unpack(got.s3w, kw["a_cap"]),
+        unpack(got.nhw, fnbr.shape[1]), got.lfa_slot, got.lfa_metric,
+        got.ok)) == 0, "fabric10k: sharded_fabric_step != the solver's step")
+    del api, got
+    fabric_kernels(c, args, kw, runs["fabric10k cold"]["n_trips"])
+    c.variant_launches["K1s:sssp_init[fabric]"] = launches["K1s:sssp_init"]
+    c.variant_launches["K3:select_routes[fabric]"] = launches[
+        "K3:select_routes"]
+    return launches, step_launches
+
+
 def main() -> int:
     import torch
 
@@ -2037,9 +2725,12 @@ def main() -> int:
     from openr_tpu_torch.models import topologies
     from openr_tpu_torch.ops import (
         compact,
+        csr,
         cuda,
+        fabric,
         incremental,
         ksp2,
+        legacy,
         relax,
         select,
         stream,
@@ -2047,6 +2738,7 @@ def main() -> int:
         te,
         ucmp,
     )
+    from openr_tpu_torch.parallel import sharding
     from openr_tpu_torch.runtime.counters import counters
     from openr_tpu_torch.types import (
         AdjacencyDatabase,
@@ -2115,6 +2807,18 @@ def main() -> int:
                              "openr_tpu/ops/sweep.py:233"),
         "K16:te_relax_vjp_jvp": (te.te_relax_vjp_jvp, "te.cu",
                                  "openr_tpu/ops/sweep.py:233"),
+        "K18:ell_relax": (legacy.ell_relax, "legacy.cu",
+                          "openr_tpu/decision/tpu_solver.py:177"),
+        "K19:ell_next_hop": (legacy.ell_next_hop, "legacy.cu",
+                             "openr_tpu/decision/tpu_solver.py:197"),
+        "K20:ell_select": (legacy.ell_select, "legacy.cu",
+                           "openr_tpu/decision/tpu_solver.py:225"),
+        "K21:fabric_relax": (fabric.fabric_relax, "fabric.cu",
+                             "openr_tpu/parallel/sharding.py:104"),
+        "K21e:fabric_extent": (fabric.fabric_extent, "fabric.cu",
+                               "openr_tpu/ops/relax.py:148"),
+        "K22:unpack_bits": (fabric.unpack_bits, "fabric.cu",
+                            "openr_tpu/parallel/sharding.py:213"),
     }
     cold_path = list(COLD_PATH)
     # variants of a kernel: (the wrapper's entry, what it replaces); their
@@ -2132,18 +2836,24 @@ def main() -> int:
         "K1:relax_step[sweep]": ("K1:relax_step", "openr_tpu/ops/sweep.py:59"),
         "K10:overlay_planes[sweep]": ("K10:overlay_planes",
                                       "openr_tpu/ops/sweep.py:59"),
+        "K18:ell_relax[allpairs]": ("K18:ell_relax",
+                                    "openr_tpu/decision/tpu_solver.py:282"),
+        "K1s:sssp_init[fabric]": ("K1s:sssp_init",
+                                  "openr_tpu/parallel/sharding.py:115"),
+        "K3:select_routes[fabric]": ("K3:select_routes",
+                                     "openr_tpu/parallel/sharding.py:149"),
     }
     variant_launches: dict = {}
     results = {}
 
     def record(name, err, fn, plain, nbytes, ops, reps=50, plain_reps=5,
-               library=None):
+               library=None, plain_warmup=2):
         check(err == 0, f"{name}: kernel != plain (max abs err {err})")
         b_ms, b_by = bound(nbytes, ops)
         results[name] = {
             "max_abs_err": err,
             "ms": time_ms(torch, fn, reps),
-            "plain_ms": time_ms(torch, plain, plain_reps),
+            "plain_ms": time_ms(torch, plain, plain_reps, plain_warmup),
             "bound_ms": b_ms,
             "bound_by": b_by,
             "library_ms": None if library is None
@@ -2181,7 +2891,8 @@ def main() -> int:
         torch=torch, dev=dev, gpu_solver=gpu_solver, relax=relax,
         compact=compact, stream=stream, ksp2=ksp2, ucmp=ucmp, sweep=sweep,
         whatif=whatif, variant_launches=variant_launches,
-        te=te, record_float=record_float,
+        te=te, record_float=record_float, legacy=legacy, fabric=fabric,
+        csr=csr, sharding=sharding, select=select,
         topologies=topologies, SpfSolver=SpfSolver,
         AdjacencyDatabase=AdjacencyDatabase, PrefixDatabase=PrefixDatabase,
         PrefixEntry=PrefixEntry,
@@ -2756,6 +3467,19 @@ def main() -> int:
     # -- 12. differentiable TE ------------------------------------------------
     te_launches = te_phase(c, whatif_cells)
 
+    log(f"-- phase 13 starts at "
+        f"{time.perf_counter() - t_start:.1f} s")
+    # -- 13. the all-roots paths ----------------------------------------------
+    t_phase = time.perf_counter()
+    fcell = build_cell(topologies, lambda: topologies.fabric(**FABRIC))[1:]
+    legacy_launches, allpairs_launches = legacy_phase(
+        c, (s_solver, states, ps), fcell)
+    t_mid = time.perf_counter()
+    fabric_launches, step_launches = fabric_phase(c, fcell)
+    log(f"phase 13 took {time.perf_counter() - t_phase:.1f} s (legacy and "
+        f"all-pairs {t_mid - t_phase:.1f} s, whole fabric "
+        f"{time.perf_counter() - t_mid:.1f} s)")
+
     # -- result ----------------------------------------------------------
     kernels = []
     for name, (fn, src, replaces) in wrappers.items():
@@ -2765,7 +3489,11 @@ def main() -> int:
                    "ucmp": ucmp_launches[name],
                    "ksp2": ksp2_launches[name],
                    "sweep": sweep_launches[name],
-                   "te": te_launches[name]}
+                   "te": te_launches[name],
+                   "legacy": legacy_launches[name],
+                   "allpairs": allpairs_launches[name],
+                   "fabric": fabric_launches[name],
+                   "fabric_step": step_launches[name]}
         kernels.append({
             "name": name,
             "route": "cuda",

@@ -9,7 +9,10 @@
 // alternate branch at :533-566), _pack_words, and
 // ops/compact.py::route_ok_device. With g > 1 stacked same-shape areas
 // (the vmap of _fused_pipeline) the lane is the grid's y dimension and
-// each lane has its own root (roots[lane]).
+// each lane has its own root (roots[lane]). Lanes read their own
+// announcer matrix, or, with a matrix stride of 0, one shared matrix:
+// the whole-fabric step of parallel/sharding.py::_sharded_fabric_fn
+// (:150-217) is this tail with a lane per root.
 //
 // Bound: bytes. The node pass reads the [D, n_cap] plane once and
 // writes one distance and one ECMP bit word per node; the prefix pass
@@ -75,8 +78,9 @@ __global__ void select_prefixes_kernel(
     int* __restrict__ s3w, int* __restrict__ nhw,
     uint8_t* __restrict__ ok_out, int p_cap, int a_cap, int n_cap,
     int d_cap, int w32, int root, int block_v4, const int* __restrict__ roots,
-    int lfa, const int* __restrict__ dist_d, const int* __restrict__ root_w,
-    int* __restrict__ lfa_slot, int* __restrict__ lfa_metric) {
+    long long mb_stride, int lfa, const int* __restrict__ dist_d,
+    const int* __restrict__ root_w, int* __restrict__ lfa_slot,
+    int* __restrict__ lfa_metric) {
     const int lane = blockIdx.y;
     int p = blockIdx.x * blockDim.x + threadIdx.x;
     if (p >= p_cap) return;
@@ -84,7 +88,7 @@ __global__ void select_prefixes_kernel(
     const int wa = (a_cap + 15) / 16;
     const int wd = (d_cap + 15) / 16;
     if (roots) root = roots[lane];
-    mbuf += lane * 6 * pa;
+    mbuf += lane * mb_stride;
     dist += (long long)lane * n_cap;
     onsp += lane * (long long)n_cap * w32;
     metric_out += (long long)lane * p_cap;
@@ -206,13 +210,14 @@ int select_nodes(const int* dist_d, const int* root_w, int* dist,
 int select_prefixes(const int* mbuf, const int* dist, const uint32_t* onsp,
                     int* metric, int* s3w, int* nhw, uint8_t* ok,
                     int p_cap, int a_cap, int n_cap, int d_cap, int root,
-                    int block_v4, const int* roots, int g, int lfa,
-                    const int* dist_d, const int* root_w, int* lfa_slot,
-                    int* lfa_metric, cudaStream_t stream) {
+                    int block_v4, const int* roots, int g,
+                    long long mb_stride, int lfa, const int* dist_d,
+                    const int* root_w, int* lfa_slot, int* lfa_metric,
+                    cudaStream_t stream) {
     int w32 = (d_cap + 31) / 32;
     select_prefixes_kernel<<<grid_for(p_cap, g), THREADS, 0, stream>>>(
         mbuf, dist, onsp, metric, s3w, nhw, ok, p_cap, a_cap, n_cap, d_cap,
-        w32, root, block_v4, roots, lfa, dist_d, root_w, lfa_slot,
+        w32, root, block_v4, roots, mb_stride, lfa, dist_d, root_w, lfa_slot,
         lfa_metric);
     return (int)cudaGetLastError();
 }

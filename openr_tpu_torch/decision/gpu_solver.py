@@ -66,9 +66,19 @@ K1 rows, K11 deltas against the previous generation's rows), traced on
 the host into the k-paths cache. The oracle's selection, canonical
 trace and label assembly then run unchanged, with no host Dijkstra.
 
+``build_fabric_route_dbs`` answers every requested vantage of a
+single-area LSDB from ONE whole-fabric step on the solver's card (the
+port of the reference's sharded fabric path on a one-device mesh,
+``ops/fabric.fabric_step``: each root's SSSP over the resident mirror,
+the root masked as transit, a convergence vote, K3 per root), one
+ColumnarRib per vantage. ``legacy_pipeline``, ``sssp_batch`` and
+``sssp_all_pairs`` are the legacy ELL pipeline and the all-roots SSSP
+(``ops/legacy.py``, K18-K20) of the graft entry (``entry.py``).
+
 Not ported yet, and refused rather than approximated: the multichip
 tier (an area above ``multichip_n_cap_threshold`` with two or more
-cards visible).
+cards visible) and the cross-card split of the whole-fabric step (a
+mesh of more than one device).
 
 ``device`` defaults to "cuda" and raises without a CUDA device unless
 the caller passes ``device="cpu"``, which runs each kernel's plain
@@ -90,7 +100,8 @@ from openr_tpu_torch.decision.prefix_state import PrefixState
 from openr_tpu_torch.decision.rib import DecisionRouteDb
 from openr_tpu_torch.decision.spf_solver import SpfSolver
 from openr_tpu_torch.ops.compact import compact_outputs
-from openr_tpu_torch.ops.csr import PrefixMatrix, build_prefix_matrix
+from openr_tpu_torch.ops.csr import EllGraph, PrefixMatrix, build_prefix_matrix
+from openr_tpu_torch.ops import legacy
 from openr_tpu_torch.ops import ksp2 as ksp2_ops
 from openr_tpu_torch.ops.edgeplan import (
     _ensure_edge_loc,
@@ -114,7 +125,7 @@ from openr_tpu_torch.ops.relax import (
     plan_sssp,
     plan_sssp_lanes,
 )
-from openr_tpu_torch.ops.select import select_routes
+from openr_tpu_torch.ops.select import pack_matrix, select_routes
 from openr_tpu_torch.ops.stream import STREAM_BUDGETS, stream_budget
 from openr_tpu_torch.ops.ucmp import UcmpEdges, propagate
 from openr_tpu_torch.runtime.counters import counters
@@ -182,35 +193,6 @@ def resolve_device(device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}")
     return dev
-
-
-def _pack_matrix(matrix: PrefixMatrix, node_over: np.ndarray) -> tuple:
-    """(flags [P,A], mbuf int32 [6*P*A]) — validity, per-announcer drain
-    and the per-prefix v4 bit (flag bit 2, announcer slot 0) fold into
-    flag bits host-side; min_nexthop ships so the device can run the
-    route-level ok filter."""
-    idx = np.clip(matrix.ann_node, 0, None)
-    flags = matrix.ann_valid.astype(np.int32) | (
-        node_over[idx].astype(np.int32) << 1
-    )
-    if flags.shape[1]:
-        flags[:, 0] |= matrix.is_v4.astype(np.int32) << 2
-    mbuf = matrix._mbuf
-    if mbuf is None:
-        mbuf = matrix._mbuf = np.concatenate([
-            matrix.ann_node.ravel(),
-            flags.ravel(),
-            matrix.path_pref.ravel(),
-            matrix.source_pref.ravel(),
-            matrix.dist_adv.ravel(),
-            matrix.min_nexthop.ravel(),
-        ]).astype(np.int32, copy=False)
-    else:
-        # only the flags plane depends on node_over; the upload copies,
-        # so patching the host buffer in place is safe
-        pa = flags.size
-        mbuf[pa:2 * pa] = flags.ravel()
-    return flags, mbuf
 
 
 def _ucmp_weight_anomalies(w) -> int:
@@ -431,6 +413,53 @@ def fused_pipeline(lane_args, *, has_res: bool, block_v4: bool = False,
                     lfa_slot[i], lfa_metric[i])
         for i in range(g)
     ]
+
+
+def legacy_pipeline(in_nbr, in_w, in_up, node_over, root, root_nbr,
+                    root_w, root_up, ann_node, ann_valid, path_pref,
+                    source_pref, dist_adv) -> tuple:
+    """The legacy single-graph pipeline (the port of
+    ``tpu_solver._jitted_pipeline`` and of ``__graft_entry__.entry``'s
+    forward step) on the device of its tensors: K18 rounds from
+    ``root``, K19 rounds for its slot masks, K20 selection. Inputs are
+    the JAX pipeline's 13, in its order: the ELL mirror (``in_nbr`` /
+    ``in_w`` int32, ``in_up`` bool [n_cap, k_cap], ``node_over`` bool
+    [n_cap]), the root's index and out-slot table (``root_nbr`` /
+    ``root_w`` int32, ``root_up`` bool [D], ``EllGraph.out_table``) and
+    the announcer matrix (``ann_node`` int32, ``ann_valid`` bool,
+    ``path_pref`` / ``source_pref`` / ``dist_adv`` int32 [P, A]).
+    Returns ``(dist [n_cap], metric [P], s3 [P, A], nh_mask [P, D],
+    has_route [P])``."""
+    root = int(root)
+    roots = torch.tensor([root], dtype=torch.int32, device=in_nbr.device)
+    dist = legacy.ell_sssp(in_nbr, in_w, in_up, node_over, roots)[0][0]
+    nh, _ = legacy.ell_next_hops(dist, in_nbr, in_w, in_up, node_over, root,
+                                 root_nbr, root_w, root_up)
+    metric, s3, nh_mask, has_route = legacy.ell_select(
+        dist, nh, node_over, ann_node, ann_valid, path_pref, source_pref,
+        dist_adv,
+    )
+    return dist, metric, s3, nh_mask, has_route
+
+
+def sssp_batch(in_nbr, in_w, in_up, node_over, roots) -> torch.Tensor:
+    """Distances int32 [R, n_cap] from each root of the int32 tensor
+    ``roots`` [R] over the ELL mirror (INF = 2^30 where unreachable): the
+    port of ``tpu_solver._jitted_sssp_batch``, K18 rounds on the device
+    of the tensors."""
+    return legacy.ell_sssp(in_nbr, in_w, in_up, node_over, roots)[0]
+
+
+def sssp_all_pairs(graph: EllGraph, roots=None,
+                   device="cuda") -> torch.Tensor:
+    """Batched SSSP from many roots of an ``EllGraph`` (every node by
+    default): int32 [R, n_cap] on ``device`` (the port of
+    ``tpu_solver.sssp_all_pairs``)."""
+    dev = resolve_device(device)
+    if roots is None:
+        roots = np.arange(graph.n_nodes, dtype=np.int32)
+    (roots,) = legacy.to_device(dev, np.asarray(roots, np.int32))
+    return sssp_batch(*legacy.ell_tensors(graph, dev), roots)
 
 
 class _AreaDev:
@@ -770,6 +799,11 @@ class GpuSpfSolver:
         self.last_device_stats: dict = {}
         # wall-time and device-time breakdown of the last solve
         self.last_timing: dict = {}
+        # the trips of the last cold solve (never an incremental one's):
+        # the seed of the whole-fabric step's trip bound
+        self.last_trips: int = 0
+        # time split and counts of the last build_fabric_route_dbs
+        self.last_fabric_stats: dict = {}
 
     # static-route passthroughs keep the Decision actor backend-agnostic
     def update_static_unicast_routes(self, to_update, to_delete) -> None:
@@ -925,6 +959,10 @@ class GpuSpfSolver:
                 stream["changed_rows"] += stats["changed_rows"] or 0
                 stream["overflows"] += int(stats["stream"]["overflow"])
             self.last_device_stats = stats
+            if not stats.get("incremental"):
+                # a warm re-relax converges in a trip or two: not a
+                # diameter bound the whole-fabric step may reuse
+                self.last_trips = stats["trips"]
             for sk, sv in stats.get("sentinels", {}).items():
                 self.last_sentinels[sk] = self.last_sentinels.get(sk, 0) + sv
         # device routes shadow host/static entries for the same prefix
@@ -1291,6 +1329,153 @@ class GpuSpfSolver:
         for entry in self.cpu.static_mpls_routes.values():
             route_db.add_mpls_route(entry)
 
+    # -- whole-fabric RIBs ---------------------------------------------------
+
+    def build_fabric_route_dbs(
+        self,
+        root_names: list[str],
+        area_link_states: dict[str, LinkState],
+        prefix_state: PrefixState,
+        mesh=None,
+    ) -> dict[str, Optional[DecisionRouteDb]]:
+        """Every requested vantage's full RIB from ONE whole-fabric step
+        on the solver's card (the port of
+        ``TpuSpfSolver.build_fabric_route_dbs``): each root's SSSP over
+        the area's resident mirror and its best-route selection, with
+        LFA when enabled (``ops/fabric.fabric_step``). ``mesh`` is None
+        or one device; the reference's cross-card split is not ported
+        (``parallel/sharding.one_card`` raises for more).
+
+        Fast-path (IP / SP_ECMP) prefixes compute on the card; the
+        oracle answers irregular prefixes, statics and MPLS per vantage,
+        as in ``build_route_db``, with KSP2 primed per vantage. The trip
+        bound starts at ``2 * last_trips + 1`` (one vantage's measured
+        eccentricity bound; another root's can be about twice it) and
+        doubles while the convergence vote fails, up to
+        ``max_trips(n_cap)``; past it ``Unconverged`` raises. Unknown
+        roots map to None; more than one area goes to the oracle. Each
+        vantage gets one ColumnarRib, filled from the packed words K3
+        emits (``set_full_packed``, the packed twin of the reference's
+        ``set_full_arrays``)."""
+        from openr_tpu_torch.ops.fabric import fabric_step, root_tables
+        from openr_tpu_torch.parallel.sharding import Unconverged, one_card
+
+        one_card(mesh, self.device)
+        if len(area_link_states) != 1:
+            return {
+                r: self.cpu.build_route_db(r, area_link_states, prefix_state)
+                for r in root_names
+            }
+        area, link_state = next(iter(area_link_states.items()))
+        t0 = time.perf_counter()
+        self._bytes_uploaded = 0
+        fast_by_area, slow, ksp2, _ = self._partition_prefixes(
+            prefix_state, area_link_states
+        )
+        fast = fast_by_area.get(area, [])
+
+        result: dict[str, Optional[DecisionRouteDb]] = {}
+        known = [r for r in root_names if link_state.has_node(r)]
+        for r in root_names:
+            if r not in known:
+                result[r] = None
+        stats: dict = {"roots": len(known)}
+
+        if fast and known:
+            ad = self._sync_area(area, link_state, prefix_state, fast)
+            plan, matrix = ad.plan, ad.matrix
+            roots, out_nbr, out_w, links = root_tables(plan, link_state,
+                                                      known)
+            lfa = self.cpu.enable_lfa
+            block_v4 = not (
+                self.cpu.enable_v4 or self.cpu.v4_over_v6_nexthop
+            )
+            use_v4_allowed = not self.cpu.v4_over_v6_nexthop
+            p_cap, a_cap = matrix.ann_node.shape
+            roots_t = self._upload(roots)
+            nbr_t, w_t = self._upload(out_nbr), self._upload(out_w)
+            t1 = time.perf_counter()
+            n_trips = max(2, 2 * self.last_trips + 1)
+            cap_trips = max(4, max_trips(plan.n_cap))
+            retries = 0
+            while True:
+                events, mark = _timing_events(roots_t, 3)
+                out = fabric_step(
+                    ad.deltas, ad.shift_w, ad.res_rows, ad.res_nbr,
+                    ad.res_w, ad.mbuf, roots_t, nbr_t, w_t,
+                    n_trips=n_trips, has_res=plan.k_res > 0, p_cap=p_cap,
+                    a_cap=a_cap, lfa=lfa, block_v4=block_v4, mark=mark,
+                )
+                if out.converged.all():
+                    break
+                if n_trips >= cap_trips:
+                    raise Unconverged(
+                        f"fabric SSSP unconverged for roots "
+                        f"{roots[~out.converged].tolist()} at the trip "
+                        f"bound ({n_trips})"
+                    )
+                n_trips = min(2 * n_trips, cap_trips)
+                retries += 1
+            t2 = time.perf_counter()
+            p_n = len(matrix.prefix_list)
+            pulled = [out.metric, out.s3w, out.nhw, out.ok]
+            if lfa:
+                pulled += [out.lfa_slot, out.lfa_metric]
+            host = [t[:, :p_n].cpu().numpy() for t in pulled]
+            metric, s3w, nhw, ok = host[:4]
+            lfa_slot, lfa_metric = host[4:] if lfa else (None, None)
+            t3 = time.perf_counter()
+            for i, nm in enumerate(known):
+                crib = ColumnarRib(
+                    nm, matrix, list(links[i]), int(roots[i]),
+                    block_v4, use_v4_allowed, lfa,
+                )
+                rows = np.flatnonzero(ok[i])
+                crib.set_full_packed(
+                    rows, metric[i][rows], s3w[i][rows], nhw[i][rows],
+                    None if lfa_slot is None else lfa_slot[i][rows],
+                    None if lfa_metric is None else lfa_metric[i][rows],
+                )
+                db = DecisionRouteDb()
+                # routes stay columnar until a consumer iterates; host
+                # routes land in the Lazy's overrides, which shadow the
+                # view
+                db.unicast_routes = LazyUnicastRoutes({}, [crib.view()])
+                result[nm] = db
+            t4 = time.perf_counter()
+            stats.update({
+                "sync_ms": (t1 - t0) * 1e3,
+                # host wall of the step: launches, flag reads, retries
+                "exec_ms": (t2 - t1) * 1e3,
+                "pull_ms": (t3 - t2) * 1e3,
+                "rib_ms": (t4 - t3) * 1e3,
+                "trips": out.trips, "n_trips": n_trips, "retries": retries,
+                "bytes_uploaded": float(self._bytes_uploaded),
+                "bytes_downloaded": float(sum(a.nbytes for a in host)),
+            })
+            if events:
+                stats["sssp_ms"] = events[0].elapsed_time(events[1])
+                stats["tail_ms"] = events[1].elapsed_time(events[2])
+
+        t5 = time.perf_counter()
+        for nm in known:
+            db = result.get(nm)
+            if db is None:
+                db = result[nm] = DecisionRouteDb()
+            if ksp2:
+                # one batched masked-SSSP device pass per vantage instead
+                # of one host Dijkstra per (vantage, KSP2 destination)
+                self._prime_ksp2(
+                    nm, area, link_state, prefix_state, ksp2, fast
+                )
+            self._host_routes(
+                nm, area_link_states, prefix_state, slow + ksp2, db
+            )
+        stats["host_ms"] = (time.perf_counter() - t5) * 1e3
+        stats["fabric_ms"] = (time.perf_counter() - t0) * 1e3
+        self.last_fabric_stats = stats
+        return result
+
     # -- device mirror -----------------------------------------------------
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
@@ -1432,7 +1617,7 @@ class GpuSpfSolver:
         if ad.flags is None or not np.array_equal(
             plan.node_overloaded, ad.pack_over
         ):
-            flags, mbuf = _pack_matrix(ad.matrix, plan.node_overloaded)
+            flags, mbuf = pack_matrix(ad.matrix, plan.node_overloaded)
             ad.pack_over = plan.node_overloaded.copy()
             if ad.flags is None or not np.array_equal(flags, ad.flags):
                 ad.flags = flags

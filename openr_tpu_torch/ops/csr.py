@@ -214,7 +214,7 @@ class PrefixMatrix:
     # materialized straight from these refs (no PrefixState lookups on
     # the hot host path)
     entry_refs: list = None
-    # packed device-upload buffer memo (decision/tpu_solver._pack_matrix):
+    # packed device-upload buffer memo (ops/select.pack_matrix):
     # 5 of the 6 planes are pure functions of this matrix, so repacking
     # under overload churn rewrites only the flags segment in place
     # instead of re-concatenating all 6*P*A words

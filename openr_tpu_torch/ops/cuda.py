@@ -28,7 +28,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("relax", "select", "compact", "incremental", "ucmp", "ksp2",
-           "sweep", "te")
+           "sweep", "te", "legacy", "fabric")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

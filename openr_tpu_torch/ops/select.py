@@ -18,7 +18,9 @@ slot on ties (-1 and 0 when the row has none).
 
 With a lane axis (a fused solve of ``g`` same-shape areas) every plane
 and output is stacked [g, ...] and ``root`` is an int32 tensor [g];
-one launch per kernel covers every lane.
+one launch per kernel covers every lane. The announcer matrix is then
+stacked too, or one [6*P*A] matrix that every lane shares (the
+whole-fabric step, a lane per root).
 
 The announcer matrix arrives packed as ``mbuf`` = six [P, A] int32
 planes: ann_node, flags (bit 0 valid, bit 1 drained, bit 2 of slot 0
@@ -27,6 +29,7 @@ v4), path_pref, source_pref, dist_adv, min_nh.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from openr_tpu_torch.ops import cuda
@@ -35,6 +38,36 @@ from openr_tpu_torch.ops.relax import INF_E, _int32, _is_cpu
 
 # unreachable preference value
 _NEG = -(2**31)
+
+
+def pack_matrix(matrix, node_over: np.ndarray) -> tuple:
+    """(flags [P,A], mbuf int32 [6*P*A]) of an ``ops/csr.PrefixMatrix``
+    — validity, per-announcer drain and the per-prefix v4 bit (flag bit
+    2, announcer slot 0) fold into flag bits host-side; min_nexthop
+    ships so the device can run the route-level ok filter. The buffer is
+    memoised on the matrix; only its flags plane is rewritten later."""
+    idx = np.clip(matrix.ann_node, 0, None)
+    flags = matrix.ann_valid.astype(np.int32) | (
+        node_over[idx].astype(np.int32) << 1
+    )
+    if flags.shape[1]:
+        flags[:, 0] |= matrix.is_v4.astype(np.int32) << 2
+    mbuf = matrix._mbuf
+    if mbuf is None:
+        mbuf = matrix._mbuf = np.concatenate([
+            matrix.ann_node.ravel(),
+            flags.ravel(),
+            matrix.path_pref.ravel(),
+            matrix.source_pref.ravel(),
+            matrix.dist_adv.ravel(),
+            matrix.min_nexthop.ravel(),
+        ]).astype(np.int32, copy=False)
+    else:
+        # only the flags plane depends on node_over; the upload copies,
+        # so patching the host buffer in place is safe
+        pa = flags.size
+        mbuf[pa:2 * pa] = flags.ravel()
+    return flags, mbuf
 
 
 def pack_words(bits):
@@ -48,17 +81,23 @@ def pack_words(bits):
 
 
 def select_routes_plain(dist_d, root_w, root, mbuf, p_cap: int,
-                        a_cap: int, block_v4: bool, lfa: bool = False):
+                        a_cap: int, block_v4: bool, lfa: bool = False,
+                        dist_out=None):
     if dist_d.dim() == 3:
         roots = root.tolist()
-        outs = [select_routes_plain(dist_d[lane], root_w[lane], roots[lane],
-                                    mbuf[lane], p_cap, a_cap, block_v4, lfa)
+        outs = [select_routes_plain(
+                    dist_d[lane], root_w[lane], roots[lane],
+                    mbuf if mbuf.dim() == 1 else mbuf[lane], p_cap, a_cap,
+                    block_v4, lfa,
+                    None if dist_out is None else dist_out[lane])
                 for lane in range(dist_d.shape[0])]
         return tuple(torch.stack(col) for col in zip(*outs))
     n_cap = dist_d.shape[1]
     via = root_w[:, None] + dist_d
     dist = torch.clamp_max(via.amin(dim=0), INF_E)
     dist[root] = 0
+    if dist_out is not None:
+        dist_out.copy_(dist)
     planes = mbuf.view(6, p_cap, a_cap)
     ann_node, ann_flags, path_pref, source_pref, dist_adv, min_nh = planes
     ann_valid = (ann_flags & 1).bool()
@@ -115,7 +154,8 @@ def _into(got: tuple, out) -> tuple:
 
 
 def select_routes(dist_d, root_w, root, mbuf, p_cap: int, a_cap: int,
-                  block_v4: bool, lfa: bool = False, out=None):
+                  block_v4: bool, lfa: bool = False, out=None,
+                  dist_out=None):
     """-> (metric int32 [P], s3w int32 [P, ceil(A/16)], nhw int32
     [P, ceil(D/16)], ok bool [P]), and with ``lfa`` also (lfa_slot
     int32 [P], lfa_metric int32 [P]). Stacked inputs ([g, D, n_cap]
@@ -124,16 +164,20 @@ def select_routes(dist_d, root_w, root, mbuf, p_cap: int, a_cap: int,
     ``out``, when given, is (metric, s3w, nhw) — and with ``lfa`` the
     two LFA columns — of those shapes: the published planes are written
     there instead of into new tensors (the streaming epoch's second
-    plane set)."""
+    plane set). ``dist_out``, when given, an int32 tensor [.., n_cap],
+    receives the node distances (dist[root] = 0)."""
     if _is_cpu(dist_d):
         return _into(select_routes_plain(dist_d, root_w, root, mbuf, p_cap,
-                                         a_cap, block_v4, lfa), out)
+                                         a_cap, block_v4, lfa, dist_out),
+                     out)
     _int32(dist_d, root_w, mbuf)
     g = dist_d.shape[0] if dist_d.dim() == 3 else 1
     d_cap, n_cap = dist_d.shape[-2:]
     lead = dist_d.shape[:-2]
-    if (mbuf.shape[-1] != 6 * p_cap * a_cap or mbuf.numel() != g * 6 * p_cap
-            * a_cap or root_w.shape[-1] != d_cap):
+    pa6 = 6 * p_cap * a_cap
+    shared = dist_d.dim() == 3 and mbuf.dim() == 1
+    if (mbuf.shape[-1] != pa6 or mbuf.numel() != (1 if shared else g) * pa6
+            or root_w.shape[-1] != d_cap):
         raise ValueError("mbuf / root_w do not match the plane shapes")
     if isinstance(root, torch.Tensor):
         _int32(root)
@@ -147,7 +191,13 @@ def select_routes(dist_d, root_w, root, mbuf, p_cap: int, a_cap: int,
     def empty(*shape, dtype=torch.int32):
         return torch.empty(lead + shape, dtype=dtype, device=dev)
 
-    dist = empty(n_cap)
+    if dist_out is None:
+        dist = empty(n_cap)
+    else:
+        _int32(dist_out)
+        if dist_out.shape != lead + (n_cap,):
+            raise ValueError("dist_out does not match the plane shapes")
+        dist = dist_out
     onsp = empty(n_cap, -(-d_cap // 32))
     if out is None:
         metric = empty(p_cap)
@@ -168,10 +218,11 @@ def select_routes(dist_d, root_w, root, mbuf, p_cap: int, a_cap: int,
                 p(dist_d), p(root_w), p(dist), p(onsp), d_cap, n_cap, root_i,
                 roots, g)
     lfa_ptrs = (p(dist_d), p(root_w), *map(p, lfa_out)) if lfa else (0,) * 4
-    cuda.launch("select", "select_prefixes", "ppppppp" + "iiiiii" + "piipppp",
+    cuda.launch("select", "select_prefixes",
+                "ppppppp" + "iiiiii" + "piLipppp",
                 p(mbuf), p(dist), p(onsp), p(metric), p(s3w), p(nhw), p(ok),
                 p_cap, a_cap, n_cap, d_cap, root_i, int(block_v4), roots, g,
-                int(lfa), *lfa_ptrs)
+                0 if shared else pa6, int(lfa), *lfa_ptrs)
     select_routes.launches += 2
     out = (metric, s3w, nhw, ok)
     return out + lfa_out if lfa else out

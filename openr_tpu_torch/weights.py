@@ -11,15 +11,23 @@ vantage's resident KSP2 rows (``ops/ksp2.MaskedRowsState``) across, so
 the port's next refresh is a delta step against the rows the JAX
 solver left. ``te_inputs_from_jax`` turns the padded arrays of a JAX TE
 step (``ops/sweep.py::te_step``) into the port's ``te_step`` arguments.
+``ell_from_jax`` carries a JAX ``ops/csr.EllGraph``'s mirror into the
+legacy kernels' tensors, and ``fabric_inputs_from_jax`` a JAX
+``EdgePlan``, ``PrefixMatrix`` and root tables into the whole-fabric
+step's (``ops/fabric.fabric_step``).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from openr_tpu_torch.decision.gpu_solver import resolve_device
 from openr_tpu_torch.ops.ksp2 import MaskedRowsState
+from openr_tpu_torch.ops.legacy import ell_tensors
+from openr_tpu_torch.ops.select import pack_matrix
 from openr_tpu_torch.ops.te import TePlan, te_plan
 
 # the JAX pipeline's positional arguments, in order
@@ -126,3 +134,41 @@ def te_inputs_from_jax(args, *, n_cap: int, trips: int, has_res: bool,
         has_res=has_res, device=dev,
     )
     return plan, theta, float(a["tau"]), float(a["tau_util"])
+
+
+def ell_from_jax(graph, device="cuda") -> dict:
+    """The ELL mirror of a JAX ``ops/csr.EllGraph`` (numpy arrays) as the
+    legacy kernels take it: ``in_nbr`` / ``in_w`` int32, ``in_up`` bool
+    [n_cap, k_cap] and ``node_over`` bool [n_cap], on ``device``."""
+    return dict(zip(("in_nbr", "in_w", "in_up", "node_over"),
+                    ell_tensors(graph, resolve_device(device))))
+
+
+def fabric_inputs_from_jax(plan, matrix, roots, out_nbr, out_w,
+                           device="cuda") -> dict:
+    """The whole-fabric step's inputs from the JAX host mirror: a JAX
+    ``ops/edgeplan.EdgePlan`` and ``ops/csr.PrefixMatrix`` (numpy
+    arrays) and the roots [Rt] with their out-slot tables [Rt, D], as
+    ``sharded_fabric_step`` takes them. Returns the keyword arguments
+    of ``ops/fabric.fabric_step`` but its flags (``lfa``,
+    ``block_v4``, ``n_trips``): int32 tensors on ``device``, the
+    announcer matrix packed as the solver packs it (drain bit from the
+    plan's overloaded nodes, the v4 bit, min_nh)."""
+    dev = resolve_device(device)
+
+    def put(arr):
+        return torch.tensor(np.ascontiguousarray(np.asarray(arr)),
+                            dtype=torch.int32, device=dev)
+
+    # packed as the solver packs it, memoized on a copy: the JAX matrix
+    # keeps its own memo
+    _, mbuf = pack_matrix(dataclasses.replace(matrix, _mbuf=None),
+                          np.asarray(plan.node_overloaded))
+    p_cap, a_cap = matrix.ann_node.shape
+    return {
+        "deltas": put(plan.deltas), "shift_w": put(plan.shift_w),
+        "res_rows": put(plan.res_rows), "res_nbr": put(plan.res_nbr),
+        "res_w": put(plan.res_w), "mbuf": put(mbuf), "roots": put(roots),
+        "out_nbr": put(out_nbr), "out_w": put(out_w),
+        "has_res": bool(plan.k_res > 0), "p_cap": p_cap, "a_cap": a_cap,
+    }
