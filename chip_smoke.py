@@ -172,10 +172,36 @@ prints no result line:
      host routes), trips, the bound and its retries, bytes moved, peak
      device bytes, its launches and the wall of full garbage collections
      inside it.
+  14. the multichip tier on logical shards of the card (``make_mesh(8)``
+     over 8 copies of it: batch 4 x graph 2). lsdb100k_mc
+     (bench.py:1171-1183: the lsdb100k LSDB as phase 13 left it, the
+     tier's threshold 65536, so n_cap 131072 engages it; bucketed,
+     incremental): a cold build, 4 flaps of ``adj_dbs[1]``, a forced cone
+     fallback (``incremental_cone_frac=0.0``), a cold build with
+     ``spf_kernel="sync"`` and 4 more flaps under sync, each in its
+     path's count window (``mc`` for the cold builds, ``mc_incr`` for
+     the churn), each build's published columns (metric, s3 / nh words,
+     LFA columns) equal to a single-device solver's byte for byte and
+     its RIB too, the cold build's RIB and the last bucketed flap's
+     equal to a fresh oracle's; each prints trips, rounds, cone,
+     fell_back and halo exchanges beside the single
+     build's, build_ms, its split and per-shard ms. K1s, K1, K2, K5, K6,
+     K7 ``[mc]`` and K23 (min, max, sum) against their plain versions at
+     those shapes. fabric10k's 4,096 vantages through
+     ``build_fabric_route_dbs(mesh=...)`` (window ``fabric_mesh``;
+     ``pod063-rsw63``'s RIB equal to the LFA oracle) and the array-level
+     step on the mesh equal to the one-card step (all seven arrays); K21
+     ``[mc]`` over every root (plain 256 a call) and K6's residual fill
+     against plain. tg1k-lfa on batch 2 x graph 3 (the node axis padded
+     1024 -> 1026): the step equal to the one-card step, LFA backups, its
+     sampled RIBs equal to the LFA oracle. ``dryrun_multichip(8)`` on the
+     card. With two or more cards, lsdb100k_mc on a mesh of the real
+     cards, equal to the logical shards (else a line says so).
 
 Output: phase lines, then one ``{"kernels": [...]}`` JSON line (every
 kernel and its LFA, fused, stream, ksp2, sweep, all-pairs and fabric
-variants, each with the launches of the path that runs it; the TE
+variants, each with the launches of the path that runs it, the ``[mc]``
+kernels and K23 with those of the mc paths; the TE
 kernels with their
 largest relative error beside the absolute one), the card's
 name and power limit as nvidia-smi reports them, and last
@@ -2380,11 +2406,11 @@ def block_v4(solver) -> bool:
     return not (solver.cpu.enable_v4 or solver.cpu.v4_over_v6_nexthop)
 
 
-def fabric_build(c, solver, states, ps, names) -> tuple:
-    """One build_fabric_route_dbs, timed, the counts zeroed just before
-    it and read just after: -> (RIBs, stats with the host wall, the peak
-    device bytes above what was resident and the launches, launches by
-    kernel)."""
+def fabric_build(c, solver, states, ps, names, mesh=None) -> tuple:
+    """One build_fabric_route_dbs (on ``mesh``; None: the solver's
+    default), timed, the counts zeroed just before it and read just
+    after: -> (RIBs, stats with the host wall, the peak device bytes
+    above what was resident and the launches, launches by kernel)."""
     torch = c.torch
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2401,7 +2427,7 @@ def fabric_build(c, solver, states, ps, names) -> tuple:
     gc.callbacks.append(on_gc)
     t0 = time.perf_counter()
     try:
-        dbs = solver.build_fabric_route_dbs(names, states, ps)
+        dbs = solver.build_fabric_route_dbs(names, states, ps, mesh=mesh)
         torch.cuda.synchronize()
     finally:
         gc.callbacks.remove(on_gc)
@@ -2714,6 +2740,543 @@ def fabric_phase(c, fcell) -> tuple:
     return launches, step_launches
 
 
+# the multichip tier (phase 14): MC_SHARDS logical shards on the card
+# (make_mesh(8): batch 4 x graph 2), lsdb100k_mc (bench.py:1171-1183: the
+# lsdb100k cell with the tier's threshold halved, so n_cap 131072 engages
+# it), tg1k-lfa on MC_LFA_SHARDS (batch 2 x graph 3: the node axis pads)
+MC_SHARDS = 8
+MC_THRESHOLD = 65536
+MC_LFA_SHARDS = (6, 2)
+MC_FLAPS = 4
+MC_PATH = ("K1s:sssp_init_mc", "K1:relax_step_mc", "K2:ladder_classes_mc",
+           "K2:ladder_apply", "K2:ladder_rung", "K23:shard_combine",
+           "K3:select_routes", "K4:compact_outputs")
+MC_INCR_PATH = MC_PATH + ("K5:scatter_window", "K6:parent_shift_mc",
+                          "K7:owned_weights", "K7:cone_seed_mc",
+                          "K8:cone_step", "K9:cone_finish")
+MESH_FABRIC_PATH = ("K1s:sssp_init", "K21e:fabric_extent",
+                    "K21:fabric_relax_mc", "K23:shard_combine",
+                    "K3:select_routes")
+
+
+def resident_outputs(solver, root: str) -> tuple:
+    """The published columns (metric, s3w, nhw, lfa_slot, lfa_metric) the
+    solver keeps for its vantage in area "0"."""
+    return solver._vstates[("0", root)].prev
+
+
+def mc_build(c, solver, lsdb, root, window: dict) -> tuple:
+    """One multichip build in a count window (counts zeroed just before,
+    read just after and added to ``window``) -> (RIB, record)."""
+    torch = c.torch
+    _, states, ps = lsdb
+    gc2 = []
+
+    def on_gc(phase, info):
+        if info["generation"] == 2:
+            gc2.append(time.perf_counter() * (1 if phase == "stop" else -1))
+
+    reads0 = c.zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gc.callbacks.append(on_gc)
+    t0 = time.perf_counter()
+    try:
+        db = solver.build_route_db(root, states, ps)
+        torch.cuda.synchronize()
+    finally:
+        gc.callbacks.remove(on_gc)
+    wall = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    n, reads = c.read_counts(reads0)
+    for k, v in n.items():
+        window[k] = window.get(k, 0) + v
+    tm, st = solver.last_timing, solver.last_device_stats
+    check(st.get("multichip"), "the build did not engage the multichip tier")
+    rec = {
+        "build_ms": wall,
+        **{k: st.get(k) for k in ("spf_kernel", "incremental", "fell_back",
+                                  "cone", "trips", "rounds", "bucket_epochs",
+                                  "halo_exchanges")},
+        **{k: tm.get(k) for k in ("sync_ms", "exec_ms", "sssp_ms", "tail_ms",
+                                  "compact_ms", "pull_ms", "unpack_ms",
+                                  "scatter_ms", "bytes_uploaded",
+                                  "bytes_downloaded")},
+        "shard_ms": st["multichip"]["shard_ms"],
+        # the wall of Python's full collections inside the build (a
+        # suspected cause of multi-second host stalls: a 100k LSDB holds
+        # millions of objects)
+        "gc2_passes": len(gc2) // 2, "gc2_ms": sum(gc2) * 1e3,
+        "launches": sum(n.values()), "flag_reads": reads,
+        "peak_device_bytes": peak,
+    }
+    return db, rec
+
+
+def mc_vs_single(c, label, mc, single, lsdb, root, window, oracle=None):
+    """A multichip build and a single-device build of the same LSDB: the
+    published columns byte for byte and the RIBs equal (and the oracle's
+    when given). Prints the record beside the single build's counts."""
+    _, states, ps = lsdb
+    db, rec = mc_build(c, mc, lsdb, root, window)
+    want = single.build_route_db(root, states, ps)
+    err = max_abs_err(c.torch, resident_outputs(mc, root),
+                      resident_outputs(single, root))
+    check(err == 0, f"{label}: multichip columns != single-device columns")
+    check(rib_equal(want, db), f"{label}: multichip RIB != single-device")
+    if oracle is not None:
+        check(rib_equal(oracle, db), f"{label}: multichip RIB != oracle")
+    st = single.last_device_stats
+    rec["single"] = {k: st.get(k) for k in ("incremental", "fell_back",
+                                            "cone", "trips", "rounds")}
+    rec["oracle_checked"] = oracle is not None
+    log(f"lsdb100k_mc {label}: " + json.dumps(rec))
+    return rec
+
+
+def mc_kernels(c, solver, lsdb, root, dirty) -> None:
+    """The mc kernels against their plain versions at lsdb100k_mc's
+    shapes, on the shard of group 0 whose column window (n_cap / graph
+    wide) holds the root, and K23 over the group's two planes. ``dirty``
+    = (s_idx, s_old) of a flap, global flat indices."""
+    torch, relax, inc, comb = c.torch, c.relax, c.incremental, c.combine
+    ad = solver._area_dev["0"]
+    plan, mesh = ad.plan, ad.mc_mesh
+    n_cap, s_cap = plan.n_cap, plan.s_cap
+    g = mesh.shape["graph"]
+    w_cols = n_cap // g
+    ridx = plan.node_index[root]
+    jr = ridx // w_cols
+    col0 = jr * w_cols
+    deltas = ad.deltas.part(0, jr)
+    shift = ad.shift_w.part(0, jr)
+    res = [c.sharding.gather(getattr(ad, k), 0, jr)
+           for k in ("res_rows", "res_nbr", "res_w")]
+    has_res = plan.k_res > 0
+    nbr_np, w_np, _ = plan.out_links(lsdb[1]["0"], root)
+    d_pad = -(-nbr_np.shape[0] // mesh.shape["batch"]) * mesh.shape["batch"]
+    d_loc = d_pad // mesh.shape["batch"]
+    nbr = torch.tensor(c.sharding.pad_to(nbr_np, d_pad, -1)[:d_loc],
+                       device=c.dev)
+    w = torch.tensor(c.sharding.pad_to(w_np, d_pad, relax.INF_E)[:d_loc],
+                     device=c.dev)
+    iargs = (shift, *res, ridx, nbr, w, col0, n_cap)
+    got = relax.sssp_init_mc(*iargs)
+    want = relax.sssp_init_mc_plain(*iargs)
+    res_bytes = 4 * (res[0].numel() + 2 * res[1].numel())
+    c.record(
+        "K1s:sssp_init_mc", max_abs_err(torch, (got[0], *got[1], got[2]),
+                                        (want[0], *want[1], want[2])),
+        lambda: relax.sssp_init_mc(*iargs),
+        lambda: relax.sssp_init_mc_plain(*iargs),
+        nbytes=4 * (2 * s_cap * w_cols + 2 * d_loc + d_loc * n_cap)
+        + 2 * res_bytes, ops=s_cap * w_cols + d_loc * n_cap)
+    sw, residual, dist0 = got
+    residual = residual if has_res else None
+    # a mid-solve wavefront: 16 relaxations of the group, each member's
+    # and then their min
+    sws = [relax.sssp_init_mc(ad.shift_w.part(0, j), *res, ridx, nbr, w,
+                              j * w_cols, n_cap)[0] for j in range(g)]
+    mid = dist0.clone()
+    for _ in range(16):
+        outs = [torch.empty_like(mid) for _ in range(g)]
+        for j in range(g):
+            relax.relax_step_mc(mid, outs[j], None, deltas, sws[j], residual,
+                                j * w_cols)
+        comb.shard_combine(outs, "min")
+        mid = outs[0]
+    o_k, o_p = torch.empty_like(mid), torch.empty_like(mid)
+    f_k = torch.zeros(1, dtype=torch.int32, device=c.dev)
+    f_p = torch.zeros_like(f_k)
+    relax.relax_step_mc(mid, o_k, f_k, deltas, sw, residual, col0)
+    relax.relax_step_mc_plain(mid, o_p, f_p, deltas, sw, residual, col0)
+    check(int(f_k) == 1, "K1 [mc] on a wavefront must change the plane")
+    c.record(
+        "K1:relax_step_mc", max_abs_err(torch, (o_k, f_k), (o_p, f_p)),
+        lambda: relax.relax_step_mc(mid, o_k, f_k, deltas, sw, residual,
+                                    col0),
+        lambda: relax.relax_step_mc_plain(mid, o_p, f_p, deltas, sw,
+                                          residual, col0),
+        nbytes=4 * (2 * d_loc * n_cap + s_cap * w_cols + s_cap)
+        + (res_bytes if has_res else 0),
+        # every class's window test, the add and min for its own sources
+        ops=d_loc * n_cap * s_cap + 2 * d_loc * n_cap * s_cap // g
+        + (2 * d_loc * res[1].numel() if has_res else 0))
+    s_lad = min(s_cap, relax.LADDER_WIDTH)
+    dq = 1 << max(plan.delta_exp, 1)
+    largs = (sw, deltas, dq, s_lad, col0, n_cap)
+    c.record(
+        "K2:ladder_classes_mc",
+        max_abs_err(torch, relax.ladder_classes_mc(*largs),
+                    relax.ladder_classes_mc_plain(*largs)),
+        lambda: relax.ladder_classes_mc(*largs),
+        lambda: relax.ladder_classes_mc_plain(*largs),
+        nbytes=4 * (s_cap * w_cols + s_cap + s_lad * n_cap + s_lad),
+        ops=s_cap * w_cols + s_lad * n_cap)
+    # K5 [mc]: the last flap's dirty slots (global flat indices) into
+    # each member's columns: held on both, timed on the one owning them
+    sdi = torch.tensor(dirty[0], device=c.dev)
+    sdo = torch.tensor(dirty[1], device=c.dev)
+    errs, owned = [], {}
+    for j in range(g):
+        part = ad.shift_w.part(0, j)
+        old_k, old_p = part.clone(), part.clone()
+        inc.scatter_window(old_k, sdi, sdo, (s_cap, n_cap), 0, j * w_cols)
+        inc.scatter_window_plain(old_p, sdi, sdo, (s_cap, n_cap), 0,
+                                 j * w_cols)
+        errs.append(max_abs_err(torch, old_k, old_p))
+        f = sdi.long()
+        u = f % n_cap - j * w_cols
+        own = (f >= 0) & (f < s_cap * n_cap) & (u >= 0) & (u < w_cols)
+        owned[j] = ((f // n_cap * w_cols + u)[own], sdo[own], old_k)
+    jo = max(owned, key=lambda j: owned[j][0].numel())
+    loc, vals, _ = owned[jo]
+    check(loc.numel() > 0, "K5 [mc]: the flap dirtied no shard")
+    scratch = ad.shift_w.part(0, jo).clone()
+    c.record(
+        "K5:scatter_window", max(errs),
+        lambda: inc.scatter_window(scratch, sdi, sdo, (s_cap, n_cap), 0,
+                                   jo * w_cols),
+        lambda: inc.scatter_window_plain(scratch, sdi, sdo, (s_cap, n_cap),
+                                         0, jo * w_cols),
+        nbytes=4 * (2 * sdi.numel() + loc.numel()), ops=6 * sdi.numel(),
+        library=lambda: scratch.view(-1).index_copy_(0, loc, vals))
+    old_k = owned[jr][2]
+    # K6 [mc] on the solver's converged lanes of group 0 (its warm plane)
+    prev = solver._vstates[("0", root)].prev_dist[0][jr]
+    swm_old = relax.sssp_init_mc(old_k, *res, ridx, nbr, w, col0, n_cap)[0]
+    pargs = (deltas, swm_old, prev, s_cap, col0)
+    par_k = inc.parent_shift_mc(*pargs)
+    c.record(
+        "K6:parent_shift_mc",
+        max_abs_err(torch, par_k, inc.parent_shift_mc_plain(*pargs)),
+        lambda: inc.parent_shift_mc(*pargs),
+        lambda: inc.parent_shift_mc_plain(*pargs),
+        nbytes=4 * (2 * d_loc * n_cap + s_cap * w_cols + s_cap),
+        ops=4 * d_loc * n_cap * s_cap)
+    errs = []
+    for j in range(g):
+        oargs = (sws[j], sdi, n_cap, j * w_cols)
+        errs.append(max_abs_err(torch, inc.owned_weights(*oargs),
+                                inc.owned_weights_plain(*oargs)))
+        if j == jo:
+            timed = oargs
+    oargs = (sw, sdi, n_cap, col0)
+    new_m = inc.owned_weights(*oargs)
+    c.record(
+        "K7:owned_weights", max(errs),
+        lambda: inc.owned_weights(*timed),
+        lambda: inc.owned_weights_plain(*timed),
+        nbytes=4 * (2 * sdi.numel() + loc.numel()), ops=6 * sdi.numel())
+    rdi = torch.full((sdi.numel(),), res[2].numel(), dtype=torch.int32,
+                     device=c.dev)
+    rdo = torch.zeros_like(rdi)
+    cargs = (par_k, new_m, residual[2] if has_res else res[2], deltas,
+             res[0], res[1], ridx, sdi, sdo, rdi, rdo, has_res, s_cap)
+    n_dirty = 2 * sdi.numel()
+    c.record(
+        "K7:cone_seed_mc",
+        max_abs_err(torch, inc.cone_seed_mc(*cargs),
+                    inc.cone_seed_mc_plain(*cargs)),
+        lambda: inc.cone_seed_mc(*cargs),
+        lambda: inc.cone_seed_mc_plain(*cargs),
+        nbytes=4 * (3 * n_dirty + d_loc * n_dirty + d_loc * n_cap),
+        ops=6 * d_loc * n_dirty)
+    # K23 over the two members' planes of a group, min, max and sum
+    a, b = mid.clone(), o_k.clone()
+    a_p, b_p = a.clone(), b.clone()
+    ref = mid.clone()
+    fk = torch.zeros(1, dtype=torch.int32, device=c.dev)
+    fp = torch.zeros_like(fk)
+    errs = []
+    for op in ("min", "max", "sum"):
+        comb.shard_combine([a, b], op, ref=ref, flag=fk)
+        comb.shard_combine_plain([a_p, b_p], op, ref=ref, flag=fp)
+        errs.append(max_abs_err(torch, (a, b, fk), (a_p, b_p, fp)))
+    check(int(fk) == 1, "K23: the combined plane must differ from ref")
+    n = a.numel()
+    c.record(
+        "K23:shard_combine", max(errs),
+        lambda: comb.shard_combine([a, b], "min", ref=ref, flag=fk),
+        lambda: comb.shard_combine_plain([a, b], "min", ref=ref, flag=fk),
+        nbytes=4 * (2 * 2 * n + n), ops=2 * n,
+        library=lambda: torch.minimum(a, b))
+    log(f"lsdb100k_mc kernels on shard (0, {jr}) (columns {col0}.."
+        f"{col0 + w_cols}) equal to plain")
+
+
+def mesh_fabric_kernels(c, fsolver, fnames, fstates) -> None:
+    """K21 [mc] over every fabric10k root (a graph 2 split, shard 1's
+    columns and residual rows) against its plain version 256 roots a
+    call, and K6's residual fill at fabric10k's shapes."""
+    torch, fabric, relax, inc = c.torch, c.fabric, c.relax, c.incremental
+    ad = fsolver._area_dev["0"]
+    plan = ad.plan
+    mesh = c.sharding.make_mesh(2, batch=1, devices=[c.dev] * 2)
+    roots, nbr, w, _ = fabric.root_tables(plan, fstates["0"], fnames)
+    kw = c.sharding.fabric_mesh_inputs(mesh, plan, ad.matrix, roots, nbr, w)
+    shift, rows, rnbr, rw = (kw[k][0][1] for k in ("shift_w", "res_rows",
+                                                   "res_nbr", "res_w"))
+    n_cap = 2 * shift.shape[1]
+    deltas, roots_t = kw["deltas"][0][1], kw["roots"][0][1]
+    col0 = n_cap // 2
+    residual = (rows, rnbr, rw, fabric.fabric_extent(rw))
+    rt = roots_t.shape[0]
+    d0 = relax.sssp_init(*(torch.empty((rt,) + sh, dtype=torch.int32,
+                                       device=c.dev)
+                           for sh in ((0, n_cap), (0,), (0, 0), (0, 0))),
+                         roots_t, kw["out_nbr"][0][1], kw["out_w"][0][1])[2]
+    # a wavefront: 2 whole-width relaxations from the seeds
+    mid, spare = d0, torch.empty_like(d0)
+    flag = torch.zeros(1, dtype=torch.int32, device=c.dev)
+    for _ in range(2):
+        fabric.fabric_relax(mid, spare, flag, ad.deltas, ad.shift_w,
+                            (ad.res_rows, ad.res_nbr, ad.res_w,
+                             fabric.fabric_extent(ad.res_w)), roots_t)
+        mid, spare = spare, mid
+    del spare
+    o_k, o_p = torch.empty_like(mid), torch.empty_like(mid)
+    f_k = torch.zeros(1, dtype=torch.int32, device=c.dev)
+    f_p = torch.zeros_like(f_k)
+
+    def relax_plain():
+        by_roots(torch, rt, lambda s: fabric.fabric_relax_mc_plain(
+            mid[s], o_p[s], f_p, deltas, shift, residual, roots_t[s],
+            col0=col0))
+
+    fabric.fabric_relax_mc(mid, o_k, f_k, deltas, shift, residual, roots_t,
+                           col0=col0)
+    relax_plain()
+    check(int(f_k) == 1, "K21 [mc] on a wavefront must change the planes")
+    live = int((rw < relax.INF_E).sum())
+    s_cap, w_cols = shift.shape
+    c.record(
+        "K21:fabric_relax_mc", max_abs_err(torch, (o_k, f_k), (o_p, f_p)),
+        lambda: fabric.fabric_relax_mc(mid, o_k, f_k, deltas, shift,
+                                       residual, roots_t, col0=col0),
+        relax_plain,
+        nbytes=4 * (2 * mid.numel() + s_cap * w_cols + s_cap
+                    + 2 * rows.numel() + 2 * live),
+        ops=mid.numel() * s_cap * 2 + 2 * rt * nbr.shape[1] * live,
+        reps=10, plain_reps=1, plain_warmup=0)
+    del mid, o_k, o_p
+    # K6's residual fill on a fabric10k root's converged planes
+    r0 = plan.node_index[fnames[0]]
+    n0, w0, _ = plan.out_links(fstates["0"], fnames[0])
+    n0, w0 = torch.tensor(n0, device=c.dev), torch.tensor(w0, device=c.dev)
+    prev, _, _ = relax.plan_sssp(ad.deltas, ad.shift_w, ad.res_rows,
+                                 ad.res_nbr, ad.res_w, r0, n0, w0, True,
+                                 "sync")
+    swm, (_, _, rwm), _ = relax.sssp_init(ad.shift_w, ad.res_rows,
+                                         ad.res_nbr, ad.res_w, r0, n0, w0)
+    par = inc.parent_shift_mc(ad.deltas, swm, prev, plan.s_cap, 0)
+    fk, fp, scratch = par.clone(), par.clone(), par.clone()
+    fargs = (ad.res_rows, ad.res_nbr, rwm, prev)
+    inc.parent_fill(fk, *fargs)
+    inc.parent_fill_plain(fp, *fargs)
+    check(int((fk != par).sum()) > 0, "K6 fill: no residual parent filled")
+    c.record(
+        "K6:parent_fill", max_abs_err(torch, fk, fp),
+        lambda: inc.parent_fill(scratch, *fargs),
+        lambda: inc.parent_fill_plain(scratch, *fargs),
+        nbytes=4 * (ad.res_rows.numel() + 2 * ad.res_nbr.numel()
+                    + 2 * prev.numel()),
+        ops=4 * prev.shape[0] * ad.res_nbr.numel())
+
+
+def multichip_phase(c, lsdb, fcell) -> tuple:
+    """Phase 14 (module docstring). Returns the launches of each path's
+    count window ("mc", "mc_incr" and "fabric_mesh") and the halo
+    exchanges of the cold builds (a group's combines: per relaxation
+    under sync, per bucket epoch under bucketed)."""
+    import numpy as np
+
+    torch, dev, gs = c.torch, c.dev, c.gpu_solver
+    root = LSDB100K_ROOT
+    adj_dbs, states, ps = lsdb
+    by_name = {db.this_node_name: db for db in adj_dbs}
+    devices = [dev] * MC_SHARDS
+    windows = {"mc": {}, "mc_incr": {}, "fabric_mesh": {}}
+    kw = dict(device=dev, incremental_spf=True,
+              multichip_n_cap_threshold=MC_THRESHOLD,
+              multichip_devices=devices)
+    t0 = time.perf_counter()
+    # the LSDB as phases 6, 8 and 13 left it: a fresh oracle
+    oracle = c.SpfSolver(root).build_route_db(root, states, ps)
+    t_oracle = (time.perf_counter() - t0) * 1e3
+    mc = gs.GpuSpfSolver(root, **kw)
+    single = gs.GpuSpfSolver(root, device=dev, incremental_spf=True)
+    rec = mc_vs_single(c, "cold", mc, single, lsdb, root, windows["mc"],
+                       oracle)
+    check(rec["spf_kernel"] == "bucketed", "lsdb100k_mc runs bucketed")
+    check(rec["halo_exchanges"] == rec["bucket_epochs"] > 0,
+          "bucketed: one halo exchange a bucket epoch")
+    halo = {"bucketed": {
+        "halo_exchanges": rec["halo_exchanges"],
+        "bucket_epochs": rec["bucket_epochs"],
+        "per_epoch": rec["halo_exchanges"] / rec["bucket_epochs"]}}
+    ad = mc._area_dev["0"]
+    check(ad.plan.n_cap > MC_THRESHOLD and ad.mc_mesh.shape == {
+        "batch": 4, "graph": 2}, "lsdb100k_mc: not on a 4 x 2 mesh")
+    log(f"lsdb100k_mc: n_cap {ad.plan.n_cap} on {ad.mc_mesh!r}, mirror "
+        f"{ad.shift_w.nbytes()} B of shift columns over the shards, oracle "
+        f"{t_oracle:.0f} ms")
+    # four flaps of adj_dbs[1], each metric unlike the one before
+    vname = adj_dbs[1].this_node_name
+    cur = states["0"].get_adjacency_databases()[vname].adjacencies[0].metric
+    i0 = (cur - 50 + 1) % 5
+    for k in range(MC_FLAPS):
+        flap(c.AdjacencyDatabase, states, adj_dbs, by_name, 1, i0 + k)
+        r = mc_vs_single(c, f"flap {k}", mc, single, lsdb, root,
+                         windows["mc_incr"],
+                         oracle=None if k < MC_FLAPS - 1 else
+                         c.SpfSolver(root).build_route_db(root, states, ps))
+        check(r["incremental"] and not r["fell_back"],
+              f"lsdb100k_mc flap {k} must be incremental without fallback")
+    # the last flap's drain: its dirty shift slots and their old values
+    _, s_map, _ = ad.drain_log[-1]
+    cap = max(64, len(s_map))
+    sidx = np.full(cap, ad.plan.s_cap * ad.plan.n_cap, np.int32)
+    sold = np.zeros(cap, np.int32)
+    sidx[:len(s_map)] = list(s_map)
+    sold[:len(s_map)] = list(s_map.values())
+    dirty = (sidx, sold)
+    fb = gs.GpuSpfSolver(root, **kw, incremental_cone_frac=0.0)
+    fb.build_route_db(root, states, ps)
+    flap(c.AdjacencyDatabase, states, adj_dbs, by_name, 1, i0 + MC_FLAPS)
+    r = mc_vs_single(c, "fallback", fb, single, lsdb, root,
+                     windows["mc_incr"])
+    check(r["incremental"] and r["fell_back"] and r["cone"] > 0,
+          "the cone_frac=0 step must fall back on the card")
+    sync = gs.GpuSpfSolver(root, **kw, spf_kernel="sync")
+    r = mc_vs_single(c, "cold sync", sync, single, lsdb, root,
+                     windows["mc"])
+    check(r["halo_exchanges"] == r["rounds"] > 0,
+          "sync: one halo exchange a relaxation")
+    halo["sync"] = {"halo_exchanges": r["halo_exchanges"],
+                    "relaxations": r["rounds"],
+                    "per_relaxation": r["halo_exchanges"] / r["rounds"]}
+    # the same flaps under sync: the incremental solve's sync branch
+    for k in range(MC_FLAPS):
+        flap(c.AdjacencyDatabase, states, adj_dbs, by_name, 1,
+             i0 + MC_FLAPS + 1 + k)
+        r = mc_vs_single(c, f"sync flap {k}", sync, single, lsdb, root,
+                         windows["mc_incr"])
+        check(r["spf_kernel"] == "sync" and r["incremental"]
+              and not r["fell_back"],
+              f"lsdb100k_mc sync flap {k} must be incremental without "
+              f"fallback")
+        check(r["halo_exchanges"] == r["rounds"],
+              "sync: one halo exchange a relaxation")
+    for name in MC_PATH:
+        check(windows["mc"].get(name, 0) > 0,
+              f"kernel {name} never launched on the mc path")
+    for name in MC_INCR_PATH:
+        check(windows["mc_incr"].get(name, 0) > 0,
+              f"kernel {name} never launched on the mc churn path")
+    mc_kernels(c, mc, lsdb, root, dirty)
+    del fb, sync, single
+
+    # -- whole-fabric fabric10k on the mesh ----------------------------------
+    fstates, fps = fcell
+    fnames = [f"pod{p:03d}-rsw{i:02d}" for p in range(FABRIC_POD_VANTAGES)
+              for i in range(FABRIC["rsws_per_pod"])]
+    mesh = c.sharding.make_mesh(MC_SHARDS, devices=devices)
+    fsolver = gs.GpuSpfSolver(fnames[0], device=dev, enable_lfa=True,
+                              multichip_devices=devices)
+    f_dbs, st, launches = fabric_build(c, fsolver, fstates, fps, fnames,
+                                       mesh)
+    for k, v in launches.items():
+        windows["fabric_mesh"][k] = v
+    log("whole-fabric fabric10k on the mesh: " + json.dumps(st))
+    for name in MESH_FABRIC_PATH:
+        check(launches[name] > 0,
+              f"kernel {name} never launched on the mesh fabric path")
+    for nm in FABRIC_ORACLE:
+        want = c.SpfSolver(nm, enable_lfa=True).build_route_db(nm, fstates,
+                                                               fps)
+        check(rib_equal(want, f_dbs[nm]), f"fabric10k mesh: {nm} != oracle")
+    del f_dbs
+    fad = fsolver._area_dev["0"]
+    roots, nbr, w, _ = c.fabric.root_tables(fad.plan, fstates["0"], fnames)
+    bv4 = block_v4(fsolver)
+    t0 = time.perf_counter()
+    got = c.sharding.sharded_fabric_step(mesh, fad.plan, fad.matrix, roots,
+                                         nbr, w, st["n_trips"], lfa=True,
+                                         block_v4=bv4, with_ok=True)
+    torch.cuda.synchronize()
+    mesh_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    want = c.sharding.sharded_fabric_step(None, fad.plan, fad.matrix, roots,
+                                          nbr, w, st["n_trips"], lfa=True,
+                                          block_v4=bv4, with_ok=True,
+                                          device=dev)
+    torch.cuda.synchronize()
+    one_ms = (time.perf_counter() - t0) * 1e3
+    check(max_abs_err(torch, got, want) == 0,
+          "fabric10k: the mesh step's arrays != the one-card step's")
+    log(f"fabric10k: sharded_fabric_step on {mesh!r} == the one-card step, "
+        f"all seven arrays over {len(fnames)} roots (host wall {mesh_ms:.1f}"
+        f" ms, one card {one_ms:.1f} ms)")
+    del got, want
+    mesh_fabric_kernels(c, fsolver, fnames, fstates)
+
+    # -- tg1k-lfa on a 6-shard mesh: graph 3, the node axis padded ------------
+    adj_l, pdb_l = c.topologies.grid(TG1K_SIDE, node_labels=False)
+    _, lstates, lps = build_cell(
+        c.topologies, lambda: (seeded_metrics(adj_l, LFA_SEED,
+                                              LFA_METRIC_MAX), pdb_l))
+    n6, b6 = MC_LFA_SHARDS
+    mesh6 = c.sharding.make_mesh(n6, batch=b6, devices=[dev] * n6)
+    lsolver = gs.GpuSpfSolver("node-0-0", device=dev, enable_lfa=True)
+    lnames = sorted(lstates["0"].get_adjacency_databases())
+    l_dbs = lsolver.build_fabric_route_dbs(lnames, lstates, lps, mesh=mesh6)
+    lad = lsolver._area_dev["0"]
+    lroots, lnbr, lw, _ = c.fabric.root_tables(lad.plan, lstates["0"],
+                                               lnames)
+    n_trips = lsolver.last_fabric_stats["n_trips"]
+    got = c.sharding.sharded_fabric_step(mesh6, lad.plan, lad.matrix, lroots,
+                                         lnbr, lw, n_trips, lfa=True,
+                                         with_ok=True)
+    want = c.sharding.sharded_fabric_step(None, lad.plan, lad.matrix, lroots,
+                                          lnbr, lw, n_trips, lfa=True,
+                                          with_ok=True, device=dev)
+    n_cap = lad.plan.n_cap
+    check(got[0].shape[1] == -(-n_cap // 3) * 3 and max_abs_err(
+        torch, (got[0][:, :n_cap],) + got[1:], want) == 0,
+        "tg1k-lfa: the graph-3 mesh step != the one-card step")
+    backups = int((got[4] >= 0).sum())
+    check(backups > 0, "tg1k-lfa on the mesh: no LFA backup")
+    for nm in lnames[::LFA_ORACLE_EVERY]:
+        ref = c.SpfSolver(nm, enable_lfa=True).build_route_db(nm, lstates,
+                                                              lps)
+        check(rib_equal(ref, l_dbs[nm]), f"tg1k-lfa mesh: {nm} != oracle")
+    log(f"tg1k-lfa on {mesh6!r}: node axis {n_cap} -> {got[0].shape[1]}, "
+        f"the step == the one-card step, {backups} rows with an LFA backup, "
+        f"every {LFA_ORACLE_EVERY}th RIB == the LFA oracle")
+    del got, want, l_dbs
+
+    # -- the dry run, and a mesh of real cards -----------------------------------
+    c.entry.dryrun_multichip(MC_SHARDS, device=dev)  # prints its line
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        real = gs.GpuSpfSolver(root, device=dev,
+                               multichip_n_cap_threshold=MC_THRESHOLD)
+        db = real.build_route_db(root, states, ps)
+        logical = gs.GpuSpfSolver(root, **kw)
+        want = logical.build_route_db(root, states, ps)
+        check(max_abs_err(torch, resident_outputs(real, root),
+                          resident_outputs(logical, root)) == 0
+              and rib_equal(want, db),
+              "lsdb100k_mc on the cards != on logical shards")
+        log(f"lsdb100k_mc on {real._area_dev['0'].mc_mesh!r} == the logical "
+            f"shards")
+    else:
+        log(f"one card visible: lsdb100k_mc on a mesh of real cards (NCCL "
+            f"combine) not run")
+    return windows, halo
+
+
 def main() -> int:
     import torch
 
@@ -2723,7 +3286,9 @@ def main() -> int:
     from openr_tpu_torch.decision import gpu_solver, whatif
     from openr_tpu_torch.decision.spf_solver import SpfSolver
     from openr_tpu_torch.models import topologies
+    from openr_tpu_torch import entry
     from openr_tpu_torch.ops import (
+        combine,
         compact,
         csr,
         cuda,
@@ -2819,6 +3384,26 @@ def main() -> int:
                                "openr_tpu/ops/relax.py:148"),
         "K22:unpack_bits": (fabric.unpack_bits, "fabric.cu",
                             "openr_tpu/parallel/sharding.py:213"),
+        "K1s:sssp_init_mc": (relax.sssp_init_mc, "relax.cu",
+                             "openr_tpu/parallel/sharding.py:378"),
+        "K1:relax_step_mc": (relax.relax_step_mc, "relax.cu",
+                             "openr_tpu/parallel/sharding.py:414"),
+        "K2:ladder_classes_mc": (relax.ladder_classes_mc, "relax.cu",
+                                 "openr_tpu/parallel/sharding.py:402"),
+        "K5:scatter_window": (incremental.scatter_window, "incremental.cu",
+                              "openr_tpu/decision/tpu_solver.py:1113"),
+        "K6:parent_shift_mc": (incremental.parent_shift_mc, "incremental.cu",
+                               "openr_tpu/parallel/sharding.py:527"),
+        "K6:parent_fill": (incremental.parent_fill, "incremental.cu",
+                           "openr_tpu/parallel/sharding.py:552"),
+        "K7:owned_weights": (incremental.owned_weights, "incremental.cu",
+                             "openr_tpu/parallel/sharding.py:575"),
+        "K7:cone_seed_mc": (incremental.cone_seed_mc, "incremental.cu",
+                            "openr_tpu/parallel/sharding.py:581"),
+        "K21:fabric_relax_mc": (fabric.fabric_relax_mc, "fabric.cu",
+                                "openr_tpu/parallel/sharding.py:104"),
+        "K23:shard_combine": (combine.shard_combine, "combine.cu",
+                              "openr_tpu/parallel/sharding.py:420"),
     }
     cold_path = list(COLD_PATH)
     # variants of a kernel: (the wrapper's entry, what it replaces); their
@@ -2892,7 +3477,8 @@ def main() -> int:
         compact=compact, stream=stream, ksp2=ksp2, ucmp=ucmp, sweep=sweep,
         whatif=whatif, variant_launches=variant_launches,
         te=te, record_float=record_float, legacy=legacy, fabric=fabric,
-        csr=csr, sharding=sharding, select=select,
+        csr=csr, sharding=sharding, select=select, combine=combine,
+        incremental=incremental, entry=entry,
         topologies=topologies, SpfSolver=SpfSolver,
         AdjacencyDatabase=AdjacencyDatabase, PrefixDatabase=PrefixDatabase,
         PrefixEntry=PrefixEntry,
@@ -3480,6 +4066,13 @@ def main() -> int:
         f"all-pairs {t_mid - t_phase:.1f} s, whole fabric "
         f"{time.perf_counter() - t_mid:.1f} s)")
 
+    log(f"-- phase 14 starts at "
+        f"{time.perf_counter() - t_start:.1f} s")
+    # -- 14. the multichip tier on logical shards ----------------------------
+    t_phase = time.perf_counter()
+    mc_windows, mc_halo = multichip_phase(c, (adj_dbs, states, ps), fcell)
+    log(f"phase 14 took {time.perf_counter() - t_phase:.1f} s")
+
     # -- result ----------------------------------------------------------
     kernels = []
     for name, (fn, src, replaces) in wrappers.items():
@@ -3494,13 +4087,14 @@ def main() -> int:
                    "allpairs": allpairs_launches[name],
                    "fabric": fabric_launches[name],
                    "fabric_step": step_launches[name]}
+        by_mc = {k: w.get(name, 0) for k, w in mc_windows.items()}
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": f"openr_tpu_torch/csrc/{src}",
             "replaces": replaces,
-            "launches": sum(by_path.values()),
-            "launches_by_path": by_path,
+            "launches": sum(by_path.values()) + sum(by_mc.values()),
+            "launches_by_path": {**by_path, "multichip": by_mc},
             **results[name],
         })
     for name, (base, replaces) in variants.items():
@@ -3513,7 +4107,8 @@ def main() -> int:
             "launches": variant_launches[name],
             **results[name],
         })
-    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"kernels": kernels,
+                    "multichip_halo_exchanges": mc_halo}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],

@@ -17,6 +17,18 @@
 // The seed planes come from K1s with a root axis and the selection is K3
 // with a root axis and one shared announcer matrix.
 //
+// K21 [mc], the same step on a ('batch', 'graph') mesh wider than one
+// card (_sharded_fabric_fn's graph split, :104-148): a shard holds the
+// class-weight columns [col0, col0 + w_cols) as [s_cap, w_cols] and its
+// own residual rows, and relaxes over those sources only; the group's
+// min over its members' planes (csrc/combine.cu) is the reference's
+// pmin. The node axis may then be padded to a multiple of the graph
+// size (sharded_fabric_step, :755-762), so n_cap need not be a power of
+// two: a shift is a signed difference of node indices (|δ| < n_cap,
+// ops/edgeplan.py), so a source index u - δ wraps at most once. The pad
+// columns carry INF_E weights: they never
+// lower a word and are never a real edge's target.
+//
 // Root masking without copies: the reference gives each root private
 // class weights with the root's source column set to INF_E, and
 // residual weights set to INF_E where the source is the root. Such a
@@ -81,13 +93,14 @@ __device__ __forceinline__ void gate_close(const Gate& g, int lane,
 }
 
 // K21 shift part: out[r,d,u] = min(dist[r,d,u], min over classes k whose
-// source src = (u - deltas[k]) mod n_cap is not roots[r] of
-// dist[r,d,src] + sw[k,src]). Jacobi: reads `dist`, writes `out`.
+// source src = (u - deltas[k]) mod n_cap is not roots[r] and lies in the
+// column window of dist[r,d,src] + sw[k,src - col0]). Jacobi: reads
+// `dist`, writes `out`. |deltas[k]| < n_cap.
 __global__ void fabric_shift_kernel(
     const int* __restrict__ dist, int* __restrict__ out,
     const int* __restrict__ deltas, const int* __restrict__ sw,
     const int* __restrict__ roots, int d_cap, int n_cap, int s_cap,
-    int* __restrict__ flag, Gate gate) {
+    int col0, int w_cols, int* __restrict__ flag, Gate gate) {
     const int lane = blockIdx.y;
     if (!gate_open(gate, lane)) return;
     const long long plane = (long long)d_cap * n_cap;
@@ -97,23 +110,25 @@ __global__ void fabric_shift_kernel(
     long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     int changed = 0;
     if (i < plane) {
-        const unsigned hi = (unsigned)n_cap - 1u;
         int d = (int)(i / n_cap);
         unsigned u = (unsigned)(i - (long long)d * n_cap);
         const int* row = dist + (long long)d * n_cap;
         int cur = row[u];
         int acc = cur;
         for (int k = 0; k < s_cap; ++k) {
-            unsigned src = (u - (unsigned)deltas[k]) & hi;
-            if (src == root) continue;
-            acc = min(acc, row[src] + sw[(long long)k * n_cap + src]);
+            int s = (int)u - deltas[k];
+            s += s < 0 ? n_cap : (s >= n_cap ? -n_cap : 0);
+            unsigned src = (unsigned)s;
+            unsigned lc = src - (unsigned)col0;
+            if (src == root || lc >= (unsigned)w_cols) continue;
+            acc = min(acc, row[src] + sw[(long long)k * w_cols + lc]);
         }
         out[i] = acc;
         changed = acc < cur;
     }
     int any = __syncthreads_or(changed);
     if (threadIdx.x == 0) {
-        if (any) atomicOr(flag, 1);
+        if (any && flag) atomicOr(flag, 1);
         gate_close(gate, lane, any);
     }
 }
@@ -180,7 +195,7 @@ __global__ void fabric_residual_kernel(
     }
     int any = __syncthreads_or(changed);
     if (threadIdx.x == 0) {
-        if (any) atomicOr(flag, 1);
+        if (any && flag) atomicOr(flag, 1);
         gate_close(gate, lane, any);
     }
 }
@@ -199,13 +214,14 @@ __global__ void unpack_bits_kernel(const int* __restrict__ words,
 extern "C" {
 
 int fabric_shift(const int* dist, int* out, const int* deltas, const int* sw,
-                 const int* roots, int d_cap, int n_cap, int s_cap, int* flag,
-                 int g, int* st, int* cnt, int thr0, int thr1, int put0,
-                 int put1, int inc0, int inc1, cudaStream_t stream) {
+                 const int* roots, int d_cap, int n_cap, int s_cap, int col0,
+                 int w_cols, int* flag, int g, int* st, int* cnt, int thr0,
+                 int thr1, int put0, int put1, int inc0, int inc1,
+                 cudaStream_t stream) {
     Gate gate = {st, cnt, thr0, thr1, put0, put1, inc0, inc1};
     fabric_shift_kernel<<<grid_for((long long)d_cap * n_cap, g), THREADS, 0,
                           stream>>>(dist, out, deltas, sw, roots, d_cap, n_cap,
-                                    s_cap, flag, gate);
+                                    s_cap, col0, w_cols, flag, gate);
     return (int)cudaGetLastError();
 }
 

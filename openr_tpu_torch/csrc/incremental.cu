@@ -11,6 +11,16 @@
 //   K8  ops/incremental.py::incremental_sssp, :207-240  cone spread step
 //   K9  ops/incremental.py::incremental_sssp, :242-254  cone size,
 //       in-device fallback decision, warm or cold seed plane
+// and, with a window of columns (or rows) per shard, their multichip
+// variants in parallel/sharding.py::make_mc_incremental_sssp:
+//   K5 [mc]  global flat indices translated to the shard's window, the
+//            rest dropped (:494-516; decision/tpu_solver.py::
+//            _mc_scatter_jit, :1113, the in-place sharded scatter)
+//   K6 [mc]  tight edges over the shard's own source columns (:527-551;
+//            the group then takes the max of its members' planes)
+//   K7 [mc]  the dirty slots' new weights read from the owning shard
+//            (:575-580; min over the group), and the seeds from those
+//            combined weights (:581-598)
 //
 // Bound: bytes. K6, K8 and K9 stream [D, n_cap] int32 planes once
 // (K6 also the [s_cap, n_cap] old weights) with a handful of integer
@@ -57,13 +67,35 @@ __global__ void scatter_set_kernel(int* __restrict__ plane,
     if (f >= 0 && f < numel) plane[f] = vals[i];
 }
 
+// K5 [mc]: idx[i] is a flat index into a global [rows, cols] plane; the
+// shard holds the window [row0, row0 + w_rows) x [col0, col0 + w_cols)
+// as a [w_rows, w_cols] plane. Entries inside the window are set at
+// their local index, every other entry (foreign or pad) drops.
+__global__ void scatter_window_kernel(int* __restrict__ plane,
+                                      const int* __restrict__ idx,
+                                      const int* __restrict__ vals, int n,
+                                      int rows, int cols, int row0,
+                                      int w_rows, int col0, int w_cols) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    int f = idx[i];
+    if (f < 0 || (long long)f >= (long long)rows * cols) return;
+    int lr = f / cols - row0;
+    int lc = f % cols - col0;
+    if (lr < 0 || lr >= w_rows || lc < 0 || lc >= w_cols) return;
+    plane[(long long)lr * w_cols + lc] = vals[i];
+}
+
 // K6 shift part: par[d, v] = (v - δ_k) mod n for the lowest class k
-// whose old edge into v is tight under prev, else -1.
+// whose old edge into v is tight under prev, else -1. K6 [mc]: only the
+// sources u in the shard's column window [col0, col0 + w_cols) count,
+// their old weights read from its [s_cap, w_cols] plane.
 __global__ void parent_shift_kernel(const int* __restrict__ deltas,
                                     const int* __restrict__ swm_old,
                                     const int* __restrict__ prev,
                                     int* __restrict__ par, int s_cap,
-                                    int n_cap, int d_cap) {
+                                    int n_cap, int d_cap, int col0,
+                                    int w_cols) {
     long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= (long long)d_cap * n_cap) return;
     const unsigned hi = (unsigned)n_cap - 1u;
@@ -74,8 +106,10 @@ __global__ void parent_shift_kernel(const int* __restrict__ deltas,
     int p = -1;
     for (int k = 0; k < s_cap; ++k) {
         unsigned u = (v - (unsigned)deltas[k]) & hi;
+        unsigned lc = u - (unsigned)col0;
+        if (lc >= (unsigned)w_cols) continue;
         int pu = row[u];
-        int w = swm_old[(long long)k * n_cap + u];
+        int w = swm_old[(long long)k * w_cols + lc];
         if (pu < INF_E && w < INF_E && pu + w == pv) {
             p = (int)u;
             break;
@@ -115,11 +149,34 @@ __global__ void parent_residual_kernel(const int* __restrict__ res_rows,
     }
 }
 
+// K7 [mc] gather: new_loc[j] = the root-masked new weight of shift entry
+// j where the shard owns its source column, INF_E elsewhere (the group's
+// min is then the owning shard's value).
+__global__ void owned_weights_kernel(const int* __restrict__ swm_new,
+                                     const int* __restrict__ s_idx,
+                                     int* __restrict__ new_loc, int n_s,
+                                     int s_cap, int n_cap, int col0,
+                                     int w_cols) {
+    int j = blockIdx.x * blockDim.x + threadIdx.x;
+    if (j >= n_s) return;
+    int f = s_idx[j];
+    int v = INF_E;
+    if (f >= 0 && (long long)f < (long long)s_cap * n_cap) {
+        int lc = f % n_cap - col0;
+        if (lc >= 0 && lc < w_cols)
+            v = swm_new[(long long)(f / n_cap) * w_cols + lc];
+    }
+    new_loc[j] = v;
+}
+
 // K7: one thread per (lane, dirty entry) over the shift entries, then
 // the residual entries. aff[d, head] = 1 where the root-masked weight
-// increased and the edge is the head's forest edge.
+// increased and the edge is the head's forest edge. K7 [mc] passes the
+// shift entries' new weights as `new_m` (the group's combined
+// owned_weights) instead of reading them from a whole plane.
 __global__ void cone_seed_kernel(
     const int* __restrict__ par, const int* __restrict__ swm_new,
+    const int* __restrict__ new_m_s,
     const int* __restrict__ deltas, const int* __restrict__ s_idx,
     const int* __restrict__ s_old, const int* __restrict__ rwm_new,
     const int* __restrict__ res_rows, const int* __restrict__ res_nbr,
@@ -136,7 +193,7 @@ __global__ void cone_seed_kernel(
         const unsigned hi = (unsigned)n_cap - 1u;
         int k = f / n_cap;
         unsigned u = (unsigned)f & hi;
-        int new_m = swm_new[f];
+        int new_m = new_m_s ? new_m_s[j] : swm_new[f];
         int old_m = ((int)u == root) ? INF_E : s_old[j];
         if (new_m <= old_m) return;
         unsigned v = (u + (unsigned)deltas[k]) & hi;
@@ -231,12 +288,28 @@ int scatter_set(int* plane, const int* idx, const int* vals, int n,
     return (int)cudaGetLastError();
 }
 
+int scatter_window(int* plane, const int* idx, const int* vals, int n,
+                   int rows, int cols, int row0, int w_rows, int col0,
+                   int w_cols, cudaStream_t stream) {
+    scatter_window_kernel<<<blocks_for(n), THREADS, 0, stream>>>(
+        plane, idx, vals, n, rows, cols, row0, w_rows, col0, w_cols);
+    return (int)cudaGetLastError();
+}
+
 int parent_shift(const int* deltas, const int* swm_old, const int* prev,
-                 int* par, int s_cap, int n_cap, int d_cap,
-                 cudaStream_t stream) {
+                 int* par, int s_cap, int n_cap, int d_cap, int col0,
+                 int w_cols, cudaStream_t stream) {
     parent_shift_kernel<<<blocks_for((long long)d_cap * n_cap), THREADS, 0,
                           stream>>>(deltas, swm_old, prev, par, s_cap, n_cap,
-                                    d_cap);
+                                    d_cap, col0, w_cols);
+    return (int)cudaGetLastError();
+}
+
+int owned_weights(const int* swm_new, const int* s_idx, int* new_loc,
+                  int n_s, int s_cap, int n_cap, int col0, int w_cols,
+                  cudaStream_t stream) {
+    owned_weights_kernel<<<blocks_for(n_s), THREADS, 0, stream>>>(
+        swm_new, s_idx, new_loc, n_s, s_cap, n_cap, col0, w_cols);
     return (int)cudaGetLastError();
 }
 
@@ -249,16 +322,16 @@ int parent_residual(const int* res_rows, const int* res_nbr,
     return (int)cudaGetLastError();
 }
 
-int cone_seed(const int* par, const int* swm_new, const int* deltas,
-              const int* s_idx, const int* s_old, const int* rwm_new,
-              const int* res_rows, const int* res_nbr, const int* r_idx,
-              const int* r_old, int* aff, int root, int s_cap, int n_cap,
-              int d_cap, int n_s, int r_cap, int kr_cap, int n_r,
-              cudaStream_t stream) {
+int cone_seed(const int* par, const int* swm_new, const int* new_m_s,
+              const int* deltas, const int* s_idx, const int* s_old,
+              const int* rwm_new, const int* res_rows, const int* res_nbr,
+              const int* r_idx, const int* r_old, int* aff, int root,
+              int s_cap, int n_cap, int d_cap, int n_s, int r_cap,
+              int kr_cap, int n_r, cudaStream_t stream) {
     long long total = (long long)d_cap * (n_s + n_r);
     cone_seed_kernel<<<blocks_for(total), THREADS, 0, stream>>>(
-        par, swm_new, deltas, s_idx, s_old, rwm_new, res_rows, res_nbr, r_idx,
-        r_old, aff, root, s_cap, n_cap, d_cap, n_s, r_cap, kr_cap, n_r);
+        par, swm_new, new_m_s, deltas, s_idx, s_old, rwm_new, res_rows,
+        res_nbr, r_idx, r_old, aff, root, s_cap, n_cap, d_cap, n_s, r_cap, kr_cap, n_r);
     return (int)cudaGetLastError();
 }
 

@@ -14,6 +14,19 @@
 // _fused_pipeline: every kernel takes `g` stacked same-shape areas and
 // runs them as the grid's y dimension, so one launch covers every lane.
 //
+// Column windows (the multichip tier, parallel/sharding.py): a shard
+// holds only the class-weight columns [col0, col0 + w_cols) of the
+// [s_cap, n_cap] planes, as an [s_cap, w_cols] tensor. K1s [mc] masks
+// the root's column only where it lies in the window, K1 [mc] relaxes
+// over the shard's own source columns only (a source outside the
+// window contributes nothing, as the reference's INF-padded full-width
+// row does: dist + INF_E never lowers a word), and K2 [mc] gathers its
+// ladder rows full width with INF_E outside the window
+// (parallel/sharding.py::make_mc_sssp, :381-400; ops/relax.py:227-232).
+// The one-card path passes the whole width (col0 = 0, w_cols = n_cap).
+// A null change flag is allowed where the caller reads the group's
+// change from the combine (csrc/combine.cu) instead.
+//
 // Lane gates (fused solves): under vmap each lane's while-loop carry
 // advances only while that lane's own predicate holds. A Gate carries
 // per-lane stamps st[g][2] of the step in which the lane last changed
@@ -101,16 +114,17 @@ __global__ void sssp_init_kernel(
     int* __restrict__ nbr_c, int* __restrict__ rw,
     const int* __restrict__ seeds_nbr, const int* __restrict__ seeds_w,
     int* __restrict__ dist0, int s_cap, int n_cap, int r_cap, int kr_cap,
-    int d_cap, int root, const int* __restrict__ roots) {
+    int d_cap, int root, const int* __restrict__ roots, int col0,
+    int w_cols) {
     long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     const int lane = blockIdx.y;
-    const long long n_sw = (long long)s_cap * n_cap;
+    const long long n_sw = (long long)s_cap * w_cols;
     const long long n_res = (long long)r_cap * kr_cap;
     const long long n_dist = (long long)d_cap * n_cap;
     const int hi = n_cap - 1;
     if (roots) root = roots[lane];
     if (i < n_sw) {
-        int u = (int)(i & hi);
+        int u = col0 + (int)(i % w_cols);
         i += lane * n_sw;
         sw[i] = (u == root) ? INF_E : shift_w[i];
         return;
@@ -142,19 +156,21 @@ __global__ void sssp_init_kernel(
 }
 
 // K1 shift part: out[d,u] = min(dist[d,u], min_k dist[d,src] + sw[k,src])
-// with src = (u - deltas[k]) mod n_cap. Jacobi: reads `dist`, writes
+// with src = (u - deltas[k]) mod n_cap, over the sources in the column
+// window (K1 [mc]; the whole width on one card). Jacobi: reads `dist`, writes
 // `out` (a different buffer), so trips/rounds match the JAX loop.
 __global__ void relax_shift_kernel(
     const int* __restrict__ dist, int* __restrict__ out,
     const int* __restrict__ deltas, const int* __restrict__ sw,
-    int d_cap, int n_cap, int s_cap, int* __restrict__ flag, Gate gate) {
+    int d_cap, int n_cap, int s_cap, int col0, int w_cols,
+    int* __restrict__ flag, Gate gate) {
     const int lane = blockIdx.y;
     if (!gate_open(gate, lane)) return;
     const long long plane = (long long)d_cap * n_cap;
     dist += lane * plane;
     out += lane * plane;
     deltas += (long long)lane * s_cap;
-    sw += lane * (long long)s_cap * n_cap;
+    sw += lane * (long long)s_cap * w_cols;
     long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     int changed = 0;
     if (i < plane) {
@@ -166,14 +182,16 @@ __global__ void relax_shift_kernel(
         int acc = cur;
         for (int k = 0; k < s_cap; ++k) {
             unsigned src = (u - (unsigned)deltas[k]) & hi;
-            acc = min(acc, row[src] + sw[(long long)k * n_cap + src]);
+            unsigned lc = src - (unsigned)col0;  // local column
+            if (lc < (unsigned)w_cols)
+                acc = min(acc, row[src] + sw[(long long)k * w_cols + lc]);
         }
         out[i] = acc;
         changed = acc < cur;
     }
     int any = __syncthreads_or(changed);
     if (threadIdx.x == 0) {
-        if (any) atomicOr(flag, 1);
+        if (any && flag) atomicOr(flag, 1);
         gate_close(gate, lane, any);
     }
 }
@@ -224,7 +242,7 @@ __global__ void relax_residual_kernel(
     }
     int any = __syncthreads_or(changed);
     if (threadIdx.x == 0) {
-        if (any) atomicOr(flag, 1);
+        if (any && flag) atomicOr(flag, 1);
         gate_close(gate, lane, any);
     }
 }
@@ -249,15 +267,17 @@ __global__ void ladder_score_kernel(const int* __restrict__ sw,
 }
 
 // K2 ladder rows: w_base[i,u] = sw[lad[i],u] if <= dq else INF_E, and
-// d_base[i] = deltas[lad[i]] reduced mod n_cap.
+// d_base[i] = deltas[lad[i]] reduced mod n_cap. The rows are full width;
+// K2 [mc] reads a shard's window of columns and leaves INF_E outside it.
 __global__ void ladder_gather_kernel(
     const int* __restrict__ sw, const int* __restrict__ deltas,
     const int64_t* __restrict__ lad, int* __restrict__ w_base,
-    int* __restrict__ d_base, int s_cap, int s_lad, int n_cap, int dq) {
+    int* __restrict__ d_base, int s_cap, int s_lad, int n_cap, int dq,
+    int col0, int w_cols) {
     const int lane = blockIdx.y;
     long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= (long long)s_lad * n_cap) return;
-    sw += lane * (long long)s_cap * n_cap;
+    sw += lane * (long long)s_cap * w_cols;
     deltas += (long long)lane * s_cap;
     lad += (long long)lane * s_lad;
     w_base += lane * (long long)s_lad * n_cap;
@@ -265,7 +285,8 @@ __global__ void ladder_gather_kernel(
     int k = (int)(i / n_cap);
     int u = (int)(i - (long long)k * n_cap);
     long long cls = lad[k];
-    int w = sw[cls * n_cap + u];
+    unsigned lc = (unsigned)(u - col0);
+    int w = lc < (unsigned)w_cols ? sw[cls * w_cols + lc] : INF_E;
     w_base[i] = (w <= dq) ? w : INF_E;
     if (u == 0) d_base[k] = (int)((unsigned)deltas[cls] & ((unsigned)n_cap - 1u));
 }
@@ -337,23 +358,24 @@ int sssp_init(const int* shift_w, int* sw, const int* res_rows,
               int* nbr_c, int* rw, const int* seeds_nbr,
               const int* seeds_w, int* dist0, int s_cap, int n_cap,
               int r_cap, int kr_cap, int d_cap, int root, const int* roots,
-              int g, cudaStream_t stream) {
-    long long total = (long long)s_cap * n_cap + (long long)r_cap * kr_cap +
+              int g, int col0, int w_cols, cudaStream_t stream) {
+    long long total = (long long)s_cap * w_cols + (long long)r_cap * kr_cap +
                       r_cap + (long long)d_cap * n_cap;
     sssp_init_kernel<<<grid_for(total, g), THREADS, 0, stream>>>(
         shift_w, sw, res_rows, res_nbr, res_w, rows_c, nbr_c, rw,
         seeds_nbr, seeds_w, dist0, s_cap, n_cap, r_cap, kr_cap, d_cap,
-        root, roots);
+        root, roots, col0, w_cols);
     return (int)cudaGetLastError();
 }
 
 int relax_shift(const int* dist, int* out, const int* deltas,
-                const int* sw, int d_cap, int n_cap, int s_cap, int* flag,
-                int g, int* st, int* cnt, int thr0, int thr1, int put0,
-                int put1, int inc0, int inc1, cudaStream_t stream) {
+                const int* sw, int d_cap, int n_cap, int s_cap, int col0,
+                int w_cols, int* flag, int g, int* st, int* cnt, int thr0,
+                int thr1, int put0, int put1, int inc0, int inc1,
+                cudaStream_t stream) {
     relax_shift_kernel<<<grid_for((long long)d_cap * n_cap, g), THREADS, 0,
                          stream>>>(
-        dist, out, deltas, sw, d_cap, n_cap, s_cap, flag,
+        dist, out, deltas, sw, d_cap, n_cap, s_cap, col0, w_cols, flag,
         make_gate(st, cnt, thr0, thr1, put0, put1, inc0, inc1));
     return (int)cudaGetLastError();
 }
@@ -380,10 +402,10 @@ int ladder_score(const int* sw, int* score, int s_cap, int n_cap, int dq,
 
 int ladder_gather(const int* sw, const int* deltas, const int64_t* lad,
                   int* w_base, int* d_base, int s_cap, int s_lad, int n_cap,
-                  int dq, int g, cudaStream_t stream) {
+                  int dq, int g, int col0, int w_cols, cudaStream_t stream) {
     ladder_gather_kernel<<<grid_for((long long)s_lad * n_cap, g), THREADS, 0,
                            stream>>>(sw, deltas, lad, w_base, d_base, s_cap,
-                                     s_lad, n_cap, dq);
+                                     s_lad, n_cap, dq, col0, w_cols);
     return (int)cudaGetLastError();
 }
 

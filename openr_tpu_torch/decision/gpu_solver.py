@@ -66,19 +66,26 @@ K1 rows, K11 deltas against the previous generation's rows), traced on
 the host into the k-paths cache. The oracle's selection, canonical
 trace and label assembly then run unchanged, with no host Dijkstra.
 
+An area whose node capacity exceeds ``multichip_n_cap_threshold``
+solves on the multichip tier when its mesh has two or more devices
+(``_mc_mesh_for``; by default the visible cards, ``multichip_devices``
+names others — a list that repeats one card makes logical shards on
+it): the area's mirror lies on the ('batch', 'graph') mesh as
+``parallel/sharding.plan_shardings`` says, churn scatters each dirty
+slot into its owning shard in place (K5 [mc]), and ``mc_pipeline`` runs
+the mesh SSSP (``parallel/sharding.mc_sssp`` / ``mc_incremental_sssp``)
+and the selection tail over the gathered lanes. Such an area never
+fuses and never streams, as in the reference.
+
 ``build_fabric_route_dbs`` answers every requested vantage of a
-single-area LSDB from ONE whole-fabric step on the solver's card (the
-port of the reference's sharded fabric path on a one-device mesh,
-``ops/fabric.fabric_step``: each root's SSSP over the resident mirror,
-the root masked as transit, a convergence vote, K3 per root), one
-ColumnarRib per vantage. ``legacy_pipeline``, ``sssp_batch`` and
+single-area LSDB from ONE whole-fabric step (the port of the
+reference's sharded fabric path: each root's SSSP, the root masked as
+transit, a convergence vote, K3 per root; ``ops/fabric.
+fabric_step_grid``) — over the resident mirror on the solver's card by
+default, else with the roots split over 'batch' and the weight columns
+over 'graph' of a mesh —, one ColumnarRib per vantage. ``legacy_pipeline``, ``sssp_batch`` and
 ``sssp_all_pairs`` are the legacy ELL pipeline and the all-roots SSSP
 (``ops/legacy.py``, K18-K20) of the graft entry (``entry.py``).
-
-Not ported yet, and refused rather than approximated: the multichip
-tier (an area above ``multichip_n_cap_threshold`` with two or more
-cards visible) and the cross-card split of the whole-fabric step (a
-mesh of more than one device).
 
 ``device`` defaults to "cuda" and raises without a CUDA device unless
 the caller passes ``device="cpu"``, which runs each kernel's plain
@@ -262,8 +269,9 @@ class PipelineOut(NamedTuple):
 
 
 def _timing_events(t: torch.Tensor, n: int):
-    """(events or None, mark): ``n`` CUDA events on a CUDA device, and a
-    function that records the next one."""
+    """(events or None, mark): ``n`` CUDA events when ``t`` lies on a
+    card, and a function that records the next one on that card's
+    current stream."""
     events = None
     if t.is_cuda:
         events = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
@@ -272,7 +280,7 @@ def _timing_events(t: torch.Tensor, n: int):
     def mark():
         ev = next(pending, None)
         if ev is not None:
-            ev.record()
+            ev.record(torch.cuda.current_stream(t.device))
 
     return events, mark
 
@@ -415,6 +423,137 @@ def fused_pipeline(lane_args, *, has_res: bool, block_v4: bool = False,
     ]
 
 
+class McInfo(NamedTuple):
+    """What a multichip solve reports beside its pipeline outputs."""
+
+    shards: int
+    batch: int
+    graph: int
+    # per shard "b.g": the end of its batch group's loop — (the
+    # dispatch's start, that end) as CUDA events on the shard's card
+    # (an event pair must share a card), else ms on the host clock
+    # since the dispatch began
+    shard_end: dict
+    # the group combines: rounds under sync, epochs under bucketed
+    halo_exchanges: int
+    # the root tables and dirty tuples uploaded to the shards
+    bytes_uploaded: int
+
+    def shard_ms(self) -> dict:
+        """Per shard: ms from the dispatch's start until its batch group
+        left its loop. Reads the events: call after the pull."""
+        return {k: v[0].elapsed_time(v[1]) if isinstance(v, tuple) else v
+                for k, v in self.shard_end.items()}
+
+
+def mc_pipeline(mesh, mirror: dict, mbuf, root: int, root_nbr, root_w,
+                prev_metric, prev_s3w, prev_nhw, prev_lfa_slot,
+                prev_lfa_metric, *, has_res: bool, n_cap: int, s_cap: int,
+                block_v4: bool = False, sentinels: bool = True,
+                kernel: str = "sync", delta_exp: int = 0,
+                budget: int = DELTA_BUDGET, incr=None, lfa: bool = False):
+    """``pipeline`` on the multichip tier's ('batch', 'graph') mesh (the
+    port of ``tpu_solver._mc_pipeline`` / ``_mc_incr_pipeline``): the SSSP
+    core is ``parallel/sharding.mc_sssp`` (or ``mc_incremental_sssp``
+    with ``incr``) over the area's resident mirror as the mesh holds it
+    (``mirror``: ``Sharded`` deltas, shift_w, res_rows, res_nbr, res_w;
+    the residual is gathered whole at use), the root tables (numpy, D a
+    multiple of the batch axis) split over 'batch'; the gathered lanes
+    then run the selection tail (K3, K4) on the device of ``mbuf`` and
+    the previous outputs, as the reference's tail runs on a replicated
+    plane. ``incr`` is ``(prev_dist, s_dirty_idx, s_dirty_old,
+    r_dirty_idx, r_dirty_old, cone_limit)``: the previous planes as the
+    mesh holds them (a grid, each batch group its lanes), the dirty
+    tuples as numpy arrays. trips and rounds are the max over the batch
+    groups. Returns ``(PipelineOut, McInfo)``; the output's ``dist`` is
+    the grid of planes (the next incremental solve's seed, each group's
+    lanes staying home)."""
+    from openr_tpu_torch.parallel import sharding
+
+    dev = mbuf.device
+    p_cap = prev_metric.shape[0]
+    a_cap = mbuf.numel() // (6 * p_cap)
+    d_cap = root_nbr.shape[0]
+    cuda_ev = dev.type == "cuda"
+    events, mark = _timing_events(prev_metric, 4)
+    t0 = time.perf_counter()
+    mark()
+    shard_end = {}
+    starts = {}
+    for _, _, sdev in mesh.shards() if cuda_ev else ():
+        if sdev not in starts:
+            starts[sdev] = torch.cuda.Event(enable_timing=True)
+            starts[sdev].record(torch.cuda.current_stream(sdev))
+
+    def done(b):
+        for j, sdev in enumerate(mesh.devices[b]):
+            if cuda_ev:
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record(torch.cuda.current_stream(sdev))
+                shard_end[f"{b}.{j}"] = (starts[sdev], ev)
+            else:
+                shard_end[f"{b}.{j}"] = (time.perf_counter() - t0) * 1e3
+
+    whole = {}
+
+    def at_use(name, b, j):
+        """The residual whole on the shard's card (one copy a card)."""
+        key = (name, mesh.devices[b][j])
+        if key not in whole:
+            whole[key] = sharding.gather(mirror[name], b, j)
+        return whole[key]
+
+    grid = sharding._grid
+    lanes = sharding.Layout(0, "batch")
+    placed = [sharding.place(mesh, root_nbr, lanes),
+              sharding.place(mesh, root_w, lanes)]
+    kw = dict(
+        deltas=mirror["deltas"].parts, shift_w=mirror["shift_w"].parts,
+        res_rows=grid(mesh, lambda b, j: at_use("res_rows", b, j)),
+        res_nbr=grid(mesh, lambda b, j: at_use("res_nbr", b, j)),
+        res_w=grid(mesh, lambda b, j: at_use("res_w", b, j)),
+        root=int(root), root_nbr=placed[0].parts, root_w=placed[1].parts,
+    )
+    static = dict(s_cap=s_cap, has_res=has_res, n_cap=n_cap, d_cap=d_cap,
+                  max_trips=max_trips(n_cap), kernel=kernel,
+                  delta_exp=delta_exp, done=done)
+    incr_tail = None
+    if incr is None:
+        planes, trips, rounds = sharding.mc_sssp(mesh, **kw, **static)
+    else:
+        prev_dist, sdi, sdo, rdi, rdo, cone_limit = incr
+        dirty = [sharding.place(mesh, a) for a in (sdi, sdo, rdi, rdo)]
+        placed += dirty
+        planes, trips, cone, fell_back, rounds = (
+            sharding.mc_incremental_sssp(
+                mesh, **kw, prev_dist=prev_dist, s_dirty_idx=dirty[0].parts,
+                s_dirty_old=dirty[1].parts, r_dirty_idx=dirty[2].parts,
+                r_dirty_old=dirty[3].parts, cone_limit=int(cone_limit),
+                **static))
+        incr_tail = (cone.to(dev), fell_back.to(dev))
+    dist_d = torch.cat([row[0].to(dev) for row in planes])
+    mark()
+    trips, rounds_n = max(trips), max(rounds)
+    sel = select_routes(dist_d, torch.tensor(root_w, device=dev), root, mbuf,
+                        p_cap, a_cap, block_v4, lfa)
+    metric, s3w, nhw, ok = sel[:4]
+    lfa_slot, lfa_metric, lfa_cols = _lfa_tail(sel, prev_lfa_slot,
+                                               prev_lfa_metric, lfa)
+    mark()
+    flags = mbuf[p_cap * a_cap:2 * p_cap * a_cap].view(p_cap, a_cap)
+    delta_buf, full_buf = compact_outputs(
+        metric, s3w, nhw, ok, prev_metric, prev_s3w, prev_nhw, flags,
+        trips, rounds_n, budget, sentinels, incr_tail, lfa_cols,
+    )
+    mark()
+    info = McInfo(mesh.size, mesh.shape["batch"], mesh.shape["graph"],
+                  shard_end, trips if kernel == "bucketed" else rounds_n,
+                  sum(a.nbytes() for a in placed) + 4 * d_cap)
+    return PipelineOut(delta_buf, full_buf, metric, s3w, nhw, trips,
+                       rounds_n, events, planes, 0, lfa_slot,
+                       lfa_metric), info
+
+
 def legacy_pipeline(in_nbr, in_w, in_up, node_over, root, root_nbr,
                     root_w, root_up, ann_node, ann_valid, path_pref,
                     source_pref, dist_adv) -> tuple:
@@ -468,11 +607,17 @@ class _AreaDev:
     __slots__ = (
         "plan", "deltas", "shift_w", "res_rows", "res_nbr", "res_w",
         "matrix_key", "matrix", "flags", "mbuf", "matrix_version",
-        "pack_over", "drain_epoch", "drain_log",
+        "pack_over", "drain_epoch", "drain_log", "mc_mesh", "whole",
     )
 
     def __init__(self):
         self.plan = None
+        # the multichip tier's mesh (None: one device); the mirror
+        # tensors are then parallel/sharding.Sharded arrays on it, and
+        # ``whole`` maps a device to the mirror gathered whole there,
+        # emptied whenever the mirror changes
+        self.mc_mesh = None
+        self.whole = {}
         self.deltas = self.shift_w = None
         self.res_rows = self.res_nbr = self.res_w = None
         self.matrix_key = None
@@ -495,6 +640,25 @@ class _AreaDev:
         # journal gap (cold solve) rather than unbounded host state.
         self.drain_epoch = 0
         self.drain_log = deque(maxlen=16)
+
+
+    def single(self, device=None) -> tuple:
+        """The resident mirror (deltas, shift_w, res_rows, res_nbr,
+        res_w) as tensors on one device: the tensors themselves, or on
+        the multichip tier the shards' parts gathered whole on
+        ``device`` (the mesh's first by default; once after each change
+        of the mirror) for the paths that solve on one card (UCMP, KSP2,
+        what-if, a one-device fabric step)."""
+        names = ("deltas", "shift_w", "res_rows", "res_nbr", "res_w")
+        if self.mc_mesh is None:
+            return tuple(getattr(self, k) for k in names)
+        from openr_tpu_torch.parallel.sharding import canonical, gather
+
+        dev = self.mc_mesh.first if device is None else canonical(device)
+        if dev not in self.whole:
+            self.whole[dev] = tuple(
+                gather(getattr(self, k), 0, 0).to(dev) for k in names)
+        return self.whole[dev]
 
 
 class _VantageState:
@@ -560,8 +724,8 @@ class _UcmpAccel:
         mine = self.base.get((area, root))
         if mine is not None and mine[0] == gen and mine[1] is plan:
             return mine[2], mine[3]
-        d_base, _ = base_sssp(ad.deltas, ad.shift_w, ad.res_rows, ad.res_nbr,
-                              ad.res_w, ridx, plan.k_res > 0)
+        d_base, _ = base_sssp(*ad.single(self.solver.device), ridx,
+                              plan.k_res > 0)
         base_np = d_base.cpu().numpy()
         self.base[(area, root)] = (gen, plan, d_base, base_np)
         return d_base, base_np
@@ -728,6 +892,8 @@ class GpuSpfSolver:
         incremental_cone_frac: float = 0.25,
         spf_kernel: str = "bucketed",
         multichip_n_cap_threshold: int = 131072,
+        multichip_batch: int = 0,
+        multichip_devices=None,
         streaming_pipeline: bool = False,
         **solver_kwargs,
     ):
@@ -768,7 +934,18 @@ class GpuSpfSolver:
         self.streaming_pipeline = streaming_pipeline
         self.incremental_spf = bool(incremental_spf) or streaming_pipeline
         self.incremental_cone_frac = float(incremental_cone_frac)
+        # the multichip tier: an area whose n_cap exceeds the threshold
+        # solves on a ('batch', 'graph') mesh of multichip_devices (the
+        # visible cards by default; the solver's CPU for a CPU solver)
+        # when it has two or more; multichip_batch sets the batch axis
+        # (0: make_mesh's factoring). force_single_chip keeps the tier
+        # off while set; the next sync of an area flips it back.
         self.multichip_n_cap_threshold = int(multichip_n_cap_threshold)
+        self.multichip_batch = int(multichip_batch)
+        self.multichip_devices = (None if multichip_devices is None
+                                  else list(multichip_devices))
+        self.force_single_chip = False
+        self._mc_mesh: object = False  # False: not resolved yet
         self.cpu = SpfSolver(my_node_name, **solver_kwargs)
         # UCMP weights resolve on the device through the oracle's
         # resolver hook (the host walk answers when the hook cannot)
@@ -891,7 +1068,9 @@ class GpuSpfSolver:
         singles: list[dict] = []
         groups: dict[tuple, list] = {}
         for pv in preps:
-            if self.fuse_small_areas and pv["plan"].n_cap <= self.fuse_n_cap:
+            # a multichip-tier area never fuses (as the reference)
+            if (self.fuse_small_areas and pv["mc"] is None
+                    and pv["plan"].n_cap <= self.fuse_n_cap):
                 groups.setdefault(pv["fuse_key"], []).append(pv)
             else:
                 singles.append(pv)
@@ -939,7 +1118,8 @@ class GpuSpfSolver:
         views = []
         totals: dict[str, float] = {}
         area_timing = {}
-        trips = rounds = 0
+        trips = rounds = halo = epochs = 0
+        multichip = False
         bytes_dl = 0
         kernels = set()
         stream = {"epochs": 0, "changed_rows": 0, "overflows": 0}
@@ -952,6 +1132,10 @@ class GpuSpfSolver:
                     totals[k] = totals.get(k, 0.0) + v
             trips += stats["trips"]
             rounds += stats["rounds"]
+            halo += stats.get("halo_exchanges", 0)
+            epochs += stats["bucket_epochs"]
+            if stats.get("multichip"):
+                multichip = stats["multichip"]
             bytes_dl += stats["bytes_downloaded"]
             kernels.add(stats["spf_kernel"])
             if "stream" in stats:
@@ -970,12 +1154,21 @@ class GpuSpfSolver:
             route_db.unicast_routes, views
         )
         counters.add_stat_value("decision.device.rounds", rounds)
+        counters.add_stat_value("decision.device.bucket_epochs", epochs)
+        if multichip:
+            # once a solve: the tier is live
+            counters.increment("decision.solver.multichip.engaged")
+        if halo:
+            counters.add_stat_value("decision.device.halo_exchanges", halo)
         self.last_timing = {
             **totals,
             "pipeline_wall_ms": (time.perf_counter() - pending.t_pipe0) * 1e3,
             "areas": area_timing,
             "trips": trips,
             "rounds": rounds,
+            "bucket_epochs": epochs,
+            "halo_exchanges": halo,
+            "multichip": multichip,
             "spf_kernel": "bucketed" if "bucketed" in kernels else "sync",
             "bytes_uploaded": float(pending.bytes_uploaded),
             "bytes_downloaded": float(bytes_dl),
@@ -1068,7 +1261,7 @@ class GpuSpfSolver:
         root_idx = plan.node_index[my_node_name]
         node_index = plan.node_index
 
-        d_shift_w, d_res_w = ad.shift_w, ad.res_w
+        deltas, d_shift_w, res_rows, res_nbr, d_res_w = ad.single(self.device)
         root_overloaded = link_state.is_node_overloaded(my_node_name)
         if root_overloaded:
             # run_spf exempts the root from its own transit drain; the
@@ -1100,14 +1293,13 @@ class GpuSpfSolver:
         rstate = self._ksp2_rows.get(bkey)
         if rstate is None:
             rstate = self._ksp2_rows[bkey] = MaskedRowsState()
-        planes = (d_shift_w, ad.res_rows, ad.res_nbr, d_res_w, ad.deltas)
+        planes = (d_shift_w, res_rows, res_nbr, d_res_w, deltas)
         if cached is not None and cached[0] == gen and cached[1] is plan:
             d_base, base_np = cached[2], cached[3]
             spec = None  # same generation: the rows are current
         else:
-            d_base, _ = base_sssp(ad.deltas, d_shift_w, ad.res_rows,
-                                  ad.res_nbr, d_res_w, root_idx,
-                                  plan.k_res > 0)
+            d_base, _ = base_sssp(deltas, d_shift_w, res_rows, res_nbr,
+                                  d_res_w, root_idx, plan.k_res > 0)
             pending = pull_async(d_base)
             spec = masked_rows_dispatch(rstate, plan, *planes, root_idx)
             base_np = pull_wait(pending)
@@ -1342,9 +1534,12 @@ class GpuSpfSolver:
         on the solver's card (the port of
         ``TpuSpfSolver.build_fabric_route_dbs``): each root's SSSP over
         the area's resident mirror and its best-route selection, with
-        LFA when enabled (``ops/fabric.fabric_step``). ``mesh`` is None
-        or one device; the reference's cross-card split is not ported
-        (``parallel/sharding.one_card`` raises for more).
+        LFA when enabled. ``mesh`` (a ``parallel/sharding.Mesh`` or a
+        device list) defaults to the solver's card alone, whose step
+        reads the resident mirror; a wider one splits the roots (padded
+        to a multiple of the batch axis with the first root, as the
+        reference pads) over 'batch' and the weight columns over
+        'graph'. Either runs ``ops/fabric.fabric_step_grid``.
 
         Fast-path (IP / SP_ECMP) prefixes compute on the card; the
         oracle answers irregular prefixes, statics and MPLS per vantage,
@@ -1357,10 +1552,13 @@ class GpuSpfSolver:
         vantage gets one ColumnarRib, filled from the packed words K3
         emits (``set_full_packed``, the packed twin of the reference's
         ``set_full_arrays``)."""
-        from openr_tpu_torch.ops.fabric import fabric_step, root_tables
-        from openr_tpu_torch.parallel.sharding import Unconverged, one_card
+        from openr_tpu_torch.ops.fabric import fabric_step_grid, root_tables
+        from openr_tpu_torch.parallel import sharding
 
-        one_card(mesh, self.device)
+        if mesh is None:
+            mesh = sharding.Mesh([[self.device]])
+        elif not isinstance(mesh, sharding.Mesh):
+            mesh = sharding.make_mesh(devices=list(mesh))
         if len(area_link_states) != 1:
             return {
                 r: self.cpu.build_route_db(r, area_link_states, prefix_state)
@@ -1384,32 +1582,47 @@ class GpuSpfSolver:
         if fast and known:
             ad = self._sync_area(area, link_state, prefix_state, fast)
             plan, matrix = ad.plan, ad.matrix
+            b = mesh.shape["batch"]
+            padded = known + [known[0]] * (-len(known) % b)
             roots, out_nbr, out_w, links = root_tables(plan, link_state,
-                                                      known)
+                                                      padded)
             lfa = self.cpu.enable_lfa
             block_v4 = not (
                 self.cpu.enable_v4 or self.cpu.v4_over_v6_nexthop
             )
             use_v4_allowed = not self.cpu.v4_over_v6_nexthop
             p_cap, a_cap = matrix.ann_node.shape
-            roots_t = self._upload(roots)
-            nbr_t, w_t = self._upload(out_nbr), self._upload(out_w)
+            if mesh == sharding.Mesh([[self.device]]):
+                # the resident mirror, as a one-shard grid
+                inputs = dict(
+                    zip(("deltas", "shift_w", "res_rows", "res_nbr", "res_w",
+                         "mbuf", "roots", "out_nbr", "out_w"),
+                        ([[t]] for t in (
+                            *ad.single(self.device), ad.mbuf,
+                            self._upload(roots), self._upload(out_nbr),
+                            self._upload(out_w)))),
+                    has_res=plan.k_res > 0, p_cap=p_cap, a_cap=a_cap)
+            else:
+                inputs = sharding.fabric_mesh_inputs(
+                    mesh, plan, matrix, roots, out_nbr, out_w)
+                self._bytes_uploaded += sharding.grid_nbytes(*(
+                    v for v in inputs.values() if isinstance(v, list)))
+
+            def step(n_trips, mark):
+                return fabric_step_grid(**inputs, n_trips=n_trips, lfa=lfa,
+                                        block_v4=block_v4, mark=mark)
             t1 = time.perf_counter()
             n_trips = max(2, 2 * self.last_trips + 1)
             cap_trips = max(4, max_trips(plan.n_cap))
             retries = 0
+            probe = torch.empty(0, device=mesh.first)
             while True:
-                events, mark = _timing_events(roots_t, 3)
-                out = fabric_step(
-                    ad.deltas, ad.shift_w, ad.res_rows, ad.res_nbr,
-                    ad.res_w, ad.mbuf, roots_t, nbr_t, w_t,
-                    n_trips=n_trips, has_res=plan.k_res > 0, p_cap=p_cap,
-                    a_cap=a_cap, lfa=lfa, block_v4=block_v4, mark=mark,
-                )
+                events, mark = _timing_events(probe, 3)
+                out = step(n_trips, mark)
                 if out.converged.all():
                     break
                 if n_trips >= cap_trips:
-                    raise Unconverged(
+                    raise sharding.Unconverged(
                         f"fabric SSSP unconverged for roots "
                         f"{roots[~out.converged].tolist()} at the trip "
                         f"bound ({n_trips})"
@@ -1421,7 +1634,7 @@ class GpuSpfSolver:
             pulled = [out.metric, out.s3w, out.nhw, out.ok]
             if lfa:
                 pulled += [out.lfa_slot, out.lfa_metric]
-            host = [t[:, :p_n].cpu().numpy() for t in pulled]
+            host = [t[:len(known), :p_n].cpu().numpy() for t in pulled]
             metric, s3w, nhw, ok = host[:4]
             lfa_slot, lfa_metric = host[4:] if lfa else (None, None)
             t3 = time.perf_counter()
@@ -1450,6 +1663,7 @@ class GpuSpfSolver:
                 "pull_ms": (t3 - t2) * 1e3,
                 "rib_ms": (t4 - t3) * 1e3,
                 "trips": out.trips, "n_trips": n_trips, "retries": retries,
+                "mesh": dict(mesh.shape),
                 "bytes_uploaded": float(self._bytes_uploaded),
                 "bytes_downloaded": float(sum(a.nbytes for a in host)),
             })
@@ -1485,23 +1699,55 @@ class GpuSpfSolver:
         return torch.tensor(np.ascontiguousarray(arr), dtype=torch.int32,
                             device=self.device)
 
-    def _scatter_counted(self, d_arr: torch.Tensor, idx: np.ndarray,
-                         vals: np.ndarray) -> torch.Tensor:
+    def _put(self, arr: np.ndarray, mesh=None, layout=None):
+        """``_upload`` for a one-device area; on the multichip tier's mesh
+        the array placed as ``layout`` says (``parallel/sharding.place``:
+        one copy a card and part)."""
+        if mesh is None:
+            return self._upload(arr)
+        from openr_tpu_torch.parallel.sharding import place
+
+        out = place(mesh, arr, layout)
+        self._bytes_uploaded += out.nbytes()
+        return out
+
+    def _scatter_counted(self, d_arr, idx: np.ndarray, vals: np.ndarray):
         """Scatter (idx, vals) into the resident tensor in place (K5);
-        only the index and value buffers cross to the device."""
-        idx_t, vals_t = self._upload(idx), self._upload(vals)
+        only the index and value buffers cross to the device. A
+        ``Sharded`` array on the multichip mesh takes each entry on the
+        shards that own it, in place (K5 [mc], the reference's
+        ``_mc_scatter_jit``): one copy of the buffers a card."""
+        from openr_tpu_torch.parallel.sharding import Sharded, scatter_sharded
+
+        ref = (next(d_arr.distinct())[2] if isinstance(d_arr, Sharded)
+               else d_arr)
         ev = None
-        if d_arr.is_cuda:
+        if ref.is_cuda:
+            stream = torch.cuda.current_stream(ref.device)
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            ev[0].record()
-        scatter_set(d_arr, idx_t, vals_t)
+            ev[0].record(stream)
+        if isinstance(d_arr, Sharded):
+            bufs: dict = {}
+
+            def idx_on(dev):
+                if dev not in bufs:
+                    self._bytes_uploaded += int(idx.nbytes + vals.nbytes)
+                    bufs[dev] = tuple(
+                        torch.tensor(np.ascontiguousarray(a), dtype=torch.int32,
+                                     device=dev) for a in (idx, vals))
+                return bufs[dev]
+
+            scatter_sharded(d_arr, idx_on)
+        else:
+            idx_t, vals_t = self._upload(idx), self._upload(vals)
+            scatter_set(d_arr, idx_t, vals_t)
         if ev:
-            ev[1].record()
+            ev[1].record(stream)
             self._scatter_events.append(ev)
         return d_arr
 
-    def _diff_scatter(self, d_arr: torch.Tensor, old_np: np.ndarray,
-                      new_np: np.ndarray, extra_idx=None) -> torch.Tensor:
+    def _diff_scatter(self, d_arr, old_np: np.ndarray, new_np: np.ndarray,
+                      extra_idx=None, mesh=None, layout=None):
         """Reconcile a resident tensor to ``new_np`` by scattering only
         the positions where it differs from ``old_np``, whose content the
         device holds except at ``extra_idx`` (undrained dirty slots,
@@ -1512,7 +1758,7 @@ class GpuSpfSolver:
         if diff.size == 0:
             return d_arr
         if diff.size * 4 > new_np.size:
-            return self._upload(new_np)
+            return self._put(new_np, mesh, layout)
         vals = np.ascontiguousarray(new_np.ravel()[diff])
         return self._scatter_counted(d_arr, diff.astype(np.int32), vals)
 
@@ -1524,6 +1770,31 @@ class GpuSpfSolver:
         old_plan = ad.plan
         plan = sync_plan(link_state, old_plan)
         ad.plan = plan
+        # the multichip tier: placement is part of the mirror's identity,
+        # so a tier flip (a capacity class crossing the threshold either
+        # way, or force_single_chip) re-puts the whole mirror under the
+        # new placement below, and that branch's journal reset marker
+        # makes the incremental solve fall back exactly once
+        mesh = self._mc_mesh_for(plan.n_cap)
+        if mesh != ad.mc_mesh:
+            ad.mc_mesh = mesh
+            ad.deltas = None
+            self._last_exec_incr = None
+        lay = {}
+        if mesh is not None:
+            from openr_tpu_torch.parallel.sharding import plan_shardings
+
+            lay = plan_shardings(mesh, plan.n_cap, plan.res_rows.shape[0], 0)
+            counters.set_counter("decision.solver.multichip.shards",
+                                 mesh.size)
+
+        def put(arr, role):
+            return self._put(arr, mesh, lay.get(role))
+
+        def diff(d_arr, old_np, new_np, role, extra=None):
+            return self._diff_scatter(d_arr, old_np, new_np, extra, mesh,
+                                      lay.get(role))
+
         if plan is not old_plan or ad.deltas is None:
             # a same-capacity rebuild (index renumbering, class reshuffle
             # within the pow2 buckets) keeps the resident tensors and
@@ -1544,37 +1815,33 @@ class GpuSpfSolver:
                 kr_o = old_plan.res_nbr.shape[1]
                 sd = [k * n_cap_o + u for k, u, _, _ in old_plan.dirty_shift]
                 rd = [r * kr_o + c for r, c, _, _ in old_plan.dirty_res]
-                ad.deltas = self._diff_scatter(
-                    ad.deltas, old_plan.deltas, plan.deltas
-                )
-                ad.shift_w = self._diff_scatter(
-                    ad.shift_w, old_plan.shift_w, plan.shift_w, sd
-                )
+                ad.deltas = diff(ad.deltas, old_plan.deltas, plan.deltas,
+                                 "replicated")
+                ad.shift_w = diff(ad.shift_w, old_plan.shift_w,
+                                  plan.shift_w, "shift_w", sd)
                 if old_plan.dirty_res_nbr:
                     # residual slot layout changed without tracked
                     # indices: the residual mirror ships whole
-                    ad.res_rows = self._upload(plan.res_rows)
-                    ad.res_nbr = self._upload(plan.res_nbr)
-                    ad.res_w = self._upload(plan.res_w)
+                    ad.res_rows = put(plan.res_rows, "res_rows")
+                    ad.res_nbr = put(plan.res_nbr, "res_2d")
+                    ad.res_w = put(plan.res_w, "res_2d")
                 else:
-                    ad.res_rows = self._diff_scatter(
-                        ad.res_rows, old_plan.res_rows, plan.res_rows
-                    )
-                    ad.res_nbr = self._diff_scatter(
-                        ad.res_nbr, old_plan.res_nbr, plan.res_nbr
-                    )
-                    ad.res_w = self._diff_scatter(
-                        ad.res_w, old_plan.res_w, plan.res_w, rd
-                    )
+                    ad.res_rows = diff(ad.res_rows, old_plan.res_rows,
+                                       plan.res_rows, "res_rows")
+                    ad.res_nbr = diff(ad.res_nbr, old_plan.res_nbr,
+                                      plan.res_nbr, "res_2d")
+                    ad.res_w = diff(ad.res_w, old_plan.res_w, plan.res_w,
+                                    "res_2d", rd)
             else:
-                ad.deltas = self._upload(plan.deltas)
-                ad.shift_w = self._upload(plan.shift_w)
-                ad.res_rows = self._upload(plan.res_rows)
-                ad.res_nbr = self._upload(plan.res_nbr)
-                ad.res_w = self._upload(plan.res_w)
+                ad.deltas = put(plan.deltas, "replicated")
+                ad.shift_w = put(plan.shift_w, "shift_w")
+                ad.res_rows = put(plan.res_rows, "res_rows")
+                ad.res_nbr = put(plan.res_nbr, "res_2d")
+                ad.res_w = put(plan.res_w, "res_2d")
             plan.dirty_shift = []
             plan.dirty_res = []
             plan.dirty_res_nbr = False
+            ad.whole = {}
             # the mirror changed without per-slot old values: no older
             # distance plane can be advanced across this epoch
             ad.drain_epoch += 1
@@ -1588,14 +1855,16 @@ class GpuSpfSolver:
             # journal their pre-drain values
             ((s_idx, s_val, s_old), (r_idx, r_val, r_old),
              nbr_changed) = drain_dirty(plan)
+            if s_idx is not None or r_idx is not None or nbr_changed:
+                ad.whole = {}
             if s_idx is not None:
                 ad.shift_w = self._scatter_counted(ad.shift_w, s_idx, s_val)
             if r_idx is not None:
                 ad.res_w = self._scatter_counted(ad.res_w, r_idx, r_val)
             ad.drain_epoch += 1
             if nbr_changed:
-                ad.res_rows = self._upload(plan.res_rows)
-                ad.res_nbr = self._upload(plan.res_nbr)
+                ad.res_rows = put(plan.res_rows, "res_rows")
+                ad.res_nbr = put(plan.res_nbr, "res_2d")
                 # residual slots moved: journal old values no longer
                 # name stable (row, col) edges — reset marker
                 ad.drain_log.append((ad.drain_epoch, None, None))
@@ -1644,17 +1913,39 @@ class GpuSpfSolver:
 
     # -- the fast path -------------------------------------------------------
 
-    def _mc_tier_engaged(self, n_cap: int) -> bool:
-        """Whether the reference would solve an area of ``n_cap`` node
-        slots on its multichip tier (``_mc_mesh_for``'s first rungs):
-        the threshold is set and exceeded, and two or more devices are
-        visible. Otherwise the area solves on the one device."""
+    def _mc_devices(self) -> list:
+        """The devices of the multichip tier's mesh: ``multichip_devices``,
+        else every visible card for a CUDA solver (the counterpart of
+        ``jax.devices()``), else the solver's one device."""
+        if self.multichip_devices is not None:
+            return [torch.device(d) for d in self.multichip_devices]
+        if self.device.type == "cuda":
+            return [torch.device(f"cuda:{i}")
+                    for i in range(torch.cuda.device_count())]
+        return [self.device]
+
+    def _mc_mesh_for(self, n_cap: int):
+        """The ('batch', 'graph') mesh the multichip tier solves an area
+        of ``n_cap`` node slots on, or None when the tier stays off (the
+        reference's ``_mc_mesh_for`` rungs): ``force_single_chip`` is
+        set, the threshold is off or not exceeded, the mesh has fewer
+        than two devices, or ``n_cap`` does not split over its graph
+        axis."""
+        if self.force_single_chip:
+            return None
         thr = self.multichip_n_cap_threshold
         if thr <= 0 or n_cap <= thr:
-            return False
-        if self.device.type != "cuda":
-            return False  # the CPU is one device
-        return torch.cuda.device_count() >= 2
+            return None
+        if self._mc_mesh is False:
+            from openr_tpu_torch.parallel.sharding import make_mesh
+
+            devs = self._mc_devices()
+            self._mc_mesh = None if len(devs) < 2 else make_mesh(
+                len(devs), batch=self.multichip_batch or None, devices=devs)
+        mesh = self._mc_mesh
+        if mesh is not None and n_cap % mesh.shape["graph"] != 0:
+            return None
+        return mesh
 
     def _prep_vantage(self, my_node_name: str, area: str,
                       link_state: LinkState, prefix_state: PrefixState,
@@ -1665,16 +1956,21 @@ class GpuSpfSolver:
         t0 = time.perf_counter()
         ad = self._sync_area(area, link_state, prefix_state, prefixes)
         plan, matrix = ad.plan, ad.matrix
-        if self._mc_tier_engaged(plan.n_cap):
-            raise NotImplementedError(
-                f"area {area!r}: n_cap {plan.n_cap} exceeds the one-card "
-                f"threshold {self.multichip_n_cap_threshold} with "
-                f"{torch.cuda.device_count()} cards visible; the multichip "
-                "tier is not ported to the GPU solver yet"
-            )
         root_idx = plan.node_index[my_node_name]
         root_nbr, root_w, links = plan.out_links(link_state, my_node_name)
         d_cap = root_nbr.shape[0]
+        mc = ad.mc_mesh
+        if mc is not None:
+            # the lane axis splits over 'batch': pad it to a multiple.
+            # Pad lanes are inert (INF_E seeds: all-INF rows that never
+            # win the ECMP predicate, link-down for LFA, and the RIB
+            # unpacks only len(links) next-hop bits)
+            from openr_tpu_torch.parallel.sharding import pad_to
+
+            d_pad = -(-d_cap // mc.shape["batch"]) * mc.shape["batch"]
+            root_nbr = pad_to(root_nbr, d_pad, -1)
+            root_w = pad_to(root_w, d_pad, INF_E)
+            d_cap = d_pad
         p_cap, a_cap = matrix.ann_node.shape
         r_cap, kr_cap = plan.res_nbr.shape
         has_res = plan.k_res > 0
@@ -1683,8 +1979,9 @@ class GpuSpfSolver:
             a_cap,
         )
         # next-hop address renumbering invalidates materialized routes
-        # without any shape change
-        cache_key = shape_key + (link_state.nh_addr_version,)
+        # without any shape change; a tier flip reinitializes the vantage
+        # (prev outputs and planes of one placement never feed the other)
+        cache_key = shape_key + (link_state.nh_addr_version, mc)
         vkey = (area, my_node_name)
         if my_node_name != self.my_node_name:
             self._touch_foreign_vantage(vkey)
@@ -1733,7 +2030,7 @@ class GpuSpfSolver:
             "root_idx": root_idx, "root_nbr": root_nbr, "root_w": root_w,
             "fuse_key": (shape_key, lfa, block_v4, kernel, delta_exp),
             "has_res": has_res, "lfa": lfa, "block_v4": block_v4,
-            "kernel": kernel, "delta_exp": delta_exp,
+            "kernel": kernel, "delta_exp": delta_exp, "mc": mc,
             "d_cap": d_cap, "p_cap": p_cap, "a_cap": a_cap,
             "incr": self._incr_args(ad, vs, root_sig, d_cap),
             "root_sig": root_sig, "dist_epoch": ad.drain_epoch,
@@ -1760,6 +2057,8 @@ class GpuSpfSolver:
         the collect commits, so an abandoned collect costs one full
         rebuild on the next solve, never a RIB that has diverged from
         the resident planes."""
+        if pv["mc"] is not None:
+            return self._dispatch_mc(pv)
         vs = pv["vs"]
         incr = None
         if pv["incr"] is not None:
@@ -1809,6 +2108,37 @@ class GpuSpfSolver:
                 # dirty set)
                 counters.increment("decision.solver.incr.full_fallbacks")
         return ctx
+
+    def _dispatch_mc(self, pv: dict) -> dict:
+        """Launch one area's pipeline on the multichip tier
+        (``mc_pipeline``; the port of ``_dispatch_one``'s mesh branch):
+        cold, or incremental where the gate allowed, never streaming."""
+        vs, ad, plan = pv["vs"], pv["ad"], pv["plan"]
+        incr = None
+        if pv["incr"] is not None:
+            (sdi, sdo, rdi, rdo, cone_limit), _ = pv["incr"]
+            incr = (vs.prev_dist, sdi, sdo, rdi, rdo, cone_limit)
+        counters.increment("decision.solver.multichip.dispatches")
+        self._last_exec_incr = None
+        t1 = time.perf_counter()
+        mirror = {k: getattr(ad, k) for k in (
+            "deltas", "shift_w", "res_rows", "res_nbr", "res_w")}
+        out, info = mc_pipeline(
+            pv["mc"], mirror, ad.mbuf, pv["root_idx"], pv["root_nbr"],
+            pv["root_w"], *vs.prev, has_res=pv["has_res"], n_cap=plan.n_cap,
+            s_cap=plan.s_cap, block_v4=pv["block_v4"],
+            sentinels=self.enable_sentinels, kernel=pv["kernel"],
+            delta_exp=pv["delta_exp"], incr=incr, lfa=pv["lfa"],
+        )
+        self._bytes_uploaded += info.bytes_uploaded
+        if incr is None:
+            counters.increment("decision.solver.full.solves")
+            if self.incremental_spf:
+                counters.increment("decision.solver.incr.full_fallbacks")
+        return {"pv": pv, "out": out, "fused": 0, "stream": 0,
+                "was_valid": vs.valid,
+                "incr_denom": None if incr is None else pv["incr"][1],
+                "t1": t1, "t2": time.perf_counter(), "mc": info}
 
     def _incr_tensors(self, pv: dict) -> tuple:
         """The incremental solve's six inputs: the vantage's distance
@@ -1956,12 +2286,24 @@ class GpuSpfSolver:
             "trips": int(sbuf[1]),
             "rounds": int(sbuf[-1]),
             "spf_kernel": pv["kernel"],
+            "bucket_epochs": (int(sbuf[1]) if pv["kernel"] == "bucketed"
+                              else 0),
             "changed_rows": count,
             "full_pull": full_pull,
             "fused": ctx["fused"],
             "bytes_downloaded": (0 if dbuf is None else int(dbuf.nbytes))
             + (0 if fbuf is None else int(fbuf.nbytes)),
         }
+        info = ctx.get("mc")
+        if info is not None:
+            # each combine of a group is one halo exchange: one a
+            # relaxation under sync (rounds), one an epoch under bucketed
+            stats["halo_exchanges"] = info.halo_exchanges
+            stats["multichip"] = {
+                "shards": info.shards, "batch": info.batch,
+                "graph": info.graph,
+                "shard_ms": info.shard_ms(),
+            }
         if stream:
             stats["stream"] = {"budget": b, "overflow": full_pull}
             # the next epoch's bucket follows this one's churn

@@ -120,7 +120,8 @@ class _Chunk:
             + "]"
         )
         ad = job.ad
-        dev = ad.shift_w.device
+        mirror = ad.single()
+        dev = mirror[1].device
 
         def up(a):
             return torch.from_numpy(a).to(dev)
@@ -130,8 +131,7 @@ class _Chunk:
             scenarios=len(self.scenarios),
         ):
             self._out = sweep(
-                ad.deltas, ad.shift_w, ad.res_rows, ad.res_nbr, ad.res_w,
-                job.roots_dev, up(sh_idx), up(sh_val), up(rs_idx),
+                *mirror, job.roots_dev, up(sh_idx), up(sh_val), up(rs_idx),
                 up(rs_val), has_res=has_res,
                 max_trips=sweep_max_trips(n_cap),
                 return_dist=job.return_dist,
@@ -672,7 +672,7 @@ class OptimizeJob:
             plan.deltas, plan.res_rows, plan.res_nbr, sh_idx, sh_link,
             rs_idx, rs_link, srcs_p, dem_row, dem_dst, dem_vol,
             n_cap=plan.n_cap, l_cap=len(theta), trips=self.trips,
-            has_res=plan.k_res > 0, device=self.ad.shift_w.device,
+            has_res=plan.k_res > 0, device=self.ad.single()[1].device,
         )
         return tp, theta
 

@@ -6,7 +6,10 @@ own ``nvcc`` process, all started together, into a shared library under
 ``openr_tpu_torch/_build/`` named by the hash of its source and flags
 (so an edited source rebuilds and an unchanged one loads at once). The
 libraries are bound with ``ctypes``: pointers travel as
-``tensor.data_ptr()``, the stream as PyTorch's current stream.
+``tensor.data_ptr()``, the stream as PyTorch's current stream of the
+card that holds the arguments (``ptr`` notes each argument's card, and
+``launch`` runs under that card's guard, so a shard on ``cuda:1`` is
+ordered with the torch work on its own tensors).
 
 Nothing here runs at import time; a CPU-only process never touches
 ``nvcc``.
@@ -28,13 +31,15 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("relax", "select", "compact", "incremental", "ucmp", "ksp2",
-           "sweep", "te", "legacy", "fabric")
+           "sweep", "te", "legacy", "fabric", "combine")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _lock = threading.Lock()
+# the cards of the pointers taken since the last launch, per thread
+_seen = threading.local()
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[tuple, object] = {}
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "L": ctypes.c_longlong,
@@ -104,8 +109,9 @@ def _lib(name: str) -> ctypes.CDLL:
 def launch(lib: str, fn: str, sig: str, *args) -> None:
     """Call the C entry point ``fn`` of ``csrc/<lib>.cu`` with ``args``
     (``sig``: one letter per argument, ``p`` pointer, ``i`` int, ``L``
-    64-bit int, ``f`` float) plus the current CUDA stream, and raise if
-    the launch was refused."""
+    64-bit int, ``f`` float) plus the current CUDA stream of the card
+    the pointer arguments lie on, under that card's guard, and raise if
+    the launch was refused or the arguments span cards."""
     key = (lib, fn)
     f = _fns.get(key)
     if f is None:
@@ -113,13 +119,30 @@ def launch(lib: str, fn: str, sig: str, *args) -> None:
         f.argtypes = [_CTYPES[c] for c in sig] + [ctypes.c_void_p]
         f.restype = ctypes.c_int
         _fns[key] = f
-    rc = f(*args, torch.cuda.current_stream().cuda_stream)
+    cards = getattr(_seen, "cards", None) or set()
+    _seen.cards = set()
+    if len(cards) > 1:
+        raise ValueError(f"{lib}.{fn}: arguments on cards {sorted(cards)}")
+    cur = torch.cuda.current_device()
+    dev = cards.pop() if cards else getattr(_seen, "last", cur)
+    if dev == cur:
+        rc = f(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            rc = f(*args, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"CUDA launch {lib}.{fn} failed: error {rc}")
 
 
 def ptr(t: torch.Tensor) -> int:
-    """Device pointer of a contiguous CUDA tensor."""
+    """Device pointer of a contiguous CUDA tensor; notes its card for
+    the next ``launch``."""
     if not t.is_cuda or not t.is_contiguous():
         raise ValueError("kernel arguments must be contiguous CUDA tensors")
+    card = t.device.index
+    cards = getattr(_seen, "cards", None)
+    if cards is None:
+        cards = _seen.cards = set()
+    cards.add(card)
+    _seen.last = card
     return t.data_ptr()

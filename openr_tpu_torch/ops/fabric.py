@@ -1,8 +1,11 @@
-"""The whole-fabric step on one card: every requested root's
-batched-seed SSSP over one shared copy of the shift-decomposed mirror,
-then best-route selection per root — the port of
-``parallel/sharding.py::_sharded_fabric_fn`` with a graph axis of 1
-(where its per-relaxation ``pmin`` is the identity).
+"""The whole-fabric step: every requested root's batched-seed SSSP over
+one shared copy of the shift-decomposed mirror, then best-route
+selection per root — the port of ``parallel/sharding.py::
+_sharded_fabric_fn``. One loop (``fabric_step_grid``) serves every
+('batch', 'graph') grid of shards: roots split over 'batch', class
+columns and residual rows over 'graph', with the group's min after
+each relaxation (K23, the reference's ``pmin``); one card is a 1 x 1
+grid (``fabric_step``), where that min is the identity.
 
 Per root r (a lane): the [D, n_cap] seed plane of its out-neighbours
 (K1s with a root axis, seed rows only), then exactly ``n_trips``
@@ -39,20 +42,21 @@ import numpy as np
 import torch
 
 from openr_tpu_torch.ops import cuda
+from openr_tpu_torch.ops.combine import shard_combine, shard_combine_plain
 from openr_tpu_torch.ops.relax import (
     _GATE_SIG,
     ALWAYS,
     INF_E,
     KEEP,
     UNROLL,
+    FlagBank,
     Gate,
     Lanes,
     _each_lane,
     _gate_args,
     _int32,
     _is_cpu,
-    read_flag,
-    relax_step_plain,
+    relax_step_mc_plain,
     sssp_init,
     sssp_init_plain,
 )
@@ -89,21 +93,9 @@ fabric_extent.launches = 0
 
 def fabric_relax_plain(dist, out, flag, deltas, shift_w, residual, roots,
                        gate: Optional[Gate] = None) -> None:
-    n_cap = shift_w.shape[1]
-    root_of = roots.tolist()
-
-    def one(lane, f):
-        root = root_of[lane]
-        sw = shift_w.clone()
-        sw[:, root] = INF_E
-        res = None
-        if residual is not None:
-            rows, nbr, rw = residual[:3]
-            res = (rows.clamp(0, n_cap - 1), nbr.clamp(0, n_cap - 1),
-                   torch.where(nbr == root, INF_E, rw))
-        relax_step_plain(dist[lane], out[lane], f, deltas, sw, res)
-
-    _each_lane(gate, flag, dist.shape[0], one)
+    # the whole width is one window
+    fabric_relax_mc_plain(dist, out, flag, deltas, shift_w, residual, roots,
+                          gate, 0)
 
 
 def fabric_relax(dist, out, flag, deltas, shift_w, residual, roots,
@@ -120,16 +112,29 @@ def fabric_relax(dist, out, flag, deltas, shift_w, residual, roots,
         fabric_relax_plain(dist, out, flag, deltas, shift_w, residual,
                            roots, gate)
         return
-    _int32(dist, out, flag, deltas, shift_w, roots)
+    fabric_relax.launches += _launch_fabric(dist, out, flag, deltas, shift_w,
+                                            residual, roots, gate, 0)
+
+
+fabric_relax.launches = 0
+
+
+def _launch_fabric(dist, out, flag, deltas, shift_w, residual, roots, gate,
+                   col0: int) -> int:
+    """Launch K21 over the class columns [col0, col0 + shift_w width)
+    (and the residual rows given); returns the launches. ``flag`` may be
+    None."""
+    _int32(dist, out, deltas, shift_w, roots)
     g, d_cap, n_cap = dist.shape
     p = cuda.ptr
+    fp = 0 if flag is None else p(flag)
     ga = _gate_args(gate)
-    cuda.launch("fabric", "fabric_shift", "pppppiiipi" + _GATE_SIG,
+    s_cap, w_cols = shift_w.shape
+    cuda.launch("fabric", "fabric_shift", "pppppiiiiipi" + _GATE_SIG,
                 p(dist), p(out), p(deltas), p(shift_w), p(roots), d_cap,
-                n_cap, shift_w.shape[0], p(flag), g, *ga)
-    fabric_relax.launches += 1
+                n_cap, s_cap, col0, w_cols, fp, g, *ga)
     if residual is None:
-        return
+        return 1
     rows, nbr, rw, ext = residual
     _int32(rows, nbr, rw, ext)
     if gate is not None:
@@ -137,11 +142,53 @@ def fabric_relax(dist, out, flag, deltas, shift_w, residual, roots,
         ga = _gate_args(gate._replace(inc=(0, 0)))
     cuda.launch("fabric", "fabric_residual", "ppppppp" + "iiiipi" + _GATE_SIG,
                 p(dist), p(out), p(rows), p(nbr), p(rw), p(ext), p(roots),
-                d_cap, n_cap, nbr.shape[0], nbr.shape[1], p(flag), g, *ga)
-    fabric_relax.launches += 1
+                d_cap, n_cap, nbr.shape[0], nbr.shape[1], fp, g, *ga)
+    return 2
 
 
-fabric_relax.launches = 0
+# -- K21 [mc]: one shard's relaxation of every root's planes ------------------
+
+def fabric_relax_mc_plain(dist, out, flag, deltas, shift_w, residual, roots,
+                          gate: Optional[Gate] = None,
+                          col0: int = 0) -> None:
+    n_cap = dist.shape[-1]
+    w_cols = shift_w.shape[1]
+    root_of = roots.tolist()
+
+    def one(lane, f):
+        root = root_of[lane]
+        sw = shift_w.clone()
+        if 0 <= root - col0 < w_cols:
+            sw[:, root - col0] = INF_E
+        res = None
+        if residual is not None:
+            rows, nbr, rw = residual[:3]
+            res = (rows.clamp(0, n_cap - 1), nbr.clamp(0, n_cap - 1),
+                   torch.where(nbr == root, INF_E, rw))
+        relax_step_mc_plain(dist[lane], out[lane], f, deltas, sw, res, col0)
+
+    _each_lane(gate, flag, dist.shape[0], one)
+
+
+def fabric_relax_mc(dist, out, flag, deltas, shift_w, residual, roots,
+                    gate: Optional[Gate] = None, col0: int = 0) -> None:
+    """K21 [mc]: ``fabric_relax`` for one shard of a ('batch', 'graph')
+    mesh, which holds the class columns [col0, col0 + w) of ``shift_w``
+    ([s_cap, w]) and its own residual rows (``residual``, its rows and
+    their extent): each root's planes relaxed over the shard's own
+    sources only, the root masked only where it lies in the window
+    (``parallel/sharding.py``, :104-148). The group's min over its
+    members' planes (``ops/combine.shard_combine``) is the reference's
+    ``pmin``. ``flag`` may be None."""
+    if _is_cpu(dist):
+        fabric_relax_mc_plain(dist, out, flag, deltas, shift_w, residual,
+                              roots, gate, col0)
+        return
+    fabric_relax_mc.launches += _launch_fabric(
+        dist, out, flag, deltas, shift_w, residual, roots, gate, col0)
+
+
+fabric_relax_mc.launches = 0
 
 
 # -- K22: the selection's bit words as bool masks -----------------------------
@@ -170,48 +217,222 @@ def unpack_bits(words, x: int):
 unpack_bits.launches = 0
 
 
-# -- the step -----------------------------------------------------------------
+# -- the step ----------------------------------------------------------------
+
+class FabricOut(NamedTuple):
+    dist: torch.Tensor         # int32 [Rt, n_cap]
+    metric: torch.Tensor       # int32 [Rt, P]
+    s3w: torch.Tensor          # int32 [Rt, P, ceil(A/16)]
+    nhw: torch.Tensor          # int32 [Rt, P, ceil(D/16)]
+    ok: torch.Tensor           # bool [Rt, P]
+    lfa_slot: torch.Tensor     # int32 [Rt, P]; -1 without LFA
+    lfa_metric: torch.Tensor   # int32 [Rt, P]; 0 without LFA
+    converged: np.ndarray      # bool [Rt]
+    trips: int
+
+
+class FabricKernels(NamedTuple):
+    """The functions one step runs: K21 over a one-member group's whole
+    width (``relax``) and over a member's column window (``relax_mc``),
+    K1s, K21e, K3 and the group combine (K23)."""
+    relax: object
+    relax_mc: object
+    init: object
+    extent: object
+    select: object
+    combine: object
+
+
+def fabric_sssp_grid(deltas, shift_w, residual, roots, seeds_nbr, seeds_w,
+                     n_trips: int, kernels: FabricKernels):
+    """The SSSP of the whole-fabric step on a ('batch', 'graph') grid of
+    shards (the reference's ``_sharded_fabric_fn``, :70-148; a 1 x 1
+    grid is one card). Every input is a grid ``x[b][j]`` of shard
+    (b, j)'s tensors: ``deltas`` whole, ``shift_w`` the shard's class
+    columns [j * w, (j + 1) * w) of the ``graph * w``-node plan,
+    ``residual`` its own residual rows (res_rows, res_nbr, res_w), or
+    None, ``roots`` / ``seeds_nbr`` / ``seeds_w`` its batch group's
+    roots and their out-slot tables.
+
+    Per group: K1s seeds on every member, up to ``n_trips`` trips of
+    ``UNROLL`` relaxations (K21 on every member over its own sources and
+    rows; with more than one member, the group's min of the planes and
+    max of the per-root change stamps, K23), each root gated off once its
+    planes stop changing, and the group's exit on a trip that changed
+    nothing, so the outputs are the reference's fixpoint. A group still
+    changing after the last trip runs the vote: one more relaxation of
+    the roots that changed in it; a root that changes there (on any
+    member) did not converge. Returns (planes grid, converged bool numpy
+    [Rt] in batch order, the most trips a group ran)."""
+    nb, ng = len(shift_w), len(shift_w[0])
+    col = shift_w[0][0].shape[1]
+    n_cap = col * ng
+    k = kernels
+    res = [[None if residual is None else
+            (*residual[b][j], k.extent(residual[b][j][2]))
+            for j in range(ng)] for b in range(nb)]
+    cur, lanes = [], []
+    for b in range(nb):
+        row, lrow = [], []
+        for j in range(ng):
+            dev = shift_w[b][j].device
+            rt = roots[b][j].shape[0]
+
+            def none(*shape, _rt=rt, _dev=dev):
+                return torch.empty((_rt,) + shape, dtype=torch.int32,
+                                   device=_dev)
+
+            _, _, d0 = k.init(none(0, n_cap), none(0), none(0, 0),
+                              none(0, 0), roots[b][j], seeds_nbr[b][j],
+                              seeds_w[b][j])
+            row.append(d0)
+            lrow.append(Lanes(rt, dev))
+        cur.append(row)
+        lanes.append(lrow)
+    spare = [[torch.empty_like(t) for t in row] for row in cur]
+    flags = FlagBank([shift_w[b][0].device for b in range(nb)])
+    trips = [0] * nb
+    converged = [None] * nb
+
+    def relax_groups(active, inc, vote=False):
+        for b in active:
+            gate = ((trips[b] - 1, ALWAYS), (trips[b], KEEP), inc)
+            for j in range(ng):
+                step = (cur[b][j], spare[b][j], flags[b] if ng == 1 else None,
+                        deltas[b][j], shift_w[b][j], res[b][j], roots[b][j],
+                        lanes[b][j].gate(*gate))
+                if ng == 1:
+                    k.relax(*step)
+                else:
+                    k.relax_mc(*step, j * col)
+            if ng > 1:
+                if not vote:
+                    k.combine(spare[b], "min", ref=cur[b][0], flag=flags[b])
+                # a root changed in the group iff it changed on a member
+                k.combine([ln.st for ln in lanes[b]], "max")
+            if not vote:
+                cur[b], spare[b] = spare[b], cur[b]
+
+    active = list(range(nb))
+    while active and max(trips[b] for b in active) < n_trips:
+        for i in range(UNROLL):
+            relax_groups(active, (int(i == 0), 1))
+        for b in active:
+            trips[b] += 1
+        changed = flags.read()
+        still = []
+        for b in active:
+            if changed[b]:
+                still.append(b)
+            else:
+                converged[b] = np.ones(roots[b][0].shape[0], bool)
+        active = still
+    if active:
+        # the vote (into the spare planes)
+        relax_groups(active, (0, 0), vote=True)
+        if ng == 1:
+            flags.read()
+        for b in active:
+            converged[b] = lanes[b][0].st[:, 0].cpu().numpy() < trips[b]
+    return cur, np.concatenate(converged), max(trips)
+
+
+def fabric_step_grid(deltas, shift_w, res_rows, res_nbr, res_w, mbuf, roots,
+                     out_nbr, out_w, *, n_trips: int, has_res: bool,
+                     p_cap: int, a_cap: int, lfa: bool = False,
+                     block_v4: bool = False, mark=None,
+                     kernels: Optional[FabricKernels] = None) -> FabricOut:
+    """The whole-fabric step on a grid of shards: ``fabric_sssp_grid``
+    (``res_*`` grids of each shard's residual rows, relaxed only with
+    ``has_res``), then per batch group K3 with a root axis on its first
+    member over the packed announcer matrix ``mbuf`` (a grid of whole
+    copies; ``select.pack_matrix``: drain flags, the v4 bit, min_nh):
+    distances, selection, next-hop words, ``lfa``'s backup columns, and
+    route-ok (``block_v4`` drops v4 rows). The outputs lie on shard
+    (0, 0)'s device, roots in batch order. ``kernels`` defaults to the
+    CUDA wrappers. ``mark`` is called at the start, after the SSSP and
+    after the tail (the solver records CUDA events)."""
+    k = kernels or KERNELS
+    mark = mark or _nothing
+    nb, ng = len(shift_w), len(shift_w[0])
+    residual = [[(res_rows[b][j], res_nbr[b][j], res_w[b][j])
+                 for j in range(ng)] for b in range(nb)] if has_res else None
+    mark()
+    cur, converged, trips = fabric_sssp_grid(
+        deltas, shift_w, residual, roots, out_nbr, out_w, n_trips, k)
+    mark()
+    outs = []
+    for b in range(nb):
+        dist_d = cur[b][0]
+        rt, n_cap = dist_d.shape[0], dist_d.shape[2]
+        dist = torch.empty((rt, n_cap), dtype=torch.int32,
+                           device=dist_d.device)
+        sel = k.select(dist_d, out_w[b][0], roots[b][0], mbuf[b][0], p_cap,
+                       a_cap, block_v4, lfa, dist_out=dist)
+        if lfa:
+            lfa_slot, lfa_metric = sel[4:]
+        else:
+            lfa_slot = torch.full((rt, p_cap), -1, dtype=torch.int32,
+                                  device=dist.device)
+            lfa_metric = torch.zeros((rt, p_cap), dtype=torch.int32,
+                                     device=dist.device)
+        outs.append((dist, *sel[:4], lfa_slot, lfa_metric))
+    first = shift_w[0][0].device
+    cols = [outs[0][i] if nb == 1 else
+            torch.cat([o[i].to(first) for o in outs]) for i in range(7)]
+    mark()
+    return FabricOut(*cols, converged, trips)
+
+
+def _nothing() -> None:
+    pass
+
+
+def _one(*tensors) -> list:
+    """Each tensor as a 1 x 1 grid."""
+    return [[[t]] for t in tensors]
+
 
 def fabric_sssp(deltas, shift_w, residual, roots, seeds_nbr, seeds_w,
-                n_trips: int, relax=fabric_relax, init=sssp_init,
-                extent=fabric_extent):
-    """Every root's [D, n_cap] distance plane after ``n_trips`` trips of
-    ``UNROLL`` relaxations (``relax``, the ``fabric_relax`` signature,
-    over ``residual`` = (res_rows, res_nbr, res_w) or None and its
-    ``extent``) from its seed plane (``init``, K1s with a root axis: 0 at
-    each live out-neighbour ``seeds_nbr[r, d]``, INF_E elsewhere), and
-    the convergence vote. Returns ``(dist [Rt, D, n_cap], converged bool
-    numpy [Rt], trips run)``."""
-    rt, _ = seeds_nbr.shape
-    n_cap = shift_w.shape[1]
-    dev = shift_w.device
-    if residual is not None:
-        residual = (*residual, extent(residual[2]))
+                n_trips: int, kernels: Optional[FabricKernels] = None):
+    """Every root's [D, n_cap] distance plane on one card: the grid SSSP
+    over a 1 x 1 grid (K1s seeds, K21 trips over ``residual`` =
+    (res_rows, res_nbr, res_w) or None, the vote). Returns ``(dist [Rt,
+    D, n_cap], converged bool numpy [Rt], trips run)``."""
+    res = None if residual is None else [[tuple(residual)]]
+    cur, converged, trips = fabric_sssp_grid(
+        *_one(deltas, shift_w), res, *_one(roots, seeds_nbr, seeds_w),
+        n_trips, kernels or KERNELS)
+    return cur[0][0], converged, trips
 
-    def none(*shape):
-        return torch.empty((rt,) + shape, dtype=torch.int32, device=dev)
 
-    _, _, cur = init(none(0, n_cap), none(0), none(0, 0), none(0, 0), roots,
-                     seeds_nbr, seeds_w)
-    spare = torch.empty_like(cur)
-    lanes = Lanes(rt, dev)
-    flag = torch.zeros(1, dtype=torch.int32, device=dev)
-    trips = 0
-    while trips < n_trips:
-        for i in range(UNROLL):
-            relax(cur, spare, flag, deltas, shift_w, residual, roots,
-                  lanes.gate((trips - 1, ALWAYS), (trips, KEEP),
-                             (int(i == 0), 1)))
-            cur, spare = spare, cur
-        trips += 1
-        if not read_flag(flag):
-            return cur, np.ones(rt, bool), trips
-    # the vote: the roots that changed in the last trip relax once more
-    # (into the spare plane); a root that changes there did not converge
-    relax(cur, spare, flag, deltas, shift_w, residual, roots,
-          lanes.gate((trips - 1, ALWAYS), (trips, KEEP)))
-    read_flag(flag)
-    return cur, lanes.st[:, 0].cpu().numpy() < trips, trips
+def fabric_step(deltas, shift_w, res_rows, res_nbr, res_w, mbuf, roots,
+                out_nbr, out_w, *, n_trips: int, has_res: bool, p_cap: int,
+                a_cap: int, lfa: bool = False, block_v4: bool = False,
+                mark=None) -> FabricOut:
+    """The whole-fabric step for the int32 tensor ``roots`` [Rt] on the
+    device of its tensors: ``fabric_step_grid`` over a 1 x 1 grid of the
+    resident mirror (deltas [s_cap], shift_w [s_cap, n_cap], res_rows
+    [r_cap], res_nbr / res_w [r_cap, kr_cap]), the packed announcer
+    matrix ``mbuf`` [6*P*A] and each root's out-slot table ``out_nbr``
+    / ``out_w`` [Rt, D] (pad slots -1 / INF_E)."""
+    return fabric_step_grid(
+        *_one(deltas, shift_w, res_rows, res_nbr, res_w, mbuf, roots,
+              out_nbr, out_w),
+        n_trips=n_trips, has_res=has_res, p_cap=p_cap, a_cap=a_cap, lfa=lfa,
+        block_v4=block_v4, mark=mark)
+
+
+def fabric_step_plain(deltas, shift_w, res_rows, res_nbr, res_w, mbuf,
+                      roots, out_nbr, out_w, *, n_trips: int, has_res: bool,
+                      p_cap: int, a_cap: int, lfa: bool = False,
+                      block_v4: bool = False) -> FabricOut:
+    """``fabric_step`` through the plain versions only (any device)."""
+    return fabric_step_grid(
+        *_one(deltas, shift_w, res_rows, res_nbr, res_w, mbuf, roots,
+              out_nbr, out_w),
+        n_trips=n_trips, has_res=has_res, p_cap=p_cap, a_cap=a_cap, lfa=lfa,
+        block_v4=block_v4, kernels=PLAIN)
 
 
 def root_tables(plan, link_state, names) -> tuple:
@@ -231,72 +452,8 @@ def root_tables(plan, link_state, names) -> tuple:
     return roots, out_nbr, out_w, [o[2] for o in outs]
 
 
-def _nothing() -> None:
-    pass
-
-
-class FabricOut(NamedTuple):
-    dist: torch.Tensor         # int32 [Rt, n_cap]
-    metric: torch.Tensor       # int32 [Rt, P]
-    s3w: torch.Tensor          # int32 [Rt, P, ceil(A/16)]
-    nhw: torch.Tensor          # int32 [Rt, P, ceil(D/16)]
-    ok: torch.Tensor           # bool [Rt, P]
-    lfa_slot: torch.Tensor     # int32 [Rt, P]; -1 without LFA
-    lfa_metric: torch.Tensor   # int32 [Rt, P]; 0 without LFA
-    converged: np.ndarray      # bool [Rt]
-    trips: int
-
-
-def _step(deltas, shift_w, res_rows, res_nbr, res_w, mbuf, roots, out_nbr,
-          out_w, n_trips, has_res, p_cap, a_cap, lfa, block_v4, relax, init,
-          extent, select, mark) -> FabricOut:
-    residual = (res_rows, res_nbr, res_w) if has_res else None
-    mark()
-    dist_d, converged, trips = fabric_sssp(
-        deltas, shift_w, residual, roots, out_nbr, out_w, n_trips, relax,
-        init, extent)
-    mark()
-    rt, n_cap = roots.shape[0], shift_w.shape[1]
-    dist = torch.empty((rt, n_cap), dtype=torch.int32, device=dist_d.device)
-    sel = select(dist_d, out_w, roots, mbuf, p_cap, a_cap, block_v4, lfa,
-                 dist_out=dist)
-    if lfa:
-        lfa_slot, lfa_metric = sel[4:]
-    else:
-        lfa_slot = torch.full((rt, p_cap), -1, dtype=torch.int32,
-                              device=dist.device)
-        lfa_metric = torch.zeros((rt, p_cap), dtype=torch.int32,
-                                 device=dist.device)
-    mark()
-    return FabricOut(dist, *sel[:4], lfa_slot, lfa_metric, converged, trips)
-
-
-def fabric_step(deltas, shift_w, res_rows, res_nbr, res_w, mbuf, roots,
-                out_nbr, out_w, *, n_trips: int, has_res: bool, p_cap: int,
-                a_cap: int, lfa: bool = False, block_v4: bool = False,
-                mark=_nothing) -> FabricOut:
-    """The whole-fabric step for the int32 tensor ``roots`` [Rt] on the
-    device of its tensors: the resident mirror (deltas [s_cap], shift_w
-    [s_cap, n_cap], res_rows [r_cap], res_nbr / res_w [r_cap, kr_cap];
-    the residual relaxes only with ``has_res``), the packed announcer
-    matrix ``mbuf`` [6*P*A] (``select.pack_matrix``: drain flags,
-    the v4 bit, min_nh) and each root's out-slot table ``out_nbr`` /
-    ``out_w`` [Rt, D] (pad slots -1 / INF_E). K1s seeds, K21 trips and
-    vote, K3 per root; ``lfa`` adds the backup columns, ``block_v4``
-    drops v4 rows from ``ok``. ``mark`` is called at the start, after
-    the SSSP and after the tail (the solver records CUDA events)."""
-    return _step(deltas, shift_w, res_rows, res_nbr, res_w, mbuf, roots,
-                 out_nbr, out_w, n_trips, has_res, p_cap, a_cap, lfa,
-                 block_v4, fabric_relax, sssp_init, fabric_extent,
-                 select_routes, mark)
-
-
-def fabric_step_plain(deltas, shift_w, res_rows, res_nbr, res_w, mbuf,
-                      roots, out_nbr, out_w, *, n_trips: int, has_res: bool,
-                      p_cap: int, a_cap: int, lfa: bool = False,
-                      block_v4: bool = False) -> FabricOut:
-    """``fabric_step`` through the plain versions only (any device)."""
-    return _step(deltas, shift_w, res_rows, res_nbr, res_w, mbuf, roots,
-                 out_nbr, out_w, n_trips, has_res, p_cap, a_cap, lfa,
-                 block_v4, fabric_relax_plain, sssp_init_plain,
-                 fabric_extent_plain, select_routes_plain, _nothing)
+KERNELS = FabricKernels(fabric_relax, fabric_relax_mc, sssp_init,
+                        fabric_extent, select_routes, shard_combine)
+PLAIN = FabricKernels(fabric_relax_plain, fabric_relax_mc_plain,
+                      sssp_init_plain, fabric_extent_plain,
+                      select_routes_plain, shard_combine_plain)

@@ -32,7 +32,10 @@ cone; the solver gates the incremental path off on any plan with
 distance and the parent plane is a forest.
 
 Wrappers (``scatter_set``, ``parent_plane``, ``cone_seed``,
-``cone_step``, ``cone_finish``) launch their CUDA kernel
+``cone_step``, ``cone_finish``, and the multichip tier's
+``scatter_window``, ``parent_shift_mc``, ``parent_fill``,
+``owned_weights``, ``cone_seed_mc``, composed per shard by
+``parallel/sharding.mc_incremental_sssp``) launch their CUDA kernel
 (``csrc/incremental.cu``) on a CUDA tensor and run the plain version
 (``*_plain``) only on a CPU tensor; each counts its kernel launches in
 ``<wrapper>.launches``. ``old_planes`` and ``incremental_sssp`` compose
@@ -54,6 +57,7 @@ from openr_tpu_torch.ops.relax import (
     run_sync,
     solve_from,
     sssp_init,
+    window_row,
 )
 
 
@@ -98,6 +102,50 @@ def scatter_set(plane, idx, vals) -> None:
 scatter_set.launches = 0
 
 
+def scatter_window_plain(plane, idx, vals, shape: tuple, row0: int = 0,
+                         col0: int = 0) -> None:
+    rows, cols = shape
+    w_rows, w_cols = plane.shape
+    f = idx.long()
+    r = torch.div(f, cols, rounding_mode="floor") - row0
+    c = torch.remainder(f, cols) - col0
+    ok = ((f >= 0) & (f < rows * cols) & (r >= 0) & (r < w_rows) & (c >= 0)
+          & (c < w_cols))
+    scatter_set_plain(plane, torch.where(ok, r * w_cols + c, -1).to(
+        torch.int32), vals)
+
+
+def scatter_window(plane, idx, vals, shape: tuple, row0: int = 0,
+                   col0: int = 0) -> None:
+    """K5 [mc]: ``scatter_set`` of flat indices into a global ``shape``
+    = (rows, cols) plane, applied to the shard ``plane`` [w_rows, w_cols]
+    that holds its window [row0, row0 + w_rows) x [col0, col0 + w_cols):
+    each index inside the window lands at its local position, every
+    other one (another shard's, or a pad) drops. A shift plane is split
+    by columns, the residual ELL by rows (``parallel/sharding.py::
+    make_mc_incremental_sssp``, :494-516; ``tpu_solver._mc_scatter_jit``,
+    the in-place sharded update)."""
+    if _is_cpu(plane):
+        scatter_window_plain(plane, idx, vals, shape, row0, col0)
+        return
+    _int32(plane, idx, vals)
+    n = idx.numel()
+    if n != vals.numel():
+        raise ValueError("scatter_window: idx and vals differ in length")
+    if n == 0:
+        return
+    rows, cols = shape
+    _check_len(rows * cols)
+    p = cuda.ptr
+    cuda.launch("incremental", "scatter_window", "pppiiiiiii",
+                p(plane), p(idx), p(vals), n, rows, cols, row0,
+                plane.shape[0], col0, plane.shape[1])
+    scatter_window.launches += 1
+
+
+scatter_window.launches = 0
+
+
 def old_planes(shift_w, res_w, s_dirty_idx, s_dirty_old, r_dirty_idx,
                r_dirty_old, has_res):
     """The pre-churn weight planes: copies of the new resident planes
@@ -122,41 +170,10 @@ def _check_unique_rows(res_rows) -> None:
 
 def parent_plane_plain(deltas, swm_old, res_rows, res_nbr, rwm_old,
                        prev_dist, s_cap, has_res, n_cap, d_cap):
-    dev = prev_dist.device
-    par = torch.full((d_cap, n_cap), -1, dtype=torch.int32, device=dev)
-    src = torch.arange(n_cap, dtype=torch.int32, device=dev)
-    live = prev_dist < INF_E
-    for k, dk in enumerate(deltas.tolist()[:s_cap]):
-        wk = swm_old[k]
-        cand = prev_dist + wk[None, :]
-        tgt = torch.roll(prev_dist, -dk, dims=1)  # tgt[:, u] = prev[:, v]
-        hit = live & (wk < INF_E)[None, :] & (cand == tgt)
-        hit_v = torch.roll(hit, dk, dims=1)  # hit at the child v
-        src_v = torch.roll(src, dk)[None, :]  # src_v[v] = u
-        par = torch.where((par < 0) & hit_v, src_v, par)
+    # the whole width is one window
+    par = parent_shift_mc_plain(deltas, swm_old, prev_dist, s_cap, 0)
     if has_res:
-        _check_unique_rows(res_rows)
-        nbr_c = res_nbr.clamp(0, n_cap - 1).long()
-        rows_c = res_rows.clamp(0, n_cap - 1).long()
-        row_valid = res_rows >= 0
-        prev_n = prev_dist[:, nbr_c]  # [D, R, K]
-        cand = prev_n + rwm_old[None]
-        tgt = prev_dist[:, rows_c][:, :, None]
-        hit = (
-            (prev_n < INF_E)
-            & (rwm_old < INF_E)[None]
-            & (cand == tgt)
-            & (res_nbr >= 0)[None]
-        )
-        has = hit.any(dim=2)
-        first = hit.to(torch.int32).argmax(dim=2)  # first tight slot
-        pick = torch.gather(
-            res_nbr[None].expand(d_cap, -1, -1), 2, first[:, :, None]
-        )[:, :, 0]
-        cur = par[:, rows_c]
-        new = torch.where((cur < 0) & has & row_valid[None], pick, cur)
-        # pad rows drop: they are never clipped onto node 0's row
-        par[:, res_rows[row_valid].long()] = new[:, row_valid]
+        parent_fill_plain(par, res_rows, res_nbr, rwm_old, prev_dist)
     return par
 
 
@@ -177,9 +194,9 @@ def parent_plane(deltas, swm_old, res_rows, res_nbr, rwm_old, prev_dist,
     par = torch.empty((d_cap, n_cap), dtype=torch.int32,
                       device=prev_dist.device)
     p = cuda.ptr
-    cuda.launch("incremental", "parent_shift", "ppppiii",
+    cuda.launch("incremental", "parent_shift", "ppppiiiii",
                 p(deltas), p(swm_old), p(prev_dist), p(par), s_cap, n_cap,
-                d_cap)
+                d_cap, 0, n_cap)
     parent_plane.launches += 1
     if has_res:
         _int32(res_rows, res_nbr, rwm_old)
@@ -192,6 +209,89 @@ def parent_plane(deltas, swm_old, res_rows, res_nbr, rwm_old, prev_dist,
 
 
 parent_plane.launches = 0
+
+
+def parent_shift_mc_plain(deltas, swm_old, prev_dist, s_cap: int,
+                          col0: int):
+    d_cap, n_cap = prev_dist.shape
+    dev = prev_dist.device
+    par = torch.full((d_cap, n_cap), -1, dtype=torch.int32, device=dev)
+    src = torch.arange(n_cap, dtype=torch.int32, device=dev)
+    live = prev_dist < INF_E
+    for k, dk in enumerate(deltas.tolist()[:s_cap]):
+        wk = window_row(swm_old, k, col0, n_cap)
+        hit = (live & (wk < INF_E)[None, :]
+               & (prev_dist + wk[None, :] == torch.roll(prev_dist, -dk, 1)))
+        par = torch.where((par < 0) & torch.roll(hit, dk, dims=1),
+                          torch.roll(src, dk)[None, :], par)
+    return par
+
+
+def parent_shift_mc(deltas, swm_old, prev_dist, s_cap: int, col0: int):
+    """K6 [mc]: the shift part of ``parent_plane`` for one shard, whose
+    ``swm_old`` [s_cap, w] holds the root-masked old weights of the
+    source columns [col0, col0 + w): ``par[d, v]`` is the source of the
+    lowest class whose old edge into v is tight among the shard's own
+    sources, else -1. The group's max over its members
+    (``ops/combine.shard_combine``) is the reference's ``pmax``
+    (``parallel/sharding.py``, :527-551); ``parent_fill`` then adds the
+    residual parents."""
+    if _is_cpu(prev_dist):
+        return parent_shift_mc_plain(deltas, swm_old, prev_dist, s_cap,
+                                     col0)
+    _int32(deltas, swm_old, prev_dist)
+    d_cap, n_cap = prev_dist.shape
+    _check_len(d_cap * n_cap)
+    par = torch.empty((d_cap, n_cap), dtype=torch.int32,
+                      device=prev_dist.device)
+    p = cuda.ptr
+    cuda.launch("incremental", "parent_shift", "ppppiiiii",
+                p(deltas), p(swm_old), p(prev_dist), p(par), s_cap, n_cap,
+                d_cap, col0, swm_old.shape[1])
+    parent_shift_mc.launches += 1
+    return par
+
+
+parent_shift_mc.launches = 0
+
+
+def parent_fill_plain(par, res_rows, res_nbr, rwm_old, prev_dist) -> None:
+    d_cap, n_cap = prev_dist.shape
+    _check_unique_rows(res_rows)
+    nbr_c = res_nbr.clamp(0, n_cap - 1).long()
+    rows_c = res_rows.clamp(0, n_cap - 1).long()
+    row_valid = res_rows >= 0
+    prev_n = prev_dist[:, nbr_c]
+    hit = ((prev_n < INF_E) & (rwm_old < INF_E)[None]
+           & (prev_n + rwm_old[None] == prev_dist[:, rows_c][:, :, None])
+           & (res_nbr >= 0)[None])
+    first = hit.to(torch.int32).argmax(dim=2)
+    pick = torch.gather(res_nbr[None].expand(d_cap, -1, -1), 2,
+                        first[:, :, None])[:, :, 0]
+    cur = par[:, rows_c]
+    new = torch.where((cur < 0) & hit.any(dim=2) & row_valid[None], pick, cur)
+    par[:, res_rows[row_valid].long()] = new[:, row_valid]
+
+
+def parent_fill(par, res_rows, res_nbr, rwm_old, prev_dist) -> None:
+    """K6's residual part on its own, in place: each node still without
+    a parent in ``par`` takes the first tight slot of its residual row
+    (after the multichip tier's max over the shift parts,
+    ``parallel/sharding.py``, :552-573). Residual rows must be unique."""
+    if _is_cpu(prev_dist):
+        parent_fill_plain(par, res_rows, res_nbr, rwm_old, prev_dist)
+        return
+    _int32(par, res_rows, res_nbr, rwm_old, prev_dist)
+    d_cap, n_cap = prev_dist.shape
+    r_cap, kr_cap = res_nbr.shape
+    p = cuda.ptr
+    cuda.launch("incremental", "parent_residual", "pppppiiii",
+                p(res_rows), p(res_nbr), p(rwm_old), p(prev_dist), p(par),
+                r_cap, kr_cap, n_cap, d_cap)
+    parent_fill.launches += 1
+
+
+parent_fill.launches = 0
 
 
 # -- K7: seed the affected cone ----------------------------------------------
@@ -279,8 +379,8 @@ def cone_seed(par, swm_new, rwm_new, deltas, res_rows, res_nbr, root,
     p = cuda.ptr
     r_args = (p(rwm_new), p(res_rows), p(res_nbr), p(r_dirty_idx),
               p(r_dirty_old)) if has_res else (0, 0, 0, 0, 0)
-    cuda.launch("incremental", "cone_seed", "pppppppppppiiiiiiii",
-                p(par), p(swm_new), p(deltas), p(s_dirty_idx),
+    cuda.launch("incremental", "cone_seed", "ppppppppppppiiiiiiii",
+                p(par), p(swm_new), 0, p(deltas), p(s_dirty_idx),
                 p(s_dirty_old), *r_args, p(aff), int(root), s_cap, n_cap,
                 d_cap, n_s, r_cap, kr_cap, n_r)
     cone_seed.launches += 1
@@ -288,6 +388,95 @@ def cone_seed(par, swm_new, rwm_new, deltas, res_rows, res_nbr, root,
 
 
 cone_seed.launches = 0
+
+
+# -- K7 [mc]: the owning shard's new weights, then the seeds ------------------
+
+def owned_weights_plain(swm_new, s_dirty_idx, n_cap: int, col0: int):
+    s_cap, w_cols = swm_new.shape
+    f = s_dirty_idx.long()
+    c = torch.remainder(f, n_cap) - col0
+    ok = (f >= 0) & (f < s_cap * n_cap) & (c >= 0) & (c < w_cols)
+    k = torch.div(f, n_cap, rounding_mode="floor")
+    flat = torch.where(ok, k * w_cols + c, 0)
+    return torch.where(ok, swm_new.reshape(-1)[flat], INF_E).to(torch.int32)
+
+
+def owned_weights(swm_new, s_dirty_idx, n_cap: int, col0: int):
+    """K7 [mc], gather: int32 [n_s], the root-masked new weight of each
+    dirty shift slot (a flat index into the global [s_cap, n_cap] plane)
+    whose source column the shard owns (``swm_new`` [s_cap, w] holds the
+    columns [col0, col0 + w)), INF_E for the others and for pads. The
+    group's min over its members is the owning shard's value
+    (``parallel/sharding.py``, :575-580)."""
+    if _is_cpu(swm_new):
+        return owned_weights_plain(swm_new, s_dirty_idx, n_cap, col0)
+    _int32(swm_new, s_dirty_idx)
+    n_s = s_dirty_idx.numel()
+    out = torch.empty(n_s, dtype=torch.int32, device=swm_new.device)
+    if n_s == 0:
+        return out
+    s_cap, w_cols = swm_new.shape
+    p = cuda.ptr
+    cuda.launch("incremental", "owned_weights", "pppiiiii",
+                p(swm_new), p(s_dirty_idx), p(out), n_s, s_cap, n_cap, col0,
+                w_cols)
+    owned_weights.launches += 1
+    return out
+
+
+owned_weights.launches = 0
+
+
+def cone_seed_mc_plain(par, new_m, rwm_new, deltas, res_rows, res_nbr,
+                       root, s_dirty_idx, s_dirty_old, r_dirty_idx,
+                       r_dirty_old, has_res, s_cap: int):
+    d_cap, n_cap = par.shape
+    # the seeds read the shift slots' new weights from new_m: a plane
+    # holding them at their flat indices stands in for the whole one
+    f = s_dirty_idx.long()
+    ok = (f >= 0) & (f < s_cap * n_cap)
+    whole = torch.full((s_cap * n_cap,), INF_E, dtype=torch.int32,
+                       device=par.device)
+    whole[f[ok]] = new_m[ok]
+    return cone_seed_plain(par, whole.view(s_cap, n_cap), rwm_new, deltas,
+                           res_rows, res_nbr, root, s_dirty_idx, s_dirty_old,
+                           r_dirty_idx, r_dirty_old, has_res)
+
+
+def cone_seed_mc(par, new_m, rwm_new, deltas, res_rows, res_nbr, root,
+                 s_dirty_idx, s_dirty_old, r_dirty_idx, r_dirty_old,
+                 has_res, s_cap: int):
+    """K7 [mc]: ``cone_seed`` with the dirty shift slots' root-masked new
+    weights given as ``new_m`` [n_s] (the group's min of its members'
+    ``owned_weights``) instead of read from a whole plane; the residual
+    slots as ``cone_seed`` (the residual is whole on every shard)."""
+    if _is_cpu(par):
+        return cone_seed_mc_plain(par, new_m, rwm_new, deltas, res_rows,
+                                  res_nbr, root, s_dirty_idx, s_dirty_old,
+                                  r_dirty_idx, r_dirty_old, has_res, s_cap)
+    _int32(par, new_m, deltas, s_dirty_idx, s_dirty_old)
+    d_cap, n_cap = par.shape
+    r_cap, kr_cap = res_nbr.shape
+    n_r = 0
+    if has_res:
+        _int32(rwm_new, res_rows, res_nbr, r_dirty_idx, r_dirty_old)
+        n_r = r_dirty_idx.numel()
+    n_s = s_dirty_idx.numel()
+    _check_len(d_cap * (n_s + n_r))
+    aff = torch.zeros((d_cap, n_cap), dtype=torch.int32, device=par.device)
+    p = cuda.ptr
+    r_args = (p(rwm_new), p(res_rows), p(res_nbr), p(r_dirty_idx),
+              p(r_dirty_old)) if has_res else (0, 0, 0, 0, 0)
+    cuda.launch("incremental", "cone_seed", "ppppppppppppiiiiiiii",
+                p(par), 0, p(new_m), p(deltas), p(s_dirty_idx),
+                p(s_dirty_old), *r_args, p(aff), int(root), s_cap, n_cap,
+                d_cap, n_s, r_cap, kr_cap, n_r)
+    cone_seed_mc.launches += 1
+    return aff
+
+
+cone_seed_mc.launches = 0
 
 
 # -- K8: one step of the cone spread -----------------------------------------
@@ -337,9 +526,10 @@ def cone_spread(par, aff, max_trips: int):
 # -- K9: cone size, fallback decision, seed plane ----------------------------
 
 def cone_finish_plain(aff, prev_dist, dist0, seeds_nbr, seeds_w,
-                      cone_limit: int):
+                      cone_limit: int, cone=None):
     d_cap, n_cap = aff.shape
-    cone = aff.sum(dtype=torch.int32)
+    if cone is None:
+        cone = aff.sum(dtype=torch.int32)
     fell_back = cone > cone_limit
     warm = torch.where(aff > 0, INF_E, prev_dist)
     lanes = torch.arange(d_cap, device=aff.device)
@@ -351,32 +541,57 @@ def cone_finish_plain(aff, prev_dist, dist0, seeds_nbr, seeds_w,
     return plane, tail
 
 
-def cone_finish(aff, prev_dist, dist0, seeds_nbr, seeds_w, cone_limit: int):
+def cone_finish(aff, prev_dist, dist0, seeds_nbr, seeds_w, cone_limit: int,
+                tail=None):
     """-> (seed plane int32 [D, N], tail int32 [2] = [cone, fell_back]).
     cone = sum(aff) in node-lanes; fell_back = cone > cone_limit,
     decided on the device. The seed is ``prev_dist`` with the cone set
     to INF_E and the root out-neighbour pins min-ed in, or — when it
-    fell back — K1s's cold seed ``dist0`` itself, byte for byte."""
+    fell back — K1s's cold seed ``dist0`` itself, byte for byte.
+
+    ``tail``, when given, is an int32 [2] tensor whose ``tail[0]``
+    already holds the cone (the multichip tier sums its batch groups'
+    counts, ``parallel/sharding.py``, :652-655): only the seed plane is
+    written then, and ``tail[1]``."""
     if _is_cpu(aff):
-        return cone_finish_plain(aff, prev_dist, dist0, seeds_nbr, seeds_w,
-                                 cone_limit)
+        plane, t = cone_finish_plain(aff, prev_dist, dist0, seeds_nbr,
+                                     seeds_w, cone_limit,
+                                     None if tail is None else tail[0])
+        if tail is None:
+            return plane, t
+        tail.copy_(t)
+        return plane, tail
     _int32(aff, prev_dist, dist0, seeds_nbr, seeds_w)
     d_cap, n_cap = aff.shape
     dev = aff.device
-    # allocation: the count kernel accumulates into tail[0]
-    tail = torch.zeros(2, dtype=torch.int32, device=dev)
-    plane = torch.empty_like(prev_dist)
     p = cuda.ptr
-    cuda.launch("incremental", "cone_count", "ppi",
-                p(aff), p(tail), d_cap * n_cap)
+    if tail is None:
+        tail = cone_count(aff)
+    _int32(tail)
+    plane = torch.empty_like(prev_dist)
     cuda.launch("incremental", "cone_plane", "pppppppiii",
                 p(aff), p(prev_dist), p(dist0), p(seeds_nbr), p(seeds_w),
                 p(tail), p(plane), int(cone_limit), d_cap, n_cap)
-    cone_finish.launches += 2
+    cone_finish.launches += 1
     return plane, tail
 
 
 cone_finish.launches = 0
+
+
+def cone_count(aff):
+    """int32 [2] tensor [sum(aff), 0] (K9's count, counted among
+    ``cone_finish``'s launches)."""
+    if _is_cpu(aff):
+        return torch.stack([aff.sum(dtype=torch.int32),
+                            torch.zeros((), dtype=torch.int32)])
+    _int32(aff)
+    # allocation: the count kernel accumulates into tail[0]
+    tail = torch.zeros(2, dtype=torch.int32, device=aff.device)
+    cuda.launch("incremental", "cone_count", "ppi",
+                cuda.ptr(aff), cuda.ptr(tail), aff.numel())
+    cone_finish.launches += 1
+    return tail
 
 
 # -- the incremental solve ----------------------------------------------------

@@ -207,9 +207,9 @@ def _launch_seed(roots, g: int, n_cap: int):
                         device=roots.device)
     p = cuda.ptr
     cuda.launch(
-        "relax", "sssp_init", "pppppppppppiiiiiipi",
+        "relax", "sssp_init", "pppppppppppiiiiiipiii",
         0, 0, 0, 0, 0, 0, 0, 0, p(seeds), p(seeds_w), p(dist0),
-        0, n_cap, 0, 0, r, 0, 0, g,
+        0, n_cap, 0, 0, r, 0, 0, g, 0, n_cap,
     )
     return dist0
 
@@ -322,14 +322,14 @@ def masked_rows_delta(deltas, shift_w, res_rows, res_nbr, res_w, root: int,
 
 def pull_async(t: torch.Tensor):
     """Start a device -> host copy of ``t`` into pinned memory on the
-    current stream; a CPU tensor needs none. The token goes to
+    current stream of its card; a CPU tensor needs none. The token goes to
     ``pull_wait``."""
     if t.device.type == "cpu":
         return t, None
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     host.copy_(t, non_blocking=True)
     ev = torch.cuda.Event()
-    ev.record()
+    ev.record(torch.cuda.current_stream(t.device))
     return host, ev
 
 

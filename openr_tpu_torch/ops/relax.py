@@ -17,9 +17,11 @@ ladder pass / epoch. The trip and round counts match the JAX loops
 exactly (they ride the pull buffers' tails).
 
 Wrappers (``sssp_init``, ``relax_step``, ``ladder_classes``,
-``ladder_apply``, ``ladder_rung``) launch their CUDA kernel on a CUDA
-tensor and run the plain version (``*_plain``) only on a CPU tensor.
-Each counts its kernel launches in ``<wrapper>.launches``.
+``ladder_apply``, ``ladder_rung``, and the multichip tier's ``[mc]``
+variants ``sssp_init_mc``, ``relax_step_mc``, ``ladder_classes_mc``,
+which work on one shard's window of class columns) launch their CUDA
+kernel on a CUDA tensor and run the plain version (``*_plain``) only on
+a CPU tensor. Each counts its kernel launches in ``<wrapper>.launches``.
 
 Fused solves (the port of ``tpu_solver._fused_pipeline``, a vmap of the
 cold pipeline over ``g`` same-shape areas) pass every plane with a
@@ -224,22 +226,9 @@ def sssp_init_plain(shift_w, res_rows, res_nbr, res_w, root, seeds_nbr,
         return (torch.stack([o[0] for o in outs]),
                 tuple(torch.stack([o[1][j] for o in outs]) for j in range(3)),
                 torch.stack([o[2] for o in outs]))
-    n_cap = shift_w.shape[1]
-    sw = shift_w.clone()
-    sw[:, root] = INF_E
-    rw = torch.where(res_nbr == root, INF_E, res_w)
-    nbr_c = res_nbr.clamp(0, n_cap - 1)
-    rows_c = res_rows.clamp(0, n_cap - 1)
-    d_cap = seeds_nbr.shape[0]
-    dist0 = torch.full((d_cap, n_cap), INF_E, dtype=torch.int32,
-                       device=shift_w.device)
-    seed = seeds_nbr.clamp(0, n_cap - 1).long()
-    lanes = torch.arange(d_cap, device=shift_w.device)
-    dist0[lanes, seed] = torch.minimum(
-        dist0[lanes, seed],
-        torch.where(seeds_w < INF_E, 0, INF_E).to(torch.int32),
-    )
-    return sw, (rows_c, nbr_c, rw), dist0
+    # the whole width is one window
+    return sssp_init_mc_plain(shift_w, res_rows, res_nbr, res_w, root,
+                              seeds_nbr, seeds_w, 0, shift_w.shape[1])
 
 
 def sssp_init(shift_w, res_rows, res_nbr, res_w, root, seeds_nbr,
@@ -256,8 +245,6 @@ def sssp_init(shift_w, res_rows, res_nbr, res_w, root, seeds_nbr,
     _int32(shift_w, res_rows, res_nbr, res_w, seeds_nbr, seeds_w)
     g = _lanes_of(shift_w, 2)
     s_cap, n_cap = shift_w.shape[-2:]
-    r_cap, kr_cap = res_nbr.shape[-2:]
-    d_cap = seeds_nbr.shape[-1]
     if isinstance(root, torch.Tensor):
         _int32(root)
         if shift_w.dim() != 3 or root.shape != (g,):
@@ -265,6 +252,22 @@ def sssp_init(shift_w, res_rows, res_nbr, res_w, root, seeds_nbr,
         root_i, roots = 0, cuda.ptr(root)
     else:
         root_i, roots = int(root), 0
+    out = _launch_init(shift_w, res_rows, res_nbr, res_w, root_i, roots,
+                       seeds_nbr, seeds_w, g, s_cap, n_cap, 0)
+    sssp_init.launches += 1
+    return out
+
+
+sssp_init.launches = 0
+
+
+def _launch_init(shift_w, res_rows, res_nbr, res_w, root_i: int, roots: int,
+                 seeds_nbr, seeds_w, g: int, s_cap: int, n_cap: int,
+                 col0: int):
+    """Launch K1s over the class columns [col0, col0 + shift_w width) of
+    an n_cap-node plan."""
+    r_cap, kr_cap = res_nbr.shape[-2:]
+    d_cap = seeds_nbr.shape[-1]
     sw = torch.empty_like(shift_w)
     rows_c = torch.empty_like(res_rows)
     nbr_c = torch.empty_like(res_nbr)
@@ -273,16 +276,56 @@ def sssp_init(shift_w, res_rows, res_nbr, res_w, root, seeds_nbr,
                         device=shift_w.device)
     p = cuda.ptr
     cuda.launch(
-        "relax", "sssp_init", "pppppppppppiiiiiipi",
+        "relax", "sssp_init", "pppppppppppiiiiiipiii",
         p(shift_w), p(sw), p(res_rows), p(res_nbr), p(res_w), p(rows_c),
         p(nbr_c), p(rw), p(seeds_nbr), p(seeds_w), p(dist0),
-        s_cap, n_cap, r_cap, kr_cap, d_cap, root_i, roots, g,
+        s_cap, n_cap, r_cap, kr_cap, d_cap, root_i, roots, g, col0,
+        shift_w.shape[-1],
     )
-    sssp_init.launches += 1
     return sw, (rows_c, nbr_c, rw), dist0
 
 
-sssp_init.launches = 0
+# -- K1s [mc]: one shard's window of class columns ---------------------------
+
+def sssp_init_mc_plain(shift_w, res_rows, res_nbr, res_w, root: int,
+                       seeds_nbr, seeds_w, col0: int, n_cap: int):
+    w_cols = shift_w.shape[1]
+    sw = shift_w.clone()
+    if 0 <= root - col0 < w_cols:
+        sw[:, root - col0] = INF_E
+    rw = torch.where(res_nbr == root, INF_E, res_w)
+    d_cap = seeds_nbr.shape[0]
+    dist0 = torch.full((d_cap, n_cap), INF_E, dtype=torch.int32,
+                       device=shift_w.device)
+    seed = seeds_nbr.clamp(0, n_cap - 1).long()
+    lanes = torch.arange(d_cap, device=shift_w.device)
+    dist0[lanes, seed] = torch.minimum(
+        dist0[lanes, seed],
+        torch.where(seeds_w < INF_E, 0, INF_E).to(torch.int32),
+    )
+    return sw, (res_rows.clamp(0, n_cap - 1), res_nbr.clamp(0, n_cap - 1),
+                rw), dist0
+
+
+def sssp_init_mc(shift_w, res_rows, res_nbr, res_w, root: int, seeds_nbr,
+                 seeds_w, col0: int, n_cap: int):
+    """K1s [mc]: ``sssp_init`` for one shard of the multichip tier, whose
+    ``shift_w`` [s_cap, w] holds the class columns [col0, col0 + w) of an
+    ``n_cap``-node plan: the root's column is masked only where it lies
+    in the window (``parallel/sharding.py::make_mc_sssp``, :378-383);
+    the residual ELL (whole) and the [D, n_cap] seed plane as
+    ``sssp_init``."""
+    if _is_cpu(shift_w):
+        return sssp_init_mc_plain(shift_w, res_rows, res_nbr, res_w, root,
+                                  seeds_nbr, seeds_w, col0, n_cap)
+    _int32(shift_w, res_rows, res_nbr, res_w, seeds_nbr, seeds_w)
+    out = _launch_init(shift_w, res_rows, res_nbr, res_w, int(root), 0,
+                       seeds_nbr, seeds_w, 1, shift_w.shape[0], n_cap, col0)
+    sssp_init_mc.launches += 1
+    return out
+
+
+sssp_init_mc.launches = 0
 
 
 # -- K1: one Jacobi relaxation ---------------------------------------------
@@ -301,19 +344,7 @@ def relax_step_plain(dist, out, flag, deltas, sw, residual,
             dist[lane], out[lane], f, deltas[lane], sw[lane],
             _lane_residual(dist, residual, lane)))
         return
-    acc = torch.full_like(dist, INF_E)
-    for k, dk in enumerate(deltas.tolist()):
-        acc = torch.minimum(acc, _roll(dist + sw[k], dk))
-    if residual is not None:
-        rows_c, nbr_c, rw = residual
-        cand = (dist[:, nbr_c.long()] + rw[None]).amin(dim=2)
-        acc.scatter_reduce_(
-            1, rows_c.long()[None].expand(dist.shape[0], -1), cand,
-            reduce="amin",
-        )
-    new = torch.minimum(acc, dist)
-    flag |= (new < dist).any().to(torch.int32)
-    out.copy_(new)
+    relax_step_mc_plain(dist, out, flag, deltas, sw, residual, 0)
 
 
 def relax_step(dist, out, flag, deltas, sw, residual,
@@ -333,19 +364,21 @@ def relax_step(dist, out, flag, deltas, sw, residual,
 
 
 def _launch_relax(dist, out, flag, deltas, sw, residual,
-                  gate: Optional[Gate] = None) -> int:
-    """Launch K1 (the shift kernel, then the residual one when there is
-    a residual) and return the number of launches."""
-    _int32(dist, out, flag, deltas, sw)
+                  gate: Optional[Gate] = None, col0: int = 0) -> int:
+    """Launch K1 (the shift kernel over the class columns [col0, col0 +
+    sw width), then the residual one when there is a residual) and
+    return the number of launches. ``flag`` may be None."""
+    _int32(dist, out, deltas, sw)
     g = _lanes_of(dist, 2)
     d_cap, n_cap = dist.shape[-2:]
-    s_cap = sw.shape[-2]
+    s_cap, w_cols = sw.shape[-2:]
     p = cuda.ptr
+    fp = 0 if flag is None else p(flag)
     ga = _gate_args(gate)
     cuda.launch(
-        "relax", "relax_shift", "ppppiiipi" + _GATE_SIG,
-        p(dist), p(out), p(deltas), p(sw), d_cap, n_cap, s_cap, p(flag), g,
-        *ga,
+        "relax", "relax_shift", "ppppiiiiipi" + _GATE_SIG,
+        p(dist), p(out), p(deltas), p(sw), d_cap, n_cap, s_cap, col0, w_cols,
+        fp, g, *ga,
     )
     if residual is None:
         return 1
@@ -358,12 +391,67 @@ def _launch_relax(dist, out, flag, deltas, sw, residual,
         "relax", "relax_residual", "pppppiiiiipi" + _GATE_SIG,
         p(dist), p(out), p(rows_c), p(nbr_c), p(rw), d_cap, n_cap,
         nbr_c.shape[-2], nbr_c.shape[-1],
-        int(_shared_residual(dist, residual)), p(flag), g, *ga,
+        int(_shared_residual(dist, residual)), fp, g, *ga,
     )
     return 2
 
 
 relax_step.launches = 0
+
+
+# -- K1 [mc]: one shard's relaxation over its own source columns -------------
+
+def window_row(sw_local, k: int, col0: int, n_cap: int):
+    """Class ``k``'s full-width weight row [n_cap] of a shard holding the
+    columns [col0, col0 + w): its own weights there, INF_E elsewhere
+    (the reference's ``w_of``, ``parallel/sharding.py:396-400``)."""
+    if sw_local.shape[1] == n_cap:
+        return sw_local[k]
+    row = torch.full((n_cap,), INF_E, dtype=torch.int32,
+                     device=sw_local.device)
+    row[col0:col0 + sw_local.shape[1]] = sw_local[k]
+    return row
+
+
+def relax_step_mc_plain(dist, out, flag, deltas, sw_local, residual,
+                        col0: int) -> None:
+    n_cap = dist.shape[1]
+    acc = torch.full_like(dist, INF_E)
+    for k, dk in enumerate(deltas.tolist()):
+        acc = torch.minimum(
+            acc, _roll(dist + window_row(sw_local, k, col0, n_cap), dk))
+    if residual is not None:
+        rows_c, nbr_c, rw = residual
+        cand = (dist[:, nbr_c.long()] + rw[None]).amin(dim=2)
+        acc.scatter_reduce_(
+            1, rows_c.long()[None].expand(dist.shape[0], -1), cand,
+            reduce="amin",
+        )
+    new = torch.minimum(acc, dist)
+    if flag is not None:
+        flag |= (new < dist).any().to(torch.int32)
+    out.copy_(new)
+
+
+def relax_step_mc(dist, out, flag, deltas, sw_local, residual,
+                  col0: int) -> None:
+    """K1 [mc]: one shard's partial relaxation of the full-width plane
+    ``dist`` [D, n_cap] into ``out``: the shift candidates of its own
+    source columns [col0, col0 + w) only (``sw_local`` [s_cap, w], root
+    masked by K1s [mc]), the residual ELL whole, min-ed with ``dist``.
+    The group's combine (``ops/combine.shard_combine``, min) of its
+    members' planes is the reference's relaxation with its ``pmin``
+    (``ops/relax.py::make_relax(combine=)``). ORs ``flag`` (may be None)
+    on a decrease."""
+    if _is_cpu(dist):
+        relax_step_mc_plain(dist, out, flag, deltas, sw_local, residual,
+                            col0)
+        return
+    relax_step_mc.launches += _launch_relax(dist, out, flag, deltas,
+                                            sw_local, residual, None, col0)
+
+
+relax_step_mc.launches = 0
 
 
 # -- K2: the Δ-stepping ladder ---------------------------------------------
@@ -374,13 +462,7 @@ def ladder_classes_plain(sw, deltas, dq: int, s_lad: int):
                 for lane in range(sw.shape[0])]
         return (torch.stack([o[0] for o in outs]),
                 torch.stack([o[1] for o in outs]))
-    n_cap = sw.shape[1]
-    score = (sw <= dq).sum(dim=1, dtype=torch.int32)
-    lad = torch.sort(score, descending=True, stable=True).indices[:s_lad]
-    w = sw[lad]
-    w_base = torch.where(w <= dq, w, INF_E).contiguous()
-    d_base = torch.remainder(deltas[lad], n_cap).contiguous()
-    return w_base, d_base
+    return ladder_classes_mc_plain(sw, deltas, dq, s_lad, 0, sw.shape[1])
 
 
 def ladder_classes(sw, deltas, dq: int, s_lad: int):
@@ -409,14 +491,56 @@ def ladder_classes(sw, deltas, dq: int, s_lad: int):
                          device=sw.device)
     d_base = torch.empty(lead + (s_lad,), dtype=torch.int32,
                          device=sw.device)
-    cuda.launch("relax", "ladder_gather", "pppppiiiii",
+    cuda.launch("relax", "ladder_gather", "pppppiiiiiii",
                 p(sw), p(deltas), p(lad), p(w_base), p(d_base), s_cap, s_lad,
-                n_cap, int(dq), g)
+                n_cap, int(dq), g, 0, n_cap)
     ladder_classes.launches += 1
     return w_base, d_base
 
 
 ladder_classes.launches = 0
+
+
+def ladder_classes_mc_plain(sw_local, deltas, dq: int, s_lad: int,
+                            col0: int, n_cap: int):
+    score = (sw_local <= dq).sum(dim=1, dtype=torch.int32)
+    lad = torch.sort(score, descending=True, stable=True).indices[:s_lad]
+    w = torch.stack([window_row(sw_local, int(k), col0, n_cap)
+                     for k in lad.tolist()])
+    w_base = torch.where(w <= dq, w, INF_E).contiguous()
+    d_base = torch.remainder(deltas[lad], n_cap).contiguous()
+    return w_base, d_base
+
+
+def ladder_classes_mc(sw_local, deltas, dq: int, s_lad: int, col0: int,
+                      n_cap: int):
+    """K2 [mc]: ``ladder_classes`` for one shard holding the class
+    columns [col0, col0 + w) (``sw_local`` [s_cap, w], root masked): the
+    classes are scored on its own columns (``ops/relax.py:227-232``,
+    shards may pick different ones) and the ladder rows are full width
+    [s_lad, n_cap], INF_E outside the window."""
+    if _is_cpu(sw_local):
+        return ladder_classes_mc_plain(sw_local, deltas, dq, s_lad, col0,
+                                       n_cap)
+    _int32(sw_local, deltas)
+    s_cap, w_cols = sw_local.shape
+    dev = sw_local.device
+    score = torch.empty(s_cap, dtype=torch.int32, device=dev)
+    p = cuda.ptr
+    cuda.launch("relax", "ladder_score", "ppiiii",
+                p(sw_local), p(score), s_cap, w_cols, int(dq), 1)
+    lad = torch.sort(score, descending=True,
+                     stable=True).indices[:s_lad].contiguous()
+    w_base = torch.empty((s_lad, n_cap), dtype=torch.int32, device=dev)
+    d_base = torch.empty(s_lad, dtype=torch.int32, device=dev)
+    cuda.launch("relax", "ladder_gather", "pppppiiiiiii",
+                p(sw_local), p(deltas), p(lad), p(w_base), p(d_base), s_cap,
+                s_lad, n_cap, int(dq), 1, col0, w_cols)
+    ladder_classes_mc.launches += 2
+    return w_base, d_base
+
+
+ladder_classes_mc.launches = 0
 
 
 def ladder_apply_plain(src, dst, w, d, k: int, flag,
@@ -493,6 +617,35 @@ def read_flag(flag) -> bool:
 
 
 read_flag.reads = 0
+
+
+class FlagBank:
+    """One int32 change flag for each of ``n`` slots on the devices
+    given, the flags of one device held in one tensor, so that reading
+    every slot costs one sync per device."""
+
+    def __init__(self, devices):
+        self.devices = [torch.device(d) for d in devices]
+        self._banks = {}
+        self._slot = []
+        for dev in self.devices:
+            self._slot.append((dev, self._banks.get(dev, 0)))
+            self._banks[dev] = self._banks.get(dev, 0) + 1
+        self._banks = {dev: torch.zeros(n, dtype=torch.int32, device=dev)
+                       for dev, n in self._banks.items()}
+
+    def __getitem__(self, i: int) -> torch.Tensor:
+        dev, j = self._slot[i]
+        return self._banks[dev][j:j + 1]
+
+    def read(self) -> list:
+        """Every slot's flag (one host read a device), then clear them."""
+        vals = {}
+        for dev, bank in self._banks.items():
+            read_flag.reads += 1
+            vals[dev] = bank.tolist()
+            bank.zero_()
+        return [bool(vals[dev][j]) for dev, j in self._slot]
 
 
 def run_sync(step, dist0, bound: int, lanes: Optional[Lanes] = None):

@@ -14,7 +14,9 @@ step (``ops/sweep.py::te_step``) into the port's ``te_step`` arguments.
 ``ell_from_jax`` carries a JAX ``ops/csr.EllGraph``'s mirror into the
 legacy kernels' tensors, and ``fabric_inputs_from_jax`` a JAX
 ``EdgePlan``, ``PrefixMatrix`` and root tables into the whole-fabric
-step's (``ops/fabric.fabric_step``).
+step's (``ops/fabric.fabric_step``). ``mc_inputs_from_jax`` splits one
+JAX multichip SSSP call's arguments into the per-shard tensors of the
+port's (``parallel/sharding.mc_sssp`` / ``mc_incremental_sssp``).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from openr_tpu_torch.ops.ksp2 import MaskedRowsState
 from openr_tpu_torch.ops.legacy import ell_tensors
 from openr_tpu_torch.ops.select import pack_matrix
 from openr_tpu_torch.ops.te import TePlan, te_plan
+from openr_tpu_torch.parallel.sharding import REPLICATED, Layout, place
 
 # the JAX pipeline's positional arguments, in order
 JAX_ARGS = (
@@ -172,3 +175,41 @@ def fabric_inputs_from_jax(plan, matrix, roots, out_nbr, out_w,
         "out_nbr": put(out_nbr), "out_w": put(out_w),
         "has_res": bool(plan.k_res > 0), "p_cap": p_cap, "a_cap": a_cap,
     }
+
+
+# the JAX multichip SSSP's positional arguments
+# (parallel/sharding.py::make_mc_sssp) and how its in_specs lay each out;
+# the incremental one (make_mc_incremental_sssp) takes six more
+JAX_MC_ARGS = (
+    ("deltas", REPLICATED), ("shift_w", Layout(1, "graph")),
+    ("res_rows", REPLICATED), ("res_nbr", REPLICATED),
+    ("res_w", REPLICATED), ("root", None), ("root_nbr", Layout(0, "batch")),
+    ("root_w", Layout(0, "batch")),
+)
+JAX_MC_INCR_ARGS = (
+    ("prev_dist", Layout(0, "batch")), ("s_dirty_idx", REPLICATED),
+    ("s_dirty_old", REPLICATED), ("r_dirty_idx", REPLICATED),
+    ("r_dirty_old", REPLICATED), ("cone_limit", None),
+)
+
+
+def mc_inputs_from_jax(mesh, args) -> dict:
+    """``args``: one JAX multichip SSSP call's inputs (numpy arrays or
+    anything ``np.asarray`` takes) in ``make_mc_sssp``'s order, optionally
+    followed by ``make_mc_incremental_sssp``'s six more. Returns the
+    keyword arguments of ``parallel/sharding.mc_sssp`` (or
+    ``mc_incremental_sssp``) but their static ones: each array split as
+    the JAX in_specs split it over ``mesh`` (a ``Mesh``), a grid
+    ``[batch][graph]`` of int32 tensors on the shards' devices; ``root``
+    and ``cone_limit`` as ints."""
+    names = JAX_MC_ARGS + JAX_MC_INCR_ARGS
+    if len(args) not in (len(JAX_MC_ARGS), len(names)):
+        raise ValueError(
+            f"expected {len(JAX_MC_ARGS)} or {len(names)} arrays, got "
+            f"{len(args)}")
+    out = {}
+    for (name, layout), arr in zip(names, args):
+        arr = np.asarray(arr)
+        out[name] = int(arr) if layout is None else place(
+            mesh, arr, layout).parts
+    return out

@@ -285,23 +285,33 @@ def test_last_trips_from_cold_solves_only(port):
 
 
 def test_fabric_refuses_a_wider_mesh_and_no_card(port):
-    """A mesh of more than one device raises NotImplementedError (the
-    cross-card split is not ported); without a CUDA device the step and
-    the solver raise unless given the CPU."""
+    """A mesh of more than one device (a list of devices, made into a
+    mesh as ``make_mesh`` factors it; here two CPU logical shards, batch
+    2) splits the roots and gives the one-device step's arrays, and the
+    solver's fabric RIB on it equals the oracle's; without a CUDA device
+    the step and the solver still refuse, unless given the CPU. The name
+    stays from when the wider mesh was refused too: the test id is
+    kept, its no-card half unchanged."""
     plan, matrix, pplan, pmatrix, roots, out_nbr, out_w = _cell(port,
                                                                  "grid6")
-    with pytest.raises(NotImplementedError):
-        port.sharding.sharded_fabric_step(["cpu", "cpu"], pplan, pmatrix,
-                                          roots, out_nbr, out_w, 4)
+    wide = port.sharding.sharded_fabric_step(["cpu", "cpu"], pplan, pmatrix,
+                                             roots, out_nbr, out_w, 4)
     got = port.sharding.sharded_fabric_step(["cpu"], pplan, pmatrix, roots,
                                             out_nbr, out_w, 4)
     assert got[0].device.type == "cpu"
+    for a, b in zip(wide, got):
+        assert port.torch.equal(a, b)
     if not port.torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             port.sharding.sharded_fabric_step(None, pplan, pmatrix, roots,
                                               out_nbr, out_w, 4)
     (states, ps), _ = _port_states(port, lambda: port.topologies.grid(4))
     solver = port.gpu_solver.GpuSpfSolver("node-0-0", device="cpu")
-    with pytest.raises(NotImplementedError):
-        solver.build_fabric_route_dbs(["node-0-0"], states, ps,
-                                      mesh=["cpu", "cpu"])
+    dbs = solver.build_fabric_route_dbs(["node-0-0"], states, ps,
+                                        mesh=["cpu", "cpu"])
+    assert solver.last_fabric_stats["mesh"] == {"batch": 2, "graph": 1}
+    want = port.spf_solver.SpfSolver("node-0-0").build_route_db(
+        "node-0-0", states, ps)
+    assert list(dbs) == ["node-0-0"]
+    assert dict(dbs["node-0-0"].unicast_routes.items()) == dict(
+        want.unicast_routes.items())

@@ -307,15 +307,15 @@ def test_legacy_entry_points_need_a_card_or_cpu(port):
 
 
 def test_new_modules_import_without_jax():
-    """Importing the legacy, fabric and entry modules pulls in neither
-    jax nor any module of openr_tpu."""
+    """Importing the legacy, fabric, combine, sharding and entry modules
+    pulls in neither jax nor any module of openr_tpu."""
     code = (
         "import importlib, sys\n"
         "def bad():\n"
         "    return {m for m in sys.modules\n"
         "            if m.split('.')[0] in ('jax', 'jaxlib', 'openr_tpu')}\n"
         "before = bad()\n"
-        "for m in ('ops.legacy', 'ops.fabric', 'parallel',\n"
+        "for m in ('ops.legacy', 'ops.fabric', 'ops.combine', 'parallel',\n"
         "          'parallel.sharding', 'entry', 'weights'):\n"
         "    importlib.import_module('openr_tpu_torch.' + m)\n"
         "print(sorted(bad() - before))\n"

@@ -367,7 +367,15 @@ def test_area_above_multichip_threshold_solves_on_one_card(port, threshold):
     """With the multichip threshold off (0) or below the area's n_cap
     (a 5 x 5 grid has 32 node slots), one device solves the area — as
     the reference's ``_mc_mesh_for`` keeps its tier off below two
-    devices — and the RIB is the oracle's."""
+    devices — and the RIB is the oracle's. Still true with the tier
+    ported: a CPU solver's default mesh is its one device, so the name
+    stays and the body gains one check, that such a solver's tier
+    resolves to no mesh (tests/test_torch_multichip.py drives the tier
+    on a mesh of CPU logical shards)."""
+    assert port.gpu_solver.GpuSpfSolver(
+        "a", device="cpu",
+        multichip_n_cap_threshold=max(threshold, 1))._mc_mesh_for(1 << 20) \
+        is None
     adj_dbs, pdbs = topologies.grid(5)
     (states, ps), (pstates, pps) = _both_states(port, adj_dbs, pdbs)
     me = "node-2-2"
@@ -379,18 +387,31 @@ def test_area_above_multichip_threshold_solves_on_one_card(port, threshold):
 
 
 def test_multichip_tier_engages_only_with_two_cards(port, monkeypatch):
-    """The tier (still refused) engages only above a positive threshold
-    with two or more cards visible."""
+    """The tier engages only above a positive threshold with two or more
+    cards visible (``_mc_mesh_for``, the reference's rungs), on a mesh of
+    those cards, and never while ``force_single_chip`` is set. The name
+    stays from when the engaged tier was refused: it asked
+    ``_mc_tier_engaged``, which ``_mc_mesh_for`` replaced with the same
+    rungs, and it asks the same cases of it (and one more)."""
     torch = port.torch
     solver = port.gpu_solver.GpuSpfSolver("a", device="cpu",
                                           multichip_n_cap_threshold=64)
-    assert not solver._mc_tier_engaged(128)  # the CPU is one device
+    assert solver._mc_mesh_for(128) is None  # the CPU is one device
     solver.device = torch.device("cuda")
     for cards, n_cap, thr, want in ((1, 128, 64, False), (2, 128, 64, True),
-                                    (2, 64, 64, False), (4, 128, 0, False)):
+                                    (2, 64, 64, False), (4, 128, 0, False),
+                                    (4, 128, 64, True)):
         monkeypatch.setattr(torch.cuda, "device_count", lambda c=cards: c)
         solver.multichip_n_cap_threshold = thr
-        assert solver._mc_tier_engaged(n_cap) is want, (cards, n_cap, thr)
+        solver._mc_mesh = False
+        mesh = solver._mc_mesh_for(n_cap)
+        assert (mesh is not None) is want, (cards, n_cap, thr)
+        if want:
+            assert mesh.size == cards
+            assert mesh.shape["graph"] == (2 if cards == 4 else 1)
+            solver.force_single_chip = True
+            assert solver._mc_mesh_for(n_cap) is None
+            solver.force_single_chip = False
 
 
 def test_prefix_matrix_is_memoized_on_the_prefix_state(port, monkeypatch):
