@@ -52,10 +52,16 @@ prints no result line:
      step prints its time split, cone, trips, rounds, launches, flag
      reads and bytes moved; the counts are zeroed before each
      incremental build and read after it;
-  7. the churn kernels (K5-K9, K4 with the incremental tail) and the
-     whole incremental solve against their plain versions on the last
-     flap step's own inputs, timed beside their bounds and, for K5 and
-     K7, the one PyTorch call that computes the same scatter;
+  7. the churn kernels (K5 in place, the old planes, K6-K9, K4 with
+     the incremental tail) and the whole incremental solve against
+     their plain versions on the last flap step's own inputs, timed
+     beside their bounds and, for K5 and K7, the one PyTorch call that
+     computes the same scatter; K5, the old planes and K7 also split
+     into device time alone, host enqueue and (K5, K7) the bare
+     launch's host cost; then the device work (kernel launches and
+     torch ops) of K7 alone (one launch, no fill), of the old planes
+     alone (one launch a plane), of one incremental SSSP and of one
+     incremental build, whose RIB equals a cold solve's;
   8. flapstorm100k (BASELINE config 5, bench.py's flapstorm lane): a
      ``GpuSpfSolver(streaming_pipeline=True, small_graph_nodes=0)`` on
      the lsdb100k cell takes a cold build and a warm-up flap of
@@ -67,7 +73,9 @@ prints no result line:
      full pull, the budget grows), three quiet flaps (it settles back to
      64) and an idle epoch (0 rows, exactly 1,308 B). The RIB at storm
      epochs 0, 100 and 199 and at the idle epoch equals a fresh
-     solver's cold solve, the last also the oracle's. It prints every
+     solver's cold solve, the last also the oracle's; one more flap
+     epoch is counted (kernel launches and torch ops) and held to a cold
+     solve. It prints every
      epoch (changed rows, budget, overflow, bytes, launches, flag reads,
      time split) and a summary: the p50 / p99 of flap-apply to RIB
      delta, bytes per epoch, streamed epochs, overflows and the rate
@@ -244,8 +252,9 @@ STORM_HZ = 100.0
 COLD_PATH = ("K1s:sssp_init", "K1:relax_step", "K2:ladder_classes",
              "K2:ladder_apply", "K2:ladder_rung", "K3:select_routes",
              "K4:compact_outputs")
-CHURN_PATH = COLD_PATH + ("K5:scatter_set", "K6:parent_plane",
-                          "K7:cone_seed", "K8:cone_step", "K9:cone_finish")
+CHURN_PATH = COLD_PATH + ("K5:scatter_set", "K5:old_plane",
+                          "K6:parent_plane", "K7:cone_seed", "K8:cone_step",
+                          "K9:cone_finish")
 UCMP_PATH = ("base_sssp", "ucmp_propagate")
 # incremental flap steps of the churn phase (each held to a cold solve of
 # the same state, ~3 s of host RIB build at lsdb100k; 8 until the TE
@@ -281,6 +290,80 @@ def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def device_ms(torch, fn, reps: int = 50) -> tuple[float, float]:
+    """-> (device ms a call of ``fn`` alone, host ms a call to enqueue
+    it). The ``reps`` calls are queued behind a device sleep that
+    outlasts their enqueue, so the two events bracket the kernels run
+    back to back with no host time between them; it raises if the
+    sleep ended before the last call was queued."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    for cycles in (40_000_000, 400_000_000):
+        torch.cuda._sleep(cycles)
+        a.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host = (time.perf_counter() - t0) * 1e3 / reps
+        covered = not a.query()
+        b.record()
+        torch.cuda.synchronize()
+        if covered:
+            return a.elapsed_time(b) / reps, host
+    raise SmokeError("device_ms: the enqueue outlasted the device sleep")
+
+
+def device_op_counter(torch):
+    """A dispatch mode that counts, by name, the aten ops that run on a
+    CUDA tensor and do device work (views, allocations and aliases
+    excluded): the clones, fills, copies and reads around the kernels,
+    whose own launches the wrappers count."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    no_work = {"aten::empty", "aten::empty_like", "aten::empty_strided",
+               "aten::new_empty", "aten::new_empty_strided", "aten::detach",
+               "aten::lift_fresh", "aten::alias", "aten::set_",
+               "aten::resize_", "aten::_reshape_alias", "aten::view",
+               "aten::as_strided", "aten::_unsafe_view"}
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func._schema.name
+            if name in no_work or getattr(func, "is_view", False):
+                return out
+            leaves, _ = tree_flatten((args, kwargs, out))
+            if any(isinstance(x, torch.Tensor) and x.is_cuda
+                   for x in leaves):
+                self.ops[name] = self.ops.get(name, 0) + 1
+            return out
+
+    return Count()
+
+
+def counted(torch, wrappers, fn) -> dict:
+    """Run ``fn`` once with the launch counts at 0 and the torch ops
+    counted: -> its device work, as kernel launches by wrapper and
+    torch ops by name, and their sum ``launches``."""
+    for w, _, _ in wrappers.values():
+        w.launches = 0
+    with device_op_counter(torch) as mode:
+        fn()
+    kern = {n: w.launches for n, (w, _, _) in wrappers.items()
+            if w.launches}
+    return {"launches": sum(kern.values()) + sum(mode.ops.values()),
+            "kernel_launches": sum(kern.values()),
+            "torch_ops": sum(mode.ops.values()),
+            "kernels_by_wrapper": kern, "torch_ops_by_name": mode.ops}
 
 
 def bound(nbytes: int, ops: int) -> tuple[float, str]:
@@ -325,7 +408,8 @@ def churn_inputs(relax, incremental, solver):
     """The last incremental solve of ``solver`` (one area "0"): its own
     inputs, and the planes the incremental kernels derive from them
     (masked new and old weights, the cold seed, the parent forest) as
-    each kernel's argument tuple."""
+    each kernel's argument tuple (``oargs``: the old planes', shift then
+    residual)."""
     lane, prev_out, incr_in = solver._last_exec_incr
     (deltas, shift_w, res_rows, res_nbr, res_w, mbuf, root, root_nbr,
      root_w) = lane
@@ -335,10 +419,11 @@ def churn_inputs(relax, incremental, solver):
     n_cap, s_cap, d_cap = plan.n_cap, plan.s_cap, root_nbr.shape[0]
     sw_n, res_n, dist0 = relax.sssp_init(
         shift_w, res_rows, res_nbr, res_w, root, root_nbr, root_w)
-    o_shift, o_res = incremental.old_planes(
-        shift_w, res_w, sdi, sdo, rdi, rdo, has_res)
-    swm_old, (_, _, rwm_old), _ = relax.sssp_init(
-        o_shift, res_rows, res_nbr, o_res, root, root_nbr, root_w)
+    swm_old, rwm_old = incremental.old_planes(
+        shift_w, res_w, sdi, sdo, rdi, rdo, has_res, int(root), res_nbr)
+    oargs = [(shift_w, sdi, sdo, int(root))]
+    if has_res:
+        oargs.append((res_w, rdi, rdo, int(root), res_nbr))
     pargs = (deltas, swm_old, res_rows, res_nbr, rwm_old, prev_dist, s_cap,
              has_res, n_cap, d_cap)
     par = incremental.parent_plane(*pargs)
@@ -355,8 +440,8 @@ def churn_inputs(relax, incremental, solver):
     return dict(
         lane=lane, prev_out=prev_out, prev_dist=prev_dist, sdi=sdi, sdo=sdo,
         rdi=rdi, rdo=rdo, cone_limit=int(cone_limit), plan=plan,
-        has_res=has_res, sw_n=sw_n, res_n=res_n, dist0=dist0, pargs=pargs,
-        par=par, cargs=cargs, whole=whole,
+        has_res=has_res, sw_n=sw_n, res_n=res_n, dist0=dist0, oargs=oargs,
+        pargs=pargs, par=par, cargs=cargs, whole=whole,
     )
 
 
@@ -981,6 +1066,15 @@ def flapstorm_phase(c, adj_dbs, states, ps) -> tuple:
           and idle["budget"] == 64 and idle["bytes_down"] == idle_bytes,
           f"flapstorm: the idle epoch must pull {idle_bytes} B: {idle}")
     cold_check("idle epoch", True)
+    # one storm epoch's device work, torch ops included (not timed)
+    per_epoch = counted(torch, c.wrappers, lambda: epoch(
+        2, STORM_FLAPS + 4, "counted"))
+    check(recs[-1]["streamed"]
+          and per_epoch["kernels_by_wrapper"].get("K5:old_plane"),
+          f"flapstorm: the counted epoch must stream incrementally: "
+          f"{recs[-1]}")
+    cold_check("counted epoch", False)
+    log("flapstorm100k epoch launches: " + json.dumps(per_epoch))
     for r in recs:
         log("flapstorm100k epoch: " + json.dumps(r))
     lat = [r["flap_to_delta_ms"] for r in storm]
@@ -3345,6 +3439,8 @@ def main() -> int:
                             "openr_tpu/ops/stream.py:79"),
         "K5:scatter_set": (incremental.scatter_set, "incremental.cu",
                            "openr_tpu/decision/tpu_solver.py:1097"),
+        "K5:old_plane": (incremental.old_plane, "incremental.cu",
+                         "openr_tpu/ops/incremental.py:51"),
         "K6:parent_plane": (incremental.parent_plane, "incremental.cu",
                             "openr_tpu/ops/incremental.py:74"),
         "K7:cone_seed": (incremental.cone_seed, "incremental.cu",
@@ -3571,16 +3667,24 @@ def main() -> int:
             r_lim = c_plan.res_nbr.size
             check(int(((ci["rdi"] >= 0) & (ci["rdi"] < r_lim)).sum()) > 0,
                   f"{name}: the flap must dirty residual slots")
+            # each old plane, the residual's (its mask keyed on res_nbr)
+            # included, on the flap's own dirty lists
             err = max(
+                *(max_abs_err(torch, incremental.old_plane(*oa),
+                              incremental.old_plane_plain(*oa))
+                  for oa in ci["oargs"]),
                 max_abs_err(torch, ci["par"],
                             incremental.parent_plane_plain(*ci["pargs"])),
                 max_abs_err(torch, incremental.cone_seed(*ci["cargs"]),
                             incremental.cone_seed_plain(*ci["cargs"])),
             )
-            check(err == 0, f"{name}: K6 / K7 with the residual != plain")
+            check(len(ci["oargs"]) == 2 and err == 0,
+                  f"{name}: the old planes / K6 / K7 with the residual != "
+                  f"plain")
             whole_incremental(torch, incremental, ci)
             log(f"{name}: incremental solve after a flap equal to the cold "
-                f"solve and the oracle; K6, K7 with the residual and the "
+                f"solve and the oracle; the old planes, K6, K7 with the "
+                f"residual and the "
                 f"whole {ci['whole'][1]['kernel']} incremental SSSP equal "
                 f"to plain: " + json.dumps({
                     k: st.get(k) for k in ("cone", "cone_trips", "trips",
@@ -3912,6 +4016,22 @@ def main() -> int:
     n_live = int(s_live.sum())
     check(n_live > 0, "the last flap step must carry dirty slots")
 
+    def split(name, fn, library=None, floor=None) -> None:
+        """The wrapper's time split: the kernel alone on the device and
+        the host's enqueue (``device_ms``), the same for the library
+        call, and the host cost of the bare ``cuda.launch`` (ctypes and
+        the CUDA launch, no argument checks): the floor a wrapper call
+        cannot go under."""
+        r = results[name]
+        r["device_ms"], r["host_ms"] = device_ms(torch, fn)
+        if library is not None:
+            r["library_device_ms"], r["library_host_ms"] = device_ms(
+                torch, library)
+        if floor is not None:
+            r["launch_floor_host_ms"] = device_ms(torch, floor)[1]
+        log(f"{name} split: " + json.dumps(
+            {k: v for k, v in r.items() if k.endswith("_ms")}))
+
     old_k, old_p, scratch = (i_shift.clone() for _ in range(3))
     incremental.scatter_set(old_k, sdi, sdo)
     incremental.scatter_set_plain(old_p, sdi, sdo)
@@ -3923,6 +4043,41 @@ def main() -> int:
         nbytes=4 * (2 * cap + n_live), ops=2 * cap,
         library=lambda: scratch.view(-1).index_copy_(0, idx_live, vals_live),
     )
+    k5_ptrs = [t.data_ptr() for t in (scratch, sdi, sdo)]
+    split("K5:scatter_set",
+          lambda: incremental.scatter_set(scratch, sdi, sdo),
+          lambda: scratch.view(-1).index_copy_(0, idx_live, vals_live),
+          lambda: cuda.launch("incremental", "scatter_set", "pppii",
+                              *k5_ptrs, cap, scratch.numel()))
+
+    # the old planes: each plane's kernel against its plain version
+    errs, o_bytes, o_ops = [], 0, 0
+    for oa in ci["oargs"]:
+        errs.append(max_abs_err(torch, incremental.old_plane(*oa),
+                                incremental.old_plane_plain(*oa)))
+        n_idx = oa[1].numel()
+        o_bytes += 4 * (2 * oa[0].numel() + 2 * n_idx
+                        + (oa[4].numel() if len(oa) > 4 else 0))
+        o_ops += 2 * oa[0].numel() + 2 * n_idx
+    # the whole of it against the chain it replaced, plain on CPU
+    # copies: the unmasked old planes, then K1s's root mask
+    odirty = (i_shift, i_resw, sdi, sdo, ci["rdi"], ci["rdo"])
+    got = incremental.old_planes(*odirty, has_res, int(i_root), i_nbr)
+    o_s, o_r = incremental.old_planes(*on_cpu(odirty), has_res)
+    sw_ref, (_, _, rw_ref), _ = relax.sssp_init_plain(
+        o_s, *on_cpu((i_rows, i_nbr)), o_r, int(i_root),
+        *on_cpu((i_rnbr, i_rw)))
+    errs.append(max_abs_err(torch, got[0].cpu(), sw_ref))
+    if has_res:
+        errs.append(max_abs_err(torch, got[1].cpu(), rw_ref))
+    record(
+        "K5:old_plane", max(errs),
+        lambda: incremental.old_planes(*odirty, has_res, int(i_root), i_nbr),
+        lambda: [incremental.old_plane_plain(*oa) for oa in ci["oargs"]],
+        nbytes=o_bytes, ops=o_ops,
+    )
+    split("K5:old_plane", lambda: [incremental.old_plane(*oa)
+                                   for oa in ci["oargs"]])
 
     pargs, par_k = ci["pargs"], ci["par"]
     par_p = incremental.parent_plane_plain(*pargs)
@@ -3937,6 +4092,7 @@ def main() -> int:
     )
 
     cargs, rdi = ci["cargs"], ci["rdi"]
+    cargs_k7 = cargs
     aff_k = incremental.cone_seed(*cargs)
     aff_p = incremental.cone_seed_plain(*cargs)
     check(int(aff_k.sum()) > 0, "the last flap step must seed a cone")
@@ -3952,6 +4108,19 @@ def main() -> int:
         ops=6 * d_cap * n_dirty,
         library=lambda: lib_aff.scatter_reduce_(1, heads, seeds, "amax"),
     )
+    # the bare launch into the last call's plane (same arguments)
+    (c_par, c_swn, c_rwn, c_dl, c_rows, c_nbr, c_root, c_sdi, c_sdo,
+     c_rdi, c_rdo, c_res) = cargs
+    r_p = ((c_rwn, c_rows, c_nbr, c_rdi, c_rdo) if c_res else ())
+    k7_ptrs = ([t.data_ptr() for t in (c_par, c_swn)] + [0]
+               + [t.data_ptr() for t in (c_dl, c_sdi, c_sdo, *r_p)]
+               + ([] if c_res else [0] * 5) + [aff_k.data_ptr()])
+    k7_ints = (int(c_root), s_cap, n_cap, d_cap, c_sdi.numel(),
+               *c_nbr.shape, c_rdi.numel() if c_res else 0)
+    split("K7:cone_seed", lambda: incremental.cone_seed(*cargs),
+          lambda: lib_aff.scatter_reduce_(1, heads, seeds, "amax"),
+          lambda: cuda.launch("incremental", "cone_seed",
+                              "ppppppppppppiiiiiiii", *k7_ptrs, *k7_ints))
 
     st_k, st_p = torch.empty_like(aff_k), torch.empty_like(aff_k)
     f_k = torch.zeros(1, dtype=torch.int32, device=dev)
@@ -4022,6 +4191,34 @@ def main() -> int:
           "K4: the [cone, fell_back] tail is misplaced")
     results["K4:compact_outputs"]["incr_tail_max_abs_err"] = err
     log("K4:compact_outputs with the incremental tail equal to plain")
+
+    # device work of K7 and of the old planes alone, of one incremental
+    # SSSP and of one incremental build (the change phase 6's fallback
+    # step left pending for inc_solver, an increase), torch ops included
+    seed_only = counted(torch, wrappers,
+                        lambda: incremental.cone_seed(*cargs_k7))
+    old_only = counted(torch, wrappers, lambda: incremental.old_planes(
+        *odirty, has_res, int(i_root), i_nbr))
+    check(seed_only["launches"] == seed_only["kernel_launches"] == 1,
+          f"K7 must be one launch and no fill: {seed_only}")
+    check(old_only["launches"] == old_only["kernel_launches"]
+          == 1 + has_res, f"the old planes must be one launch a plane: "
+          f"{old_only}")
+    args_w, static_w = ci["whole"]
+    per_sssp = counted(torch, wrappers, lambda: incremental.incremental_sssp(
+        *args_w, **static_w))
+    box = {}
+    per_build = counted(torch, wrappers, lambda: box.update(
+        db=inc_solver.build_route_db(LSDB100K_ROOT, states, ps)))
+    st = inc_solver.last_device_stats
+    check(st.get("incremental") is True and st.get("fell_back") is False,
+          "the counted build must be incremental without fallback")
+    check(rib_equal(cold_solver.build_route_db(LSDB100K_ROOT, states, ps),
+                    box["db"]), "the counted build's RIB != cold solve")
+    log("lsdb100k launches: " + json.dumps({
+        "cone_seed": seed_only, "old_planes": old_only,
+        "incremental_sssp": per_sssp, "incremental_build": per_build,
+        "cone": st.get("cone"), "trips": st.get("trips")}))
 
     log(f"-- phase 8 starts at "
         f"{time.perf_counter() - t_start:.1f} s")

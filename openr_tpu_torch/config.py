@@ -23,10 +23,10 @@ class DecisionConfig:
     # same-shape areas of one vantage with at most this many node slots
     # solve in one fused dispatch
     fuse_n_cap: int = 4096
-    # an area whose padded node capacity exceeds this engages the
-    # multichip tier when two or more cards are visible (the GPU solver
-    # refuses that until the tier is ported); with one card, or a
-    # threshold <= 0, every area solves on the one card
+    # an area whose padded node capacity exceeds this solves on the
+    # multichip tier's mesh when it has two or more devices (by default
+    # the visible cards); with one card, or a threshold <= 0, every
+    # area solves on the one card
     multichip_n_cap_threshold: int = 131072
     # "bucketed" Δ-stepping (falls back to "sync" on plans with no
     # usable Δ) or "sync" rounds everywhere; both reach the same fixpoint

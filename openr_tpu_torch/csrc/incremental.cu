@@ -5,7 +5,10 @@
 //
 // Replaces the jitted XLA device code of the JAX package:
 //   K5  decision/tpu_solver.py::_scatter_jit            flat .at[idx].set
-//       (and ops/incremental.py::_old_planes, K5 into a copy)
+//   K5 old planes  ops/incremental.py::_old_planes with incremental_sssp's
+//       root mask (:150-162): the new resident plane copied once with
+//       the dirty slots' pre-drain values put back and the root's slots
+//       at INF_E, one launch a plane
 //   K6  ops/incremental.py::_parent_plane               parent forest
 //   K7  ops/incremental.py::incremental_sssp, :169-205  cone seeds
 //   K8  ops/incremental.py::incremental_sssp, :207-240  cone spread step
@@ -24,12 +27,25 @@
 //
 // Bound: bytes. K6, K8 and K9 stream [D, n_cap] int32 planes once
 // (K6 also the [s_cap, n_cap] old weights) with a handful of integer
-// ops per word; K5 and K7 touch a few thousand dirty entries. Design:
-// one thread per (lane, node) or per (lane, dirty entry), neighbouring
-// threads on neighbouring nodes, so plane loads coalesce except the
-// parent gathers of K8, which follow the forest. Change flags reduce
-// per block with __syncthreads_or before one atomicOr; the cone count
-// reduces per warp with shuffles before one atomicAdd.
+// ops per word; the old planes read and write their plane once; K7
+// writes its [D, n_cap] plane once; K5 touches a few thousand dirty
+// entries. Design: one thread per (lane, node) or per dirty entry,
+// neighbouring threads on neighbouring nodes, so plane loads coalesce
+// except the parent gathers of K8, which follow the forest. Change
+// flags reduce per block with __syncthreads_or before one atomicOr; the
+// cone count reduces per warp with shuffles before one atomicAdd.
+//
+// Tiled writes (the old planes, K7): each block owns a tile of its
+// output, writes all of it, and after __syncthreads() (which orders the
+// block's earlier global writes before its later ones) walks the dirty
+// list, patching only the entries that fall in its tile. So one launch
+// replaces a copy or fill followed by a scatter, with no race: no other
+// block writes the tile. Every block reads the whole list, so the host
+// widens the old planes' tile until those reads stay under four times
+// the plane; K7's lists are a bucket of dirty slots against a plane of
+// D x n_cap words. An entry's (head, source, increased) is computed
+// once per block by one thread, which then tries every lane, so the
+// lanes share it.
 //
 // Exactness: every tie-break of the JAX functions is kept because the
 // cone rides the pull buffers. K6 tries shift classes in order and
@@ -37,8 +53,10 @@
 // still without a parent from their residual row, first tight slot
 // first; residual rows are unique per node, so each (lane, row) thread
 // owns its node's word. Pad rows (res_rows == -1) are skipped, never
-// clipped onto node 0. K7 and K9 write only 0/1 values and the count,
-// so their store order does not matter.
+// clipped onto node 0. K7's ones and K9's count commute, so their
+// store order does not matter (K7's zeros precede its ones, above).
+// The old planes need unique in-range dirty indices, as K5 does (the
+// lists are consolidated, ops/edgeplan._consolidate).
 //
 // Index arithmetic: n_cap is a power of two, so the class-k edge u -> v
 // with v = (u + δ_k) mod n_cap has u = (v - δ_k) & (n_cap - 1) in
@@ -65,6 +83,35 @@ __global__ void scatter_set_kernel(int* __restrict__ plane,
     if (i >= n) return;
     int f = idx[i];
     if (f >= 0 && f < numel) plane[f] = vals[i];
+}
+
+// K5 old planes: out = plane, with vals[j] at flat idx[j] for the
+// entries inside this block's tile [lo, lo + tile) (pads and other
+// tiles' entries drop), and INF_E at every slot whose key is the root:
+// the key is the slot's column, or nbr at the slot where nbr is given
+// (the residual's source node); root < 0 masks nothing. The root wins
+// over a dirty value, as the reference masks after the scatter.
+__global__ void old_plane_kernel(const int* __restrict__ plane,
+                                 const int* __restrict__ nbr,
+                                 const int* __restrict__ idx,
+                                 const int* __restrict__ vals, int n_idx,
+                                 int* __restrict__ out, int rows, int cols,
+                                 int root, long long tile) {
+    const long long numel = (long long)rows * cols;
+    const long long lo = (long long)blockIdx.x * tile;
+    const long long hi = min(lo + tile, numel);
+    for (long long i = lo + threadIdx.x; i < hi; i += blockDim.x) {
+        int key = nbr ? nbr[i] : (int)(i % cols);
+        out[i] = (root >= 0 && key == root) ? INF_E : plane[i];
+    }
+    __syncthreads();
+    for (int j = threadIdx.x; j < n_idx; j += blockDim.x) {
+        long long f = idx[j];
+        if (f < lo || f >= hi) continue;
+        int key = nbr ? nbr[f] : (int)(f % cols);
+        if (root >= 0 && key == root) continue;
+        out[f] = vals[j];
+    }
 }
 
 // K5 [mc]: idx[i] is a flat index into a global [rows, cols] plane; the
@@ -169,11 +216,15 @@ __global__ void owned_weights_kernel(const int* __restrict__ swm_new,
     new_loc[j] = v;
 }
 
-// K7: one thread per (lane, dirty entry) over the shift entries, then
-// the residual entries. aff[d, head] = 1 where the root-masked weight
-// increased and the edge is the head's forest edge. K7 [mc] passes the
-// shift entries' new weights as `new_m` (the group's combined
-// owned_weights) instead of reading them from a whole plane.
+// K7: block b owns the node tile [v0, v0 + tile) of every lane
+// (tile a power of two dividing n_cap). It zeroes its tile of aff, then
+// each thread takes dirty entries (the shift entries, then the
+// residual ones): an entry whose head lies in the tile and whose
+// root-masked weight increased sets aff[d, head] = 1 in every lane d
+// where the edge is the head's forest edge (par[d, head] == source).
+// K7 [mc] passes the shift entries' new weights as `new_m_s` (the
+// group's combined owned_weights) instead of reading them from a whole
+// plane.
 __global__ void cone_seed_kernel(
     const int* __restrict__ par, const int* __restrict__ swm_new,
     const int* __restrict__ new_m_s,
@@ -182,39 +233,47 @@ __global__ void cone_seed_kernel(
     const int* __restrict__ res_rows, const int* __restrict__ res_nbr,
     const int* __restrict__ r_idx, const int* __restrict__ r_old,
     int* __restrict__ aff, int root, int s_cap, int n_cap, int d_cap,
-    int n_s, int r_cap, int kr_cap, int n_r) {
-    long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    const long long n_sd = (long long)d_cap * n_s;
-    if (i < n_sd) {
-        int d = (int)(i / n_s);
-        int j = (int)(i - (long long)d * n_s);
-        int f = s_idx[j];
-        if (f < 0 || (long long)f >= (long long)s_cap * n_cap) return;
-        const unsigned hi = (unsigned)n_cap - 1u;
-        int k = f / n_cap;
-        unsigned u = (unsigned)f & hi;
-        int new_m = new_m_s ? new_m_s[j] : swm_new[f];
-        int old_m = ((int)u == root) ? INF_E : s_old[j];
-        if (new_m <= old_m) return;
-        unsigned v = (u + (unsigned)deltas[k]) & hi;
-        long long pos = (long long)d * n_cap + v;
-        if (par[pos] == (int)u) aff[pos] = 1;
-        return;
+    int n_s, int r_cap, int kr_cap, int n_r, int tile_shift) {
+    const int tile = 1 << tile_shift;
+    const unsigned v0 = (unsigned)blockIdx.x << tile_shift;
+    for (int i = threadIdx.x; i < d_cap * tile; i += blockDim.x)
+        aff[(long long)(i >> tile_shift) * n_cap + v0 + (i & (tile - 1))] =
+            0;
+    __syncthreads();
+    const unsigned hi = (unsigned)n_cap - 1u;
+    const long long s_lim = (long long)s_cap * n_cap;
+    const long long r_lim = (long long)r_cap * kr_cap;
+    for (int j = threadIdx.x; j < n_s + n_r; j += blockDim.x) {
+        unsigned head;
+        int src;
+        if (j < n_s) {
+            int f = s_idx[j];
+            if (f < 0 || (long long)f >= s_lim) continue;
+            unsigned u = (unsigned)f & hi;
+            head = (u + (unsigned)deltas[f / n_cap]) & hi;
+            if (head - v0 >= (unsigned)tile) continue;
+            int new_m = new_m_s ? new_m_s[j] : swm_new[f];
+            int old_m = ((int)u == root) ? INF_E : s_old[j];
+            if (new_m <= old_m) continue;
+            src = (int)u;
+        } else {
+            int jr = j - n_s;
+            int f = r_idx[jr];
+            if (f < 0 || (long long)f >= r_lim) continue;
+            int rv = res_rows[f / kr_cap];
+            if (rv < 0 || (unsigned)rv - v0 >= (unsigned)tile) continue;
+            int ru = res_nbr[f];
+            if (ru < 0) continue;
+            int old_m = (ru == root) ? INF_E : r_old[jr];
+            if (rwm_new[f] <= old_m) continue;
+            head = (unsigned)rv;
+            src = ru;
+        }
+        for (int d = 0; d < d_cap; ++d) {
+            long long pos = (long long)d * n_cap + head;
+            if (par[pos] == src) aff[pos] = 1;
+        }
     }
-    i -= n_sd;
-    if (i >= (long long)d_cap * n_r) return;
-    int d = (int)(i / n_r);
-    int j = (int)(i - (long long)d * n_r);
-    int f = r_idx[j];
-    if (f < 0 || (long long)f >= (long long)r_cap * kr_cap) return;
-    int r = f / kr_cap;
-    int ru = res_nbr[f];
-    int rv = res_rows[r];
-    if (ru < 0 || rv < 0) return;
-    int old_m = (ru == root) ? INF_E : r_old[j];
-    if (rwm_new[f] <= old_m) return;
-    long long pos = (long long)d * n_cap + rv;
-    if (par[pos] == ru) aff[pos] = 1;
 }
 
 // K8: dst[d, v] = max(src[d, v], src[d, par[d, v]]) — Jacobi, one
@@ -288,6 +347,20 @@ int scatter_set(int* plane, const int* idx, const int* vals, int n,
     return (int)cudaGetLastError();
 }
 
+int old_plane(const int* plane, const int* nbr, const int* idx,
+              const int* vals, int n_idx, int* out, int rows, int cols,
+              int root, cudaStream_t stream) {
+    long long numel = (long long)rows * cols;
+    long long tile = THREADS * 8;
+    while (tile < numel && (numel + tile - 1) / tile * n_idx > 4 * numel)
+        tile *= 2;
+    long long nblk = (numel + tile - 1) / tile;
+    old_plane_kernel<<<(unsigned)(nblk > 0 ? nblk : 1), THREADS, 0,
+                       stream>>>(plane, nbr, idx, vals, n_idx, out, rows,
+                                 cols, root, tile);
+    return (int)cudaGetLastError();
+}
+
 int scatter_window(int* plane, const int* idx, const int* vals, int n,
                    int rows, int cols, int row0, int w_rows, int col0,
                    int w_cols, cudaStream_t stream) {
@@ -328,10 +401,17 @@ int cone_seed(const int* par, const int* swm_new, const int* new_m_s,
               const int* r_idx, const int* r_old, int* aff, int root,
               int s_cap, int n_cap, int d_cap, int n_s, int r_cap,
               int kr_cap, int n_r, cudaStream_t stream) {
-    long long total = (long long)d_cap * (n_s + n_r);
-    cone_seed_kernel<<<blocks_for(total), THREADS, 0, stream>>>(
+    // a tile of about 8 words a thread over all lanes, at least a
+    // warp's width of nodes, at most the plane's
+    int shift = 5;
+    while ((2 << shift) * (long long)d_cap <= 8 * THREADS &&
+           (2 << shift) <= n_cap)
+        ++shift;
+    if ((1 << shift) > n_cap) shift = __builtin_ctz((unsigned)n_cap);
+    cone_seed_kernel<<<(unsigned)(n_cap >> shift), THREADS, 0, stream>>>(
         par, swm_new, new_m_s, deltas, s_idx, s_old, rwm_new, res_rows,
-        res_nbr, r_idx, r_old, aff, root, s_cap, n_cap, d_cap, n_s, r_cap, kr_cap, n_r);
+        res_nbr, r_idx, r_old, aff, root, s_cap, n_cap, d_cap, n_s, r_cap,
+        kr_cap, n_r, shift);
     return (int)cudaGetLastError();
 }
 

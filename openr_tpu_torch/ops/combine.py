@@ -28,12 +28,10 @@ counts K23's launches; ``shard_combine.nccl`` the NCCL all-reduces.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from openr_tpu_torch.ops import cuda
-from openr_tpu_torch.ops.relax import _int32, _is_cpu
+from openr_tpu_torch.ops.relax import _is_cpu
 
 # the members one K23 launch takes (csrc/combine.cu's MAX_MEMBERS)
 MAX_MEMBERS = 16
@@ -75,12 +73,9 @@ def shard_combine(planes, op: str = "min", ref=None, flag=None) -> None:
         raise ValueError(
             f"shard_combine: {len(planes)} members on one card (at most "
             f"{MAX_MEMBERS})")
-    _int32(*planes)
     n = planes[0].numel()
     if any(t.numel() != n for t in planes):
         raise ValueError("shard_combine: planes differ in size")
-    if ref is not None:
-        _int32(ref)
     _launch(planes, n, op, ref, flag)
 
 
@@ -89,11 +84,8 @@ shard_combine.nccl = 0
 
 
 def _launch(planes, n: int, op: str, ref, flag) -> None:
-    ptrs = (ctypes.c_longlong * len(planes))(*(cuda.ptr(t) for t in planes))
-    cuda.launch("combine", "shard_combine", "piLipp",
-                ctypes.addressof(ptrs), len(planes), n, _OPS[op],
-                0 if ref is None else cuda.ptr(ref),
-                0 if flag is None else cuda.ptr(flag))
+    cuda.launch("combine", "shard_combine", "aiLitt", planes, len(planes),
+                n, _OPS[op], ref, flag)
     shard_combine.launches += 1
 
 
@@ -114,5 +106,4 @@ def _combine_cards(planes, op: str, ref, flag) -> None:
     nccl.all_reduce(planes, op=_NCCL_OPS[op])
     shard_combine.nccl += 1
     if ref is not None and flag is not None:
-        _int32(planes[0], ref)
         _launch(planes[:1], planes[0].numel(), op, ref, flag)

@@ -41,7 +41,7 @@ from __future__ import annotations
 import torch
 
 from openr_tpu_torch.ops import cuda
-from openr_tpu_torch.ops.relax import INF_E, _int32, _is_cpu
+from openr_tpu_torch.ops.relax import INF_E, _is_cpu
 from openr_tpu_torch.ops.stream import column_diff, compact_rows
 
 # finite metrics past 2^28 sit one metric-add from the 2^29 INF_E
@@ -132,9 +132,6 @@ def compact_outputs(metric, s3w, nhw, ok, prev_metric, prev_s3w, prev_nhw,
             metric, s3w, nhw, ok, prev_metric, prev_s3w, prev_nhw, flags,
             trips, rounds, budget, sentinels, incr_tail, lfa, stream,
         )
-    _int32(metric, s3w, nhw, prev_metric, prev_s3w, prev_nhw)
-    if ok.dtype != torch.bool or not ok.is_contiguous():
-        raise ValueError("ok must be a contiguous bool tensor")
     lanes = metric.dim() == 2
     g = metric.shape[0] if lanes else 1
     p_cap, wa = s3w.shape[-2:]
@@ -147,7 +144,6 @@ def compact_outputs(metric, s3w, nhw, ok, prev_metric, prev_s3w, prev_nhw,
     if lanes:
         if incr_tail is not None:
             raise ValueError("a fused solve has no incremental tail")
-        _int32(trips)
         if trips.shape != (g, 2):
             raise ValueError("lanes need their [g, 2] (trips, rounds)")
     dev = metric.device
@@ -159,29 +155,24 @@ def compact_outputs(metric, s3w, nhw, ok, prev_metric, prev_s3w, prev_nhw,
     full_buf = torch.empty(lead + (n_full,), dtype=torch.int32, device=dev)
     nblk = -(-p_cap // _BLOCK)
     blk = torch.empty(g * 4 * nblk, dtype=torch.int32, device=dev)
-    p = cuda.ptr
-    if lfa is not None:
-        _int32(*lfa)
-        lfa_ptrs = tuple(p(t) for t in lfa)
-    else:
-        lfa_ptrs = (0, 0, 0, 0)
-    rows = (p(metric), p(s3w), p(nhw), p(ok), p(prev_metric), p(prev_s3w),
-            p(prev_nhw), flags.data_ptr(), *lfa_ptrs)
-    cuda.launch("compact", "compact_count", "pppppppppppp" + "piiiiiL",
-                *rows, p(blk), p_cap, a_cap, wa, wd, g, flags_stride)
-    cone, fell = (p(t) for t in incr_tail) if incr else (0, 0)
+    # flags may be a strided view of per-lane planes: a raw address
+    rows = (metric, s3w, nhw, ok, prev_metric, prev_s3w, prev_nhw,
+            flags.data_ptr(), *(lfa if lfa is not None else (None,) * 4))
+    rows_sig = "tttbttt" + "p" + "tttt"
+    cuda.launch("compact", "compact_count", rows_sig + "tiiiiiL",
+                *rows, blk, p_cap, a_cap, wa, wd, g, flags_stride)
+    cone, fell = incr_tail if incr else (None, None)
     if lanes:
         trips_i = rounds_i = 0
-        tr = p(trips)
+        tr = trips
     else:
-        trips_i, rounds_i, tr = int(trips), int(rounds), 0
-    cuda.launch("compact", "compact_scan", "pipp" + "iiiii" + "pppi",
-                p(blk), nblk, p(delta_buf), p(full_buf), n_delta, n_full,
-                trips_i, rounds_i, int(sentinels), cone, fell, tr, g)
-    cuda.launch("compact", "compact_scatter",
-                "pppppppppppp" + "ppp" + "iiiiiiiiiL",
-                *rows, p(blk), p(delta_buf), p(full_buf), p_cap, a_cap, wa,
-                wd, budget, n_delta, n_full, int(stream), g, flags_stride)
+        trips_i, rounds_i, tr = int(trips), int(rounds), None
+    cuda.launch("compact", "compact_scan", "titt" + "iiiii" + "ttti",
+                blk, nblk, delta_buf, full_buf, n_delta, n_full, trips_i,
+                rounds_i, int(sentinels), cone, fell, tr, g)
+    cuda.launch("compact", "compact_scatter", rows_sig + "ttt" + "iiiiiiiiiL",
+                *rows, blk, delta_buf, full_buf, p_cap, a_cap, wa, wd, budget,
+                n_delta, n_full, int(stream), g, flags_stride)
     compact_outputs.launches += 3
     return delta_buf, full_buf
 

@@ -5,11 +5,16 @@ interface. On first use every source is compiled for ``sm_90a`` by its
 own ``nvcc`` process, all started together, into a shared library under
 ``openr_tpu_torch/_build/`` named by the hash of its source and flags
 (so an edited source rebuilds and an unchanged one loads at once). The
-libraries are bound with ``ctypes``: pointers travel as
-``tensor.data_ptr()``, the stream as PyTorch's current stream of the
-card that holds the arguments (``ptr`` notes each argument's card, and
-``launch`` runs under that card's guard, so a shard on ``cuda:1`` is
-ordered with the torch work on its own tensors).
+libraries are bound with ``ctypes``. ``launch`` takes the tensors
+themselves, each under a letter that names its dtype, and in one pass
+checks each, reads its pointer and its card, and runs the kernel under
+that card's guard on PyTorch's current stream there, so a shard on
+``cuda:1`` is ordered with the torch work on its own tensors.
+
+For kernels of a few microseconds the launch path is the host's cost
+(``chip_smoke.py`` phase 7 splits it): the checks are one pass over the
+tensor arguments, and the card's raw stream is read once from
+PyTorch's C bindings.
 
 Nothing here runs at import time; a CPU-only process never touches
 ``nvcc``.
@@ -38,12 +43,24 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
-# the cards of the pointers taken since the last launch, per thread
-_seen = threading.local()
+
+
+class _Last(threading.local):
+    """The card of this thread's last launch (-1: none yet)."""
+
+    card = -1
+
+
+_last = _Last()
+# the letters of a tensor argument and the dtype each holds
+_INT32 = torch.int32
+_DTYPES = {"t": _INT32, "T": torch.float32, "b": torch.bool,
+           "l": torch.int64}
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[tuple, object] = {}
-_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "L": ctypes.c_longlong,
-           "f": ctypes.c_float}
+_CTYPES = {"p": ctypes.c_void_p, "a": ctypes.c_void_p, "i": ctypes.c_int,
+           "L": ctypes.c_longlong, "f": ctypes.c_float,
+           **{c: ctypes.c_void_p for c in _DTYPES}}
 
 
 def _nvcc() -> str:
@@ -106,43 +123,78 @@ def _lib(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
-def launch(lib: str, fn: str, sig: str, *args) -> None:
-    """Call the C entry point ``fn`` of ``csrc/<lib>.cu`` with ``args``
-    (``sig``: one letter per argument, ``p`` pointer, ``i`` int, ``L``
-    64-bit int, ``f`` float) plus the current CUDA stream of the card
-    the pointer arguments lie on, under that card's guard, and raise if
-    the launch was refused or the arguments span cards."""
-    key = (lib, fn)
-    f = _fns.get(key)
-    if f is None:
-        f = getattr(_lib(lib), fn)
-        f.argtypes = [_CTYPES[c] for c in sig] + [ctypes.c_void_p]
-        f.restype = ctypes.c_int
-        _fns[key] = f
-    cards = getattr(_seen, "cards", None) or set()
-    _seen.cards = set()
+def _fn(lib: str, fn: str, sig: str) -> tuple:
+    f = getattr(_lib(lib), fn)
+    f.argtypes = [_CTYPES[c] for c in sig] + [ctypes.c_void_p]
+    f.restype = ctypes.c_int
+    # (position, dtype) of each tensor argument; None for a sequence
+    _fns[lib, fn, sig] = out = (f, tuple(
+        (i, _DTYPES.get(c)) for i, c in enumerate(sig)
+        if c == "a" or c in _DTYPES))
+    return out
+
+
+def _bad(lib: str, fn: str, t, dtype) -> ValueError:
+    return ValueError(f"{lib}.{fn}: expected a contiguous {dtype} CUDA "
+                      f"tensor, got {t.dtype} on {t.device}")
+
+
+def _array(lib: str, fn: str, ts) -> tuple:
+    """(C array of the pointers, card) of a sequence of int32 tensors."""
+    if not ts:
+        raise ValueError(f"{lib}.{fn}: an empty sequence of tensors")
+    cards = {t.get_device() for t in ts}
+    for t in ts:
+        if t.get_device() < 0 or t.dtype is not _INT32 \
+                or not t.is_contiguous():
+            raise _bad(lib, fn, t, _INT32)
     if len(cards) > 1:
         raise ValueError(f"{lib}.{fn}: arguments on cards {sorted(cards)}")
-    cur = torch.cuda.current_device()
-    dev = cards.pop() if cards else getattr(_seen, "last", cur)
-    if dev == cur:
-        rc = f(*args, torch.cuda.current_stream().cuda_stream)
+    return ((ctypes.c_longlong * len(ts))(*(t.data_ptr() for t in ts)),
+            cards.pop())
+
+
+def launch(lib: str, fn: str, sig: str, *args) -> None:
+    """Call the C entry point ``fn`` of ``csrc/<lib>.cu`` with ``args``
+    plus the current CUDA stream of the card the tensor arguments lie
+    on, under that card's guard. ``sig`` has one letter per argument:
+    ``t`` / ``T`` / ``b`` / ``l`` a contiguous CUDA tensor of int32 /
+    float32 / bool / int64 or None (its pointer, or null), ``a`` a
+    sequence of contiguous int32 CUDA tensors (a C array of their
+    pointers), ``p`` a raw address, ``i`` int, ``L`` 64-bit int, ``f``
+    float. Raises if a
+    tensor argument is not as its letter says, if the tensors lie on two
+    cards, or if the launch was refused. Without tensor arguments the
+    card is this thread's last launch's, else the current one."""
+    f, tpos = _fns.get((lib, fn, sig)) or _fn(lib, fn, sig)
+    card = -1
+    if tpos:
+        args = list(args)
+        for i, dtype in tpos:
+            t = args[i]
+            if t is None:
+                args[i] = 0
+                continue
+            if dtype is None:
+                args[i], k = _array(lib, fn, t)
+            else:
+                k = t.get_device()
+                if k < 0 or t.dtype is not dtype or not t.is_contiguous():
+                    raise _bad(lib, fn, t, dtype)
+                args[i] = t.data_ptr()
+            if k != card:
+                if card >= 0:
+                    raise ValueError(f"{lib}.{fn}: arguments on cards "
+                                     f"{sorted((card, k))}")
+                card = k
+    cur = torch._C._cuda_getDevice()
+    if card < 0:
+        card = cur if _last.card < 0 else _last.card
+    _last.card = card
+    if card == cur:
+        rc = f(*args, torch._C._cuda_getCurrentRawStream(cur))
     else:
-        with torch.cuda.device(dev):
-            rc = f(*args, torch.cuda.current_stream(dev).cuda_stream)
+        with torch.cuda.device(card):
+            rc = f(*args, torch._C._cuda_getCurrentRawStream(card))
     if rc != 0:
         raise RuntimeError(f"CUDA launch {lib}.{fn} failed: error {rc}")
-
-
-def ptr(t: torch.Tensor) -> int:
-    """Device pointer of a contiguous CUDA tensor; notes its card for
-    the next ``launch``."""
-    if not t.is_cuda or not t.is_contiguous():
-        raise ValueError("kernel arguments must be contiguous CUDA tensors")
-    card = t.device.index
-    cards = getattr(_seen, "cards", None)
-    if cards is None:
-        cards = _seen.cards = set()
-    cards.add(card)
-    _seen.last = card
-    return t.data_ptr()

@@ -54,7 +54,6 @@ from openr_tpu_torch.ops.relax import (
     Lanes,
     _each_lane,
     _gate_args,
-    _int32,
     _is_cpu,
     relax_step_mc_plain,
     sssp_init,
@@ -79,10 +78,8 @@ def fabric_extent(res_w):
     up to there (an INF_E weight cannot lower a word)."""
     if _is_cpu(res_w):
         return fabric_extent_plain(res_w)
-    _int32(res_w)
     ext = torch.empty(res_w.shape[0], dtype=torch.int32, device=res_w.device)
-    p = cuda.ptr
-    cuda.launch("fabric", "fabric_extent", "ppii", p(res_w), p(ext),
+    cuda.launch("fabric", "fabric_extent", "ttii", res_w, ext,
                 res_w.shape[0], res_w.shape[1])
     fabric_extent.launches += 1
     return ext
@@ -124,25 +121,21 @@ def _launch_fabric(dist, out, flag, deltas, shift_w, residual, roots, gate,
     """Launch K21 over the class columns [col0, col0 + shift_w width)
     (and the residual rows given); returns the launches. ``flag`` may be
     None."""
-    _int32(dist, out, deltas, shift_w, roots)
     g, d_cap, n_cap = dist.shape
-    p = cuda.ptr
-    fp = 0 if flag is None else p(flag)
     ga = _gate_args(gate)
     s_cap, w_cols = shift_w.shape
-    cuda.launch("fabric", "fabric_shift", "pppppiiiiipi" + _GATE_SIG,
-                p(dist), p(out), p(deltas), p(shift_w), p(roots), d_cap,
-                n_cap, s_cap, col0, w_cols, fp, g, *ga)
+    cuda.launch("fabric", "fabric_shift", "tttttiiiiiti" + _GATE_SIG,
+                dist, out, deltas, shift_w, roots, d_cap, n_cap, s_cap, col0,
+                w_cols, flag, g, *ga)
     if residual is None:
         return 1
     rows, nbr, rw, ext = residual
-    _int32(rows, nbr, rw, ext)
     if gate is not None:
         # the shift launch counted this step for every open root
         ga = _gate_args(gate._replace(inc=(0, 0)))
-    cuda.launch("fabric", "fabric_residual", "ppppppp" + "iiiipi" + _GATE_SIG,
-                p(dist), p(out), p(rows), p(nbr), p(rw), p(ext), p(roots),
-                d_cap, n_cap, nbr.shape[0], nbr.shape[1], fp, g, *ga)
+    cuda.launch("fabric", "fabric_residual", "ttttttt" + "iiiiti" + _GATE_SIG,
+                dist, out, rows, nbr, rw, ext, roots, d_cap, n_cap,
+                nbr.shape[0], nbr.shape[1], flag, g, *ga)
     return 2
 
 
@@ -203,12 +196,10 @@ def unpack_bits(words, x: int):
     -> bool [..., x]."""
     if _is_cpu(words):
         return unpack_bits_plain(words, x)
-    _int32(words)
     bits = torch.empty(words.shape[:-1] + (x,), dtype=torch.bool,
                        device=words.device)
     w = words.shape[-1]
-    p = cuda.ptr
-    cuda.launch("fabric", "unpack_bits", "ppLii", p(words), p(bits),
+    cuda.launch("fabric", "unpack_bits", "tbLii", words, bits,
                 words.numel() // max(w, 1), w, x)
     unpack_bits.launches += 1
     return bits

@@ -8,9 +8,10 @@ over-estimate of the true distances. After a decrease the previous
 plane already is one; after an increase it under-estimates exactly on
 the nodes whose old shortest-path chain crosses an increased edge. So:
 
-  1. ``old_planes`` rebuilds the pre-churn weight planes from the new
-     resident planes and the dirty slots' pre-drain values (K5 into a
-     copy), and K1s's root mask is applied to both;
+  1. ``old_planes`` rebuilds the pre-churn, root-masked weight planes
+     from the new resident planes and the dirty slots' pre-drain values,
+     one ``old_plane`` launch a plane (copy, patch and root mask in one
+     pass);
   2. ``parent_plane`` (K6) picks one old shortest-path parent per
      (lane, node) — the parent forest;
   3. ``cone_seed`` (K7) marks the head of every increased dirty edge
@@ -31,7 +32,7 @@ cone; the solver gates the incremental path off on any plan with
 ``has_zero_w``, so every parent chain strictly decreases the previous
 distance and the parent plane is a forest.
 
-Wrappers (``scatter_set``, ``parent_plane``, ``cone_seed``,
+Wrappers (``scatter_set``, ``old_plane``, ``parent_plane``, ``cone_seed``,
 ``cone_step``, ``cone_finish``, and the multichip tier's
 ``scatter_window``, ``parent_shift_mc``, ``parent_fill``,
 ``owned_weights``, ``cone_seed_mc``, composed per shard by
@@ -52,7 +53,6 @@ import torch
 from openr_tpu_torch.ops import cuda
 from openr_tpu_torch.ops.relax import (
     INF_E,
-    _int32,
     _is_cpu,
     run_sync,
     solve_from,
@@ -86,16 +86,15 @@ def scatter_set(plane, idx, vals) -> None:
     if _is_cpu(plane):
         scatter_set_plain(plane, idx, vals)
         return
-    _int32(plane, idx, vals)
     n = idx.numel()
     if n != vals.numel():
         raise ValueError("scatter_set: idx and vals differ in length")
     if n == 0:
         return
-    _check_len(plane.numel())
-    p = cuda.ptr
-    cuda.launch("incremental", "scatter_set", "pppii",
-                p(plane), p(idx), p(vals), n, plane.numel())
+    numel = plane.numel()
+    _check_len(numel)
+    cuda.launch("incremental", "scatter_set", "tttii", plane, idx, vals, n,
+                numel)
     scatter_set.launches += 1
 
 
@@ -128,7 +127,6 @@ def scatter_window(plane, idx, vals, shape: tuple, row0: int = 0,
     if _is_cpu(plane):
         scatter_window_plain(plane, idx, vals, shape, row0, col0)
         return
-    _int32(plane, idx, vals)
     n = idx.numel()
     if n != vals.numel():
         raise ValueError("scatter_window: idx and vals differ in length")
@@ -136,28 +134,69 @@ def scatter_window(plane, idx, vals, shape: tuple, row0: int = 0,
         return
     rows, cols = shape
     _check_len(rows * cols)
-    p = cuda.ptr
-    cuda.launch("incremental", "scatter_window", "pppiiiiiii",
-                p(plane), p(idx), p(vals), n, rows, cols, row0,
-                plane.shape[0], col0, plane.shape[1])
+    cuda.launch("incremental", "scatter_window", "tttiiiiiii",
+                plane, idx, vals, n, rows, cols, row0, plane.shape[0], col0,
+                plane.shape[1])
     scatter_window.launches += 1
 
 
 scatter_window.launches = 0
 
 
+def old_plane_plain(plane, idx, vals, root: int = -1, nbr=None):
+    out = plane.clone()
+    scatter_set_plain(out, idx, vals)
+    if root < 0:
+        return out
+    if nbr is not None:
+        return torch.where(nbr == root, INF_E, out)
+    if root < out.shape[1]:
+        out[:, root] = INF_E
+    return out
+
+
+def old_plane(plane, idx, vals, root: int = -1, nbr=None):
+    """-> a new [rows, cols] plane: ``plane`` with ``vals[i]`` put back
+    at flat ``idx[i]`` (pads drop; in-range indices unique, as for
+    ``scatter_set``), then INF_E at every slot whose key is ``root``:
+    the key is the slot's column, or ``nbr`` at the slot where given (a
+    residual slot's source node); ``root < 0`` masks nothing. One
+    launch reads ``plane`` once and writes the result once."""
+    if _is_cpu(plane):
+        return old_plane_plain(plane, idx, vals, root, nbr)
+    n = idx.numel()
+    if n != vals.numel():
+        raise ValueError("old_plane: idx and vals differ in length")
+    if nbr is not None and nbr.shape != plane.shape:
+        raise ValueError("old_plane: nbr and plane differ in shape")
+    rows, cols = plane.shape
+    _check_len(rows * cols)
+    out = torch.empty_like(plane)
+    cuda.launch("incremental", "old_plane", "ttttitiii", plane, nbr, idx,
+                vals, n, out, rows, cols, int(root))
+    old_plane.launches += 1
+    return out
+
+
+old_plane.launches = 0
+
+
 def old_planes(shift_w, res_w, s_dirty_idx, s_dirty_old, r_dirty_idx,
-               r_dirty_old, has_res):
-    """The pre-churn weight planes: copies of the new resident planes
-    with each dirty slot's pre-drain value scattered back (K5). Pads
-    drop. Without a residual the residual plane passes through."""
-    old_shift = shift_w.clone()
-    scatter_set(old_shift, s_dirty_idx, s_dirty_old)
+               r_dirty_old, has_res, root: int = -1, res_nbr=None):
+    """The pre-churn weight planes: the new resident planes with each
+    dirty slot's pre-drain value put back, one ``old_plane`` each. Pads
+    drop. Without a residual the residual plane passes through. With
+    ``root`` >= 0 they come root-masked as K1s masks the new ones (the
+    root's shift column, and residual slots whose source ``res_nbr`` is
+    the root, at INF_E): the reference's ``_old_planes`` followed by
+    ``incremental_sssp``'s mask (``ops/incremental.py``, :150-157)."""
+    old_shift = old_plane(shift_w, s_dirty_idx, s_dirty_old, root)
     if not has_res:
         return old_shift, res_w
-    old_res = res_w.clone()
-    scatter_set(old_res, r_dirty_idx, r_dirty_old)
-    return old_shift, old_res
+    if root >= 0 and res_nbr is None:
+        raise ValueError("old_planes: a root mask needs res_nbr")
+    return old_shift, old_plane(res_w, r_dirty_idx, r_dirty_old, root,
+                                res_nbr)
 
 
 # -- K6: the parent forest under the old weights -----------------------------
@@ -189,21 +228,17 @@ def parent_plane(deltas, swm_old, res_rows, res_nbr, rwm_old, prev_dist,
         return parent_plane_plain(deltas, swm_old, res_rows, res_nbr,
                                   rwm_old, prev_dist, s_cap, has_res,
                                   n_cap, d_cap)
-    _int32(deltas, swm_old, prev_dist)
     _check_len(d_cap * n_cap)
     par = torch.empty((d_cap, n_cap), dtype=torch.int32,
                       device=prev_dist.device)
-    p = cuda.ptr
-    cuda.launch("incremental", "parent_shift", "ppppiiiii",
-                p(deltas), p(swm_old), p(prev_dist), p(par), s_cap, n_cap,
-                d_cap, 0, n_cap)
+    cuda.launch("incremental", "parent_shift", "ttttiiiii", deltas, swm_old,
+                prev_dist, par, s_cap, n_cap, d_cap, 0, n_cap)
     parent_plane.launches += 1
     if has_res:
-        _int32(res_rows, res_nbr, rwm_old)
         r_cap, kr_cap = res_nbr.shape
-        cuda.launch("incremental", "parent_residual", "pppppiiii",
-                    p(res_rows), p(res_nbr), p(rwm_old), p(prev_dist),
-                    p(par), r_cap, kr_cap, n_cap, d_cap)
+        cuda.launch("incremental", "parent_residual", "tttttiiii",
+                    res_rows, res_nbr, rwm_old, prev_dist, par, r_cap,
+                    kr_cap, n_cap, d_cap)
         parent_plane.launches += 1
     return par
 
@@ -239,15 +274,12 @@ def parent_shift_mc(deltas, swm_old, prev_dist, s_cap: int, col0: int):
     if _is_cpu(prev_dist):
         return parent_shift_mc_plain(deltas, swm_old, prev_dist, s_cap,
                                      col0)
-    _int32(deltas, swm_old, prev_dist)
     d_cap, n_cap = prev_dist.shape
     _check_len(d_cap * n_cap)
     par = torch.empty((d_cap, n_cap), dtype=torch.int32,
                       device=prev_dist.device)
-    p = cuda.ptr
-    cuda.launch("incremental", "parent_shift", "ppppiiiii",
-                p(deltas), p(swm_old), p(prev_dist), p(par), s_cap, n_cap,
-                d_cap, col0, swm_old.shape[1])
+    cuda.launch("incremental", "parent_shift", "ttttiiiii", deltas, swm_old,
+                prev_dist, par, s_cap, n_cap, d_cap, col0, swm_old.shape[1])
     parent_shift_mc.launches += 1
     return par
 
@@ -281,13 +313,10 @@ def parent_fill(par, res_rows, res_nbr, rwm_old, prev_dist) -> None:
     if _is_cpu(prev_dist):
         parent_fill_plain(par, res_rows, res_nbr, rwm_old, prev_dist)
         return
-    _int32(par, res_rows, res_nbr, rwm_old, prev_dist)
     d_cap, n_cap = prev_dist.shape
     r_cap, kr_cap = res_nbr.shape
-    p = cuda.ptr
-    cuda.launch("incremental", "parent_residual", "pppppiiii",
-                p(res_rows), p(res_nbr), p(rwm_old), p(prev_dist), p(par),
-                r_cap, kr_cap, n_cap, d_cap)
+    cuda.launch("incremental", "parent_residual", "tttttiiii", res_rows,
+                res_nbr, rwm_old, prev_dist, par, r_cap, kr_cap, n_cap, d_cap)
     parent_fill.launches += 1
 
 
@@ -296,14 +325,14 @@ parent_fill.launches = 0
 
 # -- K7: seed the affected cone ----------------------------------------------
 
-def cone_seed_entries(par, swm_new, rwm_new, deltas, res_rows, res_nbr,
-                      root, s_dirty_idx, s_dirty_old, r_dirty_idx,
-                      r_dirty_old, has_res):
-    """The scatter that seeds the cone, as (heads int64 [D, M], seeds
-    int32 [D, M]) over the M dirty entries: each entry's head node, or
-    n_cap for a pad (dropped), and 1 where it seeds. ``cone_seed_plain``
-    scatter-maxes them into a zero plane."""
-    d_cap, n_cap = par.shape
+def cone_seed_heads(n_cap: int, swm_new, rwm_new, deltas, res_rows,
+                    res_nbr, root, s_dirty_idx, s_dirty_old, r_dirty_idx,
+                    r_dirty_old, has_res):
+    """Each dirty entry's (head int64 [M], source int64 [M], increased
+    bool [M]), the shift entries then the residual ones: the head node
+    of its edge, or n_cap for a pad (dropped); the edge's source; and
+    whether its root-masked weight increased. K7 computes them once per
+    entry, and every lane shares them."""
     s_cap = swm_new.shape[0]
     ok_s = (s_dirty_idx >= 0) & (s_dirty_idx < s_cap * n_cap)
     sic = s_dirty_idx.clamp(0, s_cap * n_cap - 1).long()
@@ -314,8 +343,7 @@ def cone_seed_entries(par, swm_new, rwm_new, deltas, res_rows, res_nbr,
     old_m = torch.where(u_j == root, INF_E, s_dirty_old)
     inc_s = ok_s & (new_m > old_m)
     v_j = (u_j + deltas.long()[k_j]) % n_cap  # class edge u -> u + δ_k
-    seeds = [(inc_s[None, :] & (par[:, v_j] == u_j[None, :]))]
-    heads = [torch.where(ok_s, v_j, n_cap)]
+    heads, srcs, inc = [torch.where(ok_s, v_j, n_cap)], [u_j], [inc_s]
     if has_res:
         kr = res_nbr.shape[1]
         lim = res_rows.shape[0] * kr
@@ -328,12 +356,27 @@ def cone_seed_entries(par, swm_new, rwm_new, deltas, res_rows, res_nbr,
         new_mr = rwm_new[row_j, c_j]
         old_mr = torch.where(ru == root, INF_E, r_dirty_old)
         inc_r = ok_r & (new_mr > old_mr) & (ru >= 0) & (rv >= 0)
-        pv_r = par[:, rv.clamp(0, n_cap - 1).long()]
-        seeds.append(inc_r[None, :] & (pv_r == ru[None, :]))
         heads.append(torch.where(ok_r & (rv >= 0), rv.long(), n_cap))
-    seeds = torch.cat(seeds, dim=1).to(torch.int32)
-    heads = torch.cat(heads)[None].expand(d_cap, -1)
-    return heads, seeds
+        srcs.append(ru.long())
+        inc.append(inc_r)
+    return torch.cat(heads), torch.cat(srcs), torch.cat(inc)
+
+
+def cone_seed_entries(par, swm_new, rwm_new, deltas, res_rows, res_nbr,
+                      root, s_dirty_idx, s_dirty_old, r_dirty_idx,
+                      r_dirty_old, has_res):
+    """The scatter that seeds the cone, as (heads int64 [D, M], seeds
+    int32 [D, M]) over the M dirty entries: each entry's head node, or
+    n_cap for a pad (dropped), and 1 in the lanes where the increased
+    edge is the head's forest edge (``par[d, head] == source``)."""
+    d_cap, n_cap = par.shape
+    heads, srcs, inc = cone_seed_heads(
+        n_cap, swm_new, rwm_new, deltas, res_rows, res_nbr, root,
+        s_dirty_idx, s_dirty_old, r_dirty_idx, r_dirty_old, has_res,
+    )
+    forest = par[:, heads.clamp(max=n_cap - 1)] == srcs[None, :]
+    seeds = (inc[None, :] & forest).to(torch.int32)
+    return heads[None].expand(d_cap, -1), seeds
 
 
 def cone_seed_plain(par, swm_new, rwm_new, deltas, res_rows, res_nbr, root,
@@ -344,7 +387,8 @@ def cone_seed_plain(par, swm_new, rwm_new, deltas, res_rows, res_nbr, root,
         s_dirty_idx, s_dirty_old, r_dirty_idx, r_dirty_old, has_res,
     )
     d_cap, n_cap = par.shape
-    # one spare column takes the dropped pads
+    # the whole plane written: zeros, then the seeds max-ed in; one
+    # spare column takes the dropped pads
     aff = torch.zeros((d_cap, n_cap + 1), dtype=torch.int32,
                       device=par.device)
     aff.scatter_reduce_(1, heads, seeds, "amax")
@@ -359,35 +403,40 @@ def cone_seed(par, swm_new, rwm_new, deltas, res_rows, res_nbr, root,
     root-masked new weights; a dirty slot's old value counts as INF_E
     when its source is the root. Residual slots map flat -> (row,
     col); their source is ``res_nbr[row, col]``, their head
-    ``res_rows[row]``."""
+    ``res_rows[row]``. One launch writes the whole plane (no separate
+    fill)."""
     if _is_cpu(par):
         return cone_seed_plain(par, swm_new, rwm_new, deltas, res_rows,
                                res_nbr, root, s_dirty_idx, s_dirty_old,
                                r_dirty_idx, r_dirty_old, has_res)
-    _int32(par, swm_new, deltas, s_dirty_idx, s_dirty_old)
-    d_cap, n_cap = par.shape
-    s_cap = swm_new.shape[0]
-    r_cap, kr_cap = res_nbr.shape
-    n_r = 0
-    if has_res:
-        _int32(rwm_new, res_rows, res_nbr, r_dirty_idx, r_dirty_old)
-        n_r = r_dirty_idx.numel()
-    n_s = s_dirty_idx.numel()
-    _check_len(d_cap * (n_s + n_r))
-    # allocation: the seed kernel only ever writes ones
-    aff = torch.zeros((d_cap, n_cap), dtype=torch.int32, device=par.device)
-    p = cuda.ptr
-    r_args = (p(rwm_new), p(res_rows), p(res_nbr), p(r_dirty_idx),
-              p(r_dirty_old)) if has_res else (0, 0, 0, 0, 0)
-    cuda.launch("incremental", "cone_seed", "ppppppppppppiiiiiiii",
-                p(par), p(swm_new), 0, p(deltas), p(s_dirty_idx),
-                p(s_dirty_old), *r_args, p(aff), int(root), s_cap, n_cap,
-                d_cap, n_s, r_cap, kr_cap, n_r)
+    aff = _launch_seed(par, swm_new, None, rwm_new, deltas, res_rows,
+                       res_nbr, root, s_dirty_idx, s_dirty_old, r_dirty_idx,
+                       r_dirty_old, has_res, swm_new.shape[0])
     cone_seed.launches += 1
     return aff
 
 
 cone_seed.launches = 0
+
+
+def _launch_seed(par, swm_new, new_m, rwm_new, deltas, res_rows, res_nbr,
+                 root, s_dirty_idx, s_dirty_old, r_dirty_idx, r_dirty_old,
+                 has_res, s_cap: int):
+    """Launch K7 into a fresh plane that the kernel writes whole; the
+    shift slots' new weights from ``swm_new`` or, when it is None, from
+    ``new_m`` (K7 [mc])."""
+    d_cap, n_cap = par.shape
+    r_cap, kr_cap = res_nbr.shape
+    _check_len(d_cap * n_cap)
+    aff = torch.empty_like(par)
+    if not has_res:
+        rwm_new = res_rows = res_nbr = r_dirty_idx = r_dirty_old = None
+    cuda.launch("incremental", "cone_seed", "ttttttttttttiiiiiiii",
+                par, swm_new, new_m, deltas, s_dirty_idx, s_dirty_old,
+                rwm_new, res_rows, res_nbr, r_dirty_idx, r_dirty_old, aff,
+                int(root), s_cap, n_cap, d_cap, s_dirty_idx.numel(), r_cap,
+                kr_cap, 0 if r_dirty_idx is None else r_dirty_idx.numel())
+    return aff
 
 
 # -- K7 [mc]: the owning shard's new weights, then the seeds ------------------
@@ -411,16 +460,13 @@ def owned_weights(swm_new, s_dirty_idx, n_cap: int, col0: int):
     (``parallel/sharding.py``, :575-580)."""
     if _is_cpu(swm_new):
         return owned_weights_plain(swm_new, s_dirty_idx, n_cap, col0)
-    _int32(swm_new, s_dirty_idx)
     n_s = s_dirty_idx.numel()
     out = torch.empty(n_s, dtype=torch.int32, device=swm_new.device)
     if n_s == 0:
         return out
     s_cap, w_cols = swm_new.shape
-    p = cuda.ptr
-    cuda.launch("incremental", "owned_weights", "pppiiiii",
-                p(swm_new), p(s_dirty_idx), p(out), n_s, s_cap, n_cap, col0,
-                w_cols)
+    cuda.launch("incremental", "owned_weights", "tttiiiii", swm_new,
+                s_dirty_idx, out, n_s, s_cap, n_cap, col0, w_cols)
     owned_weights.launches += 1
     return out
 
@@ -455,23 +501,9 @@ def cone_seed_mc(par, new_m, rwm_new, deltas, res_rows, res_nbr, root,
         return cone_seed_mc_plain(par, new_m, rwm_new, deltas, res_rows,
                                   res_nbr, root, s_dirty_idx, s_dirty_old,
                                   r_dirty_idx, r_dirty_old, has_res, s_cap)
-    _int32(par, new_m, deltas, s_dirty_idx, s_dirty_old)
-    d_cap, n_cap = par.shape
-    r_cap, kr_cap = res_nbr.shape
-    n_r = 0
-    if has_res:
-        _int32(rwm_new, res_rows, res_nbr, r_dirty_idx, r_dirty_old)
-        n_r = r_dirty_idx.numel()
-    n_s = s_dirty_idx.numel()
-    _check_len(d_cap * (n_s + n_r))
-    aff = torch.zeros((d_cap, n_cap), dtype=torch.int32, device=par.device)
-    p = cuda.ptr
-    r_args = (p(rwm_new), p(res_rows), p(res_nbr), p(r_dirty_idx),
-              p(r_dirty_old)) if has_res else (0, 0, 0, 0, 0)
-    cuda.launch("incremental", "cone_seed", "ppppppppppppiiiiiiii",
-                p(par), 0, p(new_m), p(deltas), p(s_dirty_idx),
-                p(s_dirty_old), *r_args, p(aff), int(root), s_cap, n_cap,
-                d_cap, n_s, r_cap, kr_cap, n_r)
+    aff = _launch_seed(par, None, new_m, rwm_new, deltas, res_rows, res_nbr,
+                       root, s_dirty_idx, s_dirty_old, r_dirty_idx,
+                       r_dirty_old, has_res, s_cap)
     cone_seed_mc.launches += 1
     return aff
 
@@ -498,11 +530,9 @@ def cone_step(par, src, dst, flag) -> None:
     if _is_cpu(par):
         cone_step_plain(par, src, dst, flag)
         return
-    _int32(par, src, dst, flag)
     d_cap, n_cap = par.shape
-    p = cuda.ptr
-    cuda.launch("incremental", "cone_step", "ppppii",
-                p(par), p(src), p(dst), p(flag), d_cap, n_cap)
+    cuda.launch("incremental", "cone_step", "ttttii", par, src, dst, flag,
+                d_cap, n_cap)
     cone_step.launches += 1
 
 
@@ -561,17 +591,13 @@ def cone_finish(aff, prev_dist, dist0, seeds_nbr, seeds_w, cone_limit: int,
             return plane, t
         tail.copy_(t)
         return plane, tail
-    _int32(aff, prev_dist, dist0, seeds_nbr, seeds_w)
     d_cap, n_cap = aff.shape
-    dev = aff.device
-    p = cuda.ptr
     if tail is None:
         tail = cone_count(aff)
-    _int32(tail)
     plane = torch.empty_like(prev_dist)
-    cuda.launch("incremental", "cone_plane", "pppppppiii",
-                p(aff), p(prev_dist), p(dist0), p(seeds_nbr), p(seeds_w),
-                p(tail), p(plane), int(cone_limit), d_cap, n_cap)
+    cuda.launch("incremental", "cone_plane", "tttttttiii", aff, prev_dist,
+                dist0, seeds_nbr, seeds_w, tail, plane, int(cone_limit),
+                d_cap, n_cap)
     cone_finish.launches += 1
     return plane, tail
 
@@ -585,11 +611,9 @@ def cone_count(aff):
     if _is_cpu(aff):
         return torch.stack([aff.sum(dtype=torch.int32),
                             torch.zeros((), dtype=torch.int32)])
-    _int32(aff)
     # allocation: the count kernel accumulates into tail[0]
     tail = torch.zeros(2, dtype=torch.int32, device=aff.device)
-    cuda.launch("incremental", "cone_count", "ppi",
-                cuda.ptr(aff), cuda.ptr(tail), aff.numel())
+    cuda.launch("incremental", "cone_count", "tti", aff, tail, aff.numel())
     cone_finish.launches += 1
     return tail
 
@@ -620,13 +644,9 @@ def incremental_sssp(deltas, shift_w, res_rows, res_nbr, res_w, root,
     swm_new, residual, dist0 = sssp_init(
         shift_w, res_rows, res_nbr, res_w, root, seeds_nbr, seeds_w
     )
-    old_shift, old_res = old_planes(
+    swm_old, rwm_old = old_planes(
         shift_w, res_w, s_dirty_idx, s_dirty_old, r_dirty_idx,
-        r_dirty_old, has_res,
-    )
-    # K1s's root mask on the old planes (its seed plane goes unused)
-    swm_old, (_, _, rwm_old), _ = sssp_init(
-        old_shift, res_rows, res_nbr, old_res, root, seeds_nbr, seeds_w
+        r_dirty_old, has_res, int(root), res_nbr,
     )
     mark()
     par = parent_plane(deltas, swm_old, res_rows, res_nbr, rwm_old,

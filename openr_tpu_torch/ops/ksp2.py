@@ -51,7 +51,6 @@ from openr_tpu_torch.ops import cuda
 from openr_tpu_torch.ops.edgeplan import _next_pow2
 from openr_tpu_torch.ops.relax import (
     INF_E,
-    _int32,
     _is_cpu,
     _launch_relax,
     max_trips,
@@ -158,25 +157,21 @@ def overlay_planes(shift_w, res_w, s_idx, s_val, r_idx, r_val):
     if _is_cpu(shift_w):
         return overlay_planes_plain(shift_w, res_w, s_idx, s_val, r_idx,
                                     r_val)
-    _int32(shift_w, s_idx)
     b, es = s_idx.shape
     n_s = shift_w.numel()
     sw = torch.empty((b,) + tuple(shift_w.shape), dtype=torch.int32,
                      device=shift_w.device)
     rw, n_r, er = None, 0, 0
-    p = cuda.ptr
-    res_p = rw_p = r_idx_p = r_val_p = 0
     if res_w is not None:
-        _int32(res_w, r_idx)
         n_r, er = res_w.numel(), r_idx.shape[1]
         rw = torch.empty((b,) + tuple(res_w.shape), dtype=torch.int32,
                          device=res_w.device)
-        res_p, rw_p, r_idx_p = p(res_w), p(rw), p(r_idx)
-        r_val_p = 0 if r_val is None else p(r_val)
+    else:
+        r_idx = r_val = None
     cuda.launch(
-        "ksp2", "overlay_planes", "ppppLLppippii",
-        p(shift_w), res_p, p(sw), rw_p, n_s, n_r, p(s_idx),
-        0 if s_val is None else p(s_val), es, r_idx_p, r_val_p, er, b,
+        "ksp2", "overlay_planes", "ttttLLttittii",
+        shift_w, res_w, sw, rw, n_s, n_r, s_idx, s_val, es, r_idx, r_val,
+        er, b,
     )
     overlay_planes.launches += 1
     return sw, rw
@@ -205,11 +200,10 @@ def _launch_seed(roots, g: int, n_cap: int):
     seeds_w = torch.zeros_like(seeds)
     dist0 = torch.empty((g, r, n_cap), dtype=torch.int32,
                         device=roots.device)
-    p = cuda.ptr
     cuda.launch(
-        "relax", "sssp_init", "pppppppppppiiiiiipiii",
-        0, 0, 0, 0, 0, 0, 0, 0, p(seeds), p(seeds_w), p(dist0),
-        0, n_cap, 0, 0, r, 0, 0, g, 0, n_cap,
+        "relax", "sssp_init", "tttttttttttiiiiiitiii",
+        None, None, None, None, None, None, None, None, seeds, seeds_w,
+        dist0, 0, n_cap, 0, 0, r, 0, None, g, 0, n_cap,
     )
     return dist0
 
@@ -293,13 +287,11 @@ def masked_delta(dist, prev, k_cap: int):
     with n_cap, val = dist[clip(idx, 0, n_cap - 1)]."""
     if _is_cpu(dist):
         return masked_delta_plain(dist, prev, k_cap)
-    _int32(dist, prev)
     b, n_cap = dist.shape
     packed = torch.empty((b, 1 + 2 * k_cap), dtype=torch.int32,
                          device=dist.device)
-    p = cuda.ptr
-    cuda.launch("ksp2", "masked_delta", "pppiii",
-                p(dist), p(prev), p(packed), n_cap, k_cap, b)
+    cuda.launch("ksp2", "masked_delta", "tttiii",
+                dist, prev, packed, n_cap, k_cap, b)
     masked_delta.launches += 1
     return packed
 

@@ -39,7 +39,6 @@ import torch
 from openr_tpu_torch.ops import cuda
 from openr_tpu_torch.ops.relax import (
     UNROLL,
-    _int32,
     _is_cpu,
     max_trips,
     read_flag,
@@ -67,12 +66,6 @@ def ell_tensors(graph, device) -> tuple:
     argument order."""
     return to_device(device, graph.in_nbr, graph.in_w, graph.in_up,
                      graph.node_overloaded)
-
-
-def _bools(*ts) -> None:
-    for t in ts:
-        if t.dtype != torch.bool or not t.is_contiguous():
-            raise ValueError("expected contiguous bool tensors")
 
 
 # -- K18: one gather round of the distance fixpoint ---------------------------
@@ -113,13 +106,10 @@ def ell_relax(dist, out, flag, in_nbr, in_w, in_up, node_over, roots,
         ell_relax_plain(dist, out, flag, in_nbr, in_w, in_up, node_over,
                         roots, seed)
         return
-    _int32(dist, out, flag, in_nbr, in_w, roots)
-    _bools(in_up, node_over)
     n_cap, k_cap = in_nbr.shape
-    p = cuda.ptr
-    cuda.launch("legacy", "ell_relax", "ppppppp" + "iiiip",
-                p(dist), p(out), p(in_nbr), p(in_w), p(in_up), p(node_over),
-                p(roots), n_cap, k_cap, roots.shape[0], int(seed), p(flag))
+    cuda.launch("legacy", "ell_relax", "ttttbbt" + "iiiit",
+                dist, out, in_nbr, in_w, in_up, node_over, roots, n_cap,
+                k_cap, roots.shape[0], int(seed), flag)
     ell_relax.launches += 1
 
 
@@ -170,15 +160,12 @@ def ell_next_hop(nh, out, flag, dist, in_nbr, in_w, in_up, node_over,
         ell_next_hop_plain(nh, out, flag, dist, in_nbr, in_w, in_up,
                            node_over, root, root_nbr, root_w, root_up, seed)
         return
-    _int32(flag, dist, in_nbr, in_w, root_nbr, root_w)
-    _bools(nh, out, in_up, node_over, root_up)
     n_cap, k_cap = in_nbr.shape
     d_cap = root_nbr.shape[0]
-    p = cuda.ptr
-    cuda.launch("legacy", "ell_next_hop", "pppppppppp" + "iiiiip",
-                p(nh), p(out), p(dist), p(in_nbr), p(in_w), p(in_up),
-                p(node_over), p(root_nbr), p(root_w), p(root_up), int(root),
-                n_cap, k_cap, d_cap, int(seed), p(flag))
+    cuda.launch("legacy", "ell_next_hop", "bbtttbbttb" + "iiiiit",
+                nh, out, dist, in_nbr, in_w, in_up, node_over, root_nbr,
+                root_w, root_up, int(root), n_cap, k_cap, d_cap, int(seed),
+                flag)
     ell_next_hop.launches += 1
 
 
@@ -222,8 +209,6 @@ def ell_select(dist, nh, node_over, ann_node, ann_valid, path_pref,
     if _is_cpu(dist):
         return ell_select_plain(dist, nh, node_over, ann_node, ann_valid,
                                 path_pref, source_pref, dist_adv)
-    _int32(dist, ann_node, path_pref, source_pref, dist_adv)
-    _bools(nh, node_over, ann_valid)
     n_cap, d_cap = nh.shape
     p_cap, a_cap = ann_node.shape
     dev = dist.device
@@ -231,11 +216,10 @@ def ell_select(dist, nh, node_over, ann_node, ann_valid, path_pref,
     s3 = torch.empty((p_cap, a_cap), dtype=torch.bool, device=dev)
     nh_mask = torch.empty((p_cap, d_cap), dtype=torch.bool, device=dev)
     has_route = torch.empty(p_cap, dtype=torch.bool, device=dev)
-    p = cuda.ptr
-    cuda.launch("legacy", "ell_select", "pppppppp" + "pppp" + "iiii",
-                p(dist), p(nh), p(node_over), p(ann_node), p(ann_valid),
-                p(path_pref), p(source_pref), p(dist_adv), p(metric), p(s3),
-                p(nh_mask), p(has_route), p_cap, a_cap, n_cap, d_cap)
+    cuda.launch("legacy", "ell_select", "tbbtbttt" + "tbbb" + "iiii",
+                dist, nh, node_over, ann_node, ann_valid, path_pref,
+                source_pref, dist_adv, metric, s3, nh_mask, has_route, p_cap,
+                a_cap, n_cap, d_cap)
     ell_select.launches += 1
     return metric, s3, nh_mask, has_route
 

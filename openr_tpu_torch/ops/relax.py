@@ -97,17 +97,11 @@ def derive_delta_exp(deltas, shift_w) -> int:
 def _is_cpu(t: torch.Tensor) -> bool:
     """True on a CPU tensor (plain version), False on a CUDA tensor
     (kernel); any other device raises."""
-    if t.device.type == "cpu":
-        return True
-    if t.device.type != "cuda":
+    if t.is_cuda:
+        return False
+    if t.device.type != "cpu":
         raise ValueError(f"unsupported device {t.device}")
-    return False
-
-
-def _int32(*ts) -> None:
-    for t in ts:
-        if t.dtype != torch.int32 or not t.is_contiguous():
-            raise ValueError("expected contiguous int32 tensors")
+    return True
 
 
 # -- lane gates of a fused solve ---------------------------------------------
@@ -162,9 +156,8 @@ class Lanes:
 def _gate_args(gate: Optional[Gate]) -> tuple:
     """The kernels' trailing gate arguments (null ``st``: no gating)."""
     if gate is None:
-        return (0, 0, 0, 0, 0, 0, 0, 0)
-    return (cuda.ptr(gate.st), cuda.ptr(gate.cnt), *gate.thr, *gate.put,
-            *gate.inc)
+        return (None, None, 0, 0, 0, 0, 0, 0)
+    return (gate.st, gate.cnt, *gate.thr, *gate.put, *gate.inc)
 
 
 def _lanes_of(t: torch.Tensor, plane_dims: int) -> int:
@@ -242,16 +235,14 @@ def sssp_init(shift_w, res_rows, res_nbr, res_w, root, seeds_nbr,
     if _is_cpu(shift_w):
         return sssp_init_plain(shift_w, res_rows, res_nbr, res_w, root,
                                seeds_nbr, seeds_w)
-    _int32(shift_w, res_rows, res_nbr, res_w, seeds_nbr, seeds_w)
     g = _lanes_of(shift_w, 2)
     s_cap, n_cap = shift_w.shape[-2:]
     if isinstance(root, torch.Tensor):
-        _int32(root)
         if shift_w.dim() != 3 or root.shape != (g,):
             raise ValueError("per-lane roots need stacked [g, ...] planes")
-        root_i, roots = 0, cuda.ptr(root)
+        root_i, roots = 0, root
     else:
-        root_i, roots = int(root), 0
+        root_i, roots = int(root), None
     out = _launch_init(shift_w, res_rows, res_nbr, res_w, root_i, roots,
                        seeds_nbr, seeds_w, g, s_cap, n_cap, 0)
     sssp_init.launches += 1
@@ -261,7 +252,7 @@ def sssp_init(shift_w, res_rows, res_nbr, res_w, root, seeds_nbr,
 sssp_init.launches = 0
 
 
-def _launch_init(shift_w, res_rows, res_nbr, res_w, root_i: int, roots: int,
+def _launch_init(shift_w, res_rows, res_nbr, res_w, root_i: int, roots,
                  seeds_nbr, seeds_w, g: int, s_cap: int, n_cap: int,
                  col0: int):
     """Launch K1s over the class columns [col0, col0 + shift_w width) of
@@ -274,12 +265,10 @@ def _launch_init(shift_w, res_rows, res_nbr, res_w, root_i: int, roots: int,
     rw = torch.empty_like(res_w)
     dist0 = torch.empty(seeds_nbr.shape + (n_cap,), dtype=torch.int32,
                         device=shift_w.device)
-    p = cuda.ptr
     cuda.launch(
-        "relax", "sssp_init", "pppppppppppiiiiiipiii",
-        p(shift_w), p(sw), p(res_rows), p(res_nbr), p(res_w), p(rows_c),
-        p(nbr_c), p(rw), p(seeds_nbr), p(seeds_w), p(dist0),
-        s_cap, n_cap, r_cap, kr_cap, d_cap, root_i, roots, g, col0,
+        "relax", "sssp_init", "tttttttttttiiiiiitiii",
+        shift_w, sw, res_rows, res_nbr, res_w, rows_c, nbr_c, rw, seeds_nbr,
+        seeds_w, dist0, s_cap, n_cap, r_cap, kr_cap, d_cap, root_i, roots, g, col0,
         shift_w.shape[-1],
     )
     return sw, (rows_c, nbr_c, rw), dist0
@@ -318,8 +307,7 @@ def sssp_init_mc(shift_w, res_rows, res_nbr, res_w, root: int, seeds_nbr,
     if _is_cpu(shift_w):
         return sssp_init_mc_plain(shift_w, res_rows, res_nbr, res_w, root,
                                   seeds_nbr, seeds_w, col0, n_cap)
-    _int32(shift_w, res_rows, res_nbr, res_w, seeds_nbr, seeds_w)
-    out = _launch_init(shift_w, res_rows, res_nbr, res_w, int(root), 0,
+    out = _launch_init(shift_w, res_rows, res_nbr, res_w, int(root), None,
                        seeds_nbr, seeds_w, 1, shift_w.shape[0], n_cap, col0)
     sssp_init_mc.launches += 1
     return out
@@ -330,7 +318,7 @@ sssp_init_mc.launches = 0
 
 # -- K1: one Jacobi relaxation ---------------------------------------------
 
-_GATE_SIG = "ppiiiiii"
+_GATE_SIG = "ttiiiiii"
 
 
 def _roll(x, shift: int):
@@ -368,30 +356,26 @@ def _launch_relax(dist, out, flag, deltas, sw, residual,
     """Launch K1 (the shift kernel over the class columns [col0, col0 +
     sw width), then the residual one when there is a residual) and
     return the number of launches. ``flag`` may be None."""
-    _int32(dist, out, deltas, sw)
     g = _lanes_of(dist, 2)
     d_cap, n_cap = dist.shape[-2:]
     s_cap, w_cols = sw.shape[-2:]
-    p = cuda.ptr
-    fp = 0 if flag is None else p(flag)
     ga = _gate_args(gate)
     cuda.launch(
-        "relax", "relax_shift", "ppppiiiiipi" + _GATE_SIG,
-        p(dist), p(out), p(deltas), p(sw), d_cap, n_cap, s_cap, col0, w_cols,
-        fp, g, *ga,
+        "relax", "relax_shift", "ttttiiiiiti" + _GATE_SIG,
+        dist, out, deltas, sw, d_cap, n_cap, s_cap, col0, w_cols, flag, g,
+        *ga,
     )
     if residual is None:
         return 1
     rows_c, nbr_c, rw = residual
-    _int32(rows_c, nbr_c, rw)
     if gate is not None:
         # the shift launch counted this step for every open lane
         ga = _gate_args(gate._replace(inc=(0, 0)))
     cuda.launch(
-        "relax", "relax_residual", "pppppiiiiipi" + _GATE_SIG,
-        p(dist), p(out), p(rows_c), p(nbr_c), p(rw), d_cap, n_cap,
-        nbr_c.shape[-2], nbr_c.shape[-1],
-        int(_shared_residual(dist, residual)), fp, g, *ga,
+        "relax", "relax_residual", "tttttiiiiiti" + _GATE_SIG,
+        dist, out, rows_c, nbr_c, rw, d_cap, n_cap, nbr_c.shape[-2],
+        nbr_c.shape[-1], int(_shared_residual(dist, residual)), flag, g,
+        *ga,
     )
     return 2
 
@@ -473,14 +457,12 @@ def ladder_classes(sw, deltas, dq: int, s_lad: int):
     lane ([g, s_lad, n_cap], [g, s_lad])."""
     if _is_cpu(sw):
         return ladder_classes_plain(sw, deltas, dq, s_lad)
-    _int32(sw, deltas)
     g = _lanes_of(sw, 2)
     s_cap, n_cap = sw.shape[-2:]
     lead = sw.shape[:-2]
     score = torch.empty(lead + (s_cap,), dtype=torch.int32, device=sw.device)
-    p = cuda.ptr
-    cuda.launch("relax", "ladder_score", "ppiiii",
-                p(sw), p(score), s_cap, n_cap, int(dq), g)
+    cuda.launch("relax", "ladder_score", "ttiiii",
+                sw, score, s_cap, n_cap, int(dq), g)
     ladder_classes.launches += 1
     # the only torch op on the queued path: picking <= 8 of s_cap scores
     # (per lane)
@@ -491,9 +473,9 @@ def ladder_classes(sw, deltas, dq: int, s_lad: int):
                          device=sw.device)
     d_base = torch.empty(lead + (s_lad,), dtype=torch.int32,
                          device=sw.device)
-    cuda.launch("relax", "ladder_gather", "pppppiiiiiii",
-                p(sw), p(deltas), p(lad), p(w_base), p(d_base), s_cap, s_lad,
-                n_cap, int(dq), g, 0, n_cap)
+    cuda.launch("relax", "ladder_gather", "ttlttiiiiiii",
+                sw, deltas, lad, w_base, d_base, s_cap, s_lad, n_cap, int(dq),
+                g, 0, n_cap)
     ladder_classes.launches += 1
     return w_base, d_base
 
@@ -522,20 +504,18 @@ def ladder_classes_mc(sw_local, deltas, dq: int, s_lad: int, col0: int,
     if _is_cpu(sw_local):
         return ladder_classes_mc_plain(sw_local, deltas, dq, s_lad, col0,
                                        n_cap)
-    _int32(sw_local, deltas)
     s_cap, w_cols = sw_local.shape
     dev = sw_local.device
     score = torch.empty(s_cap, dtype=torch.int32, device=dev)
-    p = cuda.ptr
-    cuda.launch("relax", "ladder_score", "ppiiii",
-                p(sw_local), p(score), s_cap, w_cols, int(dq), 1)
+    cuda.launch("relax", "ladder_score", "ttiiii",
+                sw_local, score, s_cap, w_cols, int(dq), 1)
     lad = torch.sort(score, descending=True,
                      stable=True).indices[:s_lad].contiguous()
     w_base = torch.empty((s_lad, n_cap), dtype=torch.int32, device=dev)
     d_base = torch.empty(s_lad, dtype=torch.int32, device=dev)
-    cuda.launch("relax", "ladder_gather", "pppppiiiiiii",
-                p(sw_local), p(deltas), p(lad), p(w_base), p(d_base), s_cap,
-                s_lad, n_cap, int(dq), 1, col0, w_cols)
+    cuda.launch("relax", "ladder_gather", "ttlttiiiiiii",
+                sw_local, deltas, lad, w_base, d_base, s_cap, s_lad, n_cap,
+                int(dq), 1, col0, w_cols)
     ladder_classes_mc.launches += 2
     return w_base, d_base
 
@@ -562,13 +542,11 @@ def ladder_apply(src, dst, w, d, k: int, flag,
     if _is_cpu(src):
         ladder_apply_plain(src, dst, w, d, k, flag, gate)
         return
-    _int32(src, dst, w, d, flag)
     g = _lanes_of(src, 2)
     d_cap, n_cap = src.shape[-2:]
-    p = cuda.ptr
-    cuda.launch("relax", "ladder_apply", "ppppiiiipi" + _GATE_SIG,
-                p(src), p(dst), p(w), p(d), int(k), w.shape[-2], d_cap,
-                n_cap, p(flag), g, *_gate_args(gate))
+    cuda.launch("relax", "ladder_apply", "ttttiiiiti" + _GATE_SIG,
+                src, dst, w, d, int(k), w.shape[-2], d_cap, n_cap, flag, g,
+                *_gate_args(gate))
     ladder_apply.launches += 1
 
 
@@ -593,12 +571,10 @@ def ladder_rung(w, d, w2, d2, gate: Optional[Gate] = None) -> None:
     if _is_cpu(w):
         ladder_rung_plain(w, d, w2, d2, gate)
         return
-    _int32(w, d, w2, d2)
     g = _lanes_of(w, 2)
     s_lad, n_cap = w.shape[-2:]
-    p = cuda.ptr
-    cuda.launch("relax", "ladder_rung", "ppppiii" + _GATE_SIG,
-                p(w), p(d), p(w2), p(d2), s_lad, n_cap, g, *_gate_args(gate))
+    cuda.launch("relax", "ladder_rung", "ttttiii" + _GATE_SIG,
+                w, d, w2, d2, s_lad, n_cap, g, *_gate_args(gate))
     ladder_rung.launches += 1
 
 

@@ -34,7 +34,7 @@ import torch
 
 from openr_tpu_torch.ops import cuda
 from openr_tpu_torch.ops.compact import route_ok
-from openr_tpu_torch.ops.relax import INF_E, _int32, _is_cpu
+from openr_tpu_torch.ops.relax import INF_E, _is_cpu
 
 # unreachable preference value
 _NEG = -(2**31)
@@ -170,7 +170,6 @@ def select_routes(dist_d, root_w, root, mbuf, p_cap: int, a_cap: int,
         return _into(select_routes_plain(dist_d, root_w, root, mbuf, p_cap,
                                          a_cap, block_v4, lfa, dist_out),
                      out)
-    _int32(dist_d, root_w, mbuf)
     g = dist_d.shape[0] if dist_d.dim() == 3 else 1
     d_cap, n_cap = dist_d.shape[-2:]
     lead = dist_d.shape[:-2]
@@ -180,12 +179,11 @@ def select_routes(dist_d, root_w, root, mbuf, p_cap: int, a_cap: int,
             or root_w.shape[-1] != d_cap):
         raise ValueError("mbuf / root_w do not match the plane shapes")
     if isinstance(root, torch.Tensor):
-        _int32(root)
         if dist_d.dim() != 3 or root.shape != (g,):
             raise ValueError("per-lane roots need stacked [g, D, n] planes")
-        root_i, roots = 0, cuda.ptr(root)
+        root_i, roots = 0, root
     else:
-        root_i, roots = int(root), 0
+        root_i, roots = int(root), None
     dev = dist_d.device
 
     def empty(*shape, dtype=torch.int32):
@@ -194,7 +192,6 @@ def select_routes(dist_d, root_w, root, mbuf, p_cap: int, a_cap: int,
     if dist_out is None:
         dist = empty(n_cap)
     else:
-        _int32(dist_out)
         if dist_out.shape != lead + (n_cap,):
             raise ValueError("dist_out does not match the plane shapes")
         dist = dist_out
@@ -205,7 +202,6 @@ def select_routes(dist_d, root_w, root, mbuf, p_cap: int, a_cap: int,
         nhw = empty(p_cap, -(-d_cap // 16))
         lfa_out = (empty(p_cap), empty(p_cap)) if lfa else None
     else:
-        _int32(*out)
         metric, s3w, nhw = out[:3]
         lfa_out = tuple(out[3:5]) if lfa else None
         if (metric.shape != lead + (p_cap,)
@@ -213,16 +209,14 @@ def select_routes(dist_d, root_w, root, mbuf, p_cap: int, a_cap: int,
                 or nhw.shape != lead + (p_cap, -(-d_cap // 16))):
             raise ValueError("out planes do not match the outputs' shapes")
     ok = empty(p_cap, dtype=torch.bool)
-    p = cuda.ptr
-    cuda.launch("select", "select_nodes", "ppppiiipi",
-                p(dist_d), p(root_w), p(dist), p(onsp), d_cap, n_cap, root_i,
-                roots, g)
-    lfa_ptrs = (p(dist_d), p(root_w), *map(p, lfa_out)) if lfa else (0,) * 4
+    cuda.launch("select", "select_nodes", "ttttiiiti",
+                dist_d, root_w, dist, onsp, d_cap, n_cap, root_i, roots, g)
+    lfa_args = (dist_d, root_w, *lfa_out) if lfa else (None,) * 4
     cuda.launch("select", "select_prefixes",
-                "ppppppp" + "iiiiii" + "piLipppp",
-                p(mbuf), p(dist), p(onsp), p(metric), p(s3w), p(nhw), p(ok),
-                p_cap, a_cap, n_cap, d_cap, root_i, int(block_v4), roots, g,
-                0 if shared else pa6, int(lfa), *lfa_ptrs)
+                "ttttttb" + "iiiiii" + "tiLitttt",
+                mbuf, dist, onsp, metric, s3w, nhw, ok, p_cap, a_cap, n_cap,
+                d_cap, root_i, int(block_v4), roots, g, 0 if shared else pa6,
+                int(lfa), *lfa_args)
     select_routes.launches += 2
     out = (metric, s3w, nhw, ok)
     return out + lfa_out if lfa else out

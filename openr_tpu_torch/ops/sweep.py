@@ -40,7 +40,6 @@ from openr_tpu_torch.ops import cuda
 from openr_tpu_torch.ops.ksp2 import lane_inputs, seed_rows
 from openr_tpu_torch.ops.relax import (
     INF_E,
-    _int32,
     _is_cpu,
     max_trips,
     relax_step,
@@ -75,13 +74,10 @@ def sweep_verdicts(dist):
     the count whose value differs."""
     if _is_cpu(dist):
         return sweep_verdicts_plain(dist)
-    _int32(dist)
     b = dist.shape[0]
     out = torch.empty((3, b), dtype=torch.int32, device=dist.device)
-    p = cuda.ptr
-    cuda.launch("sweep", "sweep_verdicts", "ppppLi",
-                p(dist), p(out[0]), p(out[1]), p(out[2]),
-                dist[0].numel(), b)
+    cuda.launch("sweep", "sweep_verdicts", "ttttLi",
+                dist, out[0], out[1], out[2], dist[0].numel(), b)
     sweep_verdicts.launches += 1
     return out[0], out[1], out[2]
 

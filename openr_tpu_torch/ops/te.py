@@ -75,7 +75,7 @@ import numpy as np
 import torch
 
 from openr_tpu_torch.ops import cuda
-from openr_tpu_torch.ops.relax import _int32, _is_cpu
+from openr_tpu_torch.ops.relax import _is_cpu
 
 # "unreachable" in the float surrogate: finite, so logsumexp gradients
 # never see inf - inf, and exp(-BIG_F / tau) is exactly 0
@@ -511,12 +511,6 @@ def te_loss_plain(plan, util, last, tau_u):
 
 # -- the kernels --------------------------------------------------------------
 
-def _f32(*ts) -> None:
-    for t in ts:
-        if t.dtype != _F32 or not t.is_contiguous():
-            raise ValueError("expected contiguous float32 tensors")
-
-
 def _check_tau(tau: float) -> None:
     if not 0.0 < tau <= MAX_TAU:
         raise ValueError(
@@ -544,12 +538,7 @@ def _launch(name, plan, tau, seed, theta, v, fields, tfields=None,
         if t is not None and tuple(t.shape) != want[key]:
             raise ValueError(f"{key} has shape {tuple(t.shape)}, not "
                              f"{want[key]}")
-    _int32(plan.deltas, plan.sh_slot, plan.sh_lnk, plan.row_of,
-           plan.res_nbr, plan.rs_slot, plan.rs_lnk, plan.row_start,
-           plan.inv_ptr, plan.inv_ent, plan.srcs, plan.dem_row,
-           plan.dem_dst)
     bufs = [theta, v, fields, tfields, lam, lam_t, ct_sh, ct_rs]
-    _f32(*(b for b in bufs if b is not None), plan.dem_vol)
     scratch = [None] * 4
     if lam is not None:
         # the adjoint's per-trip partials: class cotangents [S, C, N]
@@ -562,22 +551,16 @@ def _launch(name, plan, tau, seed, theta, v, fields, tfields=None,
         if lam_t is not None:
             scratch[1], scratch[3] = empty(s, c, plan.n_cap), empty(s,
                                                                    n_live)
-    p = cuda.ptr
-
-    def ptr(t):
-        return 0 if t is None else p(t)
-
     cuda.launch(
-        "te", name, "pi" + "p" * 9 + "i" + "p" * 4 + "i" * 7 + "p" * 12
+        "te", name, "ti" + "t" * 9 + "i" + "tttT" + "i" * 7 + "T" * 12
         + "fii",
-        p(plan.deltas), c, p(plan.sh_slot), p(plan.sh_lnk),
-        p(plan.row_of), p(plan.res_nbr), p(plan.rs_slot), p(plan.rs_lnk),
-        p(plan.row_start), p(plan.inv_ptr), p(plan.inv_ent), k,
-        p(plan.srcs), p(plan.dem_row), p(plan.dem_dst), p(plan.dem_vol),
-        plan.dem_row.numel(), s, plan.n_cap, int(plan.has_res),
-        plan.sh_link.numel(), plan.rs_link.numel(), plan.inv_ent.numel(),
-        *(ptr(b) for b in bufs[:6]), *(ptr(b) for b in scratch),
-        ptr(ct_sh), ptr(ct_rs), float(tau), fields.shape[0] - 1, int(seed))
+        plan.deltas, c, plan.sh_slot, plan.sh_lnk, plan.row_of,
+        plan.res_nbr, plan.rs_slot, plan.rs_lnk, plan.row_start,
+        plan.inv_ptr, plan.inv_ent, k, plan.srcs, plan.dem_row,
+        plan.dem_dst, plan.dem_vol, plan.dem_row.numel(), s, plan.n_cap,
+        int(plan.has_res), plan.sh_link.numel(), plan.rs_link.numel(),
+        plan.inv_ent.numel(), *bufs[:6], *scratch, ct_sh, ct_rs,
+        float(tau), fields.shape[0] - 1, int(seed))
 
 
 def te_relax(plan, theta, fields, tau, seed=True):
@@ -623,18 +606,14 @@ def te_link_sum(plan, ct_sh, ct_rs):
     every run."""
     if _is_cpu(ct_sh):
         return te_link_sum_plain(plan, ct_sh, ct_rs)
-    _f32(ct_sh, ct_rs)
     s = plan.srcs.numel()
     if (tuple(ct_sh.shape) != (s, plan.sh_link.numel())
             or tuple(ct_rs.shape) != (s, plan.rs_link.numel())):
         raise ValueError("slot cotangents must be [sources, slots]")
-    _int32(plan.link_ptr, plan.link_slot)
     out = torch.empty(plan.l_cap, dtype=_F32, device=ct_sh.device)
-    p = cuda.ptr
-    cuda.launch("te", "te_link_sum", "pppppiiii", p(ct_sh), p(ct_rs),
-                p(plan.link_ptr), p(plan.link_slot), p(out),
-                ct_sh.shape[1], ct_rs.shape[1], plan.srcs.numel(),
-                plan.l_cap)
+    cuda.launch("te", "te_link_sum", "TTttTiiii", ct_sh, ct_rs,
+                plan.link_ptr, plan.link_slot, out, ct_sh.shape[1],
+                ct_rs.shape[1], plan.srcs.numel(), plan.l_cap)
     te_link_sum.launches += 1
     return out
 
@@ -643,17 +622,15 @@ def te_loss(plan, util, last, tau_u):
     """K17 (see ``te_loss_plain``): one block, fixed-order tree sums."""
     if _is_cpu(util):
         return te_loss_plain(plan, util, last, tau_u)
-    _f32(util, last)
     if (tuple(util.shape) != (plan.l_cap,)
             or tuple(last.shape) != (plan.srcs.numel(), plan.n_cap)):
         raise ValueError("util must be [l_cap], the field [sources, n_cap]")
     out = torch.empty(2, dtype=_F32, device=util.device)
     v = torch.empty_like(util)
-    p = cuda.ptr
-    cuda.launch("te", "te_loss", "pippppiifpp",
-                p(util), util.numel(), p(last), p(plan.dem_row),
-                p(plan.dem_dst), p(plan.dem_vol), plan.dem_row.numel(),
-                plan.n_cap, float(tau_u), p(out), p(v))
+    cuda.launch("te", "te_loss", "TiTttTiifTT",
+                util, util.numel(), last, plan.dem_row, plan.dem_dst,
+                plan.dem_vol, plan.dem_row.numel(), plan.n_cap, float(tau_u),
+                out, v)
     te_loss.launches += 1
     return out, v
 

@@ -35,7 +35,7 @@ import torch
 
 from openr_tpu_torch.ops import cuda
 from openr_tpu_torch.ops.edgeplan import INF32E, MAX_METRIC, natural_key
-from openr_tpu_torch.ops.relax import _int32, _is_cpu, read_flag
+from openr_tpu_torch.ops.relax import _is_cpu, read_flag
 from openr_tpu_torch.runtime.counters import counters
 
 INF_E = int(INF32E)
@@ -207,9 +207,6 @@ def ucmp_propagate(edges: tuple, dist, leaf, leaf_w, prefix: bool,
         return ucmp_propagate_plain(edges, dist, leaf, leaf_w, prefix,
                                     max_deg)
     src, dst, w_eff, adj_w, row_ptr, order = edges
-    _int32(src, dst, w_eff, adj_w, row_ptr, order, dist, leaf_w)
-    if leaf.dtype != torch.bool or not leaf.is_contiguous():
-        raise ValueError("leaf must be a contiguous bool tensor")
     e_cap, n_cap = src.shape[0], dist.shape[0]
     dev = dist.device
     dag = torch.empty(e_cap, dtype=torch.bool, device=dev)
@@ -218,19 +215,17 @@ def ucmp_propagate(edges: tuple, dist, leaf, leaf_w, prefix: bool,
              torch.empty(n_cap, dtype=torch.float32, device=dev))
             for _ in range(2)]
     flag = torch.zeros(2, dtype=torch.int32, device=dev)
-    p = cuda.ptr
     cur, nxt = bufs
-    cuda.launch("ucmp", "ucmp_init", "pppppppppp" + "ii",
-                p(src), p(dst), p(w_eff), p(dist), p(dag), p(leaf),
-                p(leaf_w), *map(p, cur), e_cap, n_cap)
+    buf_sig = "btT"
+    cuda.launch("ucmp", "ucmp_init", "tttt" + "bbt" + buf_sig + "ii",
+                src, dst, w_eff, dist, dag, leaf, leaf_w, *cur, e_cap, n_cap)
     ucmp_propagate.launches += 1
     bound = fixpoint_bound(n_cap)
     rounds, changed, over = 0, True, False
     while changed and rounds < bound:
-        cuda.launch("ucmp", "ucmp_step", "ppppppp" + "ppp" + "ppp" + "iip",
-                    p(row_ptr), p(order), p(dst), p(adj_w), p(dag), p(leaf),
-                    p(leaf_w), *map(p, cur), *map(p, nxt), n_cap, int(prefix),
-                    p(flag))
+        cuda.launch("ucmp", "ucmp_step", "ttttbbt" + buf_sig * 2 + "iit",
+                    row_ptr, order, dst, adj_w, dag, leaf, leaf_w, *cur, *nxt,
+                    n_cap, int(prefix), flag)
         ucmp_propagate.launches += 1
         cur, nxt = nxt, cur
         rounds += 1

@@ -532,3 +532,118 @@ def test_scatter_set_plain_drops_pads_and_rejects_duplicates(port):
     with pytest.raises(ValueError, match="unique"):
         inc.scatter_set(plane, torch.tensor([3, 7, 3], dtype=torch.int32),
                         torch.tensor([1, 2, 3], dtype=torch.int32))
+
+
+def _old_planes_case(name, dirty):
+    """A plan's new resident planes and dirty tuples over them: ``mixed``
+    holds a slot in the root's shift column, a residual slot (one whose
+    source is the root where the plan has one) and high pads with junk
+    old values; ``pads`` holds pads only; ``empty`` no entry at all."""
+    _, states, _, me = _state(name)
+    plan = build_plan(states["0"])
+    root = plan.node_index[me]
+    n_cap, s_cap = plan.n_cap, plan.s_cap
+    r_cap, kr_cap = plan.res_nbr.shape
+    s_lim, r_lim = s_cap * n_cap, r_cap * kr_cap
+    rng = np.random.default_rng(16)
+    s_idx, r_idx = [], []
+    if dirty == "mixed":
+        s_idx = [n_cap + root] + [
+            int(f) for f in rng.choice(s_lim, 6, replace=False)
+            if f != n_cap + root][:5]
+        from_root = np.flatnonzero(plan.res_nbr.ravel() == root)
+        r_idx = sorted({*from_root[:1].tolist(),
+                        *rng.choice(r_lim, 3, replace=False).tolist()})
+    if dirty != "empty":
+        s_idx += [s_lim, s_lim + 5]
+        r_idx += [r_lim, r_lim + 3]
+
+    def tup(idx):
+        idx = np.asarray(idx, np.int32)
+        return idx, rng.integers(1, 60, idx.size, dtype=np.int32)
+
+    return plan, root, tup(s_idx), tup(r_idx)
+
+
+@pytest.mark.parametrize("name,dirty", [
+    ("grid", "mixed"), ("mesh", "mixed"), ("fat_tree", "pads"),
+    ("mesh", "empty"),
+])
+def test_old_planes_root_masked_match_jax(port, name, dirty):
+    """The old planes, one ``old_plane`` a plane: unmasked equal to the
+    JAX ``_old_planes``, and with the root mask equal to ``_old_planes``
+    followed by ``incremental_sssp``'s mask (the root's shift column and
+    the residual slots out of the root at INF_E), the root winning over
+    a dirty value; pads drop."""
+    torch, inc = port.torch, port.incremental
+    plan, root, (sdi, sdo), (rdi, rdo) = _old_planes_case(name, dirty)
+    has_res = plan.k_res > 0
+    assert has_res == (name != "grid")
+    j_shift, j_res = (np.asarray(a) for a in jax.jit(partial(
+        jincr._old_planes, has_res=has_res))(
+            plan.shift_w, plan.res_w, sdi, sdo, rdi, rdo))
+    want = (j_shift.copy(), j_res)
+    want[0][:, root] = INF_E
+    if has_res:
+        want = (want[0], np.where(plan.res_nbr == root, INF_E, j_res))
+    t = [torch.tensor(a) for a in (plan.shift_w, plan.res_w, sdi, sdo, rdi,
+                                   rdo)]
+    got = inc.old_planes(*t, has_res, root, torch.tensor(plan.res_nbr))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), w)
+    for g, w in zip(inc.old_planes(*t, has_res), (j_shift, j_res)):
+        np.testing.assert_array_equal(g.numpy(), w)
+    if dirty == "mixed":
+        assert (sdi // plan.n_cap == 1).any() and (
+            sdi % plan.n_cap == root).any(), "a dirty slot in the root column"
+        assert (want[0][:, root] == INF_E).all()
+    if dirty != "mixed":
+        np.testing.assert_array_equal(want[0][:, root], INF_E)
+        np.testing.assert_array_equal(
+            np.delete(want[0], root, axis=1),
+            np.delete(plan.shift_w, root, axis=1))
+
+
+def test_cone_seed_plain_matches_jax_seed_plane(port):
+    """K7's plain version (each dirty entry's head, source and increase
+    computed once, shared by the lanes; the whole plane written) equals
+    the JAX seed plane: ``incremental_sssp`` with no spread trip and no
+    relaxation trip returns the warm seed built from it (the plane with
+    the seeds at INF_E, the root pins min-ed in) and its sum as the
+    cone. The grid seeds in the shift classes (the residual's seeds are
+    held to JAX through the cone of ``test_incremental_sssp_matches_jax``
+    on the mesh and the fat tree)."""
+    torch, inc = port.torch, port.incremental
+    from openr_tpu_torch.ops import relax as prelax
+
+    args, st, _, _ = _sssp_case("grid")
+    (deltas, new_shift, res_rows, res_nbr, new_res, root, root_nbr, root_w,
+     prev, sd_idx, sd_old, rd_idx, rd_old) = args
+    limit = st["d_cap"] * st["n_cap"]
+    warm, trips, cone, fell, rounds = jincr.jit_incremental_sssp(
+        **dict(st, max_trips=0), kernel="sync")(*args, np.int32(limit))
+    assert (int(trips), bool(fell), int(rounds)) == (0, False, 0)
+    t = {i: torch.tensor(np.asarray(a)) for i, a in enumerate(args)
+         if i != 5}
+    root = int(root)
+    swm_new, residual, dist0 = prelax.sssp_init(
+        t[1], t[2], t[3], t[4], root, t[6], t[7])
+    swm_old, rwm_old = inc.old_planes(t[1], t[4], t[9], t[10], t[11],
+                                      t[12], False, root, t[3])
+    par = inc.parent_plane(t[0], swm_old, t[2], t[3], rwm_old, t[8],
+                           st["s_cap"], False, st["n_cap"], st["d_cap"])
+    aff = inc.cone_seed(par, swm_new, residual[2], t[0], t[2], t[3], root,
+                        t[9], t[10], t[11], t[12], False)
+    assert aff.dtype == torch.int32 and set(aff.unique().tolist()) == {0, 1}
+    assert int(aff.sum()) == int(cone)
+    _, _, increased = inc.cone_seed_heads(
+        st["n_cap"], swm_new, residual[2], t[0], t[2], t[3], root, t[9],
+        t[10], t[11], t[12], False)
+    # the tree edge's increase; the root edge's is masked on both sides
+    assert int(increased.sum()) == 1 and int(cone) > 0
+    warm = np.asarray(warm)
+    np.testing.assert_array_equal(
+        aff.numpy(), ((warm == INF_E) & (prev < INF_E)).astype(np.int32))
+    plane, _ = inc.cone_finish(aff, t[8], dist0, t[6], t[7], limit)
+    np.testing.assert_array_equal(plane.numpy(), warm)

@@ -362,6 +362,89 @@ def test_port_imports_nothing_of_jax():
     assert res.stdout.strip() == "[]"
 
 
+# a C parameter type of csrc/*.cu -> the launch letter that passes it
+_C_LETTER = {"int*": "t", "uint32_t*": "t", "float*": "T", "uint8_t*": "b",
+             "int64_t*": "l", "longlong*": "a", "int": "i",
+             "longlong": "L", "float": "f"}
+
+
+def _c_prototypes() -> dict:
+    """(source, entry point) -> the letters of its parameters, from the
+    C interface of every ``csrc/*.cu`` (macros expanded, the trailing
+    stream dropped)."""
+    import re
+
+    out = {}
+    for cu in (REPO / "openr_tpu_torch" / "csrc").glob("*.cu"):
+        src = re.sub(r"//[^\n]*", "", cu.read_text())
+        macros = {m[1]: m[2].replace("\\\n", " ") for m in re.finditer(
+            r"#define (\w+)\s*((?:[^\n]*\\\n)*[^\n]*)", src)}
+        for m in re.finditer(r"\nint (\w+)\(([^)]*)\)\s*\{", src):
+            params = m[2]
+            for k, v in macros.items():
+                params = re.sub(rf"\b{k}\b", v, params)
+            types_ = [re.sub(r"const|\s+", "", re.sub(r"\w+\s*$", "", p))
+                      for p in params.split(",")]
+            if types_[-1] == "cudaStream_t":
+                out[cu.stem, m[1]] = "".join(_C_LETTER.get(t, "?")
+                                             for t in types_[:-1])
+    return out
+
+
+def test_launch_letters_match_the_c_prototypes():
+    """Every ``cuda.launch`` in ``openr_tpu_torch/ops`` passes each
+    argument of its entry point under the letter of the C parameter's
+    type (an int32 pointer as ``t``, a float32 one as ``T``, ...; ``p``,
+    a raw address, fits any pointer). A wrong letter raises only on the
+    card, so it is caught here, on the source."""
+    import ast
+    import importlib
+
+    protos = _c_prototypes()
+    seen, sites = set(), 0
+    for py in sorted((REPO / "openr_tpu_torch" / "ops").glob("*.py")):
+        mod = importlib.import_module(f"openr_tpu_torch.ops.{py.stem}")
+        src = py.read_text()
+        sites += src.count("cuda.launch(")
+        tree = ast.parse(src)
+        for fn in ast.walk(tree):
+            if not isinstance(fn, ast.FunctionDef):
+                continue
+            names = dict(vars(mod))
+            for node in ast.walk(fn):
+                if (isinstance(node, ast.Assign) and len(node.targets) == 1
+                        and isinstance(node.targets[0], ast.Name)
+                        and isinstance(node.value, (ast.Constant,
+                                                    ast.BinOp))):
+                    try:
+                        names[node.targets[0].id] = eval(
+                            ast.unparse(node.value), names)
+                    except NameError:
+                        pass
+            for call in ast.walk(fn):
+                if not (isinstance(call, ast.Call)
+                        and ast.unparse(call.func) == "cuda.launch"):
+                    continue
+                lib = ast.literal_eval(call.args[0])
+                sig = eval(ast.unparse(call.args[2]), names)
+                if isinstance(call.args[1], ast.Constant):
+                    entries = [call.args[1].value]
+                else:  # an entry point named by the caller: every caller's
+                    entries = [c.args[0].value for c in ast.walk(tree)
+                               if isinstance(c, ast.Call)
+                               and ast.unparse(c.func) == fn.name]
+                assert entries, (py.name, call.lineno)
+                for entry in entries:
+                    want = protos[lib, entry]
+                    assert len(sig) == len(want) and all(
+                        s == w or (s == "p" and w in "tTbla")
+                        for s, w in zip(sig, want)), (
+                        f"{py.name}:{call.lineno} {lib}.{entry}: {sig} "
+                        f"against {want}")
+                seen.add((py.name, call.lineno))
+    assert len(seen) == sites > 40
+
+
 @pytest.mark.parametrize("threshold", [0, 16])
 def test_area_above_multichip_threshold_solves_on_one_card(port, threshold):
     """With the multichip threshold off (0) or below the area's n_cap

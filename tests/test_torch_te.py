@@ -367,7 +367,8 @@ def test_te_kernels_compose_over_trip_slices(port, cell):
 
 def test_te_wrappers_marshal_their_launches(port, monkeypatch):
     """On a CUDA tensor each wrapper launches its own entry point of
-    ``csrc/te.cu`` with one argument for each letter of its signature,
+    ``csrc/te.cu`` with one argument for each letter of its signature
+    (a tensor of the letter's dtype or None where it names a tensor),
     counts the launch, and refuses a buffer of the wrong shape or a tau
     outside the kernels' domain — checked here with the launch
     recorded instead of run (no card)."""
@@ -378,7 +379,6 @@ def test_te_wrappers_marshal_their_launches(port, monkeypatch):
         has_res=static[-2], device="cpu")
     calls = []
     monkeypatch.setattr(te, "_is_cpu", lambda t: False)
-    monkeypatch.setattr(te.cuda, "ptr", lambda t: t.data_ptr())
     monkeypatch.setattr(te.cuda, "launch",
                         lambda lib, fn, sig, *a: calls.append((lib, fn, sig,
                                                                a)))
@@ -400,11 +400,16 @@ def test_te_wrappers_marshal_their_launches(port, monkeypatch):
     te.te_loss(plan, v, fields[-1], tau_u)
     assert [(lib, fn) for lib, fn, _, _ in calls] == [
         ("te", f) for f in before]
+    dtypes = {"t": torch.int32, "T": torch.float32}
     for _, fn, sig, a in calls:
         assert len(sig) == len(a), fn
+        assert set(sig) <= {"t", "T", "i", "f"}, fn
         for letter, x in zip(sig, a):
-            assert isinstance(x, float if letter == "f" else int), (fn,
-                                                                     letter)
+            if letter in dtypes:
+                assert x is None or x.dtype == dtypes[letter], (fn, letter)
+            else:
+                assert isinstance(x, float if letter == "f" else int), (
+                    fn, letter)
     assert all(getattr(te, f).launches == k + 1 for f, k in before.items())
     with pytest.raises(ValueError):
         te.te_relax_vjp(plan, theta, fields, lam[:, :-1], *ct, tau)

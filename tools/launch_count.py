@@ -1,0 +1,107 @@
+"""Device work of one lsdb100k incremental build and of one flapstorm100k
+streaming epoch, for the ``openr_tpu_torch`` package found under
+``--root`` (default: this checkout), so that two trees can be compared
+in one run on the same card:
+
+    python -m tools.launch_count [--root DIR] [--builds N]
+
+Needs a CUDA card. Each counted build or epoch follows a flap of
+``adj_dbs[1]`` (chip_smoke.py's ``flap``, a metric increase) and is
+held to a fresh cold solve's RIB. Counts are ``chip_smoke.counted``'s:
+kernel launches by wrapper (every ``ops`` function with a ``launches``
+count), torch ops on the card by name (clones, fills, copies, reads),
+and their sum. Prints one JSON line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib
+import json
+import pkgutil
+import sys
+from pathlib import Path
+
+
+def _wrappers(ops_pkg) -> dict:
+    """name -> (wrapper, None, None) for every counted kernel wrapper."""
+    out = {}
+    for m in pkgutil.iter_modules(ops_pkg.__path__):
+        mod = importlib.import_module(f"{ops_pkg.__name__}.{m.name}")
+        for name, fn in vars(mod).items():
+            if (callable(fn) and getattr(fn, "__module__", None)
+                    == mod.__name__
+                    and isinstance(getattr(fn, "launches", None), int)):
+                out[f"{m.name}.{name}"] = (fn, None, None)
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", help="tree holding openr_tpu_torch/")
+    ap.add_argument("--builds", type=int, default=2)
+    a = ap.parse_args()
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke as cs
+
+    if a.root:
+        sys.path.insert(0, str(Path(a.root).resolve()))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("launch_count: no CUDA device available", file=sys.stderr)
+        return 2
+    import openr_tpu_torch.ops as ops_pkg
+    from openr_tpu_torch.decision import gpu_solver
+    from openr_tpu_torch.models import topologies
+    from openr_tpu_torch.types import AdjacencyDatabase
+
+    wrappers = _wrappers(ops_pkg)
+    root = cs.LSDB100K_ROOT
+    adj_dbs, states, ps = cs.build_cell(
+        topologies, lambda: topologies.grid(cs.LSDB100K_SIDE,
+                                            node_labels=False))
+    by_name = {db.this_node_name: db for db in adj_dbs}
+
+    def flap(i: int) -> None:
+        cs.flap(AdjacencyDatabase, states, adj_dbs, by_name, 1, i)
+
+    def held(db, label: str) -> None:
+        fresh = gpu_solver.GpuSpfSolver(root, device=cs.DEVICE)
+        cs.check(cs.rib_equal(fresh.build_route_db(root, states, ps), db),
+                 f"{label}: RIB != a fresh cold solve")
+
+    inc = gpu_solver.GpuSpfSolver(root, device=cs.DEVICE,
+                                  incremental_spf=True)
+    stream = gpu_solver.GpuSpfSolver(root, device=cs.DEVICE,
+                                     streaming_pipeline=True,
+                                     small_graph_nodes=0)
+    for s in (inc, stream):
+        s.build_route_db(root, states, ps)
+    out = {"root": a.root or ".", "incremental_build": [],
+           "storm_epoch": []}
+    for i in range(a.builds):
+        flap(2 * i)
+        box = {}
+        out["incremental_build"].append(cs.counted(
+            torch, wrappers,
+            lambda: box.update(db=inc.build_route_db(root, states, ps))))
+        cs.check(inc.last_device_stats.get("incremental") is True,
+                 "the counted build must be incremental")
+        held(box["db"], "incremental build")
+        box = {}
+        out["storm_epoch"].append(cs.counted(
+            torch, wrappers, lambda: box.update(db=stream.collect_route_db(
+                stream.dispatch_route_db(root, states, ps)))))
+        cs.check(bool(stream.last_timing.get("stream")),
+                 "the counted epoch must stream")
+        held(box["db"], "storm epoch")
+        flap(2 * i + 1)
+        inc.build_route_db(root, states, ps)
+        stream.collect_route_db(stream.dispatch_route_db(root, states, ps))
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
