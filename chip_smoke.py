@@ -28,7 +28,9 @@ prints no result line:
      dispatch of the 4 areas, RIB equal to the oracle, each area's pull
      buffer equal to its unfused solve's, the fused build's launches
      and flag reads beside each unfused area's and their sum, and the
-     fused K1s-K4 (a leading area axis) against their plain versions;
+     fused K1s-K4 (a leading area axis) against their plain versions
+     (K2's ladder pass over 3 passes of run_bucketed's stamps with every
+     other lane shut: stamps and counters too);
   3. the main path: the lsdb100k cell (grid 316 x 316 = 99,856 nodes,
      ~400k directed adjacencies, one loopback prefix per node, root
      node-158-158, default settings: bucketed kernel, sentinels on, no
@@ -40,7 +42,11 @@ prints no result line:
   5. every kernel wrapper of the cold path against its plain PyTorch
      version on the card, on the main path's own tensors (exact int32
      equality, tolerance 0), timed with CUDA events beside its plain
-     version and its bound;
+     version and its bound; K2's ladder pass over 3 passes from a
+     wavefront, each on the rung the last doubled (both plane buffers,
+     rungs, flag); K2's class pick and ladder pass also split into
+     device time alone, host enqueue and the bare launch's host cost,
+     and each counted as one kernel launch and no torch op;
   6. the churn path: a second lsdb100k solver with ``incremental_spf``
      takes a cold first build, then 4 flap steps (the victim
      ``adj_dbs[1]``'s links, both directions, metric 50 + i % 5, through
@@ -194,8 +200,10 @@ prints no result line:
      equal to a fresh oracle's; each prints trips, rounds, cone,
      fell_back and halo exchanges beside the single
      build's, build_ms, its split and per-shard ms. K1s, K1, K2, K5, K6,
-     K7 ``[mc]`` and K23 (min, max, sum) against their plain versions at
-     those shapes. fabric10k's 4,096 vantages through
+     K7 ``[mc]``, K2's ladder pass on the member's own classes and K23
+     (min, max, sum) against their plain versions at those shapes (the
+     class pick counted as one launch and no torch op). fabric10k's
+     4,096 vantages through
      ``build_fabric_route_dbs(mesh=...)`` (window ``fabric_mesh``;
      ``pod063-rsw63``'s RIB equal to the LFA oracle) and the array-level
      step on the mesh equal to the one-card step (all seven arrays); K21
@@ -250,8 +258,7 @@ STORM_FLAPS = 200
 STORM_HZ = 100.0
 # the kernels of each path (the wrappers' names)
 COLD_PATH = ("K1s:sssp_init", "K1:relax_step", "K2:ladder_classes",
-             "K2:ladder_apply", "K2:ladder_rung", "K3:select_routes",
-             "K4:compact_outputs")
+             "K2:ladder_pass", "K3:select_routes", "K4:compact_outputs")
 CHURN_PATH = COLD_PATH + ("K5:scatter_set", "K5:old_plane",
                           "K6:parent_plane", "K7:cone_seed", "K8:cone_step",
                           "K9:cone_finish")
@@ -397,6 +404,39 @@ def plain_residual(residual, n_cap: int):
         return None
     rows, nbr, w = residual
     return rows.clamp(0, n_cap - 1), nbr.clamp(0, n_cap - 1), w
+
+
+def pass_check(torch, relax, mid, w, d, lanes=None, passes: int = 3) -> int:
+    """K2's ladder pass (one launch) against its plain version over
+    ``passes`` passes from the plane ``mid``, each on the rung the last
+    doubled (shifts double past the first wrap), with run_bucketed's
+    stamps when ``lanes`` (-> a fresh ``Lanes``, called once a side) is
+    given: -> the largest difference over both plane buffers, the rungs,
+    the flags and the stamps and counters. Untouched rungs (gated lanes)
+    start as -7 on both sides."""
+    sides = {}
+    for side in ("kernel", "plain"):
+        sides[side] = [mid.clone(), torch.full_like(mid, -3), w, d,
+                       None if lanes is None else lanes()]
+    errs = []
+    for q in range(passes):
+        got = {}
+        for side, fn in (("kernel", relax.ladder_pass),
+                         ("plain", relax.ladder_pass_plain)):
+            cur, spare, w_, d_, ln = sides[side]
+            w2, d2 = torch.full_like(w_, -7), torch.full_like(d_, -7)
+            flag = torch.zeros(1, dtype=torch.int32, device=mid.device)
+            gate = None if ln is None else ln.gate(
+                (-1, q - 1 if q else relax.ALWAYS), (0, q), (0, 1))
+            cur, spare = fn(cur, spare, w_, d_, w2, d2, flag, gate)
+            sides[side] = [cur, spare, w2, d2, ln]
+            got[side] = [cur, spare, w2, d2, flag] + (
+                [] if ln is None else [ln.st, ln.cnt])
+        if q == 0:
+            check(int(got["kernel"][4]) == 1,
+                  "a ladder pass on a wavefront must change the plane")
+        errs.append(max_abs_err(torch, got["kernel"], got["plain"]))
+    return max(errs)
 
 
 def build_cell(topologies, gen):
@@ -804,42 +844,21 @@ def fused_kernels(torch, gpu_solver, relax, select, compact, record,
         nbytes=4 * g * (s_cap * n_cap + s_cap + s_lad * n_cap + s_lad),
         ops=g * (s_cap * n_cap + s_lad * n_cap),
     )
-    errs = []
-    for k in range(s_lad):
-        gk, gp = gated_pair()
-        out_k, out_p = mid.clone(), mid.clone()
-        f_k.zero_()
-        f_p.zero_()
-        relax.ladder_apply(mid, out_k, w_k, dd_k, k, f_k, gk)
-        relax.ladder_apply_plain(mid, out_p, w_k, dd_k, k, f_p, gp)
-        errs.append(max_abs_err(torch, (out_k, f_k, gk.st, gk.cnt),
-                                (out_p, f_p, gp.st, gp.cnt)))
+    def half_shut():
+        """Lanes with lanes 1, 3, ... shut from the start."""
+        lanes_st = relax.Lanes(g, dev)
+        lanes_st.st[1::2, 0] = -5
+        return lanes_st
+
+    pa, pb = mid.clone(), torch.empty_like(mid)
+    w2_k, d2_k = torch.empty_like(w_k), torch.empty_like(dd_k)
     record(
-        "K2:ladder_apply[fused]", max(errs),
-        lambda: relax.ladder_apply(mid, out_k, w_k, dd_k, 0, f_k),
-        lambda: relax.ladder_apply_plain(mid, out_p, w_k, dd_k, 0, f_p),
-        nbytes=4 * g * (2 * d_cap * n_cap + n_cap + 1),
-        ops=2 * g * d_cap * n_cap,
-    )
-    errs = []
-    w_in, d_in = w_k, dd_k
-    for _ in range(3):  # three rungs: shifts double past the first wrap
-        gk, gp = gated_pair()
-        w2_k, d2_k = torch.zeros_like(w_k), torch.zeros_like(dd_k)
-        w2_p, d2_p = torch.zeros_like(w_k), torch.zeros_like(dd_k)
-        relax.ladder_rung(w_in, d_in, w2_k, d2_k, gk)
-        relax.ladder_rung_plain(w_in, d_in, w2_p, d2_p, gp)
-        errs.append(max_abs_err(torch, (w2_k, d2_k), (w2_p, d2_p)))
-        # every lane's next rung, ungated, feeds the next comparison
-        w_nx, d_nx = torch.empty_like(w_k), torch.empty_like(dd_k)
-        relax.ladder_rung(w_in, d_in, w_nx, d_nx)
-        w_in, d_in = w_nx, d_nx
-    record(
-        "K2:ladder_rung[fused]", max(errs),
-        lambda: relax.ladder_rung(w_k, dd_k, w2_k, d2_k),
-        lambda: relax.ladder_rung_plain(w_k, dd_k, w2_p, d2_p),
-        nbytes=4 * g * (2 * s_lad * n_cap + 2 * s_lad),
-        ops=2 * g * s_lad * n_cap,
+        "K2:ladder_pass[fused]",
+        pass_check(torch, relax, mid, w_k, dd_k, half_shut),
+        lambda: relax.ladder_pass(pa, pb, w_k, dd_k, w2_k, d2_k, f_k),
+        lambda: relax.ladder_pass_plain(pa, pb, w_k, dd_k, w2_k, d2_k, f_p),
+        nbytes=4 * g * (2 * d_cap * n_cap + 2 * s_lad * n_cap + 2 * s_lad),
+        ops=2 * g * (s_lad * d_cap * n_cap + s_lad * n_cap),
     )
 
     # the whole fused SSSP: kernel loops vs plain loops on CPU copies
@@ -2843,7 +2862,7 @@ MC_THRESHOLD = 65536
 MC_LFA_SHARDS = (6, 2)
 MC_FLAPS = 4
 MC_PATH = ("K1s:sssp_init_mc", "K1:relax_step_mc", "K2:ladder_classes_mc",
-           "K2:ladder_apply", "K2:ladder_rung", "K23:shard_combine",
+           "K2:ladder_pass", "K23:shard_combine",
            "K3:select_routes", "K4:compact_outputs")
 MC_INCR_PATH = MC_PATH + ("K5:scatter_window", "K6:parent_shift_mc",
                           "K7:owned_weights", "K7:cone_seed_mc",
@@ -3007,6 +3026,21 @@ def mc_kernels(c, solver, lsdb, root, dirty) -> None:
         lambda: relax.ladder_classes_mc_plain(*largs),
         nbytes=4 * (s_cap * w_cols + s_cap + s_lad * n_cap + s_lad),
         ops=s_cap * w_cols + s_lad * n_cap)
+    pick_only = counted(torch, c.wrappers,
+                        lambda: relax.ladder_classes_mc(*largs))
+    check(pick_only["launches"] == pick_only["kernel_launches"] == 1,
+          f"K2 [mc]'s class pick must be one launch and no torch op: "
+          f"{pick_only}")
+    # the member's ladder pass on the group's wavefront, its own classes
+    w_m, d_m = relax.ladder_classes_mc(*largs)
+    pa, pb = mid.clone(), torch.empty_like(mid)
+    w2_m, d2_m = torch.empty_like(w_m), torch.empty_like(d_m)
+    c.record(
+        "K2:ladder_pass[mc]", pass_check(torch, relax, mid, w_m, d_m),
+        lambda: relax.ladder_pass(pa, pb, w_m, d_m, w2_m, d2_m, f_k),
+        lambda: relax.ladder_pass_plain(pa, pb, w_m, d_m, w2_m, d2_m, f_p),
+        nbytes=4 * (2 * d_loc * n_cap + 2 * s_lad * n_cap + 2 * s_lad),
+        ops=2 * s_lad * d_loc * n_cap + 2 * s_lad * n_cap)
     # K5 [mc]: the last flap's dirty slots (global flat indices) into
     # each member's columns: held on both, timed on the one owning them
     sdi = torch.tensor(dirty[0], device=c.dev)
@@ -3428,11 +3462,9 @@ def main() -> int:
         "K1:relax_step": (relax.relax_step, "relax.cu",
                        "openr_tpu/ops/relax.py:119"),
         "K2:ladder_classes": (relax.ladder_classes, "relax.cu",
-                           "openr_tpu/ops/relax.py:185"),
-        "K2:ladder_apply": (relax.ladder_apply, "relax.cu",
-                         "openr_tpu/ops/relax.py:185"),
-        "K2:ladder_rung": (relax.ladder_rung, "relax.cu",
-                        "openr_tpu/ops/relax.py:185"),
+                              "openr_tpu/ops/relax.py:227"),
+        "K2:ladder_pass": (relax.ladder_pass, "relax.cu",
+                           "openr_tpu/ops/relax.py:235"),
         "K3:select_routes": (select.select_routes, "select.cu",
                           "openr_tpu/decision/tpu_solver.py:511"),
         "K4:compact_outputs": (compact.compact_outputs, "compact.cu",
@@ -3523,6 +3555,8 @@ def main() -> int:
                                   "openr_tpu/parallel/sharding.py:115"),
         "K3:select_routes[fabric]": ("K3:select_routes",
                                      "openr_tpu/parallel/sharding.py:149"),
+        "K2:ladder_pass[mc]": ("K2:ladder_pass",
+                               "openr_tpu/parallel/sharding.py:402"),
     }
     variant_launches: dict = {}
     results = {}
@@ -3567,6 +3601,22 @@ def main() -> int:
     def read_counts(reads0):
         return ({name: fn.launches for name, (fn, _, _) in wrappers.items()},
                 relax.read_flag.reads - reads0)
+
+    def split(name, fn, library=None, floor=None) -> None:
+        """The wrapper's time split: the kernel alone on the device and
+        the host's enqueue (``device_ms``), the same for the library
+        call, and the host cost of the bare ``cuda.launch`` (ctypes and
+        the CUDA launch, no argument checks): the floor a wrapper call
+        cannot go under."""
+        r = results[name]
+        r["device_ms"], r["host_ms"] = device_ms(torch, fn)
+        if library is not None:
+            r["library_device_ms"], r["library_host_ms"] = device_ms(
+                torch, library)
+        if floor is not None:
+            r["launch_floor_host_ms"] = device_ms(torch, floor)[1]
+        log(f"{name} split: " + json.dumps(
+            {k: v for k, v in r.items() if k.endswith("_ms")}))
 
     c = types.SimpleNamespace(
         torch=torch, dev=dev, gpu_solver=gpu_solver, relax=relax,
@@ -3817,36 +3867,43 @@ def main() -> int:
         nbytes=4 * (s_cap * n_cap + s_cap + s_lad * n_cap + s_lad),
         ops=s_cap * n_cap + s_lad * n_cap,
     )
-    errs = []
-    for k in range(s_lad):
-        f_k.zero_()
-        f_p.zero_()
-        relax.ladder_apply(mid, out_k, w_k, dd_k, k, f_k)
-        relax.ladder_apply_plain(mid, out_p, w_k, dd_k, k, f_p)
-        errs.append(max_abs_err(torch, (out_k, f_k), (out_p, f_p)))
-    record(
-        "K2:ladder_apply", max(errs),
-        lambda: relax.ladder_apply(mid, out_k, w_k, dd_k, 0, f_k),
-        lambda: relax.ladder_apply_plain(mid, out_p, w_k, dd_k, 0, f_p),
-        nbytes=4 * (2 * d_cap * n_cap + n_cap + 1),
-        ops=2 * d_cap * n_cap,
-    )
+    # a pass on the wavefront: 3 passes, each on the rung the last doubled
+    pa, pb = mid.clone(), torch.empty_like(mid)
     w2_k, d2_k = torch.empty_like(w_k), torch.empty_like(dd_k)
-    w2_p, d2_p = torch.empty_like(w_k), torch.empty_like(dd_k)
-    errs = []
-    w_in, d_in = w_k, dd_k
-    for _ in range(3):  # three rungs: shifts double past the first wrap
-        relax.ladder_rung(w_in, d_in, w2_k, d2_k)
-        relax.ladder_rung_plain(w_in, d_in, w2_p, d2_p)
-        errs.append(max_abs_err(torch, (w2_k, d2_k), (w2_p, d2_p)))
-        w_in, d_in = w2_k.clone(), d2_k.clone()
     record(
-        "K2:ladder_rung", max(errs),
-        lambda: relax.ladder_rung(w_k, dd_k, w2_k, d2_k),
-        lambda: relax.ladder_rung_plain(w_k, dd_k, w2_p, d2_p),
-        nbytes=4 * (2 * s_lad * n_cap + 2 * s_lad),
-        ops=2 * s_lad * n_cap,
+        "K2:ladder_pass", pass_check(torch, relax, mid, w_k, dd_k),
+        lambda: relax.ladder_pass(pa, pb, w_k, dd_k, w2_k, d2_k, f_k),
+        lambda: relax.ladder_pass_plain(pa, pb, w_k, dd_k, w2_k, d2_k, f_p),
+        # the plane, the rung rows and shifts read once, the result plane
+        # and the next rung written once
+        nbytes=4 * (2 * d_cap * n_cap + 2 * s_lad * n_cap + 2 * s_lad),
+        ops=2 * s_lad * d_cap * n_cap + 2 * s_lad * n_cap,
     )
+    part = torch.empty(s_cap * relax.PICK_BLOCKS, dtype=torch.int32,
+                       device=dev)
+    pick_ptrs = [t.data_ptr() for t in (sw, ad.deltas, part, w2_k, d2_k)]
+    split("K2:ladder_classes",
+          lambda: relax.ladder_classes(sw, ad.deltas, dq, s_lad),
+          floor=lambda: cuda.launch("relax", "ladder_pick", "pppppiiiiiii",
+                                    *pick_ptrs, s_cap, s_lad, n_cap, dq, 1,
+                                    0, n_cap))
+    pass_ptrs = [t.data_ptr() for t in (pa, pb, w_k, dd_k, w2_k, d2_k)]
+    split("K2:ladder_pass",
+          lambda: relax.ladder_pass(pa, pb, w_k, dd_k, w2_k, d2_k, f_k),
+          floor=lambda: cuda.launch(
+              "relax", "ladder_pass", "ppppppiiipipp" + "i" * 6,
+              *pass_ptrs, s_lad, d_cap, n_cap, f_k.data_ptr(), 1, 0, 0,
+              0, 0, 0, 0, 0, 0))
+    # each is one launch and no torch op on the card
+    pick_only = counted(torch, wrappers, lambda: relax.ladder_classes(
+        sw, ad.deltas, dq, s_lad))
+    pass_only = counted(torch, wrappers, lambda: relax.ladder_pass(
+        pa, pb, w_k, dd_k, w2_k, d2_k, f_k))
+    for label, n in (("class pick", pick_only), ("ladder pass", pass_only)):
+        check(n["launches"] == n["kernel_launches"] == 1,
+              f"K2's {label} must be one launch and no torch op: {n}")
+    log("K2 launches: " + json.dumps({"ladder_classes": pick_only,
+                                      "ladder_pass": pass_only}))
 
     # whole SSSP: kernel loops vs the same loops over the plain versions
     def plain_step(dist, out, flag):
@@ -3861,8 +3918,7 @@ def main() -> int:
     t_b = (time.perf_counter() - t0) * 1e3
     dist_p, ep_p, rd_p = relax.run_bucketed(
         plain_step, dist0.clone(), ad.deltas, sw, n_cap, s_cap,
-        plan.delta_exp, relax.ladder_classes_plain, relax.ladder_apply_plain,
-        relax.ladder_rung_plain,
+        plan.delta_exp, relax.ladder_classes_plain, relax.ladder_pass_plain,
     )
     check(max_abs_err(torch, dist_k, dist_p) == 0 and (ep_k, rd_k)
           == (ep_p, rd_p), "bucketed SSSP: kernels != plain")
@@ -4015,22 +4071,6 @@ def main() -> int:
     s_live = (sdi >= 0) & (sdi < s_cap * n_cap)
     n_live = int(s_live.sum())
     check(n_live > 0, "the last flap step must carry dirty slots")
-
-    def split(name, fn, library=None, floor=None) -> None:
-        """The wrapper's time split: the kernel alone on the device and
-        the host's enqueue (``device_ms``), the same for the library
-        call, and the host cost of the bare ``cuda.launch`` (ctypes and
-        the CUDA launch, no argument checks): the floor a wrapper call
-        cannot go under."""
-        r = results[name]
-        r["device_ms"], r["host_ms"] = device_ms(torch, fn)
-        if library is not None:
-            r["library_device_ms"], r["library_host_ms"] = device_ms(
-                torch, library)
-        if floor is not None:
-            r["launch_floor_host_ms"] = device_ms(torch, floor)[1]
-        log(f"{name} split: " + json.dumps(
-            {k: v for k, v in r.items() if k.endswith("_ms")}))
 
     old_k, old_p, scratch = (i_shift.clone() for _ in range(3))
     incremental.scatter_set(old_k, sdi, sdo)
@@ -4268,6 +4308,8 @@ def main() -> int:
     # -- 14. the multichip tier on logical shards ----------------------------
     t_phase = time.perf_counter()
     mc_windows, mc_halo = multichip_phase(c, (adj_dbs, states, ps), fcell)
+    variant_launches["K2:ladder_pass[mc]"] = sum(
+        w.get("K2:ladder_pass", 0) for w in mc_windows.values())
     log(f"phase 14 took {time.perf_counter() - t_phase:.1f} s")
 
     # -- result ----------------------------------------------------------

@@ -7,12 +7,15 @@
 // Replaces the jitted XLA device code of the JAX package:
 //   K1s  decision/tpu_solver.py::_plan_sssp      root masking + seed plane
 //   K1   ops/relax.py::make_relax / run_sync     one Jacobi min-plus step
-//   K2   ops/relax.py::run_bucketed             Δ-stepping light ladder
+//   K2   ops/relax.py::run_bucketed             Δ-stepping light ladder:
+//        the class pick and each ladder pass are one cooperative launch
+//        each (a grid-wide barrier inside, cooperative_groups)
 // K1s (seed plane only) and K1 over the unmasked planes also carry the
 // single-root SSSP of ops/ksp2.py::_base_sssp_fn (ops/ksp2.py::base_sssp),
 // and, with g > 1 lanes, their vmap in decision/tpu_solver.py::
 // _fused_pipeline: every kernel takes `g` stacked same-shape areas and
-// runs them as the grid's y dimension, so one launch covers every lane.
+// runs them as the grid's y dimension (K2's cooperative kernels loop over
+// them inside one flat grid), so one launch covers every lane.
 //
 // Column windows (the multichip tier, parallel/sharding.py): a shard
 // holds only the class-weight columns [col0, col0 + w_cols) of the
@@ -56,8 +59,11 @@
 // INF discipline (ops/edgeplan.py): weights <= 2^28, INF_E = 2^29, so
 // every sum below is <= 2^30 and int32-exact.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 #define INF_E (1 << 29)
 #define THREADS 256
@@ -247,108 +253,254 @@ __global__ void relax_residual_kernel(
     }
 }
 
-// K2 class score: score[k] = #{u : sw[k,u] <= dq}, one block per
-// (class, lane).
-__global__ void ladder_score_kernel(const int* __restrict__ sw,
-                                    int* __restrict__ score, int s_cap,
-                                    int n_cap, int dq) {
-    __shared__ int part[THREADS];
-    const long long k = (long long)blockIdx.y * s_cap + blockIdx.x;
-    const int* row = sw + k * n_cap;
-    int c = 0;
-    for (int u = threadIdx.x; u < n_cap; u += blockDim.x) c += row[u] <= dq;
-    part[threadIdx.x] = c;
-    __syncthreads();
-    for (int s = blockDim.x / 2; s > 0; s >>= 1) {
-        if (threadIdx.x < s) part[threadIdx.x] += part[threadIdx.x + s];
+// K2 class pick, one cooperative launch (replaces the JAX package's
+// ops/relax.py:227-232 — the light-edge score, lax.top_k and the masked
+// gather of run_bucketed — which the port ran as a score kernel, a
+// torch.sort and a gather kernel): score[k] = #{u : sw[k,u] <= dq} over
+// the held columns, lad = the s_lad highest scores in descending order,
+// ties to the lower class (lax.top_k, a stable sort), then w_base[i,u] =
+// sw[lad[i],u] if <= dq else INF_E (INF_E outside the column window) and
+// d_base[i] = deltas[lad[i]] mod n_cap, for each of g stacked lanes.
+//
+// Bound: bytes — s_cap x w_cols words read, s_lad x n_cap written, one
+// compare or select per word. Design: every block counts its stripe of
+// columns of every (lane, class) row — 16-byte loads where the rows
+// allow, a warp sum, one shared atomic a warp — into part[row][block];
+// one grid-wide barrier; then every block sums the partial columns of a
+// lane in shared memory, ranks the lane's s_cap classes itself (s_cap is
+// small: 4 on lsdb100k, at most PICK_CLASSES), and writes its stripe of
+// the lane's ladder rows, PICK_WPT words a thread with their loads issued
+// together. The grid is at most PICK_BLOCKS_PER_SM blocks an SM and
+// PICK_BLOCKS in all, every block co-resident under the cooperative
+// launch.
+#define PICK_BLOCKS 1024
+#define PICK_BLOCKS_PER_SM 4
+#define PICK_ROWS 1024  // rows counted per shared-memory round
+#define PICK_CLASSES 1024
+#define PICK_WPT 4
+
+__global__ void __launch_bounds__(THREADS) ladder_pick_kernel(
+    const int* __restrict__ sw, const int* __restrict__ deltas,
+    int* part, int* __restrict__ w_base, int* __restrict__ d_base,
+    int s_cap, int s_lad, int n_cap, int dq, int g, int col0,
+    int w_cols) {
+    __shared__ int cnt[PICK_ROWS];
+    __shared__ int score[PICK_CLASSES];
+    __shared__ int lad[PICK_CLASSES];
+    const int nb = gridDim.x, b = blockIdx.x, t = threadIdx.x;
+    const int rows = g * s_cap;
+    const bool vec = (w_cols & 3) == 0 && ((uintptr_t)sw & 15) == 0;
+    for (int r0 = 0; r0 < rows; r0 += PICK_ROWS) {
+        const int nr = min(PICK_ROWS, rows - r0);
+        for (int i = t; i < nr; i += THREADS) cnt[i] = 0;
+        __syncthreads();
+        for (int r = 0; r < nr; ++r) {
+            const int* row = sw + (long long)(r0 + r) * w_cols;
+            int c = 0;
+            if (vec) {
+                const int4* row4 = reinterpret_cast<const int4*>(row);
+                for (int q = b * THREADS + t; q < (w_cols >> 2);
+                     q += nb * THREADS) {
+                    int4 v = row4[q];
+                    c += (v.x <= dq) + (v.y <= dq) + (v.z <= dq) + (v.w <= dq);
+                }
+            } else {
+                for (int u = b * THREADS + t; u < w_cols; u += nb * THREADS)
+                    c += row[u] <= dq;
+            }
+            c = __reduce_add_sync(0xffffffffu, c);
+            if ((t & 31) == 0 && c) atomicAdd(&cnt[r], c);
+        }
+        __syncthreads();
+        for (int i = t; i < nr; i += THREADS)
+            part[(long long)(r0 + i) * nb + b] = cnt[i];
         __syncthreads();
     }
-    if (threadIdx.x == 0) score[k] = part[0];
-}
-
-// K2 ladder rows: w_base[i,u] = sw[lad[i],u] if <= dq else INF_E, and
-// d_base[i] = deltas[lad[i]] reduced mod n_cap. The rows are full width;
-// K2 [mc] reads a shard's window of columns and leaves INF_E outside it.
-__global__ void ladder_gather_kernel(
-    const int* __restrict__ sw, const int* __restrict__ deltas,
-    const int64_t* __restrict__ lad, int* __restrict__ w_base,
-    int* __restrict__ d_base, int s_cap, int s_lad, int n_cap, int dq,
-    int col0, int w_cols) {
-    const int lane = blockIdx.y;
-    long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= (long long)s_lad * n_cap) return;
-    sw += lane * (long long)s_cap * w_cols;
-    deltas += (long long)lane * s_cap;
-    lad += (long long)lane * s_lad;
-    w_base += lane * (long long)s_lad * n_cap;
-    d_base += (long long)lane * s_lad;
-    int k = (int)(i / n_cap);
-    int u = (int)(i - (long long)k * n_cap);
-    long long cls = lad[k];
-    unsigned lc = (unsigned)(u - col0);
-    int w = lc < (unsigned)w_cols ? sw[cls * w_cols + lc] : INF_E;
-    w_base[i] = (w <= dq) ? w : INF_E;
-    if (u == 0) d_base[k] = (int)((unsigned)deltas[cls] & ((unsigned)n_cap - 1u));
-}
-
-// K2 one class application of a ladder pass (Gauss-Seidel across
-// classes, so one launch per class): dst = min(src, roll(src + w[k],
-// d[k])). src and dst are different buffers.
-__global__ void ladder_apply_kernel(
-    const int* __restrict__ src, int* __restrict__ dst,
-    const int* __restrict__ w, const int* __restrict__ dd, int k,
-    int s_lad, int d_cap, int n_cap, int* __restrict__ flag, Gate gate) {
-    const int lane = blockIdx.y;
-    if (!gate_open(gate, lane)) return;
-    const long long plane = (long long)d_cap * n_cap;
-    src += lane * plane;
-    dst += lane * plane;
-    w += lane * (long long)s_lad * n_cap;
-    dd += (long long)lane * s_lad;
-    long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    int changed = 0;
-    if (i < plane) {
-        const unsigned hi = (unsigned)n_cap - 1u;
-        int d = (int)(i / n_cap);
-        unsigned u = (unsigned)(i - (long long)d * n_cap);
-        const int* row = src + (long long)d * n_cap;
-        unsigned s = (u - (unsigned)dd[k]) & hi;
-        int cur = row[u];
-        int v = min(cur, row[s] + w[(long long)k * n_cap + s]);
-        dst[i] = v;
-        changed = v < cur;
-    }
-    int any = __syncthreads_or(changed);
-    if (threadIdx.x == 0) {
-        if (any) atomicOr(flag, 1);
-        gate_close(gate, lane, any);
-    }
-}
-
-// K2 rung doubling: w2[k,u] = min(w[k,u] + w[k,(u + d[k]) mod n], INF_E),
-// d2[k] = 2 d[k] mod n_cap. Separate output buffers: every thread reads
-// w and d as the previous rung left them. Gated lanes (their ladder
-// stopped) keep stale rungs they never read.
-__global__ void ladder_rung_kernel(
-    const int* __restrict__ w, const int* __restrict__ dd,
-    int* __restrict__ w2, int* __restrict__ d2, int s_lad, int n_cap,
-    Gate gate) {
-    const int lane = blockIdx.y;
-    if (!gate_open(gate, lane)) return;
-    long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= (long long)s_lad * n_cap) return;
-    const long long rung = (long long)s_lad * n_cap;
-    w += lane * rung;
-    w2 += lane * rung;
-    dd += (long long)lane * s_lad;
-    d2 += (long long)lane * s_lad;
+    cg::this_grid().sync();
+    const int warp = t >> 5, wl = t & 31;
     const unsigned hi = (unsigned)n_cap - 1u;
-    int k = (int)(i / n_cap);
-    unsigned u = (unsigned)(i - (long long)k * n_cap);
-    const int* row = w + (long long)k * n_cap;
-    unsigned dk = (unsigned)dd[k];
-    w2[i] = min(row[u] + row[(u + dk) & hi], INF_E);
-    if (u == 0) d2[k] = (int)((dk * 2u) & hi);
+    const int lg = __ffs(n_cap) - 1;  // n_cap is a power of two
+    const long long n_out = (long long)s_lad * n_cap;
+    const long long step = (long long)nb * THREADS * PICK_WPT;
+    for (int lane = 0; lane < g; ++lane) {
+        for (int k = warp; k < s_cap; k += THREADS / 32) {
+            const int* p = part + (long long)(lane * s_cap + k) * nb;
+            int sum = 0;
+            for (int i = wl; i < nb; i += 32) sum += p[i];
+            sum = __reduce_add_sync(0xffffffffu, sum);
+            if (wl == 0) score[k] = sum;
+        }
+        __syncthreads();
+        // rank = the classes ahead of k in a stable descending sort
+        for (int k = t; k < s_cap; k += THREADS) {
+            const int sk = score[k];
+            int rank = 0;
+            for (int j = 0; j < s_cap; ++j) {
+                const int sj = score[j];
+                rank += (sj > sk) || (sj == sk && j < k);
+            }
+            if (rank < s_lad) lad[rank] = k;
+        }
+        __syncthreads();
+        const int* lsw = sw + (long long)lane * s_cap * w_cols;
+        int* out = w_base + (long long)lane * n_out;
+        for (long long i0 = ((long long)b * PICK_WPT) * THREADS + t;
+             i0 < n_out; i0 += step) {
+            int v[PICK_WPT];
+#pragma unroll
+            for (int j = 0; j < PICK_WPT; ++j) {
+                const long long i = i0 + j * THREADS;
+                const unsigned lc = ((unsigned)i & hi) - (unsigned)col0;
+                v[j] = INF_E;
+                if (i < n_out && lc < (unsigned)w_cols)
+                    v[j] = lsw[(long long)lad[i >> lg] * w_cols + lc];
+            }
+#pragma unroll
+            for (int j = 0; j < PICK_WPT; ++j) {
+                const long long i = i0 + j * THREADS;
+                if (i < n_out) out[i] = v[j] <= dq ? v[j] : INF_E;
+            }
+        }
+        if (b == 0 && t < s_lad)
+            d_base[lane * s_lad + t] =
+                (int)((unsigned)deltas[lane * s_cap + lad[t]] & hi);
+        __syncthreads();  // the next lane reuses the scores
+    }
+}
+
+// K2 ladder pass, one cooperative launch (replaces one iteration of the
+// JAX package's ops/relax.py:236-247 — pass_once and the rung doubling
+// of run_bucketed's ladder body — which the port ran as s_lad class
+// launches and a rung launch): for k = 0 .. s_lad - 1 in order (Gauss-
+// Seidel across classes), plane[(k + 1) % 2] = min(plane[k % 2],
+// roll(plane[k % 2] + w[k], d[k])) — each class Jacobi-style over the
+// whole plane the previous class left, so the result lies in plane[s_lad
+// % 2], where the host's s_lad buffer swaps put it; then the rung:
+// w2[k,u] = min(w[k,u] + w[k,(u + d[k]) mod n], INF_E), d2[k] = 2 d[k]
+// mod n_cap, into separate buffers. The change flag is ORed on any
+// decrease.
+//
+// Gates (fused lanes): the pass's gate opens a lane for every class
+// (stamps only grow, and a put passes its own thresholds, so a lane open
+// at class 0 stays open), stores its put stamps on a change in any class
+// and adds its inc to the lane's counters once. The rung runs for the
+// lanes whose stamps then pass (thr0, put1) — those that changed in this
+// pass, when put1 is the pass's serial number — so it waits for one more
+// barrier; ungated, it reads only w and d and needs none.
+//
+// Bound: bytes — the function reads the plane, the rung rows and shifts
+// once and writes the result plane and the next rung once; the kernel
+// streams the plane s_lad times, from the 50 MB L2 at lsdb100k's 2 MB
+// plane. Design: a flat loop over tiles of PASS_WPT x 256 words of every
+// lane's plane, each thread taking PASS_WPT words 256 apart with their
+// loads issued together, neighbouring threads on neighbouring nodes
+// (coalesced, as the launches it replaces), a block vote per tile for
+// the lane's stamps, one atomicOr a block at the end for the flag, and
+// a grid-wide barrier between classes. The grid is at most
+// PASS_BLOCKS_PER_SM blocks an SM, all co-resident.
+#define PASS_BLOCKS_PER_SM 4
+#define PASS_WPT 4  // words a thread takes of each tile, loads issued together
+#define PASS_TILE (THREADS * PASS_WPT)
+
+__global__ void __launch_bounds__(THREADS) ladder_pass_kernel(
+    int* a, int* b, const int* __restrict__ w, const int* __restrict__ dd,
+    int* __restrict__ w2, int* __restrict__ d2, int s_lad, int d_cap,
+    int n_cap, int g, int* flag, Gate gate) {
+    cg::grid_group grid = cg::this_grid();
+    const long long plane = (long long)d_cap * n_cap;
+    const long long per_lane = (plane + PASS_TILE - 1) / PASS_TILE;  // tiles
+    const long long tiles = per_lane * g;
+    const unsigned hi = (unsigned)n_cap - 1u;
+    const int lg = __ffs(n_cap) - 1;  // n_cap is a power of two
+    const int t = threadIdx.x;
+    int block_changed = 0;
+    for (int k = 0; k < s_lad; ++k) {
+        if (k) grid.sync();
+        const int* src = (k & 1) ? b : a;
+        int* dst = (k & 1) ? a : b;
+        for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+            const int lane = (int)(tile / per_lane);
+            if (!gate_open(gate, lane)) continue;  // uniform in the block
+            const long long base = (tile - lane * per_lane) * PASS_TILE + t;
+            const long long c = (long long)lane * s_lad + k;
+            const unsigned dk = (unsigned)dd[c];
+            const int* lsrc = src + lane * plane;
+            const int* wk = w + c * n_cap;
+            int cur[PASS_WPT], cand[PASS_WPT];
+#pragma unroll
+            for (int j = 0; j < PASS_WPT; ++j) {
+                const long long i = base + j * THREADS;
+                cur[j] = cand[j] = INF_E;
+                if (i < plane) {
+                    const int* row = lsrc + ((i >> lg) << lg);
+                    const unsigned u = (unsigned)i & hi;
+                    const unsigned s = (u - dk) & hi;
+                    cur[j] = row[u];
+                    cand[j] = row[s] + wk[s];
+                }
+            }
+            int changed = 0;
+#pragma unroll
+            for (int j = 0; j < PASS_WPT; ++j) {
+                const long long i = base + j * THREADS;
+                if (i < plane) {
+                    const int v = min(cur[j], cand[j]);
+                    dst[lane * plane + i] = v;
+                    changed |= v < cur[j];
+                }
+            }
+            const int any = __syncthreads_or(changed);
+            if (t == 0) {
+                block_changed |= any;
+                if (gate.st) {
+                    if (any) {
+                        if (gate.put0 != KEEP) gate.st[2 * lane] = gate.put0;
+                        if (gate.put1 != KEEP)
+                            gate.st[2 * lane + 1] = gate.put1;
+                    }
+                    if (k == 0 && tile == lane * per_lane) {
+                        gate.cnt[2 * lane] += gate.inc0;
+                        gate.cnt[2 * lane + 1] += gate.inc1;
+                    }
+                }
+            }
+        }
+    }
+    if (gate.st) grid.sync();  // every class's stamps, before the rung
+    const long long rung = (long long)s_lad * n_cap;
+    for (long long i = (long long)blockIdx.x * THREADS + t; i < rung * g;
+         i += (long long)gridDim.x * THREADS) {
+        const int lane = (int)(i / rung);
+        if (gate.st) {
+            const volatile int* st = gate.st + 2 * lane;
+            if (!(st[0] >= gate.thr0 && st[1] >= gate.put1)) continue;
+        }
+        const long long j = i - lane * rung;
+        const int kk = (int)(j >> lg);
+        const unsigned u = (unsigned)j & hi;
+        const int* row = w + lane * rung + (long long)kk * n_cap;
+        const unsigned dk = (unsigned)dd[lane * s_lad + kk];
+        w2[i] = min(row[u] + row[(u + dk) & hi], INF_E);
+        if (u == 0) d2[lane * s_lad + kk] = (int)((dk * 2u) & hi);
+    }
+    if (t == 0 && block_changed && flag) atomicOr(flag, 1);
+}
+
+// The largest grid a cooperative launch of `fn` (THREADS threads, no
+// dynamic shared memory) takes on the current card, at most `per_sm`
+// blocks an SM: every block co-resident. Cached per card in `cache`.
+static int coop_grid(const void* fn, int per_sm, int* cache) {
+    int card = 0;
+    cudaGetDevice(&card);
+    int v = card < 64 ? cache[card] : 0;
+    if (!v) {
+        int sms = 0, occ = 0;
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, card);
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, fn, THREADS, 0);
+        v = sms * min(occ, per_sm);
+        if (card < 64) cache[card] = v;
+    }
+    return v;
 }
 
 extern "C" {
@@ -393,42 +545,39 @@ int relax_residual(const int* dist, int* out, const int* rows_c,
     return (int)cudaGetLastError();
 }
 
-int ladder_score(const int* sw, int* score, int s_cap, int n_cap, int dq,
-                 int g, cudaStream_t stream) {
-    ladder_score_kernel<<<dim3(s_cap, g), THREADS, 0, stream>>>(
-        sw, score, s_cap, n_cap, dq);
-    return (int)cudaGetLastError();
+int ladder_pick(const int* sw, const int* deltas, int* part, int* w_base,
+                int* d_base, int s_cap, int s_lad, int n_cap, int dq, int g,
+                int col0, int w_cols, cudaStream_t stream) {
+    if (s_cap > PICK_CLASSES || s_lad > s_cap)
+        return (int)cudaErrorInvalidValue;
+    static int grid[64];
+    int nb = min(PICK_BLOCKS, coop_grid((const void*)ladder_pick_kernel,
+                                        PICK_BLOCKS_PER_SM, grid));
+    void* args[] = {&sw, &deltas, &part, &w_base, &d_base, &s_cap, &s_lad,
+                    &n_cap, &dq, &g, &col0, &w_cols};
+    cudaError_t rc = cudaLaunchCooperativeKernel(
+        (const void*)ladder_pick_kernel, dim3(nb), dim3(THREADS), args, 0,
+        stream);
+    return rc != cudaSuccess ? (int)rc : (int)cudaGetLastError();
 }
 
-int ladder_gather(const int* sw, const int* deltas, const int64_t* lad,
-                  int* w_base, int* d_base, int s_cap, int s_lad, int n_cap,
-                  int dq, int g, int col0, int w_cols, cudaStream_t stream) {
-    ladder_gather_kernel<<<grid_for((long long)s_lad * n_cap, g), THREADS, 0,
-                           stream>>>(sw, deltas, lad, w_base, d_base, s_cap,
-                                     s_lad, n_cap, dq, col0, w_cols);
-    return (int)cudaGetLastError();
-}
-
-int ladder_apply(const int* src, int* dst, const int* w, const int* dd,
-                 int k, int s_lad, int d_cap, int n_cap, int* flag, int g,
-                 int* st, int* cnt, int thr0, int thr1, int put0, int put1,
-                 int inc0, int inc1, cudaStream_t stream) {
-    ladder_apply_kernel<<<grid_for((long long)d_cap * n_cap, g), THREADS, 0,
-                          stream>>>(
-        src, dst, w, dd, k, s_lad, d_cap, n_cap, flag,
-        make_gate(st, cnt, thr0, thr1, put0, put1, inc0, inc1));
-    return (int)cudaGetLastError();
-}
-
-int ladder_rung(const int* w, const int* dd, int* w2, int* d2, int s_lad,
-                int n_cap, int g, int* st, int* cnt, int thr0, int thr1,
-                int put0, int put1, int inc0, int inc1,
-                cudaStream_t stream) {
-    ladder_rung_kernel<<<grid_for((long long)s_lad * n_cap, g), THREADS, 0,
-                         stream>>>(
-        w, dd, w2, d2, s_lad, n_cap,
-        make_gate(st, cnt, thr0, thr1, put0, put1, inc0, inc1));
-    return (int)cudaGetLastError();
+int ladder_pass(int* a, int* b, const int* w, const int* dd, int* w2,
+                int* d2, int s_lad, int d_cap, int n_cap, int* flag, int g,
+                int* st, int* cnt, int thr0, int thr1, int put0, int put1,
+                int inc0, int inc1, cudaStream_t stream) {
+    static int grid[64];
+    long long tiles =
+        ((long long)d_cap * n_cap + PASS_TILE - 1) / PASS_TILE * g;
+    int nb = (int)max(1LL, min(tiles, (long long)coop_grid(
+                                          (const void*)ladder_pass_kernel,
+                                          PASS_BLOCKS_PER_SM, grid)));
+    Gate gate = make_gate(st, cnt, thr0, thr1, put0, put1, inc0, inc1);
+    void* args[] = {&a, &b, &w, &dd, &w2, &d2, &s_lad, &d_cap, &n_cap, &g,
+                    &flag, &gate};
+    cudaError_t rc = cudaLaunchCooperativeKernel(
+        (const void*)ladder_pass_kernel, dim3(nb), dim3(THREADS), args, 0,
+        stream);
+    return rc != cudaSuccess ? (int)rc : (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -17,11 +17,14 @@ ladder pass / epoch. The trip and round counts match the JAX loops
 exactly (they ride the pull buffers' tails).
 
 Wrappers (``sssp_init``, ``relax_step``, ``ladder_classes``,
-``ladder_apply``, ``ladder_rung``, and the multichip tier's ``[mc]``
-variants ``sssp_init_mc``, ``relax_step_mc``, ``ladder_classes_mc``,
-which work on one shard's window of class columns) launch their CUDA
-kernel on a CUDA tensor and run the plain version (``*_plain``) only on
-a CPU tensor. Each counts its kernel launches in ``<wrapper>.launches``.
+``ladder_pass``, and the multichip tier's ``[mc]`` variants
+``sssp_init_mc``, ``relax_step_mc``, ``ladder_classes_mc``, which work
+on one shard's window of class columns) launch their CUDA kernel on a
+CUDA tensor and run the plain version (``*_plain``) only on a CPU
+tensor. Each counts its kernel launches in ``<wrapper>.launches``. K2's
+class pick and each of its ladder passes are one cooperative launch
+(``ladder_pick``, ``ladder_pass``: a grid-wide barrier between their
+phases), so a pass costs the host one launch and one flag read.
 
 Fused solves (the port of ``tpu_solver._fused_pipeline``, a vmap of the
 cold pipeline over ``g`` same-shape areas) pass every plane with a
@@ -454,33 +457,38 @@ def ladder_classes(sw, deltas, dq: int, s_lad: int):
     classes with the most light edges (weight <= dq; ties to the lower
     class, as ``lax.top_k``), their weights with heavy edges masked to
     INF_E, and their shifts reduced mod n_cap. Stacked inputs pick per
-    lane ([g, s_lad, n_cap], [g, s_lad])."""
+    lane ([g, s_lad, n_cap], [g, s_lad]). On the card: one launch of
+    ``ladder_pick``, and no torch op but the outputs' allocation."""
     if _is_cpu(sw):
         return ladder_classes_plain(sw, deltas, dq, s_lad)
-    g = _lanes_of(sw, 2)
-    s_cap, n_cap = sw.shape[-2:]
-    lead = sw.shape[:-2]
-    score = torch.empty(lead + (s_cap,), dtype=torch.int32, device=sw.device)
-    cuda.launch("relax", "ladder_score", "ttiiii",
-                sw, score, s_cap, n_cap, int(dq), g)
+    out = _launch_pick(sw, deltas, dq, s_lad, 0, sw.shape[-1])
     ladder_classes.launches += 1
-    # the only torch op on the queued path: picking <= 8 of s_cap scores
-    # (per lane)
-    lad = torch.sort(score, dim=-1, descending=True,
-                     stable=True).indices[..., :s_lad]
-    lad = lad.contiguous()
-    w_base = torch.empty(lead + (s_lad, n_cap), dtype=torch.int32,
-                         device=sw.device)
-    d_base = torch.empty(lead + (s_lad,), dtype=torch.int32,
-                         device=sw.device)
-    cuda.launch("relax", "ladder_gather", "ttlttiiiiiii",
-                sw, deltas, lad, w_base, d_base, s_cap, s_lad, n_cap, int(dq),
-                g, 0, n_cap)
-    ladder_classes.launches += 1
-    return w_base, d_base
+    return out
 
 
 ladder_classes.launches = 0
+
+# the most blocks of the class pick kernel (csrc/relax.cu PICK_BLOCKS):
+# its scratch holds a partial light-edge count per (lane, class, block)
+PICK_BLOCKS = 1024
+
+
+def _launch_pick(sw, deltas, dq: int, s_lad: int, col0: int, n_cap: int):
+    """Launch K2's class pick over the class columns [col0, col0 + sw
+    width) of an n_cap-node plan: full-width ladder rows, INF_E outside
+    the window."""
+    g = _lanes_of(sw, 2)
+    s_cap, w_cols = sw.shape[-2:]
+    lead, dev = sw.shape[:-2], sw.device
+    part = torch.empty(g * s_cap * PICK_BLOCKS, dtype=torch.int32,
+                       device=dev)
+    w_base = torch.empty(lead + (s_lad, n_cap), dtype=torch.int32,
+                         device=dev)
+    d_base = torch.empty(lead + (s_lad,), dtype=torch.int32, device=dev)
+    cuda.launch("relax", "ladder_pick", "tttttiiiiiii",
+                sw, deltas, part, w_base, d_base, s_cap, s_lad, n_cap,
+                int(dq), g, col0, w_cols)
+    return w_base, d_base
 
 
 def ladder_classes_mc_plain(sw_local, deltas, dq: int, s_lad: int,
@@ -500,24 +508,14 @@ def ladder_classes_mc(sw_local, deltas, dq: int, s_lad: int, col0: int,
     columns [col0, col0 + w) (``sw_local`` [s_cap, w], root masked): the
     classes are scored on its own columns (``ops/relax.py:227-232``,
     shards may pick different ones) and the ladder rows are full width
-    [s_lad, n_cap], INF_E outside the window."""
+    [s_lad, n_cap], INF_E outside the window. One ``ladder_pick`` launch
+    on the card."""
     if _is_cpu(sw_local):
         return ladder_classes_mc_plain(sw_local, deltas, dq, s_lad, col0,
                                        n_cap)
-    s_cap, w_cols = sw_local.shape
-    dev = sw_local.device
-    score = torch.empty(s_cap, dtype=torch.int32, device=dev)
-    cuda.launch("relax", "ladder_score", "ttiiii",
-                sw_local, score, s_cap, w_cols, int(dq), 1)
-    lad = torch.sort(score, descending=True,
-                     stable=True).indices[:s_lad].contiguous()
-    w_base = torch.empty((s_lad, n_cap), dtype=torch.int32, device=dev)
-    d_base = torch.empty(s_lad, dtype=torch.int32, device=dev)
-    cuda.launch("relax", "ladder_gather", "ttlttiiiiiii",
-                sw_local, deltas, lad, w_base, d_base, s_cap, s_lad, n_cap,
-                int(dq), 1, col0, w_cols)
-    ladder_classes_mc.launches += 2
-    return w_base, d_base
+    out = _launch_pick(sw_local, deltas, dq, s_lad, col0, n_cap)
+    ladder_classes_mc.launches += 1
+    return out
 
 
 ladder_classes_mc.launches = 0
@@ -525,6 +523,9 @@ ladder_classes_mc.launches = 0
 
 def ladder_apply_plain(src, dst, w, d, k: int, flag,
                        gate: Optional[Gate] = None) -> None:
+    """One class application of a ladder pass: dst = min(src,
+    roll(src + w[k], d[k])); ORs ``flag`` on any decrease. Stacked
+    inputs apply every lane the ``gate`` opens."""
     if src.dim() == 3:
         _each_lane(gate, flag, src.shape[0], lambda lane, f: (
             ladder_apply_plain(src[lane], dst[lane], w[lane], d[lane], k, f)))
@@ -534,26 +535,10 @@ def ladder_apply_plain(src, dst, w, d, k: int, flag,
     dst.copy_(new)
 
 
-def ladder_apply(src, dst, w, d, k: int, flag,
-                 gate: Optional[Gate] = None) -> None:
-    """One class application of a ladder pass: dst = min(src,
-    roll(src + w[k], d[k])); ORs ``flag`` on any decrease. Stacked
-    inputs apply every lane the ``gate`` opens."""
-    if _is_cpu(src):
-        ladder_apply_plain(src, dst, w, d, k, flag, gate)
-        return
-    g = _lanes_of(src, 2)
-    d_cap, n_cap = src.shape[-2:]
-    cuda.launch("relax", "ladder_apply", "ttttiiiiti" + _GATE_SIG,
-                src, dst, w, d, int(k), w.shape[-2], d_cap, n_cap, flag, g,
-                *_gate_args(gate))
-    ladder_apply.launches += 1
-
-
-ladder_apply.launches = 0
-
-
 def ladder_rung_plain(w, d, w2, d2, gate: Optional[Gate] = None) -> None:
+    """Rung doubling into separate buffers: w2[k] = min(w[k] +
+    roll(w[k], -d[k]), INF_E), d2 = 2 d mod n_cap. Stacked inputs double
+    the rungs of every lane the ``gate`` opens."""
     if w.dim() == 3:
         _each_lane(gate, None, w.shape[0], lambda lane, f: (
             ladder_rung_plain(w[lane], d[lane], w2[lane], d2[lane])))
@@ -564,21 +549,43 @@ def ladder_rung_plain(w, d, w2, d2, gate: Optional[Gate] = None) -> None:
     d2.copy_(torch.remainder(d * 2, n_cap))
 
 
-def ladder_rung(w, d, w2, d2, gate: Optional[Gate] = None) -> None:
-    """Rung doubling into separate buffers: w2[k] = min(w[k] +
-    roll(w[k], -d[k]), INF_E), d2 = 2 d mod n_cap. Stacked inputs double
-    the rungs of every lane the ``gate`` opens."""
-    if _is_cpu(w):
-        ladder_rung_plain(w, d, w2, d2, gate)
-        return
-    g = _lanes_of(w, 2)
-    s_lad, n_cap = w.shape[-2:]
-    cuda.launch("relax", "ladder_rung", "ttttiii" + _GATE_SIG,
-                w, d, w2, d2, s_lad, n_cap, g, *_gate_args(gate))
-    ladder_rung.launches += 1
+def ladder_pass_plain(src, dst, w, d, w2, d2, flag,
+                      gate: Optional[Gate] = None):
+    n_cls = w.shape[-2]
+    bufs = (src, dst)
+    for k in range(n_cls):
+        ladder_apply_plain(bufs[k % 2], bufs[1 - k % 2], w, d, k, flag,
+                           gate if gate is None or k == 0
+                           else gate._replace(inc=(0, 0)))
+    ladder_rung_plain(w, d, w2, d2, None if gate is None else gate._replace(
+        thr=(gate.thr[0], gate.put[1]), put=(KEEP, KEEP), inc=(0, 0)))
+    return bufs[n_cls % 2], bufs[1 - n_cls % 2]
 
 
-ladder_rung.launches = 0
+def ladder_pass(src, dst, w, d, w2, d2, flag, gate: Optional[Gate] = None):
+    """One ladder pass: the ``s_lad`` classes of the rung (w, d) applied
+    in order (``ladder_apply_plain``), ping-ponging between ``src`` and
+    ``dst``, then the rung doubled into (w2, d2) (``ladder_rung_plain``);
+    ORs ``flag`` on any decrease. Returns ``(plane, spare)``: the buffer
+    holding the result (``src`` for even ``s_lad``, as the class-by-class
+    swaps left it) and the other one.
+
+    Stacked inputs run every lane the pass's ``gate`` opens: a lane that
+    changed in any class stores ``gate.put``, every open lane adds
+    ``gate.inc`` once, and the rung doubles only the lanes whose stamps
+    then pass ``(gate.thr[0], gate.put[1])`` — those that changed in this
+    pass. On the card: one cooperative launch of ``ladder_pass``."""
+    if _is_cpu(src):
+        return ladder_pass_plain(src, dst, w, d, w2, d2, flag, gate)
+    n_cls, n_cap = w.shape[-2:]
+    cuda.launch("relax", "ladder_pass", "ttttttiiiti" + _GATE_SIG,
+                src, dst, w, d, w2, d2, n_cls, src.shape[-2], n_cap, flag,
+                _lanes_of(src, 2), *_gate_args(gate))
+    ladder_pass.launches += 1
+    return (dst, src) if n_cls % 2 else (src, dst)
+
+
+ladder_pass.launches = 0
 
 
 # -- the loops ---------------------------------------------------------------
@@ -653,14 +660,13 @@ def run_sync(step, dist0, bound: int, lanes: Optional[Lanes] = None):
 
 def run_bucketed(step, dist0, deltas, sw, n_cap: int, s_cap: int,
                  delta_exp: int, classes=ladder_classes,
-                 apply=ladder_apply, rung=ladder_rung,
-                 lanes: Optional[Lanes] = None):
+                 ladder=ladder_pass, lanes: Optional[Lanes] = None):
     """Bucketed Δ-stepping to the exact fixpoint. Per epoch: ladder
     passes (each applies every laddered class's current rung in order,
     then doubles the rungs) until a pass changes nothing or
     ``ladder_depth(n_cap)`` passes ran, then ONE full relaxation
-    ``step``. Exits on an epoch that changes nothing. ``classes``,
-    ``apply`` and ``rung`` default to the kernel wrappers; the plain
+    ``step``. Exits on an epoch that changes nothing. ``classes`` and
+    ``ladder`` (one pass) default to the kernel wrappers; the plain
     versions slot in to run the whole loop as the reference. Returns
     ``(dist, epochs, rounds)`` with rounds = ladder passes + one
     handoff per epoch.
@@ -690,13 +696,12 @@ def run_bucketed(step, dist0, deltas, sw, n_cap: int, s_cap: int,
         w, d = w_base, d_base
         j = 0
         while True:
-            for k in range(s_lad):
-                apply(cur, spare, w, d, k, flag, gate(
-                    (epochs - 1, q - 1 if j else ALWAYS), (epochs, q),
-                    (0, int(k == 0))))
-                cur, spare = spare, cur
-            # only lanes that changed in this pass run the next one
-            rung(w, d, w_bufs[j % 2], d_bufs[j % 2], gate((epochs - 1, q)))
+            # only lanes that changed in this pass double their rungs and
+            # run the next one
+            cur, spare = ladder(cur, spare, w, d, w_bufs[j % 2],
+                                d_bufs[j % 2], flag, gate(
+                                    (epochs - 1, q - 1 if j else ALWAYS),
+                                    (epochs, q), (0, 1)))
             w, d = w_bufs[j % 2], d_bufs[j % 2]
             j += 1
             q += 1

@@ -73,10 +73,9 @@ from openr_tpu_torch.ops.relax import (
     LADDER_WIDTH,
     UNROLL,
     FlagBank,
-    ladder_apply,
     ladder_classes_mc,
     ladder_depth,
-    ladder_rung,
+    ladder_pass,
     max_trips,
     relax_step_mc,
     sssp_init_mc,
@@ -367,7 +366,7 @@ def run_bucketed_mc(mesh, deltas, sw, residual, dist0, n_cap: int,
                     s_cap: int, delta_exp: int, col_of, done=None):
     """Bucketed Δ-stepping on the mesh. Per epoch of a batch group: each
     member runs its own ladder (K2 [mc] classes scored on its own
-    columns, full-width rows; K2 apply / rung) until a pass changes
+    columns, full-width rows; one K2 pass launch a pass) until a pass changes
     nothing or ``ladder_depth`` passes ran, then the handoff — K1 [mc] on
     each member and the group's min — re-unifies the group's planes (one
     halo exchange an epoch). A group's epoch changed when a member's
@@ -402,14 +401,12 @@ def run_bucketed_mc(mesh, deltas, sw, residual, dist0, n_cap: int,
             for m in lad:
                 b, j = m
                 w, d = wd[m]
-                f = mflags[members.index(m)]
-                for k in range(s_lad):
-                    ladder_apply(cur[b][j], spare[b][j], w, d, k, f)
-                    cur[b][j], spare[b][j] = spare[b][j], cur[b][j]
                 (w0, w1), (d0, d1) = bufs[m]
                 q = passes[m] % 2
                 w2, d2 = (w0, d0) if q == 0 else (w1, d1)
-                ladder_rung(w, d, w2, d2)
+                cur[b][j], spare[b][j] = ladder_pass(
+                    cur[b][j], spare[b][j], w, d, w2, d2,
+                    mflags[members.index(m)])
                 wd[m] = (w2, d2)
                 passes[m] += 1
             changed = mflags.read()

@@ -176,3 +176,139 @@ def test_sssp_init_masks_root_and_seeds(port):
     want = np.full((3, 8), INF_E, np.int32)
     want[0, 1] = 0
     np.testing.assert_array_equal(dist0.numpy(), want)
+
+
+@pytest.mark.parametrize("case", ["one", "lanes", "mc"])
+def test_ladder_classes_match_jax_top_k(port, case):
+    """K2's class pick (``ladder_classes`` / ``ladder_classes_mc`` on CPU
+    tensors) against ``jax.lax.top_k`` and the formulas of
+    ``openr_tpu/ops/relax.py:227-232``: light-edge scores that tie across
+    the cut, s_cap above ``LADDER_WIDTH`` so the pick truncates, stacked
+    lanes (vmapped as ``_fused_pipeline`` does), and an ``[mc]`` window
+    whose light edges outside it do not count and whose rows are INF_E
+    there. Shifts come back reduced mod n_cap. Tolerance 0."""
+    torch, relax = port.torch, port.relax
+    n_cap, s_cap, dq = 64, 12, 8
+    s_lad = min(s_cap, relax.LADDER_WIDTH)
+    assert s_cap > s_lad
+    g = 3 if case == "lanes" else 1
+    col0, w_cols = (32, 32) if case == "mc" else (0, n_cap)
+    rng = np.random.default_rng(29)
+    # light edges per class inside the window: sorted, the 8th and 9th
+    # tie, so the pick keeps the lower class of equal scores
+    counts = np.array([5, 9, 5, 2, 9, 5, 7, 5, 2, 5, 7, 3])
+    sw = rng.integers(dq + 1, 60, size=(g, s_cap, n_cap)).astype(np.int32)
+    sw[rng.random(sw.shape) < 0.2] = INF_E
+    for lane in range(g):
+        perm = rng.permutation(s_cap) if lane else np.arange(s_cap)
+        for k in range(s_cap):
+            cols = col0 + rng.choice(w_cols, counts[perm[k]], replace=False)
+            sw[lane, k, cols] = rng.integers(0, dq + 1, size=cols.size)
+        if case == "mc":  # light edges outside the window
+            sw[lane, :, :col0][rng.random((s_cap, col0)) < 0.5] = 1
+    deltas = rng.integers(-n_cap + 1, n_cap, size=(g, s_cap)).astype(np.int32)
+
+    def jax_pick(score_w, deltas):
+        def w_of(k):
+            return jax.lax.dynamic_update_slice(
+                jnp.full((n_cap,), INF_E, jnp.int32), score_w[k], (col0,))
+
+        score = jnp.sum((score_w <= dq).astype(jnp.int32), axis=-1)
+        _, lad_idx = jax.lax.top_k(score, s_lad)
+        w_base = jax.vmap(w_of)(lad_idx)
+        return jnp.where(w_base <= dq, w_base, INF_E), deltas[lad_idx]
+
+    local = sw[:, :, col0:col0 + w_cols]
+    want_w, want_d = jax.vmap(jax_pick)(jnp.asarray(local),
+                                        jnp.asarray(deltas))
+    want_w, want_d = np.asarray(want_w), np.mod(np.asarray(want_d), n_cap)
+    if case == "lanes":
+        got = relax.ladder_classes(torch.tensor(sw), torch.tensor(deltas),
+                                   dq, s_lad)
+    elif case == "mc":
+        got = relax.ladder_classes_mc(torch.tensor(local[0]),
+                                      torch.tensor(deltas[0]), dq, s_lad,
+                                      col0, n_cap)
+        want_w, want_d = want_w[0], want_d[0]
+    else:
+        got = relax.ladder_classes(torch.tensor(sw[0]),
+                                   torch.tensor(deltas[0]), dq, s_lad)
+        want_w, want_d = want_w[0], want_d[0]
+    np.testing.assert_array_equal(got[0].numpy(), want_w)
+    np.testing.assert_array_equal(got[1].numpy(), want_d)
+
+
+@pytest.mark.parametrize("s_lad", [3, 4])
+@pytest.mark.parametrize("layout", ["plane", "lanes", "gated"])
+def test_ladder_pass_plain_matches_class_and_rung_steps(port, layout,
+                                                        s_lad):
+    """``ladder_pass_plain`` — one pass in one call — against the steps
+    it replaces in ``run_bucketed``: ``s_lad`` ``ladder_apply_plain``
+    calls with the host's buffer swaps, then ``ladder_rung_plain``, over
+    two passes of run_bucketed's stamps. Random planes, one plane or
+    stacked lanes; gated, lane 1 is shut from the start and lane 2's
+    plane is at its fixpoint, so it runs the first pass without a change
+    and neither doubles its rung nor runs the second. Equal planes (both
+    buffers), returned plane, rungs, flag, stamps and counters."""
+    torch, relax = port.torch, port.relax
+    n_cap, d_cap = 32, 2
+    g = 1 if layout == "plane" else 3
+    rng = np.random.default_rng(41 + s_lad)
+    dist = rng.integers(0, 200, size=(g, d_cap, n_cap)).astype(np.int32)
+    dist[rng.random(dist.shape) < 0.5] = INF_E
+    if layout == "gated":
+        dist[2] = INF_E
+    w = rng.integers(0, 9, size=(g, s_lad, n_cap)).astype(np.int32)
+    w[rng.random(w.shape) < 0.25] = INF_E
+    d = rng.integers(0, n_cap, size=(g, s_lad)).astype(np.int32)
+    if layout == "plane":
+        dist, w, d = dist[0], w[0], d[0]
+
+    def run(use_pass):
+        cur = torch.tensor(dist)
+        spare = torch.full_like(cur, -3)
+        wr, dr = torch.tensor(w), torch.tensor(d)
+        bufs = [(torch.full_like(wr, -7), torch.full_like(dr, -7))
+                for _ in range(2)]
+        flag = torch.zeros(1, dtype=torch.int32)
+        lanes = relax.Lanes(g, "cpu") if layout == "gated" else None
+        if lanes is not None:
+            lanes.st[1, 0] = -5
+        flags = []
+        for q in range(2):  # passes 0 and 1 of epoch 0
+
+            def gate(thr, put=(relax.KEEP, relax.KEEP), inc=(0, 0)):
+                return None if lanes is None else lanes.gate(thr, put, inc)
+
+            thr = (-1, q - 1 if q else relax.ALWAYS)
+            w2, d2 = bufs[q]
+            if use_pass:
+                cur, spare = relax.ladder_pass_plain(
+                    cur, spare, wr, dr, w2, d2, flag,
+                    gate(thr, (0, q), (0, 1)))
+            else:
+                for k in range(s_lad):
+                    relax.ladder_apply_plain(cur, spare, wr, dr, k, flag,
+                                             gate(thr, (0, q),
+                                                  (0, int(k == 0))))
+                    cur, spare = spare, cur
+                relax.ladder_rung_plain(wr, dr, w2, d2, gate((-1, q)))
+            wr, dr = w2, d2
+            flags.append(int(flag))
+            flag.zero_()
+        out = [cur, spare, *bufs[0], *bufs[1], torch.tensor(flags)]
+        if lanes is not None:
+            out += [lanes.st, lanes.cnt]
+        return out
+
+    got, want = run(True), run(False)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert int(got[-1 if layout != "gated" else -3][0]) == 1
+    if layout == "gated":
+        st, cnt = got[-2], got[-1]
+        assert st[1, 0] == -5 and cnt[1].tolist() == [0, 0]
+        assert cnt[2].tolist() == [0, 1]
+        # lane 2's rung doubled in neither pass
+        assert (got[2][2] == -7).all() and (got[4][2] == -7).all()

@@ -395,13 +395,14 @@ def test_launch_letters_match_the_c_prototypes():
     """Every ``cuda.launch`` in ``openr_tpu_torch/ops`` passes each
     argument of its entry point under the letter of the C parameter's
     type (an int32 pointer as ``t``, a float32 one as ``T``, ...; ``p``,
-    a raw address, fits any pointer). A wrong letter raises only on the
-    card, so it is caught here, on the source."""
+    a raw address, fits any pointer), and every C entry point of
+    ``csrc/*.cu`` is launched from some site. A wrong letter raises only
+    on the card, so it is caught here, on the source."""
     import ast
     import importlib
 
     protos = _c_prototypes()
-    seen, sites = set(), 0
+    seen, sites, entered = set(), 0, set()
     for py in sorted((REPO / "openr_tpu_torch" / "ops").glob("*.py")):
         mod = importlib.import_module(f"openr_tpu_torch.ops.{py.stem}")
         src = py.read_text()
@@ -441,8 +442,11 @@ def test_launch_letters_match_the_c_prototypes():
                         for s, w in zip(sig, want)), (
                         f"{py.name}:{call.lineno} {lib}.{entry}: {sig} "
                         f"against {want}")
+                    entered.add((lib, entry))
                 seen.add((py.name, call.lineno))
-    assert len(seen) == sites > 40
+    # every site checked, and every C entry point launched from one
+    assert len(seen) == sites and entered == set(protos), sorted(
+        set(protos) ^ entered)
 
 
 @pytest.mark.parametrize("threshold", [0, 16])
