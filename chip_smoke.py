@@ -18,7 +18,10 @@ prints no result line:
      residual relaxation kernel against its plain version on fabric10k,
      whose pod-crossing spine tier lands in the residual ELL, and K3 and
      K4 with their LFA columns against their plain versions on
-     fabric10k's own inputs; the fabric10k LFA build is a path of its
+     fabric10k's own inputs (K3 ``[lfa]`` also split into device time,
+     host enqueue and the bare launch; each call one launch), and both
+     on tg1k's own inputs cut to 1,000 prefix rows (P below one K4
+     tile); the fabric10k LFA build is a path of its
      own (counts zeroed before it, read after); then one flap of a
      root neighbour through the incremental solve with LFA, equal to
      the cold solve and the oracle;
@@ -30,13 +33,18 @@ prints no result line:
      and flag reads beside each unfused area's and their sum, and the
      fused K1s-K4 (a leading area axis) against their plain versions
      (K2's ladder pass over 3 passes of run_bucketed's stamps with every
-     other lane shut: stamps and counters too);
+     other lane shut: stamps and counters too); the timed fused build
+     follows a full garbage collection and carries ``HostMeter``'s
+     reading (collector time, CPU times), and three more cold builds on
+     fresh solvers (collector on, off, on) show its share of the host;
   3. the main path: the lsdb100k cell (grid 316 x 316 = 99,856 nodes,
      ~400k directed adjacencies, one loopback prefix per node, root
      node-158-158, default settings: bucketed kernel, sentinels on, no
      LFA) through ``GpuSpfSolver.build_route_db`` three times — the
-     first a cold build, the others reading the delta payload — with
-     every kernel's launch count zeroed just before and read just after;
+     first a cold build (after a full garbage collection, each build
+     with ``HostMeter``'s reading), the others reading the delta
+     payload — with every kernel's launch count zeroed just before and
+     read just after;
      each kernel must have launched;
   4. the lsdb100k RIB against the CPU oracle (``SpfSolver``);
   5. every kernel wrapper of the cold path against its plain PyTorch
@@ -44,9 +52,16 @@ prints no result line:
      equality, tolerance 0), timed with CUDA events beside its plain
      version and its bound; K2's ladder pass over 3 passes from a
      wavefront, each on the rung the last doubled (both plane buffers,
-     rungs, flag); K2's class pick and ladder pass also split into
-     device time alone, host enqueue and the bare launch's host cost,
-     and each counted as one kernel launch and no torch op;
+     rungs, flag); K2's class pick and ladder pass, K3, K4 and K4
+     ``[stream]`` also split into device time alone, host enqueue and
+     the bare launch's host cost, and each counted as one kernel launch
+     and no torch op; K3 and K4 also at the ``TAIL_SHAPES`` edge shapes
+     on seeded synthetic inputs (A and D past 16, A past the register
+     cache, P below a tile, lanes, a shared matrix, more K4 tiles than
+     the co-resident grid), with and without LFA, the budgets below the
+     changed rows and past P, the incremental tail and the ok column;
+     K4 also on 8 x SMs + 64 lanes, where every block of its grid takes
+     more tiles than it caches and reads the later tiles' rows again;
   6. the churn path: a second lsdb100k solver with ``incremental_spf``
      takes a cold first build, then 4 flap steps (the victim
      ``adj_dbs[1]``'s links, both directions, metric 50 + i % 5, through
@@ -202,7 +217,9 @@ prints no result line:
      build's, build_ms, its split and per-shard ms. K1s, K1, K2, K5, K6,
      K7 ``[mc]``, K2's ladder pass on the member's own classes and K23
      (min, max, sum) against their plain versions at those shapes (the
-     class pick counted as one launch and no torch op). fabric10k's
+     class pick counted as one launch and no torch op); K3 and K4 on the
+     tier's tail (the arguments ``mc_pipeline`` passes them in one more
+     flap build) against plain, each call one launch. fabric10k's
      4,096 vantages through
      ``build_fabric_route_dbs(mesh=...)`` (window ``fabric_mesh``;
      ``pod063-rsw63``'s RIB equal to the LFA oracle) and the array-level
@@ -357,6 +374,38 @@ def device_op_counter(torch):
     return Count()
 
 
+
+class HostMeter:
+    """The host's side of a block: the collector's time and collections
+    by generation (``gc.callbacks``), the calling thread's CPU time, the
+    process's CPU time (every thread), and the objects the collector
+    tracked as the block began. ``result`` after the block."""
+
+    def __enter__(self):
+        self.objects = len(gc.get_objects())
+        self.gc_ms, self._t = 0.0, 0.0
+        self._c0 = [st["collections"] for st in gc.get_stats()]
+        gc.callbacks.append(self._cb)
+        self._thread, self._proc = time.thread_time(), time.process_time()
+        return self
+
+    def _cb(self, phase, info) -> None:
+        if phase == "start":
+            self._t = time.perf_counter()
+        else:
+            self.gc_ms += (time.perf_counter() - self._t) * 1e3
+
+    def __exit__(self, *exc) -> None:
+        thread = (time.thread_time() - self._thread) * 1e3
+        proc = (time.process_time() - self._proc) * 1e3
+        gc.callbacks.remove(self._cb)
+        self.result = {
+            "gc_ms": self.gc_ms,
+            "gc_collections": [st["collections"] - c for st, c in zip(
+                gc.get_stats(), self._c0)],
+            "thread_cpu_ms": thread, "process_cpu_ms": proc,
+            "gc_objects": self.objects}
+
 def counted(torch, wrappers, fn) -> dict:
     """Run ``fn`` once with the launch counts at 0 and the torch ops
     counted: -> its device work, as kernel launches by wrapper and
@@ -391,10 +440,17 @@ def max_abs_err(torch, got, want) -> int:
     return max(max_abs_err(torch, g, w) for g, w in zip(got, want))
 
 
+def tensors_mapped(fn, args) -> tuple:
+    """``args`` with ``fn`` applied to each tensor among them and inside
+    their tuples (a wrapper's ``incr_tail`` and ``lfa`` arguments)."""
+    return tuple(tensors_mapped(fn, a) if isinstance(a, tuple) else
+                 fn(a) if hasattr(a, "data_ptr") else a for a in args)
+
+
 def on_cpu(args) -> tuple:
     """CPU copies of the tensors among ``args``: a wrapper given them runs
     its plain version."""
-    return tuple(a.cpu() if hasattr(a, "cpu") else a for a in args)
+    return tensors_mapped(lambda t: t.cpu(), args)
 
 
 def plain_residual(residual, n_cap: int):
@@ -438,6 +494,225 @@ def pass_check(torch, relax, mid, w, d, lanes=None, passes: int = 3) -> int:
         errs.append(max_abs_err(torch, got["kernel"], got["plain"]))
     return max(errs)
 
+
+def k3_floor(torch, cuda, sel):
+    """-> a bare ``cuda.launch`` of K3's entry point on the inputs of the
+    single-lane call ``sel`` into outputs of its own (raw addresses, no
+    checks): the host floor of a ``select_routes`` call."""
+    dist_d, root_w, root, mbuf, p_cap, a_cap, block_v4 = sel[:7]
+    lfa = len(sel) > 7 and sel[7]
+    d_cap, n_cap = dist_d.shape
+    outs = [torch.empty(n, dtype=torch.int32, device=dist_d.device)
+            for n in (p_cap, p_cap * -(-a_cap // 16),
+                      p_cap * -(-d_cap // 16), p_cap, p_cap, p_cap)]
+    ptrs = [t.data_ptr() for t in (dist_d, root_w, mbuf, *outs[:4])] + [
+        t.data_ptr() if lfa else 0 for t in outs[4:]] + [0]
+    return lambda: cuda.launch(
+        "select", "select_tail", "p" * 10 + "iiiiipiLi", *ptrs, p_cap,
+        a_cap, n_cap, d_cap, int(root), 0, 1, 0, int(block_v4))
+
+
+def k4_floor(torch, cuda, cargs):
+    """-> a bare ``cuda.launch`` of K4's entry point on the inputs of the
+    single-lane call ``cargs`` into buffers of its own (raw addresses,
+    no checks): the host floor of a ``compact_outputs`` call."""
+    (metric, s3w, nhw, ok, pm, ps, pn, flags, trips, rounds, budget,
+     sentinels) = cargs[:12]
+    incr = cargs[12] if len(cargs) > 12 else None
+    lfa = (cargs[13] if len(cargs) > 13 else None) or (None,) * 4
+    stream = bool(cargs[14]) if len(cargs) > 14 else False
+    from openr_tpu_torch.ops.compact import buffer_lens
+
+    p_cap, wa = s3w.shape
+    wd = nhw.shape[-1]
+    n_delta, n_full = buffer_lens(p_cap, wa, wd, budget, sentinels,
+                                  incr is not None, lfa[0] is not None,
+                                  stream)
+    bufs = [torch.empty(n, dtype=torch.int32, device=metric.device)
+            for n in (4 * -(-max(p_cap, budget) // 1024), n_delta, n_full)]
+    ptrs = [0 if t is None else t.data_ptr()
+            for t in (metric, s3w, nhw, ok, pm, ps, pn, flags, *lfa, *bufs)]
+    tail = [0 if t is None else t.data_ptr() for t in (incr or (None, None))]
+    return lambda: cuda.launch(
+        "compact", "compact_tail", "p" * 15 + "i" * 10 + "ppp" + "iiL",
+        *ptrs, p_cap, flags.shape[-1], wa, wd, budget, n_delta, n_full,
+        int(trips), int(rounds), int(sentinels), *tail, 0, int(stream), 1,
+        0)
+
+
+def one_launch(torch, wrappers, label: str, fn) -> dict:
+    """``fn``, one wrapper call, counted (``counted``): it must make one
+    kernel launch and no torch op on the card."""
+    n = counted(torch, wrappers, fn)
+    check(n["launches"] == n["kernel_launches"] == 1,
+          f"{label} must be one launch and no torch op: {n}")
+    return n
+
+
+def synthetic_select(torch, dev, seed: int, g: int, d_cap: int, n_cap: int,
+                     p_cap: int, a_cap: int, shared: bool = False) -> tuple:
+    """Seeded K3 inputs that reach every branch of the selection: small
+    preferences, advertised distances and link costs (ties at every
+    stage and ECMP ties), invalid, drained and v4 announcers, announcer
+    indices past both ends of the node axis (clipped), self-announced
+    slots, links down (INF_E costs) and unreachable nodes. -> (dist_d,
+    root_w, root, mbuf): one lane with ``g`` 0 (``root`` an int), else
+    ``g`` lanes ([g, D, n] planes, int32 [g] roots) with a matrix each
+    or, ``shared``, one matrix for all."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def ri(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=gen, dtype=torch.int32)
+
+    lanes = max(g, 1)
+    dist = ri(0, 12, lanes, d_cap, n_cap)
+    dist[ri(0, 6, lanes, d_cap, n_cap) == 0] = 1 << 29
+    root_w = ri(1, 4, lanes, d_cap)
+    root_w[ri(0, 5, lanes, d_cap) == 0] = 1 << 29
+    roots = ri(0, n_cap, lanes)
+    nm = 1 if shared else lanes
+    ann = ri(-1, n_cap + 2, nm, p_cap, a_cap)
+    ann[ri(0, 40, nm, p_cap, a_cap) == 0] = int(roots[0])
+    planes = [ann, ri(0, 8, nm, p_cap, a_cap)] + [
+        ri(0, hi, nm, p_cap, a_cap) for hi in (3, 2, 3, 3)]
+    mbuf = torch.stack(planes, dim=1).reshape(nm, -1)
+    if g == 0:
+        return (dist[0].to(dev), root_w[0].to(dev), int(roots[0]),
+                mbuf[0].to(dev))
+    return (dist.to(dev), root_w.to(dev), roots.to(dev),
+            (mbuf[0] if shared else mbuf).to(dev))
+
+
+# the edge shapes of K3 and K4: (lanes, d_cap, n_cap, p_cap, a_cap,
+# shared matrix). A > 16 and D > 16 (two words each), A 64 (a warp a
+# row) and 256 (slots past the register cache), A 3 and 5 (groups of 2
+# and 4 whose lanes hold unequal slots), P below and past a K4 tile,
+# 300 lanes (more K4 tiles than the co-resident grid), a shared matrix
+TAIL_SHAPES = (
+    (0, 20, 300, 1000, 32, False),
+    (0, 40, 200, 777, 64, False),
+    (0, 17, 100, 64, 256, False),
+    (0, 5, 50, 3000, 3, False),
+    (0, 33, 80, 1025, 5, False),
+    (3, 18, 120, 1500, 8, False),
+    (5, 9, 90, 300, 2, True),
+    (300, 3, 40, 100, 2, False),
+)
+
+
+def tail_edge_shapes(c) -> dict:
+    """K3 and K4 against their plain versions (tolerance 0) on
+    ``synthetic_select``'s inputs at every ``TAIL_SHAPES`` shape: K3
+    with and without LFA (v4 blocking on, the node distances asked for);
+    K4 on K3's outputs with zeroed and perturbed previous planes, a
+    budget below the changed rows and one past P, with the sentinels,
+    and on one lane also the incremental tail and the streaming ok
+    column. Each call counted as one launch and no torch op. -> the
+    number of calls checked by kernel."""
+    torch, dev, select, compact = c.torch, c.dev, c.select, c.compact
+    checked = {"K3": 0, "K4": 0}
+    for k, (g, d_cap, n_cap, p_cap, a_cap, shared) in enumerate(
+            TAIL_SHAPES):
+        dist_d, root_w, root, mbuf = synthetic_select(
+            torch, dev, 100 + k, g, d_cap, n_cap, p_cap, a_cap, shared)
+        lead = (g,) if g else ()
+        for lfa in (False, True):
+            sel = (dist_d, root_w, root, mbuf, p_cap, a_cap, True, lfa)
+            d_k = torch.full(lead + (n_cap,), -7, dtype=torch.int32,
+                             device=dev)
+            d_p = d_k.cpu()
+            got = select.select_routes(*sel, dist_out=d_k)
+            want = select.select_routes_plain(*on_cpu(sel), dist_out=d_p)
+            err = max_abs_err(torch, [t.cpu() for t in got + (d_k,)],
+                              want + (d_p,))
+            check(err == 0, f"K3 at {TAIL_SHAPES[k]} lfa={lfa}: kernel != "
+                  f"plain (max abs err {err})")
+            one_launch(torch, c.wrappers, "K3", lambda: select.select_routes(
+                *sel, dist_out=d_k))
+            checked["K3"] += 1
+        metric, s3w, nhw, ok, slot, alt = got
+        flags = (mbuf.view(6, p_cap, a_cap)[1] if not g
+                 else mbuf.view(6, p_cap, a_cap)[1].expand(g, p_cap, a_cap)
+                 if shared else mbuf.view(g, 6, p_cap, a_cap)[:, 1])
+        zero = tuple(torch.zeros_like(t) for t in (metric, s3w, nhw, slot,
+                                                   alt))
+        near = tuple(t.clone() for t in (metric, s3w, nhw, slot, alt))
+        near[0][..., ::7] += 1
+        near[4][..., 3::11] += 1
+        if g:
+            tr = torch.stack([torch.arange(g, dtype=torch.int32) + 3,
+                              torch.arange(g, dtype=torch.int32) * 2 + 5],
+                             dim=1).to(dev)
+            counts = (tr, None)
+        else:
+            counts = (9, 13)
+        runs = []
+        for prev in (zero, near):
+            for budget in (64, 4096):
+                for lfa in (False, True):
+                    cols = (slot, alt, prev[3], prev[4]) if lfa else None
+                    runs.append((metric, s3w, nhw, ok, *prev[:3], flags,
+                                 *counts, budget, True, None, cols))
+        if not g:
+            tail = (torch.tensor(41, dtype=torch.int32, device=dev),
+                    torch.tensor(1, dtype=torch.int32, device=dev))
+            for budget in (64, 4096):
+                runs.append((metric, s3w, nhw, ok, *near[:3], flags,
+                             *counts, budget, False, tail,
+                             (slot, alt, near[3], near[4]), True))
+        for cargs in runs:
+            got = compact.compact_outputs(*cargs)
+            want = compact.compact_outputs_plain(*on_cpu(cargs))
+            err = max_abs_err(torch, [t.cpu() for t in got], want)
+            check(err == 0, f"K4 at {TAIL_SHAPES[k]} budget {cargs[10]}: "
+                  f"kernel != plain (max abs err {err})")
+            one_launch(torch, c.wrappers, "K4",
+                       lambda: compact.compact_outputs(*cargs))
+            checked["K4"] += 1
+    return checked
+
+
+
+def k4_past_cache(c) -> int:
+    """K4 where every block of its cooperative grid takes more tiles than
+    it keeps bits of in registers (``CACHE_TILES``, 16, in
+    ``csrc/compact.cu``): the rows of a block's 17th and later tiles are
+    read again after the grid barrier. The grid is at most 2 blocks an
+    SM, so 8 x SMs + 64 lanes of 4 tiles (P 1,000, budget 4,096) give
+    every block more than 16 tiles and put each tile of the last 64
+    lanes past the cache. Held to the plain version (tolerance 0), with
+    and without LFA, on the first 4 lanes and the last 64, each lane's
+    plain run alone (the plain version runs lanes one by one); each call
+    one launch. -> the lanes compared a call."""
+    torch, dev, compact = c.torch, c.dev, c.compact
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    g, p_cap, a_cap, budget = 8 * sms + 64, 1000, 2, 4096
+    dist_d, root_w, roots, mbuf = synthetic_select(
+        torch, dev, 99, g, 3, 40, p_cap, a_cap)
+    metric, s3w, nhw, ok, slot, alt = c.select.select_routes(
+        dist_d, root_w, roots, mbuf, p_cap, a_cap, True, True)
+    flags = mbuf.view(g, 6, p_cap, a_cap)[:, 1]
+    near = tuple(t.clone() for t in (metric, s3w, nhw, slot, alt))
+    near[0][..., ::7] += 1
+    near[4][..., 3::11] += 1
+    tr = torch.stack([torch.arange(g, dtype=torch.int32) + 3,
+                      torch.arange(g, dtype=torch.int32) * 2 + 5], dim=1)
+    lanes = [*range(4), *range(g - 64, g)]
+    for lfa in (False, True):
+        cols = (slot, alt, *near[3:]) if lfa else None
+        cargs = (metric, s3w, nhw, ok, *near[:3], flags, tr.to(dev), None,
+                 budget, True, None, cols)
+        got = [t.cpu() for t in compact.compact_outputs(*cargs)]
+        for lane in lanes:
+            one = tensors_mapped(lambda t: t[lane].cpu(), cargs)
+            want = compact.compact_outputs_plain(
+                *one[:8], *tr[lane].tolist(), *one[10:])
+            err = max_abs_err(torch, [t[lane] for t in got], want)
+            check(err == 0, f"K4 past the tile cache, lane {lane} of {g}, "
+                  f"lfa={lfa}: kernel != plain (max abs err {err})")
+        one_launch(torch, c.wrappers, "K4 past the tile cache",
+                   lambda: compact.compact_outputs(*cargs))
+    return len(lanes)
 
 def build_cell(topologies, gen):
     adj_dbs, prefix_dbs = gen()
@@ -536,10 +811,12 @@ def rib_equal(want_db, got_db) -> bool:
     )
 
 
-def lfa_kernels(torch, relax, select, compact, gpu_solver, record, solver,
-                states, me) -> None:
+def lfa_kernels(torch, relax, select, compact, gpu_solver, record, split,
+                wrappers, solver, states, me) -> None:
     """K3 and K4 with their LFA columns against their plain versions on
     the inputs of ``solver``'s last build (one area "0", LFA on)."""
+    from openr_tpu_torch.ops import cuda
+
     ad = solver._area_dev["0"]
     plan = ad.plan
     dev = ad.shift_w.device
@@ -572,10 +849,13 @@ def lfa_kernels(torch, relax, select, compact, gpu_solver, record, solver,
         lambda: select.select_routes(*sel),
         lambda: select.select_routes_plain(*sel),
         nbytes=4 * (d_cap * n_cap + d_cap + 6 * p_cap * a_cap
-                    + 2 * p_cap * a_cap + p_cap * (3 + wa + wd)) + p_cap,
+                    + p_cap * (3 + wa + wd)) + p_cap,
         ops=3 * d_cap * n_cap + 12 * p_cap * a_cap
         + 4 * p_cap * a_cap * d_cap + 3 * p_cap * d_cap,
     )
+    split("K3:select_routes[lfa]", lambda: select.select_routes(*sel),
+          floor=k3_floor(torch, cuda, sel))
+    one_launch(torch, wrappers, "K3[lfa]", lambda: select.select_routes(*sel))
     metric, s3w, nhw, ok, slot, alt = got
     flags = ad.mbuf[p_cap * a_cap:2 * p_cap * a_cap].view(p_cap, a_cap)
     zero = tuple(torch.zeros_like(t) for t in (metric, s3w, nhw, slot, alt))
@@ -591,6 +871,8 @@ def lfa_kernels(torch, relax, select, compact, gpu_solver, record, solver,
                                 compact.compact_outputs_plain(*cargs)))
     check(int(k_out[0][0]) == len(range(0, p_cap, 89)),
           "K4[lfa]: the LFA column diff missed rows")
+    one_launch(torch, wrappers, "K4[lfa]",
+               lambda: compact.compact_outputs(*cargs))
     n_delta, n_full = compact.buffer_lens(
         p_cap, wa, wd, gpu_solver.DELTA_BUDGET, True, False, True)
     record(
@@ -611,6 +893,49 @@ def lfa_kernels(torch, relax, select, compact, gpu_solver, record, solver,
             "K3_ms": time_ms(torch, lambda: select.select_routes(*sel0), 50),
             "K4_ms": time_ms(torch, lambda: compact.compact_outputs(*c0), 50),
         }))
+
+
+def tg1k_tail(c, solver, states, me, rows: int = 1000) -> None:
+    """K3 and K4 on tg1k's own inputs (``solver``'s last build, one area
+    "0") cut to the first ``rows`` prefix rows, P below one K4 tile of
+    1,024 rows: equal to plain (tolerance 0), each call one launch."""
+    torch, relax, select, compact = c.torch, c.relax, c.select, c.compact
+    ad = solver._area_dev["0"]
+    plan = ad.plan
+    dev = ad.shift_w.device
+    root = plan.node_index[me]
+    nbr_np, w_np, _ = plan.out_links(states["0"], me)
+    root_w = torch.tensor(w_np, device=dev)
+    kernel = "bucketed" if plan.delta_exp > 0 else "sync"
+    dist, _, _ = relax.plan_sssp(
+        ad.deltas, ad.shift_w, ad.res_rows, ad.res_nbr, ad.res_w, root,
+        torch.tensor(nbr_np, device=dev), root_w, plan.k_res > 0, kernel,
+        plan.delta_exp)
+    p_cap, a_cap = ad.matrix.ann_node.shape
+    check(rows < 1024 <= p_cap, "tg1k: the cut must fall below one tile")
+    mbuf = ad.mbuf.view(6, p_cap, a_cap)[:, :rows].contiguous().view(-1)
+    sel = (dist, root_w, root, mbuf, rows, a_cap, False)
+    got = select.select_routes(*sel)
+    err = max_abs_err(torch, got, select.select_routes_plain(*sel))
+    check(err == 0, f"K3 on tg1k's first {rows} rows != plain (err {err})")
+    one_launch(torch, c.wrappers, "K3 on tg1k",
+               lambda: select.select_routes(*sel))
+    metric, s3w, nhw, ok = got
+    flags = mbuf.view(6, rows, a_cap)[1]
+    near = (metric.clone(), s3w.clone(), nhw.clone())
+    near[0][::13] += 1
+    zero = tuple(torch.zeros_like(t) for t in near)
+    for prev in (zero, near):
+        for budget in (64, c.gpu_solver.DELTA_BUDGET):
+            cargs = (metric, s3w, nhw, ok, *prev, flags, 5, 8, budget, True)
+            err = max_abs_err(torch, compact.compact_outputs(*cargs),
+                              compact.compact_outputs_plain(*cargs))
+            check(err == 0, f"K4 on tg1k's first {rows} rows, budget "
+                  f"{budget} != plain (err {err})")
+            one_launch(torch, c.wrappers, "K4 on tg1k",
+                       lambda: compact.compact_outputs(*cargs))
+    log(f"tg1k: K3 and K4 on the first {rows} of {p_cap} rows equal to "
+        f"plain, each call one launch")
 
 
 def fused_cell(adb, pdb, pentry, topologies, side: int, n_areas: int,
@@ -689,10 +1014,15 @@ def fused_phase(torch, gpu_solver, relax, select, compact, SpfSolver,
         d0 = counters.get_counter("decision.device.fused_dispatches") or 0
         torch.cuda.synchronize()
         reads0 = zero_counts()
-        t0 = time.perf_counter()
-        got_db = f_solver.build_route_db("hub", states, ps)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
+        # the earlier phases' garbage collected before the timed cold
+        # build: a full collection of this process's millions of objects
+        # landing inside a build is 1.4-2 s of its host time
+        gc.collect()
+        with HostMeter() as meter:
+            t0 = time.perf_counter()
+            got_db = f_solver.build_route_db("hub", states, ps)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
         f_launches, f_reads = read_counts(reads0)
         st = f_solver.last_device_stats
         check(st.get("fused") == FUSED_AREAS and not singles
@@ -751,13 +1081,32 @@ def fused_phase(torch, gpu_solver, relax, select, compact, SpfSolver,
             "sync_ms", "exec_ms", "sssp_ms", "tail_ms", "compact_ms")},
         "bytes_uploaded": tm.get("bytes_uploaded"),
         "bytes_downloaded": tm.get("bytes_downloaded"),
+        "host": meter.result,
     }))
+    # the same cold build on fresh solvers, the collector on, off, on:
+    # how much of the host's sync_ms is garbage collection
+    fresh = []
+    for on in (True, False, True):
+        fs = gpu_solver.GpuSpfSolver(
+            "hub", device=dev, small_graph_nodes=AUTO_SMALL_GRAPH_NODES)
+        torch.cuda.synchronize()
+        if not on:
+            gc.disable()
+        try:
+            with HostMeter() as meter:
+                fs.build_route_db("hub", states, ps)
+                torch.cuda.synchronize()
+        finally:
+            gc.enable()
+        fresh.append({"gc": on, "sync_ms": next(iter(
+            fs.last_timing["areas"].values()))["sync_ms"], **meter.result})
+    log("fused build on fresh solvers: " + json.dumps(fresh))
     fused_kernels(torch, gpu_solver, relax, select, compact, record,
-                  captured, real_fused, dev)
+                  wrappers, captured, real_fused, dev)
 
 
 def fused_kernels(torch, gpu_solver, relax, select, compact, record,
-                  captured, real_fused, dev) -> None:
+                  wrappers, captured, real_fused, dev) -> None:
     """The fused K1s-K4 against their plain versions on the fused path's
     own stacked inputs, the gated kernels with a gate that closes half
     the lanes; then the whole fused pipeline against its plain run on
@@ -881,14 +1230,15 @@ def fused_kernels(torch, gpu_solver, relax, select, compact, record,
         sel = (dist_k, root_w, roots, mbuf, p_cap, a_cap, block_v4, lfa)
         got = select.select_routes(*sel)
         errs.append(max_abs_err(torch, got, select.select_routes_plain(*sel)))
+        one_launch(torch, wrappers, "K3[fused]",
+                   lambda: select.select_routes(*sel))
     wa, wd = got[1].shape[-1], got[2].shape[-1]
     record(
         "K3:select_routes[fused]", max(errs),
         lambda: select.select_routes(*sel),
         lambda: select.select_routes_plain(*sel),
         nbytes=4 * g * (d_cap * n_cap + d_cap + 6 * p_cap * a_cap
-                        + 2 * p_cap * a_cap + p_cap * (1 + wa + wd))
-        + g * p_cap,
+                        + p_cap * (1 + wa + wd)) + g * p_cap,
         ops=g * (3 * d_cap * n_cap + 12 * p_cap * a_cap),
     )
     metric, s3w, nhw, ok = got
@@ -903,6 +1253,8 @@ def fused_kernels(torch, gpu_solver, relax, select, compact, record,
                  gpu_solver.DELTA_BUDGET, True)
         errs.append(max_abs_err(torch, compact.compact_outputs(*cargs),
                                 compact.compact_outputs_plain(*cargs)))
+        one_launch(torch, wrappers, "K4[fused]",
+                   lambda: compact.compact_outputs(*cargs))
     n_delta, n_full = compact.buffer_lens(p_cap, wa, wd,
                                           gpu_solver.DELTA_BUDGET, True)
     record(
@@ -954,6 +1306,8 @@ def stream_kernel(c, metric, s3w, nhw, ok, flags, wa, wd, a_cap) -> None:
                                 compact.compact_outputs_plain(*cargs)))
         check(int(got[0][0]) == len(range(0, p_cap, stride)),
               "K4[stream]: wrong changed-row count")
+        one_launch(torch, c.wrappers, f"K4[stream] budget {budget}",
+                   lambda: compact.compact_outputs(*cargs))
         n_delta, _ = compact.buffer_lens(p_cap, wa, wd, budget, True, True,
                                          False, True)
         check(got[0].numel() == n_delta == c.stream.stream_payload_len(
@@ -968,6 +1322,9 @@ def stream_kernel(c, metric, s3w, nhw, ok, flags, wa, wd, a_cap) -> None:
                     + n_delta + n_full) + 2 * p_cap,
         ops=p_cap * (4 + 2 * (wa + wd) + a_cap),
     )
+    c.split("K4:compact_outputs[stream]",
+            lambda: compact.compact_outputs(*timed),
+            floor=k4_floor(torch, c.cuda, timed))
 
 
 def flapstorm_phase(c, adj_dbs, states, ps) -> tuple:
@@ -2686,6 +3043,7 @@ def fabric_kernels(c, args, kw, n_trips: int) -> None:
         want = sel_plain(ww)
         errs.append(max_abs_err(torch, got + (dist_k,), want + (dist_p,)))
         backups.append(int((got[4] >= 0).sum()))
+        one_launch(torch, c.wrappers, "K3[fabric]", lambda: sel(ww))
     check(backups[0] > 0, "fabric10k step: no row has an LFA backup with "
           "skewed uplink costs")
     log(f"fabric10k step: K3 over {rt} roots with LFA equal to plain "
@@ -2696,8 +3054,7 @@ def fabric_kernels(c, args, kw, n_trips: int) -> None:
         "K3:select_routes[fabric]", max(errs),
         lambda: sel(w), lambda: sel_plain(w),
         nbytes=4 * (planes.numel() + rt * d_cap + 6 * p_cap * a_cap
-                    + rt * (n_cap + 4 * p_cap * a_cap
-                            + p_cap * (3 + wa + wd))) + rt * p_cap,
+                    + rt * (n_cap + p_cap * (3 + wa + wd))) + rt * p_cap,
         ops=rt * (3 * d_cap * n_cap + 15 * p_cap * a_cap * d_cap),
         reps=10, plain_reps=1, plain_warmup=0)
     nhw = got[2]
@@ -3212,6 +3569,48 @@ def mesh_fabric_kernels(c, fsolver, fnames, fstates) -> None:
         ops=4 * prev.shape[0] * ad.res_nbr.numel())
 
 
+def mc_tail(c, solver, lsdb, root) -> None:
+    """K3 and K4 on the multichip tier's tail: the arguments
+    ``gpu_solver.mc_pipeline`` passes them in one more lsdb100k_mc build
+    of ``solver`` after a flap (copied as it calls them), each held to
+    its plain version (tolerance 0) and counted as one launch."""
+    torch, gs = c.torch, c.gpu_solver
+    adj_dbs, states, ps = lsdb
+    by_name = {db.this_node_name: db for db in adj_dbs}
+    seen = {}
+    real = {"select_routes": gs.select_routes,
+            "compact_outputs": gs.compact_outputs}
+
+    def spy(name):
+        def call(*a, **k):
+            seen[name] = (tensors_mapped(lambda t: t.clone(), a), k)
+            return real[name](*a, **k)
+        return call
+
+    vname = adj_dbs[1].this_node_name
+    cur = states["0"].get_adjacency_databases()[vname].adjacencies[0].metric
+    flap(c.AdjacencyDatabase, states, adj_dbs, by_name, 1,
+         (cur - 50 + 1) % 5)
+    gs.select_routes, gs.compact_outputs = (spy(n) for n in real)
+    try:
+        solver.build_route_db(root, states, ps)
+    finally:
+        gs.select_routes = real["select_routes"]
+        gs.compact_outputs = real["compact_outputs"]
+    check(set(seen) == set(real) and solver.last_device_stats.get(
+        "multichip"), "lsdb100k_mc: the tier's tail did not run")
+    for name, mod in (("select_routes", c.select),
+                      ("compact_outputs", c.compact)):
+        a, k = seen[name]
+        err = max_abs_err(torch, getattr(mod, name)(*a, **k),
+                          getattr(mod, name + "_plain")(*a, **k))
+        check(err == 0, f"lsdb100k_mc tail: {name} != plain (err {err})")
+        one_launch(torch, c.wrappers, f"{name} on the mc tail",
+                   lambda: getattr(mod, name)(*a, **k))
+    log("lsdb100k_mc: K3 and K4 on the tier's tail equal to plain, each "
+        "call one launch")
+
+
 def multichip_phase(c, lsdb, fcell) -> tuple:
     """Phase 14 (module docstring). Returns the launches of each path's
     count window ("mc", "mc_incr" and "fabric_mesh") and the halo
@@ -3303,6 +3702,7 @@ def multichip_phase(c, lsdb, fcell) -> tuple:
         check(windows["mc_incr"].get(name, 0) > 0,
               f"kernel {name} never launched on the mc churn path")
     mc_kernels(c, mc, lsdb, root, dirty)
+    mc_tail(c, mc, lsdb, root)
     del fb, sync, single
 
     # -- whole-fabric fabric10k on the mesh ----------------------------------
@@ -3624,12 +4024,12 @@ def main() -> int:
         whatif=whatif, variant_launches=variant_launches,
         te=te, record_float=record_float, legacy=legacy, fabric=fabric,
         csr=csr, sharding=sharding, select=select, combine=combine,
-        incremental=incremental, entry=entry,
+        incremental=incremental, entry=entry, cuda=cuda,
         topologies=topologies, SpfSolver=SpfSolver,
         AdjacencyDatabase=AdjacencyDatabase, PrefixDatabase=PrefixDatabase,
         PrefixEntry=PrefixEntry,
         PrefixForwardingAlgorithm=PrefixForwardingAlgorithm,
-        wrappers=wrappers, record=record, results=results,
+        wrappers=wrappers, record=record, split=split, results=results,
         zero_counts=zero_counts, read_counts=read_counts,
     )
 
@@ -3668,13 +4068,15 @@ def main() -> int:
                     "spf_kernel", "trips", "rounds", "sssp_ms", "tail_ms",
                     "compact_ms", "pipeline_wall_ms")},
             }))
+        if name == "tg1k":
+            tg1k_tail(c, c_solver, c_states, me)
         if lfa:
             for v in ("K3:select_routes[lfa]", "K4:compact_outputs[lfa]"):
                 variant_launches[v] = c_launches[variants[v][0]]
                 check(variant_launches[v] > 0,
                       f"{v} never launched on the fabric10k LFA path")
             lfa_kernels(torch, relax, select, compact, gpu_solver, record,
-                        c_solver, c_states, me)
+                        split, wrappers, c_solver, c_states, me)
         if c_ad.plan.k_res > 0:
             c_plan = c_ad.plan
             c_nbr, c_w, _ = c_plan.out_links(c_states["0"], me)
@@ -3762,11 +4164,13 @@ def main() -> int:
     solver = gpu_solver.GpuSpfSolver(LSDB100K_ROOT, device=dev)
     zero_counts()
     dbs = []
+    gc.collect()  # as before the fused build (phase 2b)
     for i in range(3):
-        t0 = time.perf_counter()
-        db = solver.build_route_db(LSDB100K_ROOT, states, ps)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
+        with HostMeter() as meter:
+            t0 = time.perf_counter()
+            db = solver.build_route_db(LSDB100K_ROOT, states, ps)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
         check(db is not None, "lsdb100k build returned no RIB")
         dbs.append(db)
         tm = solver.last_timing
@@ -3778,6 +4182,7 @@ def main() -> int:
                 "rounds", "spf_kernel", "bytes_uploaded",
                 "bytes_downloaded")},
             "sentinels": solver.last_sentinels,
+            "host": meter.result,
         })))
     launches = {name: wrappers[name][0].launches for name in cold_path}
     log(f"lsdb100k launches over 3 builds: {json.dumps(launches)}")
@@ -3949,9 +4354,13 @@ def main() -> int:
         lambda: select.select_routes(*sel),
         lambda: select.select_routes_plain(*sel),
         nbytes=4 * (d_cap * n_cap + d_cap + 6 * p_cap * a_cap
-                    + 2 * p_cap * a_cap + p_cap * (1 + wa + wd)) + p_cap,
+                    + p_cap * (1 + wa + wd)) + p_cap,
         ops=3 * d_cap * n_cap + 12 * p_cap * a_cap,
     )
+    split("K3:select_routes", lambda: select.select_routes(*sel),
+          floor=k3_floor(torch, cuda, sel))
+    tail_launches = {"K3": one_launch(torch, wrappers, "K3",
+                                      lambda: select.select_routes(*sel))}
     metric, s3w, nhw, ok = got
     flags = ad.mbuf[p_cap * a_cap:2 * p_cap * a_cap].view(p_cap, a_cap)
     # previous outputs: the first solve's zeros (every row changed, the
@@ -3966,6 +4375,8 @@ def main() -> int:
                  gpu_solver.DELTA_BUDGET, True)
         errs.append(max_abs_err(torch, compact.compact_outputs(*cargs),
                                 compact.compact_outputs_plain(*cargs)))
+        tail_launches["K4"] = one_launch(
+            torch, wrappers, "K4", lambda: compact.compact_outputs(*cargs))
     n_delta, n_full = compact.buffer_lens(p_cap, wa, wd,
                                           gpu_solver.DELTA_BUDGET, True)
     record(
@@ -3976,7 +4387,14 @@ def main() -> int:
                     + n_delta + n_full) + p_cap,
         ops=p_cap * (4 + 2 * (wa + wd) + a_cap),
     )
+    split("K4:compact_outputs", lambda: compact.compact_outputs(*cargs),
+          floor=k4_floor(torch, cuda, cargs))
     stream_kernel(c, metric, s3w, nhw, ok, flags, wa, wd, a_cap)
+    edge = tail_edge_shapes(c)
+    edge["K4 past the tile cache, lanes"] = k4_past_cache(c)
+    log("K3 and K4 launches: " + json.dumps(tail_launches) + "; equal to "
+        "plain at the edge shapes, each call one launch: "
+        + json.dumps(edge))
 
     log(f"-- phase 6 starts at "
         f"{time.perf_counter() - t_start:.1f} s")
@@ -4227,6 +4645,8 @@ def main() -> int:
     want = compact.compact_outputs_plain(*cargs)
     err = max_abs_err(torch, got, want)
     check(err == 0, f"K4 with the incremental tail != plain (err {err})")
+    one_launch(torch, wrappers, "K4 with the incremental tail",
+               lambda: compact.compact_outputs(*cargs))
     check(int(got[1][-3]) == int(w_k[2]) and int(got[1][-2]) == int(w_k[3]),
           "K4: the [cone, fell_back] tail is misplaced")
     results["K4:compact_outputs"]["incr_tail_max_abs_err"] = err

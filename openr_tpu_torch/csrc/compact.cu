@@ -1,45 +1,66 @@
 // Output compaction for Hopper (sm_90a): the end of the cold Decision
 // pipeline, which packs the per-prefix outputs into the two pull
 // buffers the host reads (decision/gpu_solver.py documents the layout).
-// Each entry point launches one kernel on the caller's stream and
-// returns cudaGetLastError().
+// The entry point launches one cooperative kernel on the caller's
+// stream and returns its error (a refused launch included).
 //
-// Replaces (K4) ops/stream.py::column_diff + compact_changed_rows, the
-// full-pull compaction and the numerical-health sentinel counts of
-// decision/tpu_solver.py::_make_pipeline — there `jnp.nonzero(size=,
-// fill_value=)` plus gathers.
-//
-// Bound: bytes — every [P]-sized input is read once and every output
-// slot written once. Design: a three-launch block-scan compaction with
-// fixed output sizes (no host sync, no dynamic shape): count per block
-// with __syncthreads_count, an exclusive scan of the block counts in one
-// block, then a scatter that ranks each row inside its block with warp
-// ballots. Pad slots past the live count carry index p_cap and the
-// values of row p_cap - 1: the fixed-size nonzero fills with p_cap and
-// the gather clips it to the last row. After an incremental solve the
-// cone size and the fallback flag join the tail (ops/incremental.py).
-// With LFA the backup slot and metric columns join the diff and follow
-// the next-hop words in both payloads (ops/stream.py:79/99 and
-// tpu_solver.py:601-603 of the JAX package). With g > 1 stacked
-// same-shape areas (the vmap of _fused_pipeline) the lane is the grid's
-// y dimension (the scan's x), and each lane's trips and rounds come from
-// the device counters of its own loop (ops/relax.py::Lanes).
+// Replaces (K4) ops/stream.py::column_diff + compact_changed_rows (:79,
+// :99), the full-pull compaction and the numerical-health sentinel
+// counts of decision/tpu_solver.py::_make_pipeline (:590-630) — there
+// `jnp.nonzero(size=, fill_value=)` plus gathers. Pad slots past the
+// live count carry index p_cap and the values of row p_cap - 1: the
+// fixed-size nonzero fills with p_cap and the gather clips it to the
+// last row. After an incremental solve the cone size and the fallback
+// flag join the tail, read on the device where K9 left them
+// (ops/incremental.py). With LFA the backup slot and metric columns
+// join the diff and follow the next-hop words in both payloads
+// (ops/stream.py:79/99 and tpu_solver.py:601-603 of the JAX package).
+// With g > 1 stacked same-shape areas (the vmap of _fused_pipeline)
+// each lane's rows are tiles of their own, and each lane's trips and
+// rounds come from the device counters of its own loop
+// (ops/relax.py::Lanes).
 //
 // The streaming epoch (decision/tpu_solver.py::_stream_pipeline, K4
-// [stream]) is the same three launches with a small bucketed delta budget
-// and one more delta column: the route-ok bit of each changed row, after
+// [stream]) is the same launch with a small bucketed delta budget and
+// one more delta column: the route-ok bit of each changed row, after
 // the next-hop words and before the LFA columns (ops/stream.py layout),
 // so the host applies the rows without unpacking words. Pad slots take
 // row p_cap - 1's ok bit, as they take its other columns. The full
-// payload never carries it.
+// payload never carries it. `count` is every changed row, also past the
+// budget; only the first `budget` are placed.
+//
+// Bound: bytes — every [P]-sized input is read once and every output
+// slot written once.
+//
+// Design: one cooperative launch (fixed output sizes, no host sync, no
+// dynamic shape). A block takes a tile of THREADS rows of one lane: it
+// evaluates each row's predicates once (changed, ok, unreachable,
+// saturated), keeps the changed and ok bits in registers (two bits a
+// tile, for its first CACHE_TILES tiles; rows of later tiles are read
+// again) and writes its four counts to a scratch. After one grid
+// barrier, warp 0 of each block sums the counts of its lane's tiles
+// (the tiles before its own: its offsets; all: the lane's totals), and
+// the block ranks its rows with warp ballots and places them and the
+// pad slots at once. The block of each lane's tile 0 writes the
+// scalars and the tail. The grid is the co-resident blocks, at most
+// BLOCKS_PER_SM an SM; blocks stride over the g x ceil(max(P, budget) /
+// THREADS) tiles when there are more.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "coop.cuh"
+
+namespace cg = cooperative_groups;
 
 #define INF_E (1 << 29)
 #define SENTINEL_SAT (1 << 28)
 #define THREADS 1024
 #define WARPS (THREADS / 32)
+#define CACHE_TILES 16
+#define BLOCKS_PER_SM 2
+#define FULL 0xffffffffu
 
 struct Rows {
     const int* metric;
@@ -57,6 +78,17 @@ struct Rows {
     const int* prev_lfa_metric;
     int p_cap, a_cap, wa, wd;
     long long flags_stride;  // elements from one lane's flags to the next
+};
+
+// the two buffers and the scalars of their heads and tails
+struct Tail {
+    int* delta_buf;
+    int* full_buf;
+    int delta_len, full_len, budget, with_ok;
+    int trips, rounds, sentinels;
+    const int* cone;  // the incremental solve's (cone, fell_back), or null
+    const int* fell;
+    const int* tr;  // [g, 2] per-lane (trips, rounds), or null
 };
 
 // the rows of lane `lane` of g stacked areas
@@ -93,93 +125,6 @@ __device__ __forceinline__ bool row_changed(const Rows& r, int p) {
     return false;
 }
 
-// per-block counts: blk[4b + 0] changed rows, +1 ok rows, +2
-// unreachable rows (a live announcer, no finite metric), +3 saturated
-// rows (finite metric past 2^28)
-__global__ void compact_count_kernel(Rows r, int* __restrict__ blk) {
-    r = lane_rows(r, blockIdx.y);
-    blk += 4LL * gridDim.x * blockIdx.y;
-    int p = blockIdx.x * blockDim.x + threadIdx.x;
-    bool ch = false, ok = false, unreach = false, sat = false;
-    if (p < r.p_cap) {
-        ch = row_changed(r, p);
-        ok = r.ok[p] != 0;
-        int m = r.metric[p];
-        bool live = false;
-        for (int a = 0; a < r.a_cap; ++a)
-            live |= (r.flags[(long long)p * r.a_cap + a] & 1) != 0;
-        unreach = live && m >= INF_E;
-        sat = m < INF_E && m > SENTINEL_SAT;
-    }
-    int c0 = __syncthreads_count(ch);
-    int c1 = __syncthreads_count(ok);
-    int c2 = __syncthreads_count(unreach);
-    int c3 = __syncthreads_count(sat);
-    if (threadIdx.x == 0) {
-        blk[4 * blockIdx.x + 0] = c0;
-        blk[4 * blockIdx.x + 1] = c1;
-        blk[4 * blockIdx.x + 2] = c2;
-        blk[4 * blockIdx.x + 3] = c3;
-    }
-}
-
-// one block a lane: exclusive scan of the per-block counts in place
-// (blk[4b] and blk[4b+1] become offsets) and the scalar fields of both
-// buffers. The block count is p_cap / 1024, so a serial scan by one
-// thread is a few hundred adds. trips and rounds are the arguments, or
-// the lane's counters tr[2 lane], tr[2 lane + 1] when `tr` is not null.
-// The tail, back to front: rounds; the incremental solve's (cone,
-// fell_back), read from the device where K9 left them, when `cone` is
-// not null; the sentinel pair when `sentinels`.
-__global__ void compact_scan_kernel(int* __restrict__ blk, int nblk,
-                                    int* __restrict__ delta_buf,
-                                    int* __restrict__ full_buf,
-                                    int delta_len, int full_len, int trips,
-                                    int rounds, int sentinels,
-                                    const int* __restrict__ cone,
-                                    const int* __restrict__ fell,
-                                    const int* __restrict__ tr) {
-    if (threadIdx.x != 0) return;
-    const int lane = blockIdx.x;
-    blk += 4LL * nblk * lane;
-    delta_buf += (long long)delta_len * lane;
-    full_buf += (long long)full_len * lane;
-    if (tr) {
-        trips = tr[2 * lane];
-        rounds = tr[2 * lane + 1];
-    }
-    int ch = 0, ok = 0, unreach = 0, sat = 0;
-    for (int b = 0; b < nblk; ++b) {
-        int c0 = blk[4 * b], c1 = blk[4 * b + 1];
-        blk[4 * b] = ch;
-        blk[4 * b + 1] = ok;
-        ch += c0;
-        ok += c1;
-        unreach += blk[4 * b + 2];
-        sat += blk[4 * b + 3];
-    }
-    delta_buf[0] = ch;
-    delta_buf[1] = trips;
-    full_buf[0] = ok;
-    full_buf[1] = trips;
-    int end = 1;  // tail words written so far, back to front
-    if (cone) {
-        delta_buf[delta_len - 3] = *cone;
-        delta_buf[delta_len - 2] = *fell;
-        full_buf[full_len - 3] = *cone;
-        full_buf[full_len - 2] = *fell;
-        end = 3;
-    }
-    if (sentinels) {
-        delta_buf[delta_len - end - 2] = unreach;
-        delta_buf[delta_len - end - 1] = sat;
-        full_buf[full_len - end - 2] = unreach;
-        full_buf[full_len - end - 1] = sat;
-    }
-    delta_buf[delta_len - 1] = rounds;
-    full_buf[full_len - 1] = rounds;
-}
-
 // write row `src` (its index is `idx`) into slot `pos` of a buffer laid
 // out as [count, trips, idx[cap], metric[cap], s3w[cap*wa], nhw[cap*wd]
 // (, ok[cap] when `with_ok`) (, lfa_slot[cap], lfa_metric[cap])]
@@ -205,68 +150,177 @@ __device__ __forceinline__ void put_row(const Rows& r, int* buf, int cap,
     }
 }
 
-// scatter: thread i places row i (when it is ok / changed) at its rank,
-// and fills slot i with the pad row when i is past the live count. The
-// two writes never collide: ranks are < count <= pad slots.
-__global__ void compact_scatter_kernel(Rows r, const int* __restrict__ blk,
-                                       int* __restrict__ delta_buf,
-                                       int* __restrict__ full_buf,
-                                       int budget, int nblk, int delta_len,
-                                       int full_len, int stream) {
+
+// the scalars of lane `lane`'s buffers: the counts and trips at the
+// head; the tail back to front: rounds; the incremental solve's (cone,
+// fell_back) when `cone` is not null; the sentinel pair when
+// `sentinels`
+__device__ void put_scalars(const Tail& t, int lane, int ch, int ok,
+                            int unreach, int sat) {
+    int* delta = t.delta_buf + (long long)t.delta_len * lane;
+    int* full = t.full_buf + (long long)t.full_len * lane;
+    const int trips = t.tr ? t.tr[2 * lane] : t.trips;
+    const int rounds = t.tr ? t.tr[2 * lane + 1] : t.rounds;
+    const int dl = t.delta_len, fl = t.full_len;
+    delta[0] = ch;
+    delta[1] = trips;
+    full[0] = ok;
+    full[1] = trips;
+    int end = 1;  // tail words written so far, back to front
+    if (t.cone) {
+        delta[dl - 3] = *t.cone;
+        delta[dl - 2] = *t.fell;
+        full[fl - 3] = *t.cone;
+        full[fl - 2] = *t.fell;
+        end = 3;
+    }
+    if (t.sentinels) {
+        delta[dl - end - 2] = unreach;
+        delta[dl - end - 1] = sat;
+        full[fl - end - 2] = unreach;
+        full[fl - end - 1] = sat;
+    }
+    delta[dl - 1] = rounds;
+    full[fl - 1] = rounds;
+}
+
+// part[4 tile + k]: tile's changed (k 0), ok (1), unreachable (a live
+// announcer, no finite metric: 2) and saturated (a finite metric past
+// 2^28: 3) rows, tiles numbered lane * ntile + tile
+__global__ void __launch_bounds__(THREADS) compact_tail_kernel(
+    Rows r, Tail t, int* __restrict__ part, int g, int ntile) {
+    cg::grid_group grid = cg::this_grid();
     __shared__ int warp_ch[WARPS], warp_ok[WARPS];
-    const int area = blockIdx.y;
-    r = lane_rows(r, area);
-    blk += 4LL * nblk * area;
-    delta_buf += (long long)delta_len * area;
-    full_buf += (long long)full_len * area;
-    int i = blockIdx.x * blockDim.x + threadIdx.x;
-    int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    bool ch = false, ok = false;
-    if (i < r.p_cap) {
-        ch = row_changed(r, i);
-        ok = r.ok[i] != 0;
+    __shared__ int sums[6];  // offsets ch, ok; totals ch, ok, unreach, sat
+    const long long tiles = (long long)g * ntile;
+    const int tid = threadIdx.x, wl = tid & 31, warp = tid >> 5;
+    unsigned cache = 0;  // (changed, ok) of this thread's row, per tile
+    int k = 0;
+    for (long long tt = blockIdx.x; tt < tiles; tt += gridDim.x, ++k) {
+        const int lane = (int)(tt / ntile);
+        const Rows rl = lane_rows(r, lane);
+        const int i = (int)(tt - (long long)lane * ntile) * THREADS + tid;
+        bool ch = false, ok = false, unreach = false, sat = false;
+        if (i < rl.p_cap) {
+            ch = row_changed(rl, i);
+            ok = rl.ok[i] != 0;
+            const int m = rl.metric[i];
+            bool live = false;
+            for (int a = 0; a < rl.a_cap; ++a)
+                live |= (rl.flags[(long long)i * rl.a_cap + a] & 1) != 0;
+            unreach = live && m >= INF_E;
+            sat = m < INF_E && m > SENTINEL_SAT;
+        }
+        if (k < CACHE_TILES)
+            cache |= ((unsigned)ch | (unsigned)ok << 1) << (2 * k);
+        const int c0 = __syncthreads_count(ch);
+        const int c1 = __syncthreads_count(ok);
+        const int c2 = __syncthreads_count(unreach);
+        const int c3 = __syncthreads_count(sat);
+        if (tid == 0) {
+            part[4 * tt + 0] = c0;
+            part[4 * tt + 1] = c1;
+            part[4 * tt + 2] = c2;
+            part[4 * tt + 3] = c3;
+        }
     }
-    unsigned bch = __ballot_sync(0xffffffffu, ch);
-    unsigned bok = __ballot_sync(0xffffffffu, ok);
-    if (lane == 0) {
-        warp_ch[warp] = __popc(bch);
-        warp_ok[warp] = __popc(bok);
+    grid.sync();
+    k = 0;
+    for (long long tt = blockIdx.x; tt < tiles; tt += gridDim.x, ++k) {
+        const int lane = (int)(tt / ntile);
+        const int tile = (int)(tt - (long long)lane * ntile);
+        const Rows rl = lane_rows(r, lane);
+        const int i = tile * THREADS + tid;
+        if (warp == 0) {
+            const int* pl = part + 4LL * ntile * lane;
+            int pch = 0, pok = 0, tch = 0, tok = 0, un = 0, sa = 0;
+            for (int u = wl; u < ntile; u += 32) {
+                const int a0 = pl[4 * u], a1 = pl[4 * u + 1];
+                tch += a0;
+                tok += a1;
+                if (u < tile) {
+                    pch += a0;
+                    pok += a1;
+                }
+                un += pl[4 * u + 2];
+                sa += pl[4 * u + 3];
+            }
+            pch = __reduce_add_sync(FULL, pch);
+            pok = __reduce_add_sync(FULL, pok);
+            tch = __reduce_add_sync(FULL, tch);
+            tok = __reduce_add_sync(FULL, tok);
+            un = __reduce_add_sync(FULL, un);
+            sa = __reduce_add_sync(FULL, sa);
+            if (wl == 0) {
+                sums[0] = pch;
+                sums[1] = pok;
+                sums[2] = tch;
+                sums[3] = tok;
+                sums[4] = un;
+                sums[5] = sa;
+            }
+        }
+        bool ch = false, ok = false;
+        if (k < CACHE_TILES) {
+            ch = (cache >> (2 * k)) & 1;
+            ok = (cache >> (2 * k + 1)) & 1;
+        } else if (i < rl.p_cap) {
+            ch = row_changed(rl, i);
+            ok = rl.ok[i] != 0;
+        }
+        const unsigned bch = __ballot_sync(FULL, ch);
+        const unsigned bok = __ballot_sync(FULL, ok);
+        if (wl == 0) {
+            warp_ch[warp] = __popc(bch);
+            warp_ok[warp] = __popc(bok);
+        }
+        __syncthreads();
+        const unsigned below = (1u << wl) - 1u;
+        int rch = sums[0] + __popc(bch & below);
+        int rok = sums[1] + __popc(bok & below);
+        for (int w = 0; w < warp; ++w) {
+            rch += warp_ch[w];
+            rok += warp_ok[w];
+        }
+        const int tch = sums[2], tok = sums[3];
+        int* delta = t.delta_buf + (long long)t.delta_len * lane;
+        int* full = t.full_buf + (long long)t.full_len * lane;
+        const int p_cap = rl.p_cap, last = p_cap - 1;
+        const bool with_ok = t.with_ok != 0;
+        // ranks are < count <= pad slots: the writes never collide
+        if (ok) put_row(rl, full, p_cap, rok, i, i, false);
+        if (ch && rch < t.budget)
+            put_row(rl, delta, t.budget, rch, i, i, with_ok);
+        if (i < p_cap && i >= tok) put_row(rl, full, p_cap, i, p_cap, last,
+                                           false);
+        if (i < t.budget && i >= tch)
+            put_row(rl, delta, t.budget, i, p_cap, last, with_ok);
+        if (tile == 0 && tid == 0)
+            put_scalars(t, lane, tch, tok, sums[4], sums[5]);
+        __syncthreads();  // sums and warp counts are reused next tile
     }
-    __syncthreads();
-    unsigned below = (1u << lane) - 1u;
-    int rch = __popc(bch & below), rok = __popc(bok & below);
-    for (int w = 0; w < warp; ++w) {
-        rch += warp_ch[w];
-        rok += warp_ok[w];
-    }
-    const int last = r.p_cap - 1;
-    const bool with_ok = stream != 0;
-    if (ok)
-        put_row(r, full_buf, r.p_cap, blk[4 * blockIdx.x + 1] + rok, i, i,
-                false);
-    if (ch) {
-        int pos = blk[4 * blockIdx.x] + rch;
-        if (pos < budget) put_row(r, delta_buf, budget, pos, i, i, with_ok);
-    }
-    if (i < r.p_cap && i >= full_buf[0])
-        put_row(r, full_buf, r.p_cap, i, r.p_cap, last, false);
-    if (i < budget && i >= delta_buf[0])
-        put_row(r, delta_buf, budget, i, r.p_cap, last, with_ok);
 }
 
 extern "C" {
 
-static Rows make_rows(const int* metric, const int* s3w, const int* nhw,
-                      const uint8_t* ok, const int* prev_metric,
-                      const int* prev_s3w, const int* prev_nhw,
-                      const int* flags, const int* const* lfa, int p_cap,
-                      int a_cap, int wa, int wd, long long flags_stride) {
+// the lfa pointers (lfa_slot, lfa_metric, prev_lfa_slot,
+// prev_lfa_metric) are each null without LFA; flags_stride is the
+// element distance between two lanes' flag planes; `part` holds 4 x g x
+// ceil(max(p_cap, budget) / 1024) ints of scratch; trips and rounds are
+// the arguments, or each lane's tr[2 lane], tr[2 lane + 1] when `tr`
+// is not null
+int compact_tail(const int* metric, const int* s3w, const int* nhw,
+                 const uint8_t* ok, const int* prev_metric,
+                 const int* prev_s3w, const int* prev_nhw, const int* flags,
+                 const int* lfa_slot, const int* lfa_metric,
+                 const int* prev_lfa_slot, const int* prev_lfa_metric,
+                 int* part, int* delta_buf, int* full_buf, int p_cap,
+                 int a_cap, int wa, int wd, int budget, int delta_len,
+                 int full_len, int trips, int rounds, int sentinels,
+                 const int* cone, const int* fell, const int* tr,
+                 int with_ok, int g, long long flags_stride,
+                 cudaStream_t stream) {
     Rows r;
-    r.lfa_slot = lfa[0];
-    r.lfa_metric = lfa[1];
-    r.prev_lfa_slot = lfa[2];
-    r.prev_lfa_metric = lfa[3];
-    r.flags_stride = flags_stride;
     r.metric = metric;
     r.s3w = s3w;
     r.nhw = nhw;
@@ -275,64 +329,42 @@ static Rows make_rows(const int* metric, const int* s3w, const int* nhw,
     r.prev_s3w = prev_s3w;
     r.prev_nhw = prev_nhw;
     r.flags = flags;
+    r.lfa_slot = lfa_slot;
+    r.lfa_metric = lfa_metric;
+    r.prev_lfa_slot = prev_lfa_slot;
+    r.prev_lfa_metric = prev_lfa_metric;
     r.p_cap = p_cap;
     r.a_cap = a_cap;
     r.wa = wa;
     r.wd = wd;
-    return r;
-}
-
-// the lfa pointer array holds (lfa_slot, lfa_metric, prev_lfa_slot,
-// prev_lfa_metric), each null without LFA; flags_stride is the element
-// distance between two lanes' flag planes
-int compact_count(const int* metric, const int* s3w, const int* nhw,
-                  const uint8_t* ok, const int* prev_metric,
-                  const int* prev_s3w, const int* prev_nhw, const int* flags,
-                  const int* lfa_slot, const int* lfa_metric,
-                  const int* prev_lfa_slot, const int* prev_lfa_metric,
-                  int* blk, int p_cap, int a_cap, int wa, int wd, int g,
-                  long long flags_stride, cudaStream_t stream) {
-    const int* lfa[4] = {lfa_slot, lfa_metric, prev_lfa_slot,
-                         prev_lfa_metric};
-    Rows r = make_rows(metric, s3w, nhw, ok, prev_metric, prev_s3w, prev_nhw,
-                       flags, lfa, p_cap, a_cap, wa, wd, flags_stride);
-    int nblk = (p_cap + THREADS - 1) / THREADS;
-    compact_count_kernel<<<dim3(nblk, g), THREADS, 0, stream>>>(r, blk);
-    return (int)cudaGetLastError();
-}
-
-int compact_scan(int* blk, int nblk, int* delta_buf, int* full_buf,
-                 int delta_len, int full_len, int trips, int rounds,
-                 int sentinels, const int* cone, const int* fell,
-                 const int* tr, int g, cudaStream_t stream) {
-    compact_scan_kernel<<<g, 32, 0, stream>>>(blk, nblk, delta_buf, full_buf,
-                                              delta_len, full_len, trips,
-                                              rounds, sentinels, cone, fell,
-                                              tr);
-    return (int)cudaGetLastError();
-}
-
-int compact_scatter(const int* metric, const int* s3w, const int* nhw,
-                    const uint8_t* ok, const int* prev_metric,
-                    const int* prev_s3w, const int* prev_nhw,
-                    const int* flags, const int* lfa_slot,
-                    const int* lfa_metric, const int* prev_lfa_slot,
-                    const int* prev_lfa_metric, const int* blk,
-                    int* delta_buf, int* full_buf, int p_cap, int a_cap,
-                    int wa, int wd, int budget, int delta_len, int full_len,
-                    int with_ok, int g, long long flags_stride,
-                    cudaStream_t stream) {
-    const int* lfa[4] = {lfa_slot, lfa_metric, prev_lfa_slot,
-                         prev_lfa_metric};
-    Rows r = make_rows(metric, s3w, nhw, ok, prev_metric, prev_s3w, prev_nhw,
-                       flags, lfa, p_cap, a_cap, wa, wd, flags_stride);
+    r.flags_stride = flags_stride;
+    Tail t;
+    t.delta_buf = delta_buf;
+    t.full_buf = full_buf;
+    t.delta_len = delta_len;
+    t.full_len = full_len;
+    t.budget = budget;
+    t.with_ok = with_ok;
+    t.trips = trips;
+    t.rounds = rounds;
+    t.sentinels = sentinels;
+    t.cone = cone;
+    t.fell = fell;
+    t.tr = tr;
     int span = p_cap > budget ? p_cap : budget;
-    int nblk = (span + THREADS - 1) / THREADS;
-    int count_blk = (p_cap + THREADS - 1) / THREADS;
-    compact_scatter_kernel<<<dim3(nblk, g), THREADS, 0, stream>>>(
-        r, blk, delta_buf, full_buf, budget, count_blk, delta_len, full_len,
-        with_ok);
-    return (int)cudaGetLastError();
+    int ntile = (span + THREADS - 1) / THREADS;
+    if (g < 1 || ntile < 1) return (int)cudaErrorInvalidValue;
+    static int grid[64];
+    long long tiles = (long long)g * ntile;
+    int nb = (int)min(tiles, (long long)coop_grid(
+                                 (const void*)compact_tail_kernel, THREADS,
+                                 BLOCKS_PER_SM, grid));
+    if (nb < 1) return (int)cudaErrorInvalidConfiguration;
+    void* args[] = {&r, &t, &part, &g, &ntile};
+    cudaError_t rc = cudaLaunchCooperativeKernel(
+        (const void*)compact_tail_kernel, dim3(nb), dim3(THREADS), args, 0,
+        stream);
+    return rc != cudaSuccess ? (int)rc : (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -63,6 +63,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "coop.cuh"
+
 namespace cg = cooperative_groups;
 
 #define INF_E (1 << 29)
@@ -486,23 +488,6 @@ __global__ void __launch_bounds__(THREADS) ladder_pass_kernel(
     if (t == 0 && block_changed && flag) atomicOr(flag, 1);
 }
 
-// The largest grid a cooperative launch of `fn` (THREADS threads, no
-// dynamic shared memory) takes on the current card, at most `per_sm`
-// blocks an SM: every block co-resident. Cached per card in `cache`.
-static int coop_grid(const void* fn, int per_sm, int* cache) {
-    int card = 0;
-    cudaGetDevice(&card);
-    int v = card < 64 ? cache[card] : 0;
-    if (!v) {
-        int sms = 0, occ = 0;
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, card);
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, fn, THREADS, 0);
-        v = sms * min(occ, per_sm);
-        if (card < 64) cache[card] = v;
-    }
-    return v;
-}
-
 extern "C" {
 
 int sssp_init(const int* shift_w, int* sw, const int* res_rows,
@@ -552,7 +537,7 @@ int ladder_pick(const int* sw, const int* deltas, int* part, int* w_base,
         return (int)cudaErrorInvalidValue;
     static int grid[64];
     int nb = min(PICK_BLOCKS, coop_grid((const void*)ladder_pick_kernel,
-                                        PICK_BLOCKS_PER_SM, grid));
+                                        THREADS, PICK_BLOCKS_PER_SM, grid));
     void* args[] = {&sw, &deltas, &part, &w_base, &d_base, &s_cap, &s_lad,
                     &n_cap, &dq, &g, &col0, &w_cols};
     cudaError_t rc = cudaLaunchCooperativeKernel(
@@ -570,7 +555,8 @@ int ladder_pass(int* a, int* b, const int* w, const int* dd, int* w2,
         ((long long)d_cap * n_cap + PASS_TILE - 1) / PASS_TILE * g;
     int nb = (int)max(1LL, min(tiles, (long long)coop_grid(
                                           (const void*)ladder_pass_kernel,
-                                          PASS_BLOCKS_PER_SM, grid)));
+                                          THREADS, PASS_BLOCKS_PER_SM,
+                                          grid)));
     Gate gate = make_gate(st, cnt, thr0, thr1, put0, put1, inc0, inc1);
     void* args[] = {&a, &b, &w, &dd, &w2, &d2, &s_lad, &d_cap, &n_cap, &g,
                     &flag, &gate};

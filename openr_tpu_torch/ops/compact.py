@@ -6,7 +6,8 @@ a programmable route from the root's vantage. The select kernel
 (``ops/select.py``, K3) computes it on the card.
 
 ``compact_outputs`` (K4, ``csrc/compact.cu``) builds the two pull
-buffers from the per-prefix outputs with a block-scan compaction: the
+buffers from the per-prefix outputs in one cooperative launch (tile
+counts, one grid barrier, then each tile ranks and places its rows): the
 changed-rows delta payload (``ops/stream.py`` column diff against the
 previous solve's planes) and the ok-rows full payload, with the
 numerical-health sentinel counts and the trip / round scalars in their
@@ -48,7 +49,7 @@ from openr_tpu_torch.ops.stream import column_diff, compact_rows
 # encoding: the saturation sentinel counts them
 SENTINEL_SAT = 1 << 28
 
-_BLOCK = 1024  # rows per block of the count / scatter kernels
+_BLOCK = 1024  # rows a tile of the kernel (its THREADS)
 
 
 def route_ok(metric, s3, nh_mask, ann_node, min_nh, v4_blocked, root: int):
@@ -133,47 +134,44 @@ def compact_outputs(metric, s3w, nhw, ok, prev_metric, prev_s3w, prev_nhw,
             trips, rounds, budget, sentinels, incr_tail, lfa, stream,
         )
     lanes = metric.dim() == 2
-    g = metric.shape[0] if lanes else 1
-    p_cap, wa = s3w.shape[-2:]
-    wd = nhw.shape[-1]
-    a_cap = flags.shape[-1]
-    if (flags.dtype != torch.int32 or not flags.is_cuda
-            or flags[0 if lanes else slice(None)].stride() != (a_cap, 1)):
+    g = metric.size(0) if lanes else 1
+    p_cap, wa, wd = metric.size(-1), s3w.size(-1), nhw.size(-1)
+    a_cap = flags.size(-1)
+    fs = flags.stride()
+    if (flags.dtype is not torch.int32 or fs[-1] != 1 or fs[-2] != a_cap
+            or flags.get_device() != metric.get_device()):
         raise ValueError("flags must be int32 [P, A] planes on the card")
-    flags_stride = flags.stride(0) if lanes else 0
-    if lanes:
-        if incr_tail is not None:
-            raise ValueError("a fused solve has no incremental tail")
-        if trips.shape != (g, 2):
-            raise ValueError("lanes need their [g, 2] (trips, rounds)")
-    dev = metric.device
+    if lanes and (incr_tail is not None or trips.shape != (g, 2)):
+        raise ValueError("lanes take their [g, 2] (trips, rounds) and no "
+                         "incremental tail")
     incr = incr_tail is not None
     n_delta, n_full = buffer_lens(p_cap, wa, wd, budget, sentinels, incr,
                                   lfa is not None, stream)
-    lead = metric.shape[:-1]
-    delta_buf = torch.empty(lead + (n_delta,), dtype=torch.int32, device=dev)
-    full_buf = torch.empty(lead + (n_full,), dtype=torch.int32, device=dev)
-    nblk = -(-p_cap // _BLOCK)
-    blk = torch.empty(g * 4 * nblk, dtype=torch.int32, device=dev)
-    # flags may be a strided view of per-lane planes: a raw address
-    rows = (metric, s3w, nhw, ok, prev_metric, prev_s3w, prev_nhw,
-            flags.data_ptr(), *(lfa if lfa is not None else (None,) * 4))
-    rows_sig = "tttbttt" + "p" + "tttt"
-    cuda.launch("compact", "compact_count", rows_sig + "tiiiiiL",
-                *rows, blk, p_cap, a_cap, wa, wd, g, flags_stride)
+    # int32 on metric's card (sizes as ints where one lane: fewer
+    # arguments to parse on the host)
+    if lanes:
+        delta_buf = metric.new_empty((g, n_delta))
+        full_buf = metric.new_empty((g, n_full))
+    else:
+        delta_buf = metric.new_empty(n_delta)
+        full_buf = metric.new_empty(n_full)
+    part = metric.new_empty(4 * g * -(-max(p_cap, budget) // _BLOCK))
     cone, fell = incr_tail if incr else (None, None)
     if lanes:
         trips_i = rounds_i = 0
         tr = trips
     else:
         trips_i, rounds_i, tr = int(trips), int(rounds), None
-    cuda.launch("compact", "compact_scan", "titt" + "iiiii" + "ttti",
-                blk, nblk, delta_buf, full_buf, n_delta, n_full, trips_i,
-                rounds_i, int(sentinels), cone, fell, tr, g)
-    cuda.launch("compact", "compact_scatter", rows_sig + "ttt" + "iiiiiiiiiL",
-                *rows, blk, delta_buf, full_buf, p_cap, a_cap, wa, wd, budget,
-                n_delta, n_full, int(stream), g, flags_stride)
-    compact_outputs.launches += 3
+    # flags may be a strided view of per-lane planes: a raw address (the
+    # other tensors fix the card)
+    cuda.launch("compact", "compact_tail",
+                "tttbtttp" + "tttt" + "ttt" + "i" * 10 + "ttt" + "iiL",
+                metric, s3w, nhw, ok, prev_metric, prev_s3w, prev_nhw,
+                flags.data_ptr(), *(lfa if lfa is not None else (None,) * 4),
+                part, delta_buf, full_buf, p_cap, a_cap, wa, wd, budget,
+                n_delta, n_full, trips_i, rounds_i, int(sentinels), cone,
+                fell, tr, int(stream), g, fs[0] if lanes else 0)
+    compact_outputs.launches += 1
     return delta_buf, full_buf
 
 

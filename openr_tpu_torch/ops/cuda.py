@@ -3,10 +3,11 @@
 The sources live in ``openr_tpu_torch/csrc/*.cu``, each with a plain C
 interface. On first use every source is compiled for ``sm_90a`` by its
 own ``nvcc`` process, all started together, into a shared library under
-``openr_tpu_torch/_build/`` named by the hash of its source and flags
-(so an edited source rebuilds and an unchanged one loads at once). The
-libraries are bound with ``ctypes``. ``launch`` takes the tensors
-themselves, each under a letter that names its dtype, and in one pass
+``openr_tpu_torch/_build/`` named by the hash of its source, the shared
+``csrc/*.cuh`` headers and the flags (so an edited source rebuilds and
+an unchanged one loads at once). The libraries are bound with
+``ctypes``. ``launch`` takes the tensors themselves, each under a
+letter that names its dtype, and in one pass
 checks each, reads its pointer and its card, and runs the kernel under
 that card's guard on PyTorch's current stream there, so a shard on
 ``cuda:1`` is ordered with the torch work on its own tensors.
@@ -76,6 +77,9 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    # the shared headers too: an edited header rebuilds every library
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -18,7 +18,7 @@ slot on ties (-1 and 0 when the row has none).
 
 With a lane axis (a fused solve of ``g`` same-shape areas) every plane
 and output is stacked [g, ...] and ``root`` is an int32 tensor [g];
-one launch per kernel covers every lane. The announcer matrix is then
+one launch covers every lane. The announcer matrix is then
 stacked too, or one [6*P*A] matrix that every lane shares (the
 whole-fabric step, a lane per root).
 
@@ -170,54 +170,46 @@ def select_routes(dist_d, root_w, root, mbuf, p_cap: int, a_cap: int,
         return _into(select_routes_plain(dist_d, root_w, root, mbuf, p_cap,
                                          a_cap, block_v4, lfa, dist_out),
                      out)
-    g = dist_d.shape[0] if dist_d.dim() == 3 else 1
-    d_cap, n_cap = dist_d.shape[-2:]
-    lead = dist_d.shape[:-2]
+    stacked = dist_d.dim() == 3
+    g = dist_d.size(0) if stacked else 1
+    d_cap, n_cap = dist_d.size(-2), dist_d.size(-1)
     pa6 = 6 * p_cap * a_cap
-    shared = dist_d.dim() == 3 and mbuf.dim() == 1
-    if (mbuf.shape[-1] != pa6 or mbuf.numel() != (1 if shared else g) * pa6
-            or root_w.shape[-1] != d_cap):
-        raise ValueError("mbuf / root_w do not match the plane shapes")
+    shared = stacked and mbuf.dim() == 1
     if isinstance(root, torch.Tensor):
-        if dist_d.dim() != 3 or root.shape != (g,):
-            raise ValueError("per-lane roots need stacked [g, D, n] planes")
         root_i, roots = 0, root
     else:
         root_i, roots = int(root), None
-    dev = dist_d.device
-
-    def empty(*shape, dtype=torch.int32):
-        return torch.empty(lead + shape, dtype=dtype, device=dev)
-
-    if dist_out is None:
-        dist = empty(n_cap)
-    else:
-        if dist_out.shape != lead + (n_cap,):
-            raise ValueError("dist_out does not match the plane shapes")
-        dist = dist_out
-    onsp = empty(n_cap, -(-d_cap // 32))
+    # sizes only: the launch checks each tensor's dtype, layout and card
+    if (mbuf.numel() != (1 if shared else g) * pa6
+            or root_w.numel() != g * d_cap
+            or stacked != (roots is not None)
+            or (stacked and roots.numel() != g)
+            or (dist_out is not None and dist_out.numel() != g * n_cap)):
+        raise ValueError("mbuf, root_w, the roots or dist_out do not match "
+                         "the [g, D, n] planes")
+    wa, wd = -(-a_cap // 16), -(-d_cap // 16)
+    # int32 (bool for ok) on the planes' card; one lane's sizes as ints
+    n = g * p_cap
+    lead = (g,) if stacked else ()
     if out is None:
-        metric = empty(p_cap)
-        s3w = empty(p_cap, -(-a_cap // 16))
-        nhw = empty(p_cap, -(-d_cap // 16))
-        lfa_out = (empty(p_cap), empty(p_cap)) if lfa else None
+        metric = dist_d.new_empty((g, p_cap) if stacked else p_cap)
+        s3w = dist_d.new_empty((*lead, p_cap, wa))
+        nhw = dist_d.new_empty((*lead, p_cap, wd))
+        lfa_out = (dist_d.new_empty(metric.shape),
+                   dist_d.new_empty(metric.shape)) if lfa else (None, None)
     else:
         metric, s3w, nhw = out[:3]
-        lfa_out = tuple(out[3:5]) if lfa else None
-        if (metric.shape != lead + (p_cap,)
-                or s3w.shape != lead + (p_cap, -(-a_cap // 16))
-                or nhw.shape != lead + (p_cap, -(-d_cap // 16))):
+        lfa_out = tuple(out[3:5]) if lfa else (None, None)
+        if (metric.numel() != n or s3w.numel() != n * wa
+                or nhw.numel() != n * wd
+                or (lfa and {t.numel() for t in lfa_out} != {n})):
             raise ValueError("out planes do not match the outputs' shapes")
-    ok = empty(p_cap, dtype=torch.bool)
-    cuda.launch("select", "select_nodes", "ttttiiiti",
-                dist_d, root_w, dist, onsp, d_cap, n_cap, root_i, roots, g)
-    lfa_args = (dist_d, root_w, *lfa_out) if lfa else (None,) * 4
-    cuda.launch("select", "select_prefixes",
-                "ttttttb" + "iiiiii" + "tiLitttt",
-                mbuf, dist, onsp, metric, s3w, nhw, ok, p_cap, a_cap, n_cap,
-                d_cap, root_i, int(block_v4), roots, g, 0 if shared else pa6,
-                int(lfa), *lfa_args)
-    select_routes.launches += 2
+    ok = dist_d.new_empty(metric.shape, dtype=torch.bool)
+    cuda.launch("select", "select_tail", "ttttttbttt" + "iiiiiti" + "Li",
+                dist_d, root_w, mbuf, metric, s3w, nhw, ok, *lfa_out,
+                dist_out, p_cap, a_cap, n_cap, d_cap, root_i, roots, g,
+                0 if shared else pa6, int(block_v4))
+    select_routes.launches += 1
     out = (metric, s3w, nhw, ok)
     return out + lfa_out if lfa else out
 

@@ -12,6 +12,7 @@ metric, s3w, nhw (trips, rounds and the route-ok rows ride the
 buffers).
 """
 
+import dataclasses
 import types
 
 import numpy as np
@@ -114,7 +115,34 @@ def _anycast_mesh():
     return states, ps, "node-0"
 
 
+def _wide():
+    """A weighted full mesh of 20 nodes (the root has 19 out-slots, so
+    the next hops take two 16-bit words) with two anycast prefixes of
+    more than 16 announcers (two selection words): one announced by 18
+    nodes, the root among them, at mixed preferences and distances; one
+    by 17 nodes at equal ones (ECMP over many announcers)."""
+    adj_dbs, prefix_dbs = topologies.full_mesh(20)
+    rng = np.random.default_rng(11)
+    metric = {}
+    adj_dbs = [dataclasses.replace(db, adjacencies=tuple(
+        dataclasses.replace(a, metric=metric.setdefault(
+            tuple(sorted((db.this_node_name, a.other_node_name))),
+            int(rng.integers(1, 4))))
+        for a in db.adjacencies)) for db in adj_dbs]
+    states, ps = topologies.build_states(adj_dbs, prefix_dbs)
+    for i in range(18):
+        ps.update_prefix_database(prefix_db(
+            f"node-{i}", "fd00::a5/128",
+            metrics=PrefixMetrics(path_preference=1000 - (i % 3 == 2) * 10,
+                                  distance=1 + i % 2)))
+    for i in range(1, 18):
+        ps.update_prefix_database(prefix_db(f"node-{i}", "fd00::a6/128"))
+    return states, ps, "node-0"
+
+
 def _case(name):
+    if name == "wide":
+        return _wide()
     if name == "grid":
         adj_dbs, prefix_dbs = topologies.grid(5)
         states, ps = topologies.build_states(adj_dbs, prefix_dbs)
@@ -134,6 +162,9 @@ def _case(name):
         # a budget below the changed-row count: overflow + pad slots
         ("anycast_mesh", "bucketed", 2, 4, True),
         ("anycast_mesh", "sync", None, 4096, False),
+        # A > 16 and D > 16 (two words each), an announcer at the root,
+        # a budget below the changed rows
+        ("wide", "sync", 3, 8, True),
     ],
 )
 def test_pipeline_bytes_match_jax(port, name, kernel, prev_seed, budget,
@@ -160,6 +191,9 @@ def test_pipeline_bytes_match_jax(port, name, kernel, prev_seed, budget,
         assert g.dtype == np.int32 and g.shape == w.shape, field
         np.testing.assert_array_equal(g, w, err_msg=field)
     assert (got.trips, got.rounds) == (int(want[1][1]), int(want[1][-1]))
+    if name == "wide":
+        assert st["a_cap"] > 16 and st["d_cap"] > 16
+        assert (got.s3w[:, 1] != 0).any() and (got.nhw[:, 1] != 0).any()
     if budget < st["p_cap"]:
         assert int(want[0][0]) > budget, "the case must overflow the budget"
 

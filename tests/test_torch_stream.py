@@ -161,14 +161,21 @@ def test_stream_pipeline_bytes_match_jax(port, name, kernel, lfa, sbudget):
     cone tails), the full buffer, the five published planes and the
     distance plane byte for byte — for a churn epoch, and for an epoch
     against zeroed previous planes, where every ok row changed (over the
-    budget on the 81-row grid at budget 64)."""
+    budget on the 81-row grid at budget 64). With LFA on the grid, the
+    zeroed epoch also at budget 64: the LFA columns over the budget."""
     args, zeros, shape, dexp = _stream_case(port, name, kernel, lfa)
-    run = _stream_pipeline.__wrapped__(
-        *shape, DIRTY_CAP, sbudget, lfa, False, True, kernel, dexp,
-        donate=False,
-    )
     p_cap = shape[6]
-    for label, prev in (("churn", args[9:14]), ("zeroed prev", zeros)):
+    legs = [("churn", args[9:14], sbudget), ("zeroed prev", zeros, sbudget)]
+    if lfa and sbudget > 64 < p_cap:
+        legs.append(("zeroed prev, budget 64", zeros, 64))
+    runs = {}
+    for label, prev, sbudget in legs:
+        if sbudget not in runs:
+            runs[sbudget] = _stream_pipeline.__wrapped__(
+                *shape, DIRTY_CAP, sbudget, lfa, False, True, kernel, dexp,
+                donate=False,
+            )
+        run = runs[sbudget]
         full = args[:9] + list(prev) + args[14:]
         want = [np.asarray(a) for a in run(*full)]
         got = port.gpu_solver.pipeline(
@@ -182,7 +189,7 @@ def test_stream_pipeline_bytes_match_jax(port, name, kernel, lfa, sbudget):
             np.testing.assert_array_equal(g, w, err_msg=f"{label} {field}")
         count = int(want[0][0])
         assert count > 0, label
-        if label == "zeroed prev" and p_cap > sbudget:
+        if label.startswith("zeroed prev") and p_cap > sbudget:
             assert count > sbudget, "the epoch must run over its budget"
 
 

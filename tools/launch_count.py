@@ -1,13 +1,16 @@
-"""Device work of one lsdb100k incremental build and of one flapstorm100k
-streaming epoch, for the ``openr_tpu_torch`` package found under
-``--root`` (default: this checkout), so that two trees can be compared
-in one run on the same card:
+"""Device work of one lsdb100k incremental build, of one flapstorm100k
+streaming epoch and of one cold fused build (``chip_smoke.py``'s fused
+cell: vantage ``hub`` in 4 grid(56) areas), for the ``openr_tpu_torch``
+package found under ``--root`` (default: this checkout), so that two
+trees can be compared in one run on the same card:
 
     python -m tools.launch_count [--root DIR] [--builds N]
 
 Needs a CUDA card. Each counted build or epoch follows a flap of
 ``adj_dbs[1]`` (chip_smoke.py's ``flap``, a metric increase) and is
-held to a fresh cold solve's RIB. Counts are ``chip_smoke.counted``'s:
+held to a fresh cold solve's RIB; the fused build must solve its areas
+in one fused dispatch, its RIB equal to an earlier solver's. Counts are
+``chip_smoke.counted``'s:
 kernel launches by wrapper (every ``ops`` function with a ``launches``
 count), torch ops on the card by name (clones, fills, copies, reads),
 and their sum. Prints one JSON line.
@@ -54,7 +57,11 @@ def main() -> int:
     import openr_tpu_torch.ops as ops_pkg
     from openr_tpu_torch.decision import gpu_solver
     from openr_tpu_torch.models import topologies
-    from openr_tpu_torch.types import AdjacencyDatabase
+    from openr_tpu_torch.types import (
+        AdjacencyDatabase,
+        PrefixDatabase,
+        PrefixEntry,
+    )
 
     wrappers = _wrappers(ops_pkg)
     root = cs.LSDB100K_ROOT
@@ -99,6 +106,22 @@ def main() -> int:
         flap(2 * i + 1)
         inc.build_route_db(root, states, ps)
         stream.collect_route_db(stream.dispatch_route_db(root, states, ps))
+    fstates, fps = topologies.build_states(*cs.fused_cell(
+        AdjacencyDatabase, PrefixDatabase, PrefixEntry, topologies,
+        cs.FUSED_SIDE, cs.FUSED_AREAS))
+
+    def fused_solver():
+        return gpu_solver.GpuSpfSolver(
+            "hub", device=cs.DEVICE,
+            small_graph_nodes=cs.AUTO_SMALL_GRAPH_NODES)
+
+    first = fused_solver().build_route_db("hub", fstates, fps)
+    fsolver, box = fused_solver(), {}
+    out["fused_build"] = cs.counted(torch, wrappers, lambda: box.update(
+        db=fsolver.build_route_db("hub", fstates, fps)))
+    cs.check(fsolver.last_device_stats.get("fused") == cs.FUSED_AREAS
+             and cs.rib_equal(first, box["db"]),
+             "the fused build must fuse its areas and equal the first one")
     print(json.dumps(out), flush=True)
     return 0
 
