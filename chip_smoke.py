@@ -73,13 +73,19 @@ prints no result line:
      step prints its time split, cone, trips, rounds, launches, flag
      reads and bytes moved; the counts are zeroed before each
      incremental build and read after it;
-  7. the churn kernels (K5 in place, the old planes, K6-K9, K4 with
+  7. the churn kernels (K5 in place, the old planes, K6, K7, K4 with
      the incremental tail) and the whole incremental solve against
      their plain versions on the last flap step's own inputs, timed
      beside their bounds and, for K5 and K7, the one PyTorch call that
      computes the same scatter; K5, the old planes and K7 also split
      into device time alone, host enqueue and (K5, K7) the bare
-     launch's host cost; then the device work (kernel launches and
+     launch's host cost; the cone (K8 + K9, ``cone_resolve``: one
+     cooperative launch) against its plain composition, tolerance 0,
+     each call one launch and no torch op, on the last flap step, the
+     fallback step, a subtree below the root and a deep chain (lane 0
+     one chain through all n_cap nodes), each case's sweeps and device
+     ms printed, its row split like K7's; then the device work (kernel
+     launches and
      torch ops) of K7 alone (one launch, no fill), of the old planes
      alone (one launch a plane), of one incremental SSSP and of one
      incremental build, whose RIB equals a cold solve's;
@@ -96,7 +102,8 @@ prints no result line:
      epochs 0, 100 and 199 and at the idle epoch equals a fresh
      solver's cold solve, the last also the oracle's; one more flap
      epoch is counted (kernel launches and torch ops) and held to a cold
-     solve. It prints every
+     solve; the cone of one more epoch is held to plain (one launch). It
+     prints every
      epoch (changed rows, budget, overflow, bytes, launches, flag reads,
      time split) and a summary: the p50 / p99 of flap-apply to RIB
      delta, bytes per epoch, streamed epochs, overflows and the rate
@@ -219,7 +226,9 @@ prints no result line:
      (min, max, sum) against their plain versions at those shapes (the
      class pick counted as one launch and no torch op); K3 and K4 on the
      tier's tail (the arguments ``mc_pipeline`` passes them in one more
-     flap build) against plain, each call one launch. fabric10k's
+     flap build) against plain, each call one launch, and in that build
+     every member's cone (``cone_resolve`` without a plane) and K9 seed
+     plane against plain, each one launch. fabric10k's
      4,096 vantages through
      ``build_fabric_route_dbs(mesh=...)`` (window ``fabric_mesh``;
      ``pod063-rsw63``'s RIB equal to the LFA oracle) and the array-level
@@ -277,8 +286,8 @@ STORM_HZ = 100.0
 COLD_PATH = ("K1s:sssp_init", "K1:relax_step", "K2:ladder_classes",
              "K2:ladder_pass", "K3:select_routes", "K4:compact_outputs")
 CHURN_PATH = COLD_PATH + ("K5:scatter_set", "K5:old_plane",
-                          "K6:parent_plane", "K7:cone_seed", "K8:cone_step",
-                          "K9:cone_finish")
+                          "K6:parent_plane", "K7:cone_seed",
+                          "K8+K9:cone_resolve")
 UCMP_PATH = ("base_sssp", "ucmp_propagate")
 # incremental flap steps of the churn phase (each held to a cold solve of
 # the same state, ~3 s of host RIB build at lsdb100k; 8 until the TE
@@ -776,6 +785,82 @@ def whole_incremental(torch, incremental, ci) -> tuple:
           and [int(x) for x in got[1:]] == [int(x) for x in want[1:]],
           "incremental SSSP: kernels != plain")
     return got, wall
+
+
+# the deep chain's node order is seeded (phase 7)
+CHAIN_SEED = 19
+
+
+def cone_args(ci, incremental) -> tuple:
+    """``cone_resolve``'s arguments on a churn step's own inputs
+    (``churn_inputs``): (par, the seeded cone from K7, the rest)."""
+    lane = ci["lane"]
+    return (ci["par"], incremental.cone_seed(*ci["cargs"]),
+            (ci["prev_dist"], ci["dist0"], lane[7], lane[8],
+             ci["cone_limit"], ci["whole"][1]["max_trips"]))
+
+
+def deep_chain(torch, par, seeded) -> tuple:
+    """``par`` and ``seeded`` with lane 0 replaced by one chain through
+    every node (a seeded order) and its head seeded: a cone n_cap - 1
+    levels deep, as deep as n_cap allows."""
+    n_cap = par.shape[1]
+    gen = torch.Generator().manual_seed(CHAIN_SEED)
+    order = torch.randperm(n_cap, generator=gen).to(par.device)
+    chain, aff = par.clone(), seeded.clone()
+    chain[0, order[1:]] = order[:-1].to(torch.int32)
+    chain[0, order[0]] = -1
+    aff[0] = 0
+    aff[0, order[0]] = 1
+    return chain, aff
+
+
+def subtree_cone(torch, par, seeds_nbr):
+    """A deep cone of the main path's own forest: in each lane, the first
+    child of the lane's seed node (a root out-neighbour) seeded, so the
+    cone is that child's whole subtree."""
+    aff = torch.zeros_like(par)
+    for d, s in enumerate(seeds_nbr.tolist()):
+        kids = (par[d] == s).nonzero() if s >= 0 else []
+        if len(kids):
+            aff[d, kids[0, 0]] = 1
+    return aff
+
+
+def cone_case(c, label: str, par, seeded, rest, reps: int = 20) -> tuple:
+    """``cone_resolve`` on the card against its plain composition on the
+    same tensors, at tolerance 0 on the closure, the seed plane (where
+    there is one), cone and fell_back; the call must be one launch and
+    no torch op. -> (its numbers, the plain result, the kernel's seed
+    plane): cone, fell_back, the kernel's sweeps, the plain version's
+    Jacobi steps, the largest difference from plain, and the call's
+    device ms alone (``device_ms`` of a copy of the seeded cone and the
+    call, less the copy's)."""
+    torch, inc = c.torch, c.incremental
+    aff_p = seeded.clone()
+    want = (aff_p, *inc.cone_resolve_plain(par, aff_p, *rest))
+    aff_k, box = seeded.clone(), {}
+    one_launch(torch, c.wrappers, f"cone_resolve ({label})",
+               lambda: box.update(out=inc.cone_resolve(par, aff_k, *rest)))
+    plane, tail = box["out"]
+    err = max_abs_err(torch, (aff_k, tail[:2]), (want[0], want[2][:2]))
+    if plane is not None:
+        err = max(err, max_abs_err(torch, plane, want[1]))
+    check(err == 0, f"cone_resolve ({label}) != plain (err {err})")
+    scratch = seeded.clone()
+
+    def run():
+        scratch.copy_(seeded)
+        inc.cone_resolve(par, scratch, *rest)
+
+    ms = (device_ms(torch, run, reps)[0]
+          - device_ms(torch, lambda: scratch.copy_(seeded), reps)[0])
+    row = {"case": label, "cone": int(tail[0]), "fell_back": int(tail[1]),
+           "sweeps": int(tail[2]), "jacobi_steps": int(want[2][2]),
+           "max_abs_err": err, "ms": ms}
+    log(f"cone_resolve {label}: equal to plain, one launch; "
+        + json.dumps(row))
+    return row, want, plane
 
 
 def flap(adb_cls, states, adj_dbs, by_name, victim: int, i: int) -> int:
@@ -3223,7 +3308,7 @@ MC_PATH = ("K1s:sssp_init_mc", "K1:relax_step_mc", "K2:ladder_classes_mc",
            "K3:select_routes", "K4:compact_outputs")
 MC_INCR_PATH = MC_PATH + ("K5:scatter_window", "K6:parent_shift_mc",
                           "K7:owned_weights", "K7:cone_seed_mc",
-                          "K8:cone_step", "K9:cone_finish")
+                          "K8+K9:cone_resolve", "K9:cone_finish")
 MESH_FABRIC_PATH = ("K1s:sssp_init", "K21e:fabric_extent",
                     "K21:fabric_relax_mc", "K23:shard_combine",
                     "K3:select_routes")
@@ -3570,20 +3655,29 @@ def mesh_fabric_kernels(c, fsolver, fnames, fstates) -> None:
 
 
 def mc_tail(c, solver, lsdb, root) -> None:
-    """K3 and K4 on the multichip tier's tail: the arguments
-    ``gpu_solver.mc_pipeline`` passes them in one more lsdb100k_mc build
-    of ``solver`` after a flap (copied as it calls them), each held to
-    its plain version (tolerance 0) and counted as one launch."""
-    torch, gs = c.torch, c.gpu_solver
+    """K3 and K4 on the multichip tier's tail, and each member's cone
+    (``cone_resolve`` without a plane) and seed plane (K9): the arguments
+    ``gpu_solver.mc_pipeline`` and ``sharding.mc_incremental_sssp`` pass
+    them in one more lsdb100k_mc build of ``solver`` after a flap
+    (copied as they call them), each held to its plain version
+    (tolerance 0) and counted as one launch; K9's row is timed on
+    member (0, 0)'s."""
+    torch, gs, sh, inc = c.torch, c.gpu_solver, c.sharding, c.incremental
     adj_dbs, states, ps = lsdb
     by_name = {db.this_node_name: db for db in adj_dbs}
-    seen = {}
+    seen, members = {}, {"cone_resolve": [], "cone_finish": []}
     real = {"select_routes": gs.select_routes,
-            "compact_outputs": gs.compact_outputs}
+            "compact_outputs": gs.compact_outputs,
+            "cone_resolve": sh.cone_resolve, "cone_finish": sh.cone_finish}
 
     def spy(name):
         def call(*a, **k):
-            seen[name] = (tensors_mapped(lambda t: t.clone(), a), k)
+            # copied before the call: the cone and the tail change in place
+            copy = (tensors_mapped(lambda t: t.clone(), a), k)
+            if name in members:
+                members[name].append(copy)
+            else:
+                seen[name] = copy
             return real[name](*a, **k)
         return call
 
@@ -3591,14 +3685,52 @@ def mc_tail(c, solver, lsdb, root) -> None:
     cur = states["0"].get_adjacency_databases()[vname].adjacencies[0].metric
     flap(c.AdjacencyDatabase, states, adj_dbs, by_name, 1,
          (cur - 50 + 1) % 5)
-    gs.select_routes, gs.compact_outputs = (spy(n) for n in real)
+    gs.select_routes, gs.compact_outputs = spy("select_routes"), spy(
+        "compact_outputs")
+    sh.cone_resolve, sh.cone_finish = spy("cone_resolve"), spy(
+        "cone_finish")
     try:
         solver.build_route_db(root, states, ps)
     finally:
         gs.select_routes = real["select_routes"]
         gs.compact_outputs = real["compact_outputs"]
-    check(set(seen) == set(real) and solver.last_device_stats.get(
-        "multichip"), "lsdb100k_mc: the tier's tail did not run")
+        sh.cone_resolve = real["cone_resolve"]
+        sh.cone_finish = real["cone_finish"]
+    check(set(seen) == {"select_routes", "compact_outputs"}
+          and solver.last_device_stats.get("multichip")
+          and solver.last_device_stats.get("incremental"),
+          "lsdb100k_mc: the tier's incremental tail did not run")
+    mesh = solver._area_dev["0"].mc_mesh
+    check(len(members["cone_resolve"]) == len(members["cone_finish"])
+          == mesh.size, "lsdb100k_mc: one cone and one seed plane a member")
+    rows = []
+    for i, (a, k) in enumerate(members["cone_resolve"]):
+        par, seeded, *rest = a
+        rows.append(cone_case(c, f"mc member {i}", par, seeded, tuple(rest),
+                              reps=5)[0])
+    (fa, fk) = members["cone_finish"][0]
+    fin_tail = fa[6].clone()  # the kernel writes tail[1] in place
+
+    def fin():
+        return inc.cone_finish(*fa[:6], fin_tail, **fk)
+
+    def fin_plain():
+        return inc.cone_finish_plain(*fa[:6], fa[6][0], **fk)
+
+    err = 0
+    for fa_i, fk_i in members["cone_finish"]:
+        err = max(err, max_abs_err(
+            torch, inc.cone_finish(*fa_i[:6], fa_i[6].clone(), **fk_i),
+            inc.cone_finish_plain(*fa_i[:6], fa_i[6][0], **fk_i)))
+    one_launch(torch, c.wrappers, "cone_finish on a member", fin)
+    d_loc, n_cap = fa[0].shape
+    c.record(
+        "K9:cone_finish", err, fin, fin_plain,
+        nbytes=4 * (3 * d_loc * n_cap + 2 * d_loc + 2),
+        ops=3 * d_loc * n_cap)
+    log("lsdb100k_mc: every member's cone (one launch each) and seed plane "
+        "equal to plain: " + json.dumps(
+            {k: [r[k] for r in rows] for k in ("cone", "sweeps", "ms")}))
     for name, mod in (("select_routes", c.select),
                       ("compact_outputs", c.compact)):
         a, k = seen[name]
@@ -3877,10 +4009,10 @@ def main() -> int:
                             "openr_tpu/ops/incremental.py:74"),
         "K7:cone_seed": (incremental.cone_seed, "incremental.cu",
                          "openr_tpu/ops/incremental.py:128"),
-        "K8:cone_step": (incremental.cone_step, "incremental.cu",
-                         "openr_tpu/ops/incremental.py:128"),
+        "K8+K9:cone_resolve": (incremental.cone_resolve, "incremental.cu",
+                               "openr_tpu/ops/incremental.py:128"),
         "K9:cone_finish": (incremental.cone_finish, "incremental.cu",
-                           "openr_tpu/ops/incremental.py:128"),
+                           "openr_tpu/parallel/sharding.py:654"),
         "base_sssp": (ksp2.base_sssp, "relax.cu", "openr_tpu/ops/ksp2.py:128"),
         "ucmp_propagate": (ucmp.ucmp_propagate, "ucmp.cu",
                            "openr_tpu/ops/ucmp.py:54"),
@@ -4580,48 +4712,80 @@ def main() -> int:
           lambda: cuda.launch("incremental", "cone_seed",
                               "ppppppppppppiiiiiiii", *k7_ptrs, *k7_ints))
 
-    st_k, st_p = torch.empty_like(aff_k), torch.empty_like(aff_k)
-    f_k = torch.zeros(1, dtype=torch.int32, device=dev)
-    f_p = torch.zeros_like(f_k)
-    incremental.cone_step(par_k, aff_k, st_k, f_k)
-    incremental.cone_step_plain(par_k, aff_k, st_p, f_p)
-    err = max_abs_err(torch, (st_k, f_k), (st_p, f_p))
-    bound_trips = relax.max_trips(n_cap)
-    spread_k, trips_k = incremental.cone_spread(par_k, aff_k.clone(),
-                                                bound_trips)
-    spread_p, trips_p, _ = relax.run_sync(
-        lambda a, o, f: incremental.cone_step_plain(par_k, a, o, f),
-        aff_k.clone(), bound_trips)
-    check(trips_k == trips_p, "cone spread: kernel and plain trips differ")
-    record(
-        "K8:cone_step", max(err, max_abs_err(torch, spread_k, spread_p)),
-        lambda: incremental.cone_step(par_k, aff_k, st_k, f_k),
-        lambda: incremental.cone_step_plain(par_k, aff_k, st_p, f_p),
-        nbytes=4 * 3 * d_cap * n_cap + 4, ops=3 * d_cap * n_cap,
-    )
-    log(f"lsdb100k cone spread equal to plain: {trips_k} trips, cone "
-        f"{int(spread_k.sum())} node-lanes")
+    # K8 + K9: the cone's closure, count, fallback and seed plane in one
+    # launch, on the last flap step's inputs, the fallback step's, a
+    # subtree below the root and a deep chain
+    c_par, c_seeded, c_rest = cone_args(ci, incremental)
+    flap_row, _, _ = cone_case(c, "flap step", c_par, c_seeded, c_rest)
+    check(flap_row["cone"] > 0 and not flap_row["fell_back"],
+          "the last flap step must re-anchor a cone without fallback")
+    fb_ci = churn_inputs(relax, incremental, fb_solver)
+    fb_row, _, fb_plane = cone_case(c, "fallback step",
+                                    *cone_args(fb_ci, incremental))
+    check(fb_row["fell_back"] == 1 and fb_row["cone"] > 0
+          and max_abs_err(torch, fb_plane, fb_ci["dist0"]) == 0,
+          "cone_resolve: the fallback step's seed != K1s's cold seed")
+    sub_row = cone_case(c, "subtree below the root", c_par,
+                        subtree_cone(torch, c_par, i_rnbr), c_rest,
+                        reps=10)[0]
+    ch_par, ch_seeded = deep_chain(torch, c_par, c_seeded)
+    ch_row, ch_want, _ = cone_case(
+        c, "deep chain", ch_par, ch_seeded,
+        (prev_dist, ci["dist0"], i_rnbr, i_rw, d_cap * n_cap,
+         relax.max_trips(n_cap)), reps=2)
+    check(int(ch_want[0][0].sum()) == n_cap,
+          "the deep chain's cone must hold its whole lane")
+    cone_err = max(r["max_abs_err"]
+                   for r in (flap_row, fb_row, sub_row, ch_row))
+    # the row: the flap step. The bound is what the function must move:
+    # par, aff, prev (or dist0) read once and the plane written once, at
+    # any sweep count; the kernel's own traffic over its s sweeps,
+    # (2 s + 3) words a lane-node, is printed beside it
+    sweeps = flap_row["sweeps"]
+    c_scratch = c_seeded.clone()
 
-    errs = []
-    dist0_n = ci["dist0"]
-    for limit in (ci["cone_limit"], 0):
-        fargs = (spread_k, prev_dist, dist0_n, i_rnbr, i_rw, limit)
-        got = incremental.cone_finish(*fargs)
-        errs.append(max_abs_err(torch, got,
-                                incremental.cone_finish_plain(*fargs)))
-        check(int(got[1][1]) == int(int(spread_k.sum()) > limit),
-              "cone_finish: wrong fallback decision")
-        if limit == 0:
-            check(max_abs_err(torch, got[0], dist0_n) == 0,
-                  "cone_finish: the fallback seed != K1s's cold seed")
-    fargs = (spread_k, prev_dist, dist0_n, i_rnbr, i_rw, ci["cone_limit"])
+    def cone_copy():
+        c_scratch.copy_(c_seeded)
+
+    def cone_run():
+        cone_copy()
+        incremental.cone_resolve(c_par, c_scratch, *c_rest)
+
+    def cone_plain():
+        cone_copy()
+        incremental.cone_resolve_plain(c_par, c_scratch, *c_rest)
+
     record(
-        "K9:cone_finish", max(errs),
-        lambda: incremental.cone_finish(*fargs),
-        lambda: incremental.cone_finish_plain(*fargs),
-        nbytes=4 * (3 * d_cap * n_cap + 2 * d_cap + 2),
-        ops=3 * d_cap * n_cap,
+        "K8+K9:cone_resolve", cone_err, cone_run, cone_plain,
+        nbytes=4 * 4 * d_cap * n_cap,
+        ops=6 * d_cap * n_cap,
     )
+    r = results["K8+K9:cone_resolve"]
+    copy_ms = time_ms(torch, cone_copy, 50)
+    copy_dev, copy_host = device_ms(torch, cone_copy)
+    run_dev, run_host = device_ms(torch, cone_run)
+    # the bare launch: the same arguments as raw addresses (on the closed
+    # cone the kernel does one sweep; only its host cost is read)
+    b_tail = torch.empty(6, dtype=torch.int32, device=dev)
+    b_plane = torch.empty_like(prev_dist)
+    b_ptrs = [t.data_ptr() for t in (c_par, c_scratch, prev_dist,
+                                     ci["dist0"], i_rnbr, i_rw, b_tail,
+                                     b_plane)]
+    b_ints = (ci["cone_limit"], d_cap, n_cap,
+              relax.max_trips(n_cap) * relax.UNROLL)
+    r.update(
+        ms=r["ms"] - copy_ms, plain_ms=r["plain_ms"] - copy_ms,
+        device_ms=run_dev - copy_dev, host_ms=run_host - copy_host,
+        launch_floor_host_ms=device_ms(torch, lambda: cuda.launch(
+            "incremental", "cone_fix", "p" * 8 + "i" * 4, *b_ptrs,
+            *b_ints))[1],
+        seed_copy_ms=copy_ms, seed_copy_device_ms=copy_dev,
+        seed_copy_host_ms=copy_host, sweeps=sweeps,
+        sweep_traffic_ms=bound(4 * (2 * sweeps + 3) * d_cap * n_cap,
+                               (3 * sweeps + 3) * d_cap * n_cap)[0])
+    log("K8+K9:cone_resolve split (the seeded cone's copy taken off): "
+        + json.dumps({k: v for k, v in r.items()
+                      if k.endswith("_ms") or k == "sweeps"}))
 
     # the whole incremental solve: kernels on the card vs the plain
     # versions on CPU copies of the same inputs; and the cold fixpoint
@@ -4689,6 +4853,30 @@ def main() -> int:
               f"kernel {name} never launched on the stream path")
     variant_launches["K4:compact_outputs[stream]"] = stream_launches[
         "K4:compact_outputs"]
+    # the cone of one more storm epoch, on the arguments the epoch's
+    # solve passed (copied as it called): against plain, one launch
+    real_resolve, seen = incremental.cone_resolve, {}
+
+    def spy_resolve(*a, **k):
+        seen["args"] = tensors_mapped(lambda t: t.clone(), a)
+        return real_resolve(*a, **k)
+
+    # the wrapper counts its launches on the module's name, the spy now
+    spy_resolve.launches = 0
+
+    flap(AdjacencyDatabase, states, adj_dbs, by_name, 3, STORM_FLAPS + 8)
+    incremental.cone_resolve = spy_resolve
+    try:
+        s_solver.collect_route_db(s_solver.dispatch_route_db(
+            LSDB100K_ROOT, states, ps))
+    finally:
+        incremental.cone_resolve = real_resolve
+    check("args" in seen and s_solver.last_timing.get("stream"),
+          "the storm epoch must stream through the cone")
+    s_par, s_seeded, *s_rest = seen["args"]
+    s_row = cone_case(c, "storm epoch", s_par, s_seeded, tuple(s_rest))[0]
+    r = results["K8+K9:cone_resolve"]
+    r["max_abs_err"] = max(r["max_abs_err"], s_row["max_abs_err"])
 
     log(f"-- phase 9 starts at "
         f"{time.perf_counter() - t_start:.1f} s")

@@ -1,6 +1,6 @@
 // Shared by the sources whose kernels launch cooperatively
 // (cudaLaunchCooperativeKernel: relax.cu's ladder pick and pass,
-// compact.cu's route tail). ops/cuda.py hashes this header into every
+// compact.cu's route tail, incremental.cu's cone). ops/cuda.py hashes this header into every
 // library's name, so an edit rebuilds them all.
 
 #pragma once

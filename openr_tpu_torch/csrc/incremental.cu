@@ -11,9 +11,10 @@
 //       at INF_E, one launch a plane
 //   K6  ops/incremental.py::_parent_plane               parent forest
 //   K7  ops/incremental.py::incremental_sssp, :169-205  cone seeds
-//   K8  ops/incremental.py::incremental_sssp, :207-240  cone spread step
-//   K9  ops/incremental.py::incremental_sssp, :242-254  cone size,
-//       in-device fallback decision, warm or cold seed plane
+//   K8 + K9  ops/incremental.py::incremental_sssp, :207-254: the aff
+//       while-loop, cone = aff.sum(), fell_back = cone > cone_limit and
+//       the warm or cold seed plane, as one cooperative launch a solve
+//       (cone_fix; K9's seed plane alone, cone_plane, for the tier)
 // and, with a window of columns (or rows) per shard, their multichip
 // variants in parallel/sharding.py::make_mc_incremental_sssp:
 //   K5 [mc]  global flat indices translated to the shard's window, the
@@ -24,16 +25,23 @@
 //   K7 [mc]  the dirty slots' new weights read from the owning shard
 //            (:575-580; min over the group), and the seeds from those
 //            combined weights (:581-598)
+//   K8 [mc]  a member's spread to the closure and its own count
+//            (cone_fix without a plane; the group's count is member 0's,
+//            summed over the batch groups by K23)
+//   K9 [mc]  the seed plane from a given cone (cone_plane, :652-655)
 //
-// Bound: bytes. K6, K8 and K9 stream [D, n_cap] int32 planes once
+// Bound: bytes. K6 and K9's plane stream [D, n_cap] int32 planes once
 // (K6 also the [s_cap, n_cap] old weights) with a handful of integer
 // ops per word; the old planes read and write their plane once; K7
 // writes its [D, n_cap] plane once; K5 touches a few thousand dirty
-// entries. Design: one thread per (lane, node) or per dirty entry,
-// neighbouring threads on neighbouring nodes, so plane loads coalesce
-// except the parent gathers of K8, which follow the forest. Change
-// flags reduce per block with __syncthreads_or before one atomicOr; the
-// cone count reduces per warp with shuffles before one atomicAdd.
+// entries; the cone's function needs the parent, cone and previous (or
+// cold) planes read once and the seed plane written once, 4 D n_cap
+// words at any depth, where cone_fix streams the parent and cone planes
+// once a sweep, then the cone and the previous plane once more and the
+// seed plane: (2 s + 3) D n_cap words for s sweeps. Design: one thread
+// per (lane, node) or per dirty entry, neighbouring threads on
+// neighbouring nodes, so plane loads coalesce except the parent
+// gathers, which follow the forest.
 //
 // Tiled writes (the old planes, K7): each block owns a tile of its
 // output, writes all of it, and after __syncthreads() (which orders the
@@ -63,8 +71,13 @@
 // unsigned arithmetic, exact for any int32 shift. INF discipline:
 // weights <= 2^28, INF_E = 2^29, every sum <= 2^30.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "coop.cuh"
+
+namespace cg = cooperative_groups;
 
 #define INF_E (1 << 29)
 #define THREADS 256
@@ -276,44 +289,180 @@ __global__ void cone_seed_kernel(
     }
 }
 
-// K8: dst[d, v] = max(src[d, v], src[d, par[d, v]]) — Jacobi, one
-// forest level per step.
-__global__ void cone_step_kernel(const int* __restrict__ par,
-                                 const int* __restrict__ src,
-                                 int* __restrict__ dst,
-                                 int* __restrict__ flag, int d_cap,
-                                 int n_cap) {
-    long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    int changed = 0;
-    if (i < (long long)d_cap * n_cap) {
-        int cur = src[i];
-        int p = par[i];
-        int v = cur;
-        if (p >= 0) {
-            long long d = i / n_cap;
-            v = max(cur, src[d * n_cap + p]);
-        }
-        dst[i] = v;
-        changed = v != cur;
-    }
-    if (__syncthreads_or(changed) && threadIdx.x == 0) atomicOr(flag, 1);
+// K8 + K9, cone_fix: one cooperative launch takes the seeded cone to its
+// closure, counts it, decides the fallback and writes the seed plane.
+//
+// Sweeps. Each word does aff[d, v] = max(aff[d, v], aff[d, par[d, v]])
+// in place; an unmarked word follows its ancestors (par[d, par[d, v]],
+// ...) and is marked at the first marked one, up to min(2^s, CONE_HOPS)
+// levels in sweep s: a shallow cone closes in sweeps of one or two
+// levels, where a walk costs an unmarked word a dependent load a level,
+// and a deep one soon takes CONE_HOPS levels a sweep. Marks are 0/1 and
+// only rise, and every mark lies in the closure (the forest descendants
+// of a seed), so any order of the updates ends at the same unique
+// closure: only the sweep count depends on it, and the payload does not
+// carry that. Other blocks write the plane inside the launch,
+// so it is read through L2 only (__ldcg): grid.sync() fences global
+// memory but leaves a stale L1 line valid.
+//
+// Exit. A sweep ORs its change into a device word (__syncthreads_or,
+// then one atomicOr a block) and the grid syncs; every block then reads
+// the word and leaves on the first sweep that changed nothing anywhere,
+// or after `max_sweeps` sweeps (the host loop's bound: at least one
+// level a sweep, so it never cuts a forest of n_cap levels short). The
+// words rotate over three slots, sweep s in slot s % 3, and block 0
+// clears slot (s + 1) % 3 during sweep s: that slot was last read just
+// after sweep s - 2's barrier, which every block has left once sweep
+// s - 1's barrier is passed, and its next writers start after sweep s's.
+//
+// Count. A sweep that changed nothing read every word at its final
+// value, so each thread's marks from that sweep are the cone: a block's
+// sum (warp shuffles, one atomicAdd) goes into tail[0] with no extra
+// pass (a spread cut at the bound, or with no sweep, counts in a pass
+// of its own). Then a grid barrier, and every block reads fell_back =
+// tail[0] > cone_limit; block 0 writes it to tail[1] and the sweep
+// count to tail[2].
+//
+// Plane (as cone_plane below): dist0 when it fell back, else prev with
+// the cone at INF_E and the lane's live seed pinned to 0. Without a
+// plane (the tier's members) the launch ends after the count.
+//
+// tail: int32 [6] = [cone, fell_back, sweeps, three change words], all
+// written by the kernel (block 0 zeroes what it accumulates into before
+// the first barrier), so no fill runs ahead of it. Grid: at most
+// FIX_BLOCKS_PER_SM blocks an SM, all co-resident, over tiles of
+// FIX_WPT x THREADS words whose loads a thread issues together.
+#define FIX_BLOCKS_PER_SM 4
+#define FIX_WPT 4
+#define FIX_TILE (THREADS * FIX_WPT)
+// the most ancestors a sweep follows from an unmarked word: of caps 1 to
+// 64 on the H100, 16 read best on a deep cone of lsdb100k's own forest,
+// and a shallow cone closes in the first sweep at any cap (PERF.md)
+#define CONE_HOPS 16
+
+// word i = (lane d, node u) of K9's seed plane: dist0 when the solve
+// fell back, else prev with the cone at INF_E and the lane's live seed
+// pinned to 0
+__device__ __forceinline__ int seed_word(
+    long long i, int d, int u, int n_cap, bool fell, bool marked,
+    const int* __restrict__ prev, const int* __restrict__ dist0,
+    const int* __restrict__ seeds_nbr, const int* __restrict__ seeds_w) {
+    if (fell) return dist0[i];
+    int v = marked ? INF_E : prev[i];
+    const int seed = min(max(seeds_nbr[d], 0), n_cap - 1);
+    if (u == seed && seeds_w[d] < INF_E) v = min(v, 0);
+    return v;
 }
 
-// K9 count: tail[0] += sum(aff) (tail zeroed by the caller).
-__global__ void cone_count_kernel(const int* __restrict__ aff,
-                                  int* __restrict__ tail, int total) {
-    int s = 0;
-    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-         i < total; i += (long long)gridDim.x * blockDim.x)
-        s += aff[i];
+// the block's sum of `s`, at thread 0 (shuffles within each warp, then
+// one word a warp through shared memory)
+__device__ __forceinline__ int block_sum(int s) {
+    __shared__ int part[THREADS / 32];
     for (int off = 16; off > 0; off >>= 1)
         s += __shfl_down_sync(0xffffffffu, s, off);
-    if ((threadIdx.x & 31) == 0 && s) atomicAdd(tail, s);
+    if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = s;
+    __syncthreads();
+    int tot = 0;
+    if (threadIdx.x == 0)
+        for (int w = 0; w < THREADS / 32; ++w) tot += part[w];
+    return tot;
 }
 
-// K9 plane: fell_back = tail[0] > cone_limit (written to tail[1]); the
-// seed is dist0 when it fell back, else prev with the cone at INF_E
-// and the lane's live seed pinned to 0.
+__global__ void __launch_bounds__(THREADS) cone_fix_kernel(
+    const int* __restrict__ par, int* aff, const int* __restrict__ prev,
+    const int* __restrict__ dist0, const int* __restrict__ seeds_nbr,
+    const int* __restrict__ seeds_w, int* tail, int* __restrict__ plane,
+    int cone_limit, int d_cap, int n_cap, int max_sweeps) {
+    cg::grid_group grid = cg::this_grid();
+    const long long total = (long long)d_cap * n_cap;
+    const long long tiles = (total + FIX_TILE - 1) / FIX_TILE;
+    const int lg = __ffs(n_cap) - 1;  // n_cap is a power of two
+    const int t = threadIdx.x;
+    const bool lead = blockIdx.x == 0 && t == 0;
+    int* word = tail + 3;
+    if (lead) {
+        tail[0] = 0;
+        word[0] = 0;
+    }
+    grid.sync();
+    int sweeps = 0, sum = 0;
+    bool closed = false;
+    while (sweeps < max_sweeps) {
+        const int slot = sweeps % 3;
+        const int reach = min(CONE_HOPS, 1 << min(sweeps, 30));
+        if (lead) word[(slot + 1) % 3] = 0;
+        int changed = 0;
+        sum = 0;
+        for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+            const long long base = tile * FIX_TILE + t;
+            int mark[FIX_WPT], anc[FIX_WPT];
+#pragma unroll
+            for (int j = 0; j < FIX_WPT; ++j) {
+                const long long i = base + j * THREADS;
+                mark[j] = 0;
+                anc[j] = -1;
+                if (i < total) {
+                    mark[j] = __ldcg(aff + i);
+                    if (!mark[j]) anc[j] = par[i];
+                }
+            }
+            for (int h = 0; h < reach; ++h) {
+                int pending = 0;
+#pragma unroll
+                for (int j = 0; j < FIX_WPT; ++j) {
+                    if (anc[j] < 0) continue;
+                    const long long i = base + j * THREADS;
+                    const long long at = ((i >> lg) << lg) + anc[j];
+                    if (__ldcg(aff + at)) {
+                        mark[j] = 1;
+                        anc[j] = -1;
+                        __stcg(aff + i, 1);
+                        changed = 1;
+                    } else {
+                        anc[j] = h + 1 < reach ? par[at] : -1;
+                        pending |= anc[j] >= 0;
+                    }
+                }
+                if (!pending) break;
+            }
+#pragma unroll
+            for (int j = 0; j < FIX_WPT; ++j) sum += mark[j];
+        }
+        const int any = __syncthreads_or(changed);
+        if (t == 0 && any) atomicOr(word + slot, 1);
+        grid.sync();
+        ++sweeps;
+        if (!__ldcg(word + slot)) {
+            closed = true;
+            break;
+        }
+    }
+    if (!closed) {
+        sum = 0;
+        for (long long i = (long long)blockIdx.x * THREADS + t; i < total;
+             i += (long long)gridDim.x * THREADS)
+            sum += __ldcg(aff + i);
+    }
+    const int bsum = block_sum(sum);
+    if (t == 0 && bsum) atomicAdd(tail, bsum);
+    if (lead) tail[2] = sweeps;
+    if (!plane) {
+        if (lead) tail[1] = 0;
+        return;
+    }
+    grid.sync();
+    const bool fell = __ldcg(tail) > cone_limit;
+    if (lead) tail[1] = fell ? 1 : 0;
+    for (long long i = (long long)blockIdx.x * THREADS + t; i < total;
+         i += (long long)gridDim.x * THREADS)
+        plane[i] = seed_word(i, (int)(i >> lg), (int)(i & (n_cap - 1)),
+                             n_cap, fell, !fell && __ldcg(aff + i) > 0, prev,
+                             dist0, seeds_nbr, seeds_w);
+}
+
+// K9 plane, for the tier (each member's plane from the cone summed over
+// the groups): fell_back = tail[0] > cone_limit (written to tail[1]),
+// then seed_word.
 __global__ void cone_plane_kernel(const int* __restrict__ aff,
                                   const int* __restrict__ prev,
                                   const int* __restrict__ dist0,
@@ -326,16 +475,10 @@ __global__ void cone_plane_kernel(const int* __restrict__ aff,
     bool fell = tail[0] > cone_limit;
     if (i == 0) tail[1] = fell ? 1 : 0;
     if (i >= (long long)d_cap * n_cap) return;
-    if (fell) {
-        plane[i] = dist0[i];
-        return;
-    }
-    int d = (int)(i / n_cap);
-    int u = (int)(i - (long long)d * n_cap);
-    int v = aff[i] > 0 ? INF_E : prev[i];
-    int seed = min(max(seeds_nbr[d], 0), n_cap - 1);
-    if (u == seed && seeds_w[d] < INF_E) v = min(v, 0);
-    plane[i] = v;
+    const int d = (int)(i / n_cap);
+    plane[i] = seed_word(i, d, (int)(i - (long long)d * n_cap), n_cap, fell,
+                         !fell && aff[i] > 0, prev, dist0, seeds_nbr,
+                         seeds_w);
 }
 
 extern "C" {
@@ -415,18 +558,25 @@ int cone_seed(const int* par, const int* swm_new, const int* new_m_s,
     return (int)cudaGetLastError();
 }
 
-int cone_step(const int* par, const int* src, int* dst, int* flag, int d_cap,
-              int n_cap, cudaStream_t stream) {
-    cone_step_kernel<<<blocks_for((long long)d_cap * n_cap), THREADS, 0,
-                       stream>>>(par, src, dst, flag, d_cap, n_cap);
-    return (int)cudaGetLastError();
-}
-
-int cone_count(const int* aff, int* tail, int total, cudaStream_t stream) {
-    unsigned nblk = blocks_for(total);
-    if (nblk > 1056) nblk = 1056;  // 8 blocks an SM, grid-stride past that
-    cone_count_kernel<<<nblk, THREADS, 0, stream>>>(aff, tail, total);
-    return (int)cudaGetLastError();
+int cone_fix(const int* par, int* aff, const int* prev, const int* dist0,
+             const int* seeds_nbr, const int* seeds_w, int* tail, int* plane,
+             int cone_limit, int d_cap, int n_cap, int max_sweeps,
+             cudaStream_t stream) {
+    if (n_cap <= 0 || (n_cap & (n_cap - 1)))
+        return (int)cudaErrorInvalidValue;
+    static int grid[64];
+    long long tiles = ((long long)d_cap * n_cap + FIX_TILE - 1) / FIX_TILE;
+    int nb = (int)max(1LL, min(tiles, (long long)coop_grid(
+                                          (const void*)cone_fix_kernel,
+                                          THREADS, FIX_BLOCKS_PER_SM,
+                                          grid)));
+    void* args[] = {&par,  &aff,   &prev,       &dist0, &seeds_nbr,
+                    &seeds_w, &tail, &plane, &cone_limit, &d_cap,
+                    &n_cap, &max_sweeps};
+    cudaError_t rc = cudaLaunchCooperativeKernel(
+        (const void*)cone_fix_kernel, dim3(nb), dim3(THREADS), args, 0,
+        stream);
+    return rc != cudaSuccess ? (int)rc : (int)cudaGetLastError();
 }
 
 int cone_plane(const int* aff, const int* prev, const int* dist0,

@@ -260,12 +260,26 @@ class PipelineOut(NamedTuple):
     # the [D, n_cap] distance plane (the next incremental solve's seed)
     # with emit_dist or incr, else None
     dist: Optional[torch.Tensor] = None
-    # trips of the incremental solve's cone spread (0 for a cold solve)
-    cone_trips: int = 0
+    # sweeps of the incremental solve's cone closure, an int32 0-d tensor
+    # on the host (from a card: pinned, filled behind the solve, so read
+    # it after the pull; 0 for a cold solve)
+    cone_trips: object = 0
     # the LFA columns int32 [P] (the previous ones passed through when
     # the solve ran without LFA)
     lfa_slot: Optional[torch.Tensor] = None
     lfa_metric: Optional[torch.Tensor] = None
+
+
+def _host_word(t: torch.Tensor) -> torch.Tensor:
+    """A 0-d tensor on the host holding ``t``'s value: from a card, a
+    pinned copy queued behind the work before it on the current stream,
+    so reading it after that stream's next pull costs no sync of its
+    own."""
+    if not t.is_cuda:
+        return t
+    host = torch.empty((), dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    return host
 
 
 def _timing_events(t: torch.Tensor, n: int):
@@ -351,6 +365,7 @@ def pipeline(deltas, shift_w, res_rows, res_nbr, res_w, mbuf, root: int,
             max_trips(n_cap), kernel, delta_exp, mark=mark, stats=spread,
         )
         incr_tail = (cone, fell_back)
+        spread["cone_trips"] = _host_word(spread["cone_trips"])
     mark()
     sel = select_routes(dist_d, root_w, root, mbuf, p_cap, a_cap, block_v4,
                         lfa, None if out is None
@@ -2321,7 +2336,7 @@ class GpuSpfSolver:
         if denom is not None:
             cone, fell_back = int(sbuf[-3]), bool(sbuf[-2])
             stats.update(incremental=True, cone=cone, fell_back=fell_back,
-                         cone_trips=out.cone_trips)
+                         cone_trips=int(out.cone_trips))
             counters.increment(
                 "decision.solver.incr.full_fallbacks" if fell_back
                 else "decision.solver.incr.solves"

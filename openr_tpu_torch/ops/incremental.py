@@ -15,13 +15,14 @@ the nodes whose old shortest-path chain crosses an increased edge. So:
   2. ``parent_plane`` (K6) picks one old shortest-path parent per
      (lane, node) — the parent forest;
   3. ``cone_seed`` (K7) marks the head of every increased dirty edge
-     that is a forest edge, and ``cone_step`` (K8) spreads the marks
-     down the forest to the fixpoint in a host loop (one flag read per
-     trip of ``UNROLL`` steps, at most ``max_trips(n_cap)`` trips);
-  4. ``cone_finish`` (K9) counts the cone, decides ``fell_back = cone >
-     cone_limit`` on the device, and writes the seed plane: the previous
-     plane with the cone set to INF_E, or K1s's cold seed when it fell
-     back, with the root out-neighbour pins min-ed in;
+     that is a forest edge;
+  4. ``cone_resolve`` (K8 + K9, one cooperative launch) spreads the
+     marks down the forest to the closure (at most ``max_trips(n_cap) *
+     UNROLL`` sweeps, no host read), counts the cone, decides
+     ``fell_back = cone > cone_limit`` on the device, and writes the
+     seed plane: the previous plane with the cone set to INF_E, or K1s's
+     cold seed when it fell back, with the root out-neighbour pins
+     min-ed in;
   5. the shared relaxation loops of ``ops/relax.py`` run to the
      fixpoint from that seed, so the result is bit-identical to the
      cold solve and trips / rounds equal the JAX loops' from the same
@@ -33,9 +34,9 @@ cone; the solver gates the incremental path off on any plan with
 distance and the parent plane is a forest.
 
 Wrappers (``scatter_set``, ``old_plane``, ``parent_plane``, ``cone_seed``,
-``cone_step``, ``cone_finish``, and the multichip tier's
-``scatter_window``, ``parent_shift_mc``, ``parent_fill``,
-``owned_weights``, ``cone_seed_mc``, composed per shard by
+``cone_resolve``, and the multichip tier's ``scatter_window``,
+``parent_shift_mc``, ``parent_fill``, ``owned_weights``,
+``cone_seed_mc``, ``cone_finish``, composed per shard by
 ``parallel/sharding.mc_incremental_sssp``) launch their CUDA kernel
 (``csrc/incremental.cu``) on a CUDA tensor and run the plain version
 (``*_plain``) only on a CPU tensor; each counts its kernel launches in
@@ -53,8 +54,8 @@ import torch
 from openr_tpu_torch.ops import cuda
 from openr_tpu_torch.ops.relax import (
     INF_E,
+    UNROLL,
     _is_cpu,
-    run_sync,
     solve_from,
     sssp_init,
     window_row,
@@ -511,49 +512,17 @@ def cone_seed_mc(par, new_m, rwm_new, deltas, res_rows, res_nbr, root,
 cone_seed_mc.launches = 0
 
 
-# -- K8: one step of the cone spread -----------------------------------------
+# -- K8 + K9: the cone's closure, its size, the fallback and the seed -----------
 
 def cone_step_plain(par, src, dst, flag) -> None:
+    """One Jacobi step of the spread: dst[d, v] = max(src[d, v],
+    src[d, par[d, v]]) (src alone where par is -1); ORs 1 into ``flag``
+    when a word changed. One step moves the cone one forest level down."""
     up = torch.gather(src, 1, par.clamp(min=0).long())
     new = torch.where(par >= 0, torch.maximum(src, up), src)
     flag |= (new != src).any().to(torch.int32)
     dst.copy_(new)
 
-
-def cone_step(par, src, dst, flag) -> None:
-    """dst[d, v] = max(src[d, v], src[d, par[d, v]]) (src alone where
-    par is -1), read from ``src`` only (Jacobi — ``dst`` is another
-    buffer); ORs 1 into ``flag`` when a word changed. One step moves the
-    cone one forest level down; the closure it reaches is the JAX
-    loop's, whose Gauss-Seidel order reaches it in fewer steps (the step
-    count is not in the payload)."""
-    if _is_cpu(par):
-        cone_step_plain(par, src, dst, flag)
-        return
-    d_cap, n_cap = par.shape
-    cuda.launch("incremental", "cone_step", "ttttii", par, src, dst, flag,
-                d_cap, n_cap)
-    cone_step.launches += 1
-
-
-cone_step.launches = 0
-
-
-def cone_spread(par, aff, max_trips: int):
-    """Spread the seeded cone ``aff`` down the forest to the fixpoint:
-    ``UNROLL`` K8 steps per trip, one flag read per trip, at most
-    ``max_trips`` trips (a forest is at most n_cap levels deep, so the
-    bound never cuts a spread short). ``aff`` is consumed as scratch.
-    Returns ``(aff, trips)``."""
-
-    def step(src, dst, flag):
-        cone_step(par, src, dst, flag)
-
-    aff, trips, _ = run_sync(step, aff, max_trips)
-    return aff, trips
-
-
-# -- K9: cone size, fallback decision, seed plane ----------------------------
 
 def cone_finish_plain(aff, prev_dist, dist0, seeds_nbr, seeds_w,
                       cone_limit: int, cone=None):
@@ -571,6 +540,71 @@ def cone_finish_plain(aff, prev_dist, dist0, seeds_nbr, seeds_w,
     return plane, tail
 
 
+def cone_resolve_plain(par, aff, prev_dist=None, dist0=None, seeds_nbr=None,
+                       seeds_w=None, cone_limit: int = 0,
+                       max_trips: int = 0):
+    # the spec: Jacobi steps to the first one that changes nothing, at
+    # most max_trips * UNROLL of them, then K9
+    spare = torch.empty_like(aff)
+    flag = torch.zeros(1, dtype=torch.int32, device=aff.device)
+    src, dst = aff, spare
+    sweeps = 0
+    while sweeps < max_trips * UNROLL:
+        flag.zero_()
+        cone_step_plain(par, src, dst, flag)
+        src, dst = dst, src
+        sweeps += 1
+        if not int(flag):
+            break
+    if src is not aff:
+        aff.copy_(src)
+    cone = aff.sum(dtype=torch.int32)
+    count = torch.tensor(sweeps, dtype=torch.int32, device=aff.device)
+    if prev_dist is None:
+        return None, torch.stack([cone, torch.zeros_like(cone), count])
+    plane, tail = cone_finish_plain(aff, prev_dist, dist0, seeds_nbr,
+                                    seeds_w, cone_limit, cone)
+    return plane, torch.cat([tail, count[None]])
+
+
+def cone_resolve(par, aff, prev_dist=None, dist0=None, seeds_nbr=None,
+                 seeds_w=None, cone_limit: int = 0, max_trips: int = 0):
+    """The seeded cone ``aff`` int32 [D, N] (0/1, K7) spread in place down
+    the parent forest ``par`` to its closure (every forest descendant of
+    a seed), in at most ``max_trips * UNROLL`` sweeps; then the
+    reference's count, fallback decision and seed plane (``cone_finish``)
+    from it. -> (seed plane int32 [D, N], tail int32 [3] = [cone,
+    fell_back, sweeps]), all decided on the device.
+
+    With ``prev_dist`` None (the tier's members) there is no plane: ->
+    (None, [cone, 0, sweeps]). The closure and the tail's first two
+    words are the reference's; ``sweeps`` (stats only, not in the
+    payload) counts the passes to the first that changed nothing: the
+    plain version's Jacobi steps, the kernel's in-place sweeps (sweep s
+    follows up to min(2^s, 16) ancestors of a word it finds unmarked:
+    ``CONE_HOPS`` in ``csrc/incremental.cu``).
+    On the card: one cooperative launch of ``cone_fix``, no host read
+    and no fill."""
+    if _is_cpu(par):
+        return cone_resolve_plain(par, aff, prev_dist, dist0, seeds_nbr,
+                                  seeds_w, cone_limit, max_trips)
+    d_cap, n_cap = par.shape
+    _check_len(d_cap * n_cap)
+    if aff.shape != par.shape or n_cap & (n_cap - 1):
+        raise ValueError("cone_resolve: aff must match par, n_cap a power "
+                         "of two")
+    tail = torch.empty(6, dtype=torch.int32, device=par.device)
+    plane = None if prev_dist is None else torch.empty_like(prev_dist)
+    cuda.launch("incremental", "cone_fix", "ttttttttiiii", par, aff,
+                prev_dist, dist0, seeds_nbr, seeds_w, tail, plane,
+                int(cone_limit), d_cap, n_cap, int(max_trips) * UNROLL)
+    cone_resolve.launches += 1
+    return plane, tail[:3]
+
+
+cone_resolve.launches = 0
+
+
 def cone_finish(aff, prev_dist, dist0, seeds_nbr, seeds_w, cone_limit: int,
                 tail=None):
     """-> (seed plane int32 [D, N], tail int32 [2] = [cone, fell_back]).
@@ -582,7 +616,9 @@ def cone_finish(aff, prev_dist, dist0, seeds_nbr, seeds_w, cone_limit: int,
     ``tail``, when given, is an int32 [2] tensor whose ``tail[0]``
     already holds the cone (the multichip tier sums its batch groups'
     counts, ``parallel/sharding.py``, :652-655): only the seed plane is
-    written then, and ``tail[1]``."""
+    written then, and ``tail[1]``. On the card the tail must be given
+    (one ``cone_plane`` launch); ``cone_resolve`` counts and writes the
+    plane of the one-card solve in its own launch."""
     if _is_cpu(aff):
         plane, t = cone_finish_plain(aff, prev_dist, dist0, seeds_nbr,
                                      seeds_w, cone_limit,
@@ -591,9 +627,10 @@ def cone_finish(aff, prev_dist, dist0, seeds_nbr, seeds_w, cone_limit: int,
             return plane, t
         tail.copy_(t)
         return plane, tail
-    d_cap, n_cap = aff.shape
     if tail is None:
-        tail = cone_count(aff)
+        raise ValueError("cone_finish: give the counted tail on the card "
+                         "(cone_resolve counts)")
+    d_cap, n_cap = aff.shape
     plane = torch.empty_like(prev_dist)
     cuda.launch("incremental", "cone_plane", "tttttttiii", aff, prev_dist,
                 dist0, seeds_nbr, seeds_w, tail, plane, int(cone_limit),
@@ -603,19 +640,6 @@ def cone_finish(aff, prev_dist, dist0, seeds_nbr, seeds_w, cone_limit: int,
 
 
 cone_finish.launches = 0
-
-
-def cone_count(aff):
-    """int32 [2] tensor [sum(aff), 0] (K9's count, counted among
-    ``cone_finish``'s launches)."""
-    if _is_cpu(aff):
-        return torch.stack([aff.sum(dtype=torch.int32),
-                            torch.zeros((), dtype=torch.int32)])
-    # allocation: the count kernel accumulates into tail[0]
-    tail = torch.zeros(2, dtype=torch.int32, device=aff.device)
-    cuda.launch("incremental", "cone_count", "tti", aff, tail, aff.numel())
-    cone_finish.launches += 1
-    return tail
 
 
 # -- the incremental solve ----------------------------------------------------
@@ -638,8 +662,9 @@ def incremental_sssp(deltas, shift_w, res_rows, res_nbr, res_w, root,
 
     ``mark``, when given, is called after the old planes, the parent
     plane and the seed plane are queued (phase boundaries for CUDA
-    events); ``stats``, when a dict, receives ``cone_trips``, the trips
-    of the cone spread."""
+    events); ``stats``, when a dict, receives ``cone_trips``: the sweeps
+    of the cone's closure (``cone_resolve``), an int32 0-d tensor on
+    the device, to be read once the solve's results are pulled."""
     mark = mark or (lambda: None)
     swm_new, residual, dist0 = sssp_init(
         shift_w, res_rows, res_nbr, res_w, root, seeds_nbr, seeds_w
@@ -655,12 +680,11 @@ def incremental_sssp(deltas, shift_w, res_rows, res_nbr, res_w, root,
     aff = cone_seed(par, swm_new, residual[2], deltas, res_rows, res_nbr,
                     root, s_dirty_idx, s_dirty_old, r_dirty_idx,
                     r_dirty_old, has_res)
-    aff, cone_trips = cone_spread(par, aff, max_trips)
-    seed, tail = cone_finish(aff, prev_dist, dist0, seeds_nbr, seeds_w,
-                             int(cone_limit))
+    seed, tail = cone_resolve(par, aff, prev_dist, dist0, seeds_nbr,
+                              seeds_w, int(cone_limit), max_trips)
     mark()
     if stats is not None:
-        stats["cone_trips"] = cone_trips
+        stats["cone_trips"] = tail[2]
     dist, trips, rounds = solve_from(
         deltas, swm_new, residual if has_res else None, seed, kernel,
         delta_exp, max_trips,

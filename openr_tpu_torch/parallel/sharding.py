@@ -58,10 +58,9 @@ import torch
 from openr_tpu_torch.ops.combine import shard_combine
 from openr_tpu_torch.ops.fabric import fabric_step_grid, unpack_bits
 from openr_tpu_torch.ops.incremental import (
-    cone_count,
     cone_finish,
+    cone_resolve,
     cone_seed_mc,
-    cone_spread,
     owned_weights,
     parent_fill,
     parent_shift_mc,
@@ -495,7 +494,7 @@ def mc_incremental_sssp(mesh, deltas, shift_w, res_rows, res_nbr, res_w,
                         cone_limit: int, *, s_cap: int, has_res: bool,
                         n_cap: int, d_cap: int, max_trips: int,
                         kernel: str = "sync", delta_exp: int = 0,
-                        done=None, stats=None):
+                        done=None):
     """The incremental SSSP on the mesh (``make_mc_incremental_sssp``),
     inputs as ``mc_sssp``'s plus ``prev_dist`` (each shard its batch
     group's lanes of the warm plane, [d_cap / batch, n_cap]) and the
@@ -504,13 +503,14 @@ def mc_incremental_sssp(mesh, deltas, shift_w, res_rows, res_nbr, res_w,
     plane over its own source columns (K6 [mc]) combined by the group's
     max, then the residual parents; the dirty slots' new weights from
     their owners (K7 [mc] gather, the group's min) and the cone seeds
-    (K7 [mc]); the spread (K8); the cone summed over the batch groups
-    and the one fallback decision; the warm or cold seed (K9) and the
+    (K7 [mc]); the spread to the closure and the member's count in one
+    launch (K8, ``cone_resolve`` without a plane); the cone summed over
+    the batch groups and the one fallback decision; the warm or cold
+    seed (K9) and the
     relaxation of ``mc_sssp``. The parents, and so the cone, are the
     reference's multichip ones (the max over members), not the
     single-card K6's. Returns (planes grid, trips [b], cone int32 0-d,
-    fell_back int32 0-d (both on the mesh's first device), rounds [b]);
-    ``stats``, when a dict, receives ``cone_trips``."""
+    fell_back int32 0-d (both on the mesh's first device), rounds [b])."""
     shard_cols = _check_mesh(mesh, n_cap, d_cap)
     nb, ng = mesh.shape["batch"], mesh.shape["graph"]
 
@@ -546,21 +546,22 @@ def mc_incremental_sssp(mesh, deltas, shift_w, res_rows, res_nbr, res_w,
             for j in range(ng):
                 parent_fill(par[b][j], res_rows[b][j], res_nbr[b][j],
                             old[b, j][1][2], prev_dist[b][j])
-    aff, cone_trips = {}, 0
+    aff, counted = {}, {}
     for b in range(nb):
         for j in range(ng):
-            seeded = cone_seed_mc(
+            aff[b, j] = cone_seed_mc(
                 par[b][j], new_m[b][j], new[b, j][1][2], deltas[b][j],
                 res_rows[b][j], res_nbr[b][j], root, s_dirty_idx[b][j],
                 s_dirty_old[b][j], r_dirty_idx[b][j], r_dirty_old[b][j],
                 has_res, s_cap)
-            aff[b, j], t = cone_spread(par[b][j], seeded, max_trips)
-            cone_trips = max(cone_trips, t)
-    # the cone summed over the batch groups (a group's members agree),
-    # K23's sum (the reference's psum over 'batch'): one fallback
-    # decision for the whole mesh
+            # no plane: the spread and the member's own count
+            _, counted[b, j] = cone_resolve(par[b][j], aff[b, j], None, None,
+                                            None, None, 0, max_trips)
+    # the cone summed over the batch groups (a group's members agree:
+    # member 0 counts for its group), K23's sum (the reference's psum
+    # over 'batch'): one fallback decision for the whole mesh
     first = mesh.first
-    counts = [cone_count(aff[b, 0]) for b in range(nb)]
+    counts = [counted[b, 0][:2] for b in range(nb)]
     if nb > 1:
         shard_combine(counts, "sum")
     cone = counts[0][0].to(first)
@@ -578,8 +579,6 @@ def mc_incremental_sssp(mesh, deltas, shift_w, res_rows, res_nbr, res_w,
             tail0 = tail if tail0 is None else tail0
             row.append(plane)
         seed.append(row)
-    if stats is not None:
-        stats["cone_trips"] = cone_trips
     sw = _grid(mesh, lambda b, j: new[b, j][0])
     residual = _grid(mesh, lambda b, j: new[b, j][1] if has_res else None)
     planes, trips, rounds = _solve_mc(mesh, deltas, sw, residual, seed,

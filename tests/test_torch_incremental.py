@@ -15,7 +15,9 @@ a worker that never runs it imports no torch.
 """
 
 import dataclasses
+import random
 import types
+import zlib
 from functools import partial
 
 import jax
@@ -39,6 +41,9 @@ from tests.torch_jax_state import jax_state_barrier  # noqa: F401
 
 INF_E = 1 << 29
 DIRTY_CAP = 64
+# the chain case's ring: its cone, below lane 0's first edge, is 78
+# forest levels deep (more than four trips of eight steps)
+CHAIN_NODES = 80
 
 
 @pytest.fixture(scope="module")
@@ -72,6 +77,11 @@ def _state(name):
     elif name == "fat_tree":
         adj_dbs, pdbs = topologies.fat_tree()
         me = "rsw-0-0"
+    elif name == "chain":
+        # with the root's links masked, each lane of a ring is one path
+        # through every other node: a forest as deep as the ring
+        adj_dbs, pdbs = topologies.ring(CHAIN_NODES, node_labels=False)
+        me = "node-0"
     else:
         adj_dbs, pdbs = topologies.random_mesh(24, seed=5)
         me = "node-0"
@@ -95,7 +105,8 @@ def _sssp_case(name):
     a parent-tree edge of lane 0 (one in the shift classes and one in
     the residual, where the plan has them), a decrease (an edge whose
     OLD weight was raised before the previous solve), an edge out of
-    the root; pads fill the rest."""
+    the root; pads fill the rest. On the chain the increase is lane 0's
+    first forest edge, so its cone is the whole lane below it."""
     _, states, _, me = _state(name)
     ls = states["0"]
     plan = build_plan(ls)
@@ -120,7 +131,9 @@ def _sssp_case(name):
                   and new["r"][r, c] < INF_E]
     away = [e for e in edges if e[2] != root]
     # the decrease: old weight raised, new weight the plan's own
-    dec = away[len(away) // 2]
+    # (the chain's middle edge is lane 0's first forest edge, which
+    # takes the increase: its decrease is the next one)
+    dec = away[len(away) // 2 + (name == "chain")]
     old[dec[0]].reshape(-1)[dec[1]] += 3
     sssp = jax.jit(partial(
         _plan_sssp, s_cap=s_cap, has_res=has_res, n_cap=n_cap, d_cap=d_cap,
@@ -134,9 +147,16 @@ def _sssp_case(name):
         w = old[e[0]].reshape(-1)[e[1]]
         return prev[0, e[2]] < INF_E and prev[0, e[2]] + w == prev[0, e[3]]
 
-    changes = [(e, 7) for plane in ("s", "r")
-               for e in [next((e for e in away if e[0] == plane and e != dec
-                               and tight(e)), None)] if e is not None]
+    if name == "chain":
+        first = int(root_nbr[0])
+        picks = [next(e for e in away if e[2] == first and e[3] != root
+                      and e != dec and tight(e))]
+    else:
+        picks = [e for plane in ("s", "r")
+                 for e in [next((e for e in away if e[0] == plane
+                                 and e != dec and tight(e)), None)]
+                 if e is not None]
+    changes = [(e, 7) for e in picks]
     changes.append((next(e for e in edges if e[2] == root), 5))
     for e, bump in changes:
         new[e[0]].reshape(-1)[e[1]] += bump
@@ -155,12 +175,14 @@ def _sssp_case(name):
 
 @pytest.mark.parametrize("name,kernel", [
     ("grid", "sync"), ("grid", "bucketed"), ("fat_tree", "sync"),
-    ("mesh", "bucketed"),
+    ("mesh", "bucketed"), ("chain", "sync"),
 ])
 def test_incremental_sssp_matches_jax(port, name, kernel):
     """old planes, parent plane and the whole incremental SSSP — dist,
-    trips, cone, fell_back, rounds — equal the JAX functions', with a
-    cone budget that holds and one (0) that falls back."""
+    trips, cone, fell_back, rounds — equal the JAX functions', with cone
+    budgets that hold (the whole plane, and the cone itself) and ones
+    that fall back (0, and one below the cone). The chain's cone is
+    deeper than four trips of the reference's loop."""
     torch = port.torch
     inc = port.incremental
     args, st, dexp, (old_shift, old_res) = _sssp_case(name)
@@ -199,12 +221,14 @@ def test_incremental_sssp_matches_jax(port, name, kernel):
     # B13: the whole solve, held and fallen back
     run = jincr.jit_incremental_sssp(**st, kernel=kernel, delta_exp=dexp)
     cold = None
-    for limit in (d_cap * n_cap, 0):
+    want_cone = int(run(*args, np.int32(d_cap * n_cap))[2])
+    for limit in (d_cap * n_cap, 0, want_cone, want_cone - 1):
         want = run(*args, np.int32(limit))
+        stats = {}
         got = inc.incremental_sssp(
             *[t[i] for i in range(5)], int(root), t[6], t[7], *[
                 t[i] for i in range(8, 13)], limit, **st, kernel=kernel,
-            delta_exp=dexp,
+            delta_exp=dexp, stats=stats,
         )
         dist, trips, cone, fell, rounds = got
         np.testing.assert_array_equal(dist.numpy(), np.asarray(want[0]))
@@ -212,7 +236,12 @@ def test_incremental_sssp_matches_jax(port, name, kernel):
             int(want[1]), int(want[2]), bool(want[3]), int(want[4])
         ), limit
         assert int(cone) > 0, "the increase must re-anchor a cone"
-        assert bool(fell) == (limit == 0)
+        assert bool(fell) == (limit < want_cone)
+        if name == "chain":
+            # the Jacobi spread: a step a level, then one that changes
+            # nothing
+            assert int(cone) == CHAIN_NODES - 2
+            assert int(stats["cone_trips"]) == CHAIN_NODES - 2 > 4 * 8
         if cold is None:
             cold = dist
         np.testing.assert_array_equal(dist.numpy(), cold.numpy())
@@ -416,6 +445,81 @@ def test_randomized_churn_incremental_equals_cold_and_oracle(port):
         if st.get("incremental") and not st.get("fell_back"):
             warm += 1
     assert warm >= 5, warm
+
+
+def test_mixed_churn_soak_equals_oracle(port):
+    """tests/test_tpu_solver.py's 30-step mixed soak in the port's types:
+    random flaps, metric changes, drains and UCMP / ECMP prefix adds and
+    withdrawals on ``random_mesh(28, seed=5)`` with UCMP and LFA on, the
+    device path forced (``small_graph_nodes=0``) and incremental; after
+    every step the RIB equals the port's own oracle. The warm path must
+    carry most steps, some with a cone to re-anchor."""
+    t = port.types
+    rng = random.Random(20260730)
+    adj_dbs, prefix_dbs = port.topologies.random_mesh(28, seed=5)
+    states, ps = port.topologies.build_states(adj_dbs, prefix_dbs)
+    ls = states["0"]
+    names = [db.this_node_name for db in adj_dbs]
+    by_name = {db.this_node_name: db for db in adj_dbs}
+    me = "node-0"
+    cpu = port.spf_solver.SpfSolver(me, enable_ucmp=True, enable_lfa=True)
+    dev = port.gpu_solver.GpuSpfSolver(
+        me, device="cpu", enable_ucmp=True, enable_lfa=True,
+        incremental_spf=True, small_graph_nodes=0)
+    algos = (t.PrefixForwardingAlgorithm.SP_ECMP,
+             t.PrefixForwardingAlgorithm.SP_UCMP_PREFIX_WEIGHT_PROPAGATION,
+             t.PrefixForwardingAlgorithm.SP_UCMP_ADJ_WEIGHT_PROPAGATION)
+
+    def prefix_db(node, prefix, delete=False, **entry_kw):
+        return t.PrefixDatabase(
+            this_node_name=node,
+            prefix_entries=(t.PrefixEntry(prefix=prefix, **entry_kw),),
+            area="0", delete_prefix=delete)
+
+    def mutate(step):
+        kind = rng.randrange(5)
+        victim = rng.choice(names[1:])  # never isolate the vantage
+        db = by_name[victim]
+        if kind == 0:  # flap down
+            ls.update_adjacency_database(t.AdjacencyDatabase(
+                this_node_name=victim, adjacencies=(), area="0"))
+        elif kind == 1:  # restore / metric churn (crc32: no hash seed)
+            ls.update_adjacency_database(t.AdjacencyDatabase(
+                this_node_name=victim, adjacencies=tuple(
+                    dataclasses.replace(a, metric=1 + (step + zlib.crc32(
+                        a.other_node_name.encode())) % 9)
+                    for a in db.adjacencies), area="0"))
+        elif kind == 2:  # drain toggle
+            ls.update_adjacency_database(t.AdjacencyDatabase(
+                this_node_name=victim, adjacencies=db.adjacencies,
+                is_overloaded=(step % 2 == 0), area="0"))
+        elif kind == 3:  # anycast UCMP / ECMP prefix add
+            algo = rng.choice(algos)
+            for node in rng.sample(names[1:], 3):
+                ps.update_prefix_database(prefix_db(
+                    node, f"fd00:5{step % 8}::/64", forwarding_algorithm=algo,
+                    weight=rng.randrange(1, 9)))
+        else:  # withdraw
+            node = rng.choice(names[1:])
+            ps.update_prefix_database(prefix_db(
+                node, f"fd00:5{step % 8}::/64", delete=True))
+
+    warm = coned = 0
+    for step in range(30):
+        mutate(step)
+        want = cpu.build_route_db(me, states, ps)
+        got = dev.build_route_db(me, states, ps)
+        if want is None:
+            assert got is None, f"soak step {step}"
+            continue
+        assert dict(got.unicast_routes.items()) == dict(
+            want.unicast_routes.items()), f"soak step {step}"
+        assert got.mpls_routes == want.mpls_routes, f"soak step {step}"
+        st = dev.last_device_stats
+        if st.get("incremental") and not st.get("fell_back"):
+            warm += 1
+            coned += st["cone"] > 0
+    assert warm >= 15 and coned >= 5, (warm, coned)
 
 
 def test_cone_fraction_zero_falls_back_on_device(port):

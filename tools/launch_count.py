@@ -13,7 +13,13 @@ in one fused dispatch, its RIB equal to an earlier solver's. Counts are
 ``chip_smoke.counted``'s:
 kernel launches by wrapper (every ``ops`` function with a ``launches``
 count), torch ops on the card by name (clones, fills, copies, reads),
-and their sum. Prints one JSON line.
+and their sum; beside them the host flag reads (``relax.read_flag``).
+``cone`` splits the tree's cone work of one incremental solve (the
+spread to the closure, the count, the fallback and the seed plane, one
+``cone_resolve`` launch: a tree without that wrapper stops there) on
+the last build's own inputs: device ms alone and host ms to enqueue
+(``chip_smoke.device_ms``) and the synced host wall, each less the
+seeded cone's copy. Prints one JSON line.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import importlib
 import json
 import pkgutil
 import sys
+import time
 from pathlib import Path
 
 
@@ -37,6 +44,49 @@ def _wrappers(ops_pkg) -> dict:
                     and isinstance(getattr(fn, "launches", None), int)):
                 out[f"{m.name}.{name}"] = (fn, None, None)
     return out
+
+
+def _counted(cs, torch, relax, wrappers, fn) -> dict:
+    reads0 = relax.read_flag.reads
+    n = cs.counted(torch, wrappers, fn)
+    n["flag_reads"] = relax.read_flag.reads - reads0
+    return n
+
+
+def _wall_ms(torch, fn, reps: int = 20) -> float:
+    """Host wall of ``fn`` run to its end on the card, a call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def _cone_split(cs, torch, inc, relax, ci) -> dict:
+    """The cone part of an incremental solve: one ``cone_resolve``
+    launch on the last build's own inputs."""
+    par, lane = ci["par"], ci["lane"]
+    seeded = inc.cone_seed(*ci["cargs"])
+    aff = seeded.clone()
+
+    def copy():
+        aff.copy_(seeded)
+
+    def whole():
+        copy()
+        inc.cone_resolve(par, aff, ci["prev_dist"], ci["dist0"], lane[7],
+                         lane[8], ci["cone_limit"],
+                         relax.max_trips(par.shape[1]))
+
+    copy_dev, copy_host = cs.device_ms(torch, copy)
+    dev_ms, host_ms = cs.device_ms(torch, whole)
+    copy_wall = _wall_ms(torch, copy)
+    return {"device_ms": dev_ms - copy_dev, "host_ms": host_ms - copy_host,
+            "wall_ms": _wall_ms(torch, whole) - copy_wall,
+            "seed_copy_device_ms": copy_dev, "seed_copy_host_ms": copy_host,
+            "seed_copy_wall_ms": copy_wall}
 
 
 def main() -> int:
@@ -56,6 +106,7 @@ def main() -> int:
         return 2
     import openr_tpu_torch.ops as ops_pkg
     from openr_tpu_torch.decision import gpu_solver
+    from openr_tpu_torch.ops import incremental, relax
     from openr_tpu_torch.models import topologies
     from openr_tpu_torch.types import (
         AdjacencyDatabase,
@@ -90,15 +141,16 @@ def main() -> int:
     for i in range(a.builds):
         flap(2 * i)
         box = {}
-        out["incremental_build"].append(cs.counted(
-            torch, wrappers,
+        out["incremental_build"].append(_counted(
+            cs, torch, relax, wrappers,
             lambda: box.update(db=inc.build_route_db(root, states, ps))))
         cs.check(inc.last_device_stats.get("incremental") is True,
                  "the counted build must be incremental")
         held(box["db"], "incremental build")
         box = {}
-        out["storm_epoch"].append(cs.counted(
-            torch, wrappers, lambda: box.update(db=stream.collect_route_db(
+        out["storm_epoch"].append(_counted(
+            cs, torch, relax, wrappers,
+            lambda: box.update(db=stream.collect_route_db(
                 stream.dispatch_route_db(root, states, ps)))))
         cs.check(bool(stream.last_timing.get("stream")),
                  "the counted epoch must stream")
@@ -106,6 +158,10 @@ def main() -> int:
         flap(2 * i + 1)
         inc.build_route_db(root, states, ps)
         stream.collect_route_db(stream.dispatch_route_db(root, states, ps))
+    cs.check(inc.last_device_stats.get("incremental") is True,
+             "the cone's inputs must be an incremental build's")
+    out["cone"] = _cone_split(cs, torch, incremental, relax,
+                              cs.churn_inputs(relax, incremental, inc))
     fstates, fps = topologies.build_states(*cs.fused_cell(
         AdjacencyDatabase, PrefixDatabase, PrefixEntry, topologies,
         cs.FUSED_SIDE, cs.FUSED_AREAS))
@@ -117,7 +173,8 @@ def main() -> int:
 
     first = fused_solver().build_route_db("hub", fstates, fps)
     fsolver, box = fused_solver(), {}
-    out["fused_build"] = cs.counted(torch, wrappers, lambda: box.update(
+    out["fused_build"] = _counted(cs, torch, relax, wrappers,
+                                 lambda: box.update(
         db=fsolver.build_route_db("hub", fstates, fps)))
     cs.check(fsolver.last_device_stats.get("fused") == cs.FUSED_AREAS
              and cs.rib_equal(first, box["db"]),
