@@ -16,7 +16,9 @@ prints no result line:
      (96 pods x 8 planes x 64 rsws, 36 spines a plane; LFA on, as the
      bench's config 3 runs it: the oracle runs with LFA too), the
      residual relaxation kernel against its plain version on fabric10k,
-     whose pod-crossing spine tier lands in the residual ELL, and K3 and
+     whose pod-crossing spine tier lands in the residual ELL (the row
+     ``K1:relax_step[residual]``: one cooperative launch, split into
+     device time, host enqueue and the bare launch), and K3 and
      K4 with their LFA columns against their plain versions on
      fabric10k's own inputs (K3 ``[lfa]`` also split into device time,
      host enqueue and the bare launch; each call one launch), and both
@@ -55,7 +57,15 @@ prints no result line:
      rungs, flag); K2's class pick and ladder pass, K3, K4 and K4
      ``[stream]`` also split into device time alone, host enqueue and
      the bare launch's host cost, and each counted as one kernel launch
-     and no torch op; K3 and K4 also at the ``TAIL_SHAPES`` edge shapes
+     and no torch op; K1s (timed into held outputs, as the churn and
+     storm solves call it; the allocating call beside) and K1 split the
+     same way, one launch each, and both at seeded edge cases
+     (``relax_cases``: held outputs over two calls, lanes with an odd
+     ELL, an ``[mc]`` window of odd width, 256 ``[fabric]`` roots, the
+     KSP2 seed rows; no residual, repeated and pad rows, D past the
+     register chunk, a residual shared by 64 lanes, a closed gate, an
+     ``[mc]`` window), each equal to plain and one launch; K3 and K4
+     also at the ``TAIL_SHAPES`` edge shapes
      on seeded synthetic inputs (A and D past 16, A past the register
      cache, P below a tile, lanes, a shared matrix, more K4 tiles than
      the co-resident grid), with and without LFA, the budgets below the
@@ -75,7 +85,9 @@ prints no result line:
      incremental build and read after it;
   7. the churn kernels (K5 in place, the old planes, K6, K7, K4 with
      the incremental tail) and the whole incremental solve against
-     their plain versions on the last flap step's own inputs, timed
+     their plain versions on the last flap step's own inputs (and the
+     K1s outputs the churn solver holds: the last step's, apart from its
+     ``prev_dist``), timed
      beside their bounds and, for K5 and K7, the one PyTorch call that
      computes the same scatter; K5, the old planes and K7 also split
      into device time alone, host enqueue and (K5, K7) the bare
@@ -88,7 +100,8 @@ prints no result line:
      launches and
      torch ops) of K7 alone (one launch, no fill), of the old planes
      alone (one launch a plane), of one incremental SSSP and of one
-     incremental build, whose RIB equals a cold solve's;
+     incremental build, whose RIB equals a cold solve's and whose K1s
+     allocates nothing (``k1s_allocations``);
   8. flapstorm100k (BASELINE config 5, bench.py's flapstorm lane): a
      ``GpuSpfSolver(streaming_pipeline=True, small_graph_nodes=0)`` on
      the lsdb100k cell takes a cold build and a warm-up flap of
@@ -101,8 +114,8 @@ prints no result line:
      64) and an idle epoch (0 rows, exactly 1,308 B). The RIB at storm
      epochs 0, 100 and 199 and at the idle epoch equals a fresh
      solver's cold solve, the last also the oracle's; one more flap
-     epoch is counted (kernel launches and torch ops) and held to a cold
-     solve; the cone of one more epoch is held to plain (one launch). It
+     epoch is counted (kernel launches and torch ops; its K1s allocates
+     nothing) and held to a cold solve; the cone of one more epoch is held to plain (one launch). It
      prints every
      epoch (changed rows, budget, overflow, bytes, launches, flag reads,
      time split) and a summary: the p50 / p99 of flap-apply to RIB
@@ -132,7 +145,8 @@ prints no result line:
      delta stats printed; the counts are zeroed before the cold build
      and read after the last round. Then K10 ``overlay_planes``, K11
      ``masked_delta`` (also at k_cap 4, where rows overflow) and K1
-     over the lane planes against their plain versions, the whole
+     over the lane planes against their plain versions (K1 ``[ksp2]``
+     split and one launch), the whole
      masked batch (8 rows) against its plain run on CPU copies, and
      ``masked_rows_update`` through its chunked
      stateless path (a lowered ``_MAX_RESIDENT_ROWS``) equal to the
@@ -354,30 +368,35 @@ def device_op_counter(torch):
     """A dispatch mode that counts, by name, the aten ops that run on a
     CUDA tensor and do device work (views, allocations and aliases
     excluded): the clones, fills, copies and reads around the kernels,
-    whose own launches the wrappers count."""
+    whose own launches the wrappers count. The allocations of CUDA
+    tensors (``empty``, ``empty_like`` and kin) are counted apart, in
+    ``allocs``."""
     from torch.utils._python_dispatch import TorchDispatchMode
     from torch.utils._pytree import tree_flatten
 
-    no_work = {"aten::empty", "aten::empty_like", "aten::empty_strided",
-               "aten::new_empty", "aten::new_empty_strided", "aten::detach",
-               "aten::lift_fresh", "aten::alias", "aten::set_",
-               "aten::resize_", "aten::_reshape_alias", "aten::view",
-               "aten::as_strided", "aten::_unsafe_view"}
+    allocs = {"aten::empty", "aten::empty_like", "aten::empty_strided",
+              "aten::new_empty", "aten::new_empty_strided"}
+    no_work = allocs | {"aten::detach", "aten::lift_fresh", "aten::alias",
+                        "aten::set_", "aten::resize_", "aten::_reshape_alias",
+                        "aten::view", "aten::as_strided", "aten::_unsafe_view"}
 
     class Count(TorchDispatchMode):
         def __init__(self):
             super().__init__()
             self.ops = {}
+            self.allocs = {}
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             out = func(*args, **(kwargs or {}))
             name = func._schema.name
-            if name in no_work or getattr(func, "is_view", False):
+            if name in no_work and name not in allocs or getattr(
+                    func, "is_view", False):
                 return out
             leaves, _ = tree_flatten((args, kwargs, out))
             if any(isinstance(x, torch.Tensor) and x.is_cuda
                    for x in leaves):
-                self.ops[name] = self.ops.get(name, 0) + 1
+                into = self.allocs if name in allocs else self.ops
+                into[name] = into.get(name, 0) + 1
             return out
 
     return Count()
@@ -418,7 +437,8 @@ class HostMeter:
 def counted(torch, wrappers, fn) -> dict:
     """Run ``fn`` once with the launch counts at 0 and the torch ops
     counted: -> its device work, as kernel launches by wrapper and
-    torch ops by name, and their sum ``launches``."""
+    torch ops by name, and their sum ``launches``; beside them the CUDA
+    tensors it allocated, by op."""
     for w, _, _ in wrappers.values():
         w.launches = 0
     with device_op_counter(torch) as mode:
@@ -428,7 +448,9 @@ def counted(torch, wrappers, fn) -> dict:
     return {"launches": sum(kern.values()) + sum(mode.ops.values()),
             "kernel_launches": sum(kern.values()),
             "torch_ops": sum(mode.ops.values()),
-            "kernels_by_wrapper": kern, "torch_ops_by_name": mode.ops}
+            "kernels_by_wrapper": kern, "torch_ops_by_name": mode.ops,
+            "allocations": sum(mode.allocs.values()),
+            "allocations_by_name": mode.allocs}
 
 
 def bound(nbytes: int, ops: int) -> tuple[float, str]:
@@ -607,6 +629,251 @@ TAIL_SHAPES = (
     (5, 9, 90, 300, 2, True),
     (300, 3, 40, 100, 2, False),
 )
+
+
+def k1s_floor(cuda, args, out, n_cap: int):
+    """-> a bare ``cuda.launch`` of K1s's entry point for the one-lane
+    call ``sssp_init(*args)`` into ``out`` (raw addresses, no checks):
+    the host floor of an ``sssp_init`` call."""
+    shift_w, res_rows, res_nbr, res_w, root, seeds_nbr, seeds_w = args
+    sw, (rows_c, nbr_c, rw), dist0 = out
+    ptrs = [t.data_ptr() for t in (shift_w, sw, res_rows, res_nbr, res_w,
+                                   rows_c, nbr_c, rw, seeds_nbr, seeds_w,
+                                   dist0)]
+    ints = (shift_w.shape[0], n_cap, *res_nbr.shape, seeds_nbr.shape[0],
+            int(root))
+    return lambda: cuda.launch("relax", "sssp_init", "p" * 11 + "i" * 6
+                               + "piii", *ptrs, *ints, 0, 1, 0,
+                               shift_w.shape[1])
+
+
+def k1_floor(cuda, dist, out, flag, deltas, sw, residual, shared: int = 0):
+    """-> a bare ``cuda.launch`` of K1's entry point for the ungated call
+    ``relax_step(dist, out, flag, deltas, sw, residual)`` (raw addresses,
+    no checks): the host floor of a ``relax_step`` call."""
+    rows, nbr, rw = residual or (None, None, None)
+    ptrs = [0 if t is None else t.data_ptr()
+            for t in (dist, out, deltas, sw, rows, nbr, rw, flag)]
+    r_cap, kr_cap = nbr.shape[-2:] if residual else (0, 0)
+    g = dist.shape[0] if dist.dim() == 3 else 1
+    return lambda: cuda.launch(
+        "relax", "relax_step", "p" * 7 + "i" * 8 + "pi" + "ppiiiiii",
+        *ptrs[:7], *dist.shape[-2:], sw.shape[-2], 0, sw.shape[-1], r_cap,
+        kr_cap, shared, ptrs[7], g, *(0,) * 8)
+
+
+def k1s_allocations(torch, module, fn) -> tuple:
+    """Run ``fn`` with ``module.sssp_init`` (the name a solve calls K1s
+    by) spied on: -> (``fn``'s result, the CUDA tensors each K1s call
+    inside it allocated). The launch counts and any outer op counter
+    still see every call."""
+    real, seen = module.sssp_init, []
+
+    def spy(*a, **k):
+        with device_op_counter(torch) as mode:
+            out = real(*a, **k)
+        seen.append(sum(mode.allocs.values()))
+        return out
+
+    module.sssp_init = spy
+    try:
+        return fn(), seen
+    finally:
+        module.sssp_init = real
+
+
+def held_launch(torch, wrappers, label: str, fn) -> dict:
+    """``one_launch`` that also allocates nothing on the card."""
+    n = one_launch(torch, wrappers, label, fn)
+    check(n["allocations"] == 0, f"{label} must allocate nothing: {n}")
+    return n
+
+
+def relax_plane(torch, dev, seed: int, g: int, n_cap: int, s_cap: int,
+                d_cap: int, r_cap: int, kr_cap: int) -> dict:
+    """Seeded stacked K1s inputs of ``g`` lanes: signed class shifts (a
+    pad class of shift 0 and INF_E weights), ~1/8 INF_E edges, a
+    residual ELL with repeated rows, a pad row (-1, INF_E weights) and
+    neighbour indices past both ends of the plane, and per-lane roots
+    and seeds (lane 0's first seed dead)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    inf = 1 << 29
+    deltas = rng.integers(-n_cap + 1, n_cap, (g, s_cap))
+    deltas[:, -1] = 0
+    shift_w = rng.integers(0, 9, (g, s_cap, n_cap))
+    shift_w[rng.random((g, s_cap, n_cap)) < 0.125] = inf
+    shift_w[:, -1] = inf
+    rows = rng.integers(0, n_cap, (g, r_cap))
+    rows[:, :2] = rows[:, 2:3]
+    rows[:, -1] = -1
+    nbr = rng.integers(-2, n_cap + 2, (g, r_cap, kr_cap))
+    rw = rng.integers(0, 40, (g, r_cap, kr_cap))
+    rw[:, -1] = inf
+    roots = rng.integers(0, n_cap, g)
+    nbr[:, 1, 0] = roots  # a residual slot out of the root
+    seeds = rng.integers(-1, n_cap + 1, (g, d_cap))
+    seeds_w = rng.integers(1, 9, (g, d_cap))
+    seeds_w[0, 0] = inf
+    t = {k: torch.tensor(v.astype(np.int32), device=dev) for k, v in dict(
+        deltas=deltas, shift_w=shift_w, rows=rows, nbr=nbr, rw=rw,
+        roots=roots, seeds=seeds, seeds_w=seeds_w).items()}
+    t["args"] = (t["shift_w"], t["rows"], t["nbr"], t["rw"], t["roots"],
+                 t["seeds"], t["seeds_w"])
+    return t
+
+
+def lane0(args) -> tuple:
+    """Lane 0 of stacked K1s arguments (its root an int)."""
+    return tuple(int(a[0]) if a.dim() == 1 and i == 4 else a[0]
+                 for i, a in enumerate(args))
+
+
+def relax_cases(c) -> dict:
+    """K1s and K1 against their plain versions at tolerance 0 on seeded
+    synthetic inputs at the edges of their designs, each call one launch
+    and no torch op (``one_launch``; K1s into held outputs also no
+    allocation). K1s: held outputs reused over two calls with other
+    roots and seeds, stacked lanes with an odd ELL (scalar path), an
+    ``[mc]`` window of odd width and offset (held too), a root axis of
+    256 roots with no class and no ELL (the ``[fabric]`` seeds), and the
+    KSP2 seed rows (one K1s launch). K1: no residual, a residual with repeated and
+    pad rows and indices past the plane, D past the register chunk, a
+    residual shared by 64 lanes (more tiles than the cooperative grid),
+    gated lanes with one closed (its plane untouched; stamps and
+    counters too) and an ``[mc]`` window. -> case -> largest error."""
+    torch, dev, relax, ksp2, w = c.torch, c.dev, c.relax, c.ksp2, c.wrappers
+    errs = {}
+
+    def init_case(label, args, fn, plain, held=None):
+        if held is not None:
+            for t in (held[0], *held[1], held[2]):
+                t.fill_(-7)
+        got = fn(*args)
+        want = plain(*args)
+        errs[label] = max_abs_err(torch, (got[0], *got[1], got[2]),
+                                  (want[0], *want[1], want[2]))
+        (held_launch if held is not None else one_launch)(
+            torch, w, label, lambda: fn(*args))
+
+    def held_fn(out):
+        return lambda *a: relax.sssp_init(*a, out=out)
+
+    # K1s
+    n_cap = 4096
+    p1 = relax_plane(torch, dev, 5, 2, n_cap, 6, 5, 64, 3)
+    a1, a2 = lane0(p1["args"]), lane0(tuple(t[1:] for t in p1["args"]))
+    held = relax.init_outputs(*a1[:4], a1[5], n_cap)
+    for i, a in enumerate((a1, a2)):
+        init_case(f"K1s held, call {i}", a, held_fn(held),
+                  relax.sssp_init_plain, held)
+    p3 = relax_plane(torch, dev, 6, 3, n_cap, 6, 5, 37, 3)
+    held3 = relax.init_outputs(*p3["args"][:4], p3["args"][5], n_cap)
+    init_case("K1s lanes, odd ELL", p3["args"], held_fn(held3),
+              relax.sssp_init_plain, held3)
+    col0, wc = 77, 1001
+    sw_win = a1[0][:, col0:col0 + wc].contiguous()
+    root_in = col0 + 500
+    mc_args = (sw_win, *a1[1:4], root_in, *a1[5:], col0, n_cap)
+    held_mc = relax.init_outputs(sw_win, *a1[1:4], a1[5], n_cap)
+    init_case("K1s [mc] window of width 1001", mc_args,
+              lambda *a: relax.sssp_init_mc(*a, out=held_mc),
+              relax.sssp_init_mc_plain, held_mc)
+    g_f, n_f = 256, 8192
+    pf = relax_plane(torch, dev, 7, g_f, n_f, 1, 8, 3, 1)
+    none = [torch.empty((g_f,) + sh, dtype=torch.int32, device=dev)
+            for sh in ((0, n_f), (0,), (0, 0), (0, 0))]
+    init_case("K1s [fabric] root axis, 256 roots",
+              (*none, pf["roots"], pf["seeds"], pf["seeds_w"]),
+              relax.sssp_init, relax.sssp_init_plain)
+    roots = p1["roots"][:1].contiguous()
+    seed_rows = ksp2.seed_rows(roots, 64, n_cap)
+    errs["K1s KSP2 seed rows, 64 lanes"] = max_abs_err(
+        torch, seed_rows, ksp2.seed_rows_plain(roots, 64, n_cap))
+    n = counted(torch, w, lambda: ksp2.seed_rows(roots, 64, n_cap))
+    check(n["kernel_launches"] == 1, f"the KSP2 seed rows: one K1s launch {n}")
+
+    # K1: one step from a wavefront 3 steps past the seed plane
+    def k1_case(label, dist, deltas, sw, res, res_plain=None, gate=None,
+                mc=None):
+        # the plain version takes clipped indices (``res_plain``); the
+        # kernel clips as it reads, on the card
+        clipped = res_plain or res
+        mid, spare = dist.clone(), torch.empty_like(dist)
+        flag = torch.zeros(1, dtype=torch.int32, device=dev)
+        for _ in range(3):
+            if mc is None:
+                relax.relax_step(mid, spare, flag, deltas, sw, clipped)
+            else:
+                relax.relax_step_mc(mid, spare, flag, deltas, sw, clipped,
+                                    mc)
+            mid, spare = spare, mid
+
+        def side(kernel: bool):
+            """-> (the call, its outputs) on fresh outputs and lanes."""
+            o = torch.full_like(mid, -3)
+            f = torch.zeros(1, dtype=torch.int32, device=dev)
+            lanes = None
+            if gate is not None:
+                lanes = relax.Lanes(mid.shape[0], dev)
+                lanes.st[:, 0] = 0
+                lanes.st[gate, 0] = -5  # lane `gate` reached its fixpoint
+            g = None if lanes is None else lanes.gate(
+                (0, relax.ALWAYS), (1, relax.KEEP), (1, 1))
+            r = res if kernel and mid.is_cuda else clipped
+            if mc is None:
+                fn = relax.relax_step if kernel else relax.relax_step_plain
+                call = lambda: fn(mid, o, f, deltas, sw, r, g)  # noqa: E731
+            else:
+                fn = relax.relax_step_mc if kernel \
+                    else relax.relax_step_mc_plain
+                call = lambda: fn(mid, o, f, deltas, sw, r, mc)  # noqa: E731
+            return call, [o, f] + ([] if lanes is None
+                                   else [lanes.st, lanes.cnt])
+
+        (k_call, k_out), (p_call, p_out) = side(True), side(False)
+        k_call()
+        p_call()
+        check(int(k_out[1]) == 1, f"{label}: a wavefront step must change")
+        errs[label] = max_abs_err(torch, k_out, p_out)
+        if gate is not None:
+            check(bool((k_out[0][gate] == -3).all()),
+                  f"{label}: the closed lane's plane was written")
+        one_launch(torch, w, label, side(True)[0])
+
+    def residual_of(p, lane=None):
+        sw, res, dist0 = relax.sssp_init(*p["args"])
+        if lane is not None:
+            sw, res, dist0 = sw[lane], tuple(t[lane] for t in res), \
+                dist0[lane]
+        return sw, res, dist0
+
+    sw0, res0, d00 = residual_of(p1, 0)
+    dl0 = p1["deltas"][0]
+    k1_case("K1 no residual, D 5", d00, dl0, sw0, None)
+    raw = (p1["rows"][0], p1["nbr"][0], res0[2])
+    k1_case("K1 residual, repeated and pad rows", d00, dl0, sw0, raw,
+            plain_residual(raw, n_cap))
+    pd = relax_plane(torch, dev, 8, 1, n_cap, 5, 19, 64, 4)
+    swd, resd, dd = residual_of(pd, 0)
+    k1_case("K1 residual, D 19", dd, pd["deltas"][0], swd, resd)
+    ps = relax_plane(torch, dev, 9, 64, n_cap, 4, 1, n_cap, 2)
+    sws, ress, ds = residual_of(ps)
+    shared = (ress[0][0].contiguous(), ress[1][0].contiguous(), ress[2])
+    k1_case("K1 residual shared by 64 lanes", ds, ps["deltas"], sws,
+            shared)
+    sw3, res3, d3 = residual_of(p3)
+    k1_case("K1 gated lanes, lane 1 closed", d3, p3["deltas"], sw3, res3,
+            gate=1)
+    # the window's own sources: from two full-width steps past the seeds
+    wave, spare = d00.clone(), torch.empty_like(d00)
+    for _ in range(2):
+        relax.relax_step(wave, spare, None, dl0, sw0, res0)
+        wave, spare = spare, wave
+    k1_case("K1 [mc] window of width 1001", wave, dl0,
+            sw0[:, col0:col0 + wc].contiguous(), res0, mc=col0)
+    return errs
 
 
 def tail_edge_shapes(c) -> dict:
@@ -1528,8 +1795,12 @@ def flapstorm_phase(c, adj_dbs, states, ps) -> tuple:
           f"flapstorm: the idle epoch must pull {idle_bytes} B: {idle}")
     cold_check("idle epoch", True)
     # one storm epoch's device work, torch ops included (not timed)
-    per_epoch = counted(torch, c.wrappers, lambda: epoch(
-        2, STORM_FLAPS + 4, "counted"))
+    per_epoch, k1s_allocs = k1s_allocations(
+        torch, c.incremental, lambda: counted(torch, c.wrappers, lambda: (
+            epoch(2, STORM_FLAPS + 4, "counted"))))
+    per_epoch["k1s_allocations"] = k1s_allocs
+    check(k1s_allocs == [0], f"flapstorm: the counted epoch's K1s "
+          f"allocated {k1s_allocs}")
     check(recs[-1]["streamed"]
           and per_epoch["kernels_by_wrapper"].get("K5:old_plane"),
           f"flapstorm: the counted epoch must stream incrementally: "
@@ -1978,6 +2249,12 @@ def ksp2_phase(c) -> dict:
         ops=2 * b * (n_cap * s_cap + (r_cap * kr_cap if has_res else 0)),
         reps=20, plain_reps=2,
     )
+    c.split("K1:relax_step[ksp2]",
+            lambda: relax.relax_step(mid, o_k, f_k, deltas_b, sw, res_k),
+            floor=k1_floor(c.cuda, mid, o_k, f_k, deltas_b, sw, res_k,
+                           int(has_res)))
+    one_launch(torch, c.wrappers, "K1 [ksp2]", lambda: relax.relax_step(
+        mid, o_k, f_k, deltas_b, sw, res_k))
     # the whole masked batch, kernels vs plain, on 8 rows
     sub = (ad.deltas, ad.shift_w, ad.res_rows, ad.res_nbr, ad.res_w, root,
            ms_t[:8].contiguous(), mr_t[:8].contiguous(), has_res)
@@ -4077,6 +4354,8 @@ def main() -> int:
            for n in cold_path},
         "K4:compact_outputs[stream]": ("K4:compact_outputs",
                                        "openr_tpu/decision/tpu_solver.py:826"),
+        "K1:relax_step[residual]": ("K1:relax_step",
+                                    "openr_tpu/ops/relax.py:119"),
         "K1:relax_step[ksp2]": ("K1:relax_step", "openr_tpu/ops/ksp2.py:144"),
         "K1:relax_step[sweep]": ("K1:relax_step", "openr_tpu/ops/sweep.py:59"),
         "K10:overlay_planes[sweep]": ("K10:overlay_planes",
@@ -4229,6 +4508,30 @@ def main() -> int:
                       f"{name}: residual relax_step != plain")
                 plane = o_k
             log(f"{name}: relax_step with the residual ELL equal to plain")
+            # the row of K1 with a residual: one step on that wavefront
+            r_dc, r_nc = plane.shape
+            r_sc = c_sw.shape[0]
+            r_ell = c_res[1].numel()
+            record(
+                "K1:relax_step[residual]",
+                max_abs_err(torch, (o_k, fk), (o_p, fp)),
+                lambda: relax.relax_step(plane, o_k, fk, c_ad.deltas, c_sw,
+                                         c_res),
+                lambda: relax.relax_step_plain(plane, o_p, fp, c_ad.deltas,
+                                               c_sw, c_res),
+                nbytes=4 * (2 * r_dc * r_nc + r_sc * r_nc + r_sc
+                            + c_res[0].numel() + 2 * r_ell),
+                ops=2 * r_dc * (r_nc * r_sc + r_ell))
+            split("K1:relax_step[residual]",
+                  lambda: relax.relax_step(plane, o_k, fk, c_ad.deltas, c_sw,
+                                           c_res),
+                  floor=k1_floor(cuda, plane, o_k, fk, c_ad.deltas, c_sw,
+                                 c_res))
+            one_launch(torch, wrappers, "K1 with the residual",
+                       lambda: relax.relax_step(plane, o_k, fk, c_ad.deltas,
+                                                c_sw, c_res))
+            variant_launches["K1:relax_step[residual]"] = c_launches[
+                "K1:relax_step"]
             # the incremental kernels' residual branches (lsdb100k has no
             # residual): one flap of adj_dbs[1] — a fabric switch of the
             # root's pod, whose links sit in the residual ELL
@@ -4354,11 +4657,18 @@ def main() -> int:
             root_w)
     got = relax.sssp_init(*args)
     want = relax.sssp_init_plain(*args)
+    # the row times K1s as the churn and storm solves call it, into held
+    # outputs (205 of the main path's 208 calls); the cold solve's
+    # allocating call is split beside it below
+    held = relax.init_outputs(*args[:4], root_nbr, n_cap)
+    relax.sssp_init(*args, out=held)
     res_bytes = 4 * (ad.res_rows.numel() + 2 * ad.res_nbr.numel())
     record(
-        "K1s:sssp_init", max_abs_err(torch, (got[0], *got[1], got[2]),
-                                 (want[0], *want[1], want[2])),
-        lambda: relax.sssp_init(*args), lambda: relax.sssp_init_plain(*args),
+        "K1s:sssp_init", max_abs_err(torch, (got[0], *got[1], got[2], held[0],
+                                             *held[1], held[2]),
+                                     (want[0], *want[1], want[2]) * 2),
+        lambda: relax.sssp_init(*args, out=held),
+        lambda: relax.sssp_init_plain(*args),
         nbytes=4 * (2 * s_cap * n_cap + 2 * d_cap + d_cap * n_cap)
         + 2 * res_bytes,
         ops=s_cap * n_cap + d_cap * n_cap,
@@ -4392,6 +4702,32 @@ def main() -> int:
         ops=2 * d_cap * n_cap * s_cap
         + (2 * d_cap * ad.res_nbr.numel() if has_res else 0),
     )
+    # K1s as the churn and storm solves call it (into held outputs), and
+    # as the cold solve does (allocating); K1 on the wavefront
+    split("K1s:sssp_init", lambda: relax.sssp_init(*args, out=held),
+          floor=k1s_floor(cuda, args, held, n_cap))
+    r = results["K1s:sssp_init"]
+    r["alloc_ms"] = time_ms(torch, lambda: relax.sssp_init(*args), 50)
+    r["alloc_device_ms"], r["alloc_host_ms"] = device_ms(
+        torch, lambda: relax.sssp_init(*args))
+    split("K1:relax_step",
+          lambda: relax.relax_step(mid, out_k, f_k, ad.deltas, sw, residual),
+          floor=k1_floor(cuda, mid, out_k, f_k, ad.deltas, sw, residual))
+    k1_launches = {
+        "K1s held": held_launch(torch, wrappers, "K1s held", lambda: (
+            relax.sssp_init(*args, out=held))),
+        "K1": one_launch(torch, wrappers, "K1", lambda: relax.relax_step(
+            mid, out_k, f_k, ad.deltas, sw, residual))}
+    cases = relax_cases(c)
+    for label, err in cases.items():
+        check(err == 0, f"{label}: kernel != plain (max abs err {err})")
+    results["K1s:sssp_init"]["cases"] = sorted(
+        k for k in cases if k.startswith("K1s"))
+    results["K1:relax_step"]["cases"] = sorted(
+        k for k in cases if k.startswith("K1 "))
+    log("K1s and K1 launches: " + json.dumps(k1_launches) + "; equal to "
+        "plain at the edge cases, each call one launch: "
+        + json.dumps(cases))
 
     s_lad = min(s_cap, relax.LADDER_WIDTH)
     dq = 1 << max(plan.delta_exp, 1)
@@ -4615,6 +4951,19 @@ def main() -> int:
     ci = churn_inputs(relax, incremental, inc_solver)
     (i_deltas, i_shift, i_rows, i_nbr, i_resw, i_mbuf, i_root, i_rnbr,
      i_rw) = ci["lane"]
+    # the K1s outputs the churn solver holds: the last flap step's,
+    # written in place, never its distance plane
+    vs = inc_solver._vstates[("0", LSDB100K_ROOT)]
+    check(vs.init is not None, "the churn solves must hold K1s's outputs")
+    want = relax.sssp_init_plain(*on_cpu((i_shift, i_rows, i_nbr, i_resw)),
+                                 int(i_root), *on_cpu((i_rnbr, i_rw)))
+    h_sw, h_res, h_d0 = vs.init
+    check(max_abs_err(torch, on_cpu((h_sw, *h_res, h_d0)),
+                      (want[0], *want[1], want[2])) == 0,
+          "the held K1s outputs != plain on the last flap step")
+    check(vs.prev_dist.untyped_storage().data_ptr() not in {
+        t.untyped_storage().data_ptr() for t in (h_sw, *h_res, h_d0)},
+          "a held K1s output aliases the vantage's prev_dist")
     sdi, sdo, prev_dist = ci["sdi"], ci["sdo"], ci["prev_dist"]
     has_res = ci["has_res"]
     cap = sdi.numel()
@@ -4832,8 +5181,13 @@ def main() -> int:
     per_sssp = counted(torch, wrappers, lambda: incremental.incremental_sssp(
         *args_w, **static_w))
     box = {}
-    per_build = counted(torch, wrappers, lambda: box.update(
-        db=inc_solver.build_route_db(LSDB100K_ROOT, states, ps)))
+    per_build, k1s_allocs = k1s_allocations(
+        torch, incremental, lambda: counted(torch, wrappers, lambda: (
+            box.update(db=inc_solver.build_route_db(LSDB100K_ROOT, states,
+                                                    ps)))))
+    per_build["k1s_allocations"] = k1s_allocs
+    check(k1s_allocs == [0], f"the incremental build's K1s allocated "
+          f"{k1s_allocs}")
     st = inc_solver.last_device_stats
     check(st.get("incremental") is True and st.get("fell_back") is False,
           "the counted build must be incremental without fallback")

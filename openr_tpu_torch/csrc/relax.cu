@@ -22,8 +22,8 @@
 // [s_cap, n_cap] planes, as an [s_cap, w_cols] tensor. K1s [mc] masks
 // the root's column only where it lies in the window, K1 [mc] relaxes
 // over the shard's own source columns only (a source outside the
-// window contributes nothing, as the reference's INF-padded full-width
-// row does: dist + INF_E never lowers a word), and K2 [mc] gathers its
+// window weighs INF_E, as in the reference's INF-padded full-width row:
+// dist + INF_E never lowers a word), and K2 [mc] gathers its
 // ladder rows full width with INF_E outside the window
 // (parallel/sharding.py::make_mc_sssp, :381-400; ops/relax.py:227-232).
 // The one-card path passes the whole width (col0 = 0, w_cols = n_cap).
@@ -35,23 +35,25 @@
 // per-lane stamps st[g][2] of the step in which the lane last changed
 // (ops/relax.py::Lanes sets the thresholds per launch): a lane whose
 // stamps fall below the thresholds reached its fixpoint at this loop
-// level, and its blocks return before touching memory. A lane that
-// changed stores the launch's `put` stamps; block 0 of an open lane adds
-// the `inc` pair to the lane's counters cnt[g][2] (trips or epochs, and
-// rounds), so the counters stop with the lane. Stamps only grow and every
+// level, and its tiles are skipped before touching memory. A lane that
+// changed stores the launch's `put` stamps; the block of an open lane's
+// first tile adds the `inc` pair to the lane's counters cnt[g][2] (trips
+// or epochs, and rounds) once a launch, so the counters stop with the
+// lane. Stamps only grow and every
 // put passes its own launch's thresholds, so blocks of one launch agree
 // on which lanes are open whatever order they run in. A skipped lane's
 // two plane buffers are equal (its last step changed nothing), so the
 // host's buffer swaps stay valid for it. A null `st` means no gating.
 //
 // Bound: every kernel here streams int32 planes ([D, n_cap] distances,
-// [s_cap, n_cap] class weights) once and does 2 integer ops per loaded
-// word, so each launch is bound by device-memory bytes. Design: one
-// thread per output word, neighbouring threads on neighbouring nodes so
-// every plane load is coalesced (a shift class reads a contiguous,
-// rotated window); the change flag is reduced per block with
-// __syncthreads_or before one atomicOr, so a launch that changes half a
-// million words makes at most one atomic per block.
+// [s_cap, n_cap] class weights) and does a few integer ops per loaded
+// word, so each launch is bound by device-memory bytes. Design:
+// neighbouring threads on neighbouring nodes so every plane load is
+// coalesced (a shift class reads a contiguous, rotated window); the
+// change flag is reduced per block with __syncthreads_or before one
+// atomicOr, so a launch that changes half a million words makes at most
+// one atomic per block. Each kernel's own note below says how it walks
+// its outputs.
 //
 // Index arithmetic: n_cap is a power of two, so roll(x, s)[u] =
 // x[(u - s) mod n_cap] is (u - s) & (n_cap - 1) in unsigned arithmetic,
@@ -71,11 +73,6 @@ namespace cg = cooperative_groups;
 #define THREADS 256
 #define KEEP (-2147483647 - 1)  // a put stamp that is not stored
 
-static inline dim3 grid_for(long long n, int g) {
-    long long b = (n + THREADS - 1) / THREADS;
-    return dim3((unsigned)(b > 0 ? b : 1), (unsigned)g);
-}
-
 struct Gate {
     int* st;   // [g, 2] stamps of each lane's last change, or null
     int* cnt;  // [g, 2] per-lane counters
@@ -92,30 +89,59 @@ __device__ __forceinline__ bool gate_open(const Gate& g, int lane) {
     return !g.st || (g.st[2 * lane] >= g.thr0 && g.st[2 * lane + 1] >= g.thr1);
 }
 
-// thread 0 of each open block, after the block's change vote
-__device__ __forceinline__ void gate_close(const Gate& g, int lane,
-                                           bool changed) {
-    if (!g.st) return;
-    if (changed) {
-        if (g.put0 != KEEP) g.st[2 * lane] = g.put0;
-        if (g.put1 != KEEP) g.st[2 * lane + 1] = g.put1;
-    }
-    if (blockIdx.x == 0) {
-        g.cnt[2 * lane] += g.inc0;
-        g.cnt[2 * lane + 1] += g.inc1;
-    }
+// thread 0 of a block whose tile of an open, gated lane changed a word
+__device__ __forceinline__ void gate_put(const Gate& g, int lane) {
+    if (g.put0 != KEEP) g.st[2 * lane] = g.put0;
+    if (g.put1 != KEEP) g.st[2 * lane + 1] = g.put1;
+}
+
+// thread 0 of the block of an open, gated lane's first tile, once a launch
+__device__ __forceinline__ void gate_count(const Gate& g, int lane) {
+    g.cnt[2 * lane] += g.inc0;
+    g.cnt[2 * lane + 1] += g.inc1;
 }
 
 // K1s: sw = shift_w with column `root` set to INF_E (root is never a
 // transit node); residual weights masked where the source is the root,
 // residual indices clipped into range; dist0[d, clip(seed_d)] = 0 for
-// live seeds, INF_E elsewhere. One flat index space over the four
-// outputs so the whole init is a single launch; lane = blockIdx.y, its
-// root roots[lane] (or `root` when roots is null). With s_cap = r_cap =
-// 0 only the seed plane is written: the unmasked single-root SSSP
-// (ops/ksp2.py::base_sssp) seeds its one row so and relaxes the
+// live seeds, INF_E elsewhere. lane = blockIdx.y, its root roots[lane]
+// (or `root` when roots is null). With s_cap = r_cap = 0 only the seed
+// plane is written: the unmasked single-root SSSP (ops/ksp2.py::
+// base_sssp) and the KSP2 batch seed their rows so and relax the
 // resident planes as they are.
-__global__ void sssp_init_kernel(
+//
+// Bound: bytes — the class plane and the ELL read once and written once,
+// the seed plane written once. Design: one launch, each output in a
+// range of whole blocks of its own (no warp mixes two outputs): the
+// class plane and the seed plane by chunks of INIT_CHUNK words of one
+// row a block (the row from the block index: one 32-bit division a
+// block, none a thread), the ELL and its row list flat. A thread takes
+// INIT_VEC neighbouring words with one 16-byte load and store where the
+// host found the row width a multiple of 4 and the pointers aligned (the
+// VEC_* bits), else INIT_VEC words THREADS apart (an [mc] window of odd
+// width, an odd r_cap). The root's column is masked inside the copy, and
+// a seed's zero is written by the thread whose words hold it, so every
+// word has one writer. The wrapper may hand in the outputs (held by the
+// caller across solves): the launch then allocates nothing.
+#define INIT_VEC 4
+#define INIT_CHUNK (THREADS * INIT_VEC)
+#define VEC_SW 1
+#define VEC_RES 2
+#define VEC_DIST 4
+
+__device__ __forceinline__ int4 ld4(const int* p) {
+    return *reinterpret_cast<const int4*>(p);
+}
+
+__device__ __forceinline__ void st4(int* p, int4 v) {
+    *reinterpret_cast<int4*>(p) = v;
+}
+
+__device__ __forceinline__ int clip(int x, int hi) {
+    return min(max(x, 0), hi);
+}
+
+__global__ void __launch_bounds__(THREADS) sssp_init_kernel(
     const int* __restrict__ shift_w, int* __restrict__ sw,
     const int* __restrict__ res_rows, const int* __restrict__ res_nbr,
     const int* __restrict__ res_w, int* __restrict__ rows_c,
@@ -123,136 +149,256 @@ __global__ void sssp_init_kernel(
     const int* __restrict__ seeds_nbr, const int* __restrict__ seeds_w,
     int* __restrict__ dist0, int s_cap, int n_cap, int r_cap, int kr_cap,
     int d_cap, int root, const int* __restrict__ roots, int col0,
-    int w_cols) {
-    long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    const int lane = blockIdx.y;
-    const long long n_sw = (long long)s_cap * w_cols;
-    const long long n_res = (long long)r_cap * kr_cap;
-    const long long n_dist = (long long)d_cap * n_cap;
-    const int hi = n_cap - 1;
+    int w_cols, int sw_chunks, int b_sw, int b_res, int b_rows, int vec) {
+    const int lane = blockIdx.y, t = threadIdx.x, hi = n_cap - 1;
     if (roots) root = roots[lane];
-    if (i < n_sw) {
-        int u = col0 + (int)(i % w_cols);
-        i += lane * n_sw;
-        sw[i] = (u == root) ? INF_E : shift_w[i];
+    int b = blockIdx.x;
+    if (b < b_sw) {
+        // class row k, window columns [c0, c0 + INIT_CHUNK)
+        const int k = b / sw_chunks;
+        const int c0 = (b - k * sw_chunks) * INIT_CHUNK;
+        const long long row = ((long long)lane * s_cap + k) * w_cols;
+        const int lc = root - col0;  // the root's column in the window
+        if (vec & VEC_SW) {
+            const int c = c0 + INIT_VEC * t;
+            if (c < w_cols) {
+                int4 v = ld4(shift_w + row + c);
+                if (lc == c) v.x = INF_E;
+                if (lc == c + 1) v.y = INF_E;
+                if (lc == c + 2) v.z = INF_E;
+                if (lc == c + 3) v.w = INF_E;
+                st4(sw + row + c, v);
+            }
+        } else {
+#pragma unroll
+            for (int j = 0; j < INIT_VEC; ++j) {
+                const int c = c0 + t + j * THREADS;
+                if (c < w_cols)
+                    sw[row + c] = c == lc ? INF_E : shift_w[row + c];
+            }
+        }
         return;
     }
-    i -= n_sw;
-    if (i < n_res) {
-        i += lane * n_res;
-        int nb = res_nbr[i];
-        rw[i] = (nb == root) ? INF_E : res_w[i];
-        nbr_c[i] = min(max(nb, 0), hi);
+    b -= b_sw;
+    if (b < b_res) {
+        const long long n_res = (long long)r_cap * kr_cap;
+        const long long base = lane * n_res;
+        const long long e0 = (long long)b * INIT_CHUNK;
+        if (vec & VEC_RES) {
+            const long long e = base + e0 + INIT_VEC * t;
+            if (e0 + INIT_VEC * t < n_res) {
+                const int4 nb = ld4(res_nbr + e);
+                int4 w = ld4(res_w + e);
+                if (nb.x == root) w.x = INF_E;
+                if (nb.y == root) w.y = INF_E;
+                if (nb.z == root) w.z = INF_E;
+                if (nb.w == root) w.w = INF_E;
+                st4(rw + e, w);
+                st4(nbr_c + e, make_int4(clip(nb.x, hi), clip(nb.y, hi),
+                                         clip(nb.z, hi), clip(nb.w, hi)));
+            }
+        } else {
+#pragma unroll
+            for (int j = 0; j < INIT_VEC; ++j) {
+                const long long e = e0 + t + j * THREADS;
+                if (e < n_res) {
+                    const int nb = res_nbr[base + e];
+                    rw[base + e] = nb == root ? INF_E : res_w[base + e];
+                    nbr_c[base + e] = clip(nb, hi);
+                }
+            }
+        }
         return;
     }
-    i -= n_res;
-    if (i < r_cap) {
-        i += (long long)lane * r_cap;
-        rows_c[i] = min(max(res_rows[i], 0), hi);
+    b -= b_res;
+    if (b < b_rows) {
+        const long long base = (long long)lane * r_cap;
+#pragma unroll
+        for (int j = 0; j < INIT_VEC; ++j) {
+            const int r = b * INIT_CHUNK + t + j * THREADS;
+            if (r < r_cap) rows_c[base + r] = clip(res_rows[base + r], hi);
+        }
         return;
     }
-    i -= r_cap;
-    if (i < n_dist) {
-        int d = (int)(i / n_cap);
-        int u = (int)(i - (long long)d * n_cap);
-        d += lane * d_cap;
-        int seed = min(max(seeds_nbr[d], 0), hi);
-        int v = INF_E;
-        if (u == seed && seeds_w[d] < INF_E) v = 0;
-        dist0[lane * n_dist + i] = v;
+    b -= b_rows;
+    // seed plane row d, columns [c0, c0 + INIT_CHUNK)
+    const int n_chunks = (n_cap + INIT_CHUNK - 1) / INIT_CHUNK;
+    const int d = b / n_chunks;
+    if (d >= d_cap) return;  // the one idle block of an empty launch
+    const int c0 = (b - d * n_chunks) * INIT_CHUNK;
+    const int sd = lane * d_cap + d;
+    const int seed = seeds_w[sd] < INF_E ? clip(seeds_nbr[sd], hi) : -1;
+    int* row = dist0 + (long long)sd * n_cap;
+    if (vec & VEC_DIST) {
+        const int c = c0 + INIT_VEC * t;
+        if (c < n_cap)
+            st4(row + c, make_int4(seed == c ? 0 : INF_E,
+                                   seed == c + 1 ? 0 : INF_E,
+                                   seed == c + 2 ? 0 : INF_E,
+                                   seed == c + 3 ? 0 : INF_E));
+    } else {
+#pragma unroll
+        for (int j = 0; j < INIT_VEC; ++j) {
+            const int c = c0 + t + j * THREADS;
+            if (c < n_cap) row[c] = c == seed ? 0 : INF_E;
+        }
     }
 }
 
-// K1 shift part: out[d,u] = min(dist[d,u], min_k dist[d,src] + sw[k,src])
-// with src = (u - deltas[k]) mod n_cap, over the sources in the column
-// window (K1 [mc]; the whole width on one card). Jacobi: reads `dist`, writes
-// `out` (a different buffer), so trips/rounds match the JAX loop.
-__global__ void relax_shift_kernel(
-    const int* __restrict__ dist, int* __restrict__ out,
-    const int* __restrict__ deltas, const int* __restrict__ sw,
-    int d_cap, int n_cap, int s_cap, int col0, int w_cols,
-    int* __restrict__ flag, Gate gate) {
-    const int lane = blockIdx.y;
-    if (!gate_open(gate, lane)) return;
-    const long long plane = (long long)d_cap * n_cap;
-    dist += lane * plane;
-    out += lane * plane;
-    deltas += (long long)lane * s_cap;
-    sw += lane * (long long)s_cap * w_cols;
-    long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    int changed = 0;
-    if (i < plane) {
-        const unsigned hi = (unsigned)n_cap - 1u;
-        int d = (int)(i / n_cap);
-        unsigned u = (unsigned)(i - (long long)d * n_cap);
-        const int* row = dist + (long long)d * n_cap;
-        int cur = row[u];
-        int acc = cur;
-        for (int k = 0; k < s_cap; ++k) {
-            unsigned src = (u - (unsigned)deltas[k]) & hi;
-            unsigned lc = src - (unsigned)col0;  // local column
-            if (lc < (unsigned)w_cols)
-                acc = min(acc, row[src] + sw[(long long)k * w_cols + lc]);
-        }
-        out[i] = acc;
-        changed = acc < cur;
-    }
-    int any = __syncthreads_or(changed);
-    if (threadIdx.x == 0) {
-        if (any && flag) atomicOr(flag, 1);
-        gate_close(gate, lane, any);
-    }
-}
+// K1: out[d,u] = min(dist[d,u], min_k dist[d,src] + sw[k,src]) with src
+// = (u - deltas[k]) mod n_cap, over the sources in the column window (K1
+// [mc]; the whole width on one card), then the row-compact residual ELL
+// scatter-min'd in: out[d, rows_c[r]] = min(., min_j dist[d, nbr_c[r,j]]
+// + rw[r,j]). Both phases read `dist` and write `out` (a different
+// buffer: Jacobi), so trips and rounds match the JAX loop. Indices are
+// clipped as they are read (K1s's clipped copies are idempotent under
+// it), so the unmasked SSSP passes the resident ELL as it is. Pad rows
+// clip to row 0 and carry INF_E weights, and real rows may repeat, so
+// the scatter is an atomicMin — exact on int32 in any order. With
+// `shared` set, every lane reads the one resident row / neighbour index
+// table and only the weights `rw` are per lane: the masked KSP2 rows and
+// the what-if lanes (csrc/ksp2.cu's overlay_planes) override weights,
+// never indices. A null rows_c means no residual.
+//
+// Bound: bytes — the plane read and written once, the class weights and
+// the ELL read once. Design: one launch a step. A thread takes one node
+// u of one lane and DC of its D rows in registers, so each class weight
+// sw[k, src] is loaded once for DC rows, neighbouring threads on
+// neighbouring nodes (every load coalesced: a class reads a contiguous,
+// rotated window); a residual row likewise loads its indices and
+// weights once for DC rows. The host picks DC (8, 4, 2 or 1, a template
+// argument) as the largest that still gives the step RELAX_MIN_THREADS
+// threads, so a small plane (fabric10k's 8 x 8192) keeps its
+// parallelism and a wide one (lsdb100k's 4 x 131072) takes one load of
+// a weight a node. A tile is THREADS nodes of one DC-row chunk of one
+// lane. Without a residual it is a plain launch, a tile a block. With
+// one, it is a cooperative launch (the grid from coop_grid, at most
+// RELAX_BLOCKS_PER_SM blocks an SM) whose blocks walk the shift tiles,
+// meet at one grid barrier (the scatter must follow every plain store
+// of `out`), then walk the residual tiles. No block barrier inside the
+// tile loops: a thread keeps its own change, one __syncthreads_or at
+// the end feeds one atomicOr a block; a gated lane's stamps are stored
+// by lane 0 of each warp whose tile changed a word (__any_sync; every
+// thread of a block walks the same tiles). A lane's counters go up once
+// a launch (by the block of its first shift tile), and its stamps on a
+// change in either phase (stamps only grow and every put passes its own
+// launch's thresholds, so a lane's gate reads the same in both phases).
+#define RELAX_BLOCKS_PER_SM 8
+#define RELAX_MIN_THREADS (1 << 17)
 
-// K1 residual part: the row-compact ELL tail scatter-min'd into `out`
-// after relax_shift_kernel wrote it. Candidates read the incoming plane
-// `dist` (Jacobi). Indices are clipped into range here too (K1s's
-// clipped copies are idempotent under it), so the unmasked SSSP passes
-// the resident ELL as it is. Pad rows clip to row 0 and carry INF_E
-// weights, and real rows may repeat, so the scatter is an atomicMin —
-// exact on int32 in any order. With `shared` set, every lane reads the
-// one resident row / neighbour index table and only the weights `rw`
-// are per lane: the masked KSP2 rows and the what-if lanes
-// (csrc/ksp2.cu's overlay_planes) override weights, never indices.
-__global__ void relax_residual_kernel(
-    const int* __restrict__ dist, int* __restrict__ out,
-    const int* __restrict__ rows_c, const int* __restrict__ nbr_c,
-    const int* __restrict__ rw, int d_cap, int n_cap, int r_cap,
-    int kr_cap, int shared, int* __restrict__ flag, Gate gate) {
-    const int lane = blockIdx.y;
-    if (!gate_open(gate, lane)) return;
+template <int DC>
+__global__ void __launch_bounds__(THREADS) relax_step_kernel(
+    const int* __restrict__ dist, int* out, const int* __restrict__ deltas,
+    const int* __restrict__ sw, const int* __restrict__ rows_c,
+    const int* __restrict__ nbr_c, const int* __restrict__ rw, int d_cap,
+    int n_cap, int s_cap, int col0, int w_cols, int r_cap, int kr_cap,
+    int shared, int g, int* flag, Gate gate) {
+    const int t = threadIdx.x;
     const long long plane = (long long)d_cap * n_cap;
-    const long long ell = (long long)r_cap * kr_cap;
-    dist += lane * plane;
-    out += lane * plane;
-    if (!shared) {
-        rows_c += (long long)lane * r_cap;
-        nbr_c += lane * ell;
-    }
-    rw += lane * ell;
-    long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    const unsigned hi = (unsigned)n_cap - 1u;
+    const int d_chunks = (d_cap + DC - 1) / DC;
     int changed = 0;
-    if (i < (long long)d_cap * r_cap) {
-        int d = (int)(i / r_cap);
-        int r = (int)(i - (long long)d * r_cap);
-        const int* row = dist + (long long)d * n_cap;
-        const int hi = n_cap - 1;
-        int cand = INF_E << 1;
-        for (int j = 0; j < kr_cap; ++j) {
-            long long e = (long long)r * kr_cap + j;
-            cand = min(cand, row[min(max(nbr_c[e], 0), hi)] + rw[e]);
+    // shift phase: tile = (lane, row chunk, THREADS nodes)
+    const int u_tiles = (n_cap + THREADS - 1) / THREADS;
+    const int per_lane = d_chunks * u_tiles;
+    // the host keeps every tile count under 2^31: 32-bit index math
+    for (int tile = blockIdx.x; tile < per_lane * g; tile += gridDim.x) {
+        const int lane = tile / per_lane;
+        if (!gate_open(gate, lane)) continue;  // uniform in the block
+        const int rem = tile - lane * per_lane;
+        const int d0 = rem / u_tiles * DC;
+        const unsigned u = (unsigned)(rem - d0 / DC * u_tiles) * THREADS + t;
+        const int* rows = dist + lane * plane + (long long)d0 * n_cap;
+        int* lo = out + lane * plane + (long long)d0 * n_cap;
+        const int* ldl = deltas + (long long)lane * s_cap;
+        const int* lsw = sw + (long long)lane * s_cap * w_cols;
+        int hit = 0;
+        if (u < (unsigned)n_cap) {
+            int cur[DC], acc[DC];
+#pragma unroll
+            for (int j = 0; j < DC; ++j)
+                cur[j] = acc[j] =
+                    d0 + j < d_cap ? rows[(long long)j * n_cap + u] : 0;
+            // a source outside the column window weighs INF_E, as the
+            // reference's INF-padded full-width row; no branch, so the
+            // unrolled classes' loads go out together
+#pragma unroll 4
+            for (int k = 0; k < s_cap; ++k) {
+                const unsigned src = (u - (unsigned)ldl[k]) & hi;
+                const unsigned lc = src - (unsigned)col0;  // local column
+                const int w = lc < (unsigned)w_cols
+                                  ? lsw[(long long)k * w_cols + lc]
+                                  : INF_E;
+#pragma unroll
+                for (int j = 0; j < DC; ++j)
+                    if (d0 + j < d_cap)
+                        acc[j] =
+                            min(acc[j], rows[(long long)j * n_cap + src] + w);
+            }
+#pragma unroll
+            for (int j = 0; j < DC; ++j)
+                if (d0 + j < d_cap) {
+                    lo[(long long)j * n_cap + u] = acc[j];
+                    hit |= acc[j] < cur[j];
+                }
         }
-        int v = min(max(rows_c[r], 0), hi);
-        if (cand < row[v]) {
-            atomicMin(out + (long long)d * n_cap + v, cand);
-            changed = 1;
+        changed |= hit;
+        if (gate.st) {
+            if (__any_sync(0xffffffffu, hit) && (t & 31) == 0)
+                gate_put(gate, lane);
+            if (t == 0 && rem == 0) gate_count(gate, lane);
         }
     }
-    int any = __syncthreads_or(changed);
-    if (threadIdx.x == 0) {
-        if (any && flag) atomicOr(flag, 1);
-        gate_close(gate, lane, any);
+    if (rows_c) {
+        cg::this_grid().sync();
+        // residual phase: tile = (lane, row chunk, THREADS ELL rows)
+        const int r_tiles = (r_cap + THREADS - 1) / THREADS;
+        const int r_per = d_chunks * r_tiles;
+        const long long ell = (long long)r_cap * kr_cap;
+        for (int tile = blockIdx.x; tile < r_per * g; tile += gridDim.x) {
+            const int lane = tile / r_per;
+            if (!gate_open(gate, lane)) continue;
+            const int rem = tile - lane * r_per;
+            const int d0 = rem / r_tiles * DC;
+            const int r = (rem - d0 / DC * r_tiles) * THREADS + t;
+            const int* rows = dist + lane * plane + (long long)d0 * n_cap;
+            int* lo = out + lane * plane + (long long)d0 * n_cap;
+            const int* lrows =
+                shared ? rows_c : rows_c + (long long)lane * r_cap;
+            const int* lnbr = shared ? nbr_c : nbr_c + lane * ell;
+            const int* lrw = rw + lane * ell;
+            int hit = 0;
+            if (r < r_cap) {
+                int cand[DC];
+#pragma unroll
+                for (int j = 0; j < DC; ++j) cand[j] = INF_E << 1;
+#pragma unroll 4
+                for (int e = 0; e < kr_cap; ++e) {
+                    const long long i = (long long)r * kr_cap + e;
+                    const long long nb = clip(lnbr[i], (int)hi);
+                    const int w = lrw[i];
+#pragma unroll
+                    for (int j = 0; j < DC; ++j)
+                        if (d0 + j < d_cap)
+                            cand[j] = min(cand[j],
+                                          rows[j * (long long)n_cap + nb] + w);
+                }
+                const long long v = clip(lrows[r], (int)hi);
+#pragma unroll
+                for (int j = 0; j < DC; ++j) {
+                    const long long o = j * (long long)n_cap + v;
+                    if (d0 + j < d_cap && cand[j] < rows[o]) {
+                        atomicMin(lo + o, cand[j]);
+                        hit = 1;
+                    }
+                }
+            }
+            changed |= hit;
+            if (gate.st && __any_sync(0xffffffffu, hit) && (t & 31) == 0)
+                gate_put(gate, lane);
+        }
     }
+    if (__syncthreads_or(changed) && t == 0 && flag) atomicOr(flag, 1);
 }
 
 // K2 class pick, one cooperative launch (replaces the JAX package's
@@ -455,15 +601,9 @@ __global__ void __launch_bounds__(THREADS) ladder_pass_kernel(
             if (t == 0) {
                 block_changed |= any;
                 if (gate.st) {
-                    if (any) {
-                        if (gate.put0 != KEEP) gate.st[2 * lane] = gate.put0;
-                        if (gate.put1 != KEEP)
-                            gate.st[2 * lane + 1] = gate.put1;
-                    }
-                    if (k == 0 && tile == lane * per_lane) {
-                        gate.cnt[2 * lane] += gate.inc0;
-                        gate.cnt[2 * lane + 1] += gate.inc1;
-                    }
+                    if (any) gate_put(gate, lane);
+                    if (k == 0 && tile == lane * per_lane)
+                        gate_count(gate, lane);
                 }
             }
         }
@@ -488,7 +628,48 @@ __global__ void __launch_bounds__(THREADS) ladder_pass_kernel(
     if (t == 0 && block_changed && flag) atomicOr(flag, 1);
 }
 
+// One K1 step at row chunk DC: a plain launch without a residual, a
+// cooperative one with it.
+template <int DC>
+static int launch_relax(const int* dist, int* out, const int* deltas,
+                        const int* sw, const int* rows_c, const int* nbr_c,
+                        const int* rw, int d_cap, int n_cap, int s_cap,
+                        int col0, int w_cols, int r_cap, int kr_cap,
+                        int shared, int g, int* flag, Gate gate,
+                        cudaStream_t stream) {
+    const long long d_chunks = (d_cap + DC - 1) / DC;
+    const long long tiles =
+        d_chunks * ((n_cap + THREADS - 1) / THREADS) * g;
+    const long long r_tiles =
+        d_chunks * ((r_cap + THREADS - 1) / THREADS) * g;
+    if (tiles > 0x7fffffffLL || r_tiles > 0x7fffffffLL)
+        return (int)cudaErrorInvalidValue;
+    if (!rows_c) {
+        relax_step_kernel<DC><<<(unsigned)max(tiles, 1LL), THREADS, 0,
+                                stream>>>(
+            dist, out, deltas, sw, rows_c, nbr_c, rw, d_cap, n_cap, s_cap,
+            col0, w_cols, r_cap, kr_cap, shared, g, flag, gate);
+        return (int)cudaGetLastError();
+    }
+    static int grid[64];
+    const void* fn = (const void*)relax_step_kernel<DC>;
+    int nb = (int)max(1LL, min(max(tiles, r_tiles),
+                               (long long)coop_grid(fn, THREADS,
+                                                    RELAX_BLOCKS_PER_SM,
+                                                    grid)));
+    void* args[] = {&dist,  &out,    &deltas, &sw, &rows_c, &nbr_c,
+                    &rw,    &d_cap,  &n_cap,  &s_cap, &col0, &w_cols,
+                    &r_cap, &kr_cap, &shared, &g,  &flag,   &gate};
+    cudaError_t rc = cudaLaunchCooperativeKernel(fn, dim3(nb), dim3(THREADS),
+                                                 args, 0, stream);
+    return rc != cudaSuccess ? (int)rc : (int)cudaGetLastError();
+}
+
 extern "C" {
+
+static inline bool aligned16(const void* p) {
+    return ((uintptr_t)p & 15) == 0;
+}
 
 int sssp_init(const int* shift_w, int* sw, const int* res_rows,
               const int* res_nbr, const int* res_w, int* rows_c,
@@ -496,38 +677,63 @@ int sssp_init(const int* shift_w, int* sw, const int* res_rows,
               const int* seeds_w, int* dist0, int s_cap, int n_cap,
               int r_cap, int kr_cap, int d_cap, int root, const int* roots,
               int g, int col0, int w_cols, cudaStream_t stream) {
-    long long total = (long long)s_cap * w_cols + (long long)r_cap * kr_cap +
-                      r_cap + (long long)d_cap * n_cap;
-    sssp_init_kernel<<<grid_for(total, g), THREADS, 0, stream>>>(
+    const int sw_chunks = (w_cols + INIT_CHUNK - 1) / INIT_CHUNK;
+    const long long n_res = (long long)r_cap * kr_cap;
+    const long long b_sw = (long long)s_cap * sw_chunks;
+    const long long b_res = (n_res + INIT_CHUNK - 1) / INIT_CHUNK;
+    const long long b_rows = (r_cap + INIT_CHUNK - 1) / INIT_CHUNK;
+    const long long b_dist =
+        (long long)d_cap * ((n_cap + INIT_CHUNK - 1) / INIT_CHUNK);
+    const long long blocks = b_sw + b_res + b_rows + b_dist;
+    if (blocks > 0x7fffffffLL || g < 1 || g > 65535)
+        return (int)cudaErrorInvalidValue;
+    int vec = 0;
+    if ((w_cols & 3) == 0 && aligned16(shift_w) && aligned16(sw))
+        vec |= VEC_SW;
+    if ((n_res & 3) == 0 && aligned16(res_nbr) && aligned16(res_w) &&
+        aligned16(nbr_c) && aligned16(rw))
+        vec |= VEC_RES;
+    if ((n_cap & 3) == 0 && aligned16(dist0)) vec |= VEC_DIST;
+    sssp_init_kernel<<<dim3((unsigned)max(blocks, 1LL), (unsigned)g),
+                       THREADS, 0, stream>>>(
         shift_w, sw, res_rows, res_nbr, res_w, rows_c, nbr_c, rw,
         seeds_nbr, seeds_w, dist0, s_cap, n_cap, r_cap, kr_cap, d_cap,
-        root, roots, col0, w_cols);
+        root, roots, col0, w_cols, sw_chunks, (int)b_sw, (int)b_res,
+        (int)b_rows, vec);
     return (int)cudaGetLastError();
 }
 
-int relax_shift(const int* dist, int* out, const int* deltas,
-                const int* sw, int d_cap, int n_cap, int s_cap, int col0,
-                int w_cols, int* flag, int g, int* st, int* cnt, int thr0,
-                int thr1, int put0, int put1, int inc0, int inc1,
-                cudaStream_t stream) {
-    relax_shift_kernel<<<grid_for((long long)d_cap * n_cap, g), THREADS, 0,
-                         stream>>>(
-        dist, out, deltas, sw, d_cap, n_cap, s_cap, col0, w_cols, flag,
-        make_gate(st, cnt, thr0, thr1, put0, put1, inc0, inc1));
-    return (int)cudaGetLastError();
-}
-
-int relax_residual(const int* dist, int* out, const int* rows_c,
-                   const int* nbr_c, const int* rw, int d_cap, int n_cap,
-                   int r_cap, int kr_cap, int shared, int* flag, int g,
-                   int* st, int* cnt, int thr0, int thr1, int put0,
-                   int put1, int inc0, int inc1, cudaStream_t stream) {
-    relax_residual_kernel<<<grid_for((long long)d_cap * r_cap, g), THREADS,
-                            0, stream>>>(
-        dist, out, rows_c, nbr_c, rw, d_cap, n_cap, r_cap, kr_cap, shared,
-        flag,
-        make_gate(st, cnt, thr0, thr1, put0, put1, inc0, inc1));
-    return (int)cudaGetLastError();
+int relax_step(const int* dist, int* out, const int* deltas, const int* sw,
+               const int* rows_c, const int* nbr_c, const int* rw,
+               int d_cap, int n_cap, int s_cap, int col0, int w_cols,
+               int r_cap, int kr_cap, int shared, int* flag, int g, int* st,
+               int* cnt, int thr0, int thr1, int put0, int put1, int inc0,
+               int inc1, cudaStream_t stream) {
+    Gate gate = make_gate(st, cnt, thr0, thr1, put0, put1, inc0, inc1);
+    // the largest row chunk that still gives the step enough threads
+    int dc = 8;
+    while (dc > 1 &&
+           (dc >= 2 * d_cap || (long long)g * n_cap * ((d_cap + dc - 1) / dc) <
+                                   RELAX_MIN_THREADS))
+        dc >>= 1;
+    switch (dc) {
+        case 8:
+            return launch_relax<8>(dist, out, deltas, sw, rows_c, nbr_c, rw,
+                                   d_cap, n_cap, s_cap, col0, w_cols, r_cap,
+                                   kr_cap, shared, g, flag, gate, stream);
+        case 4:
+            return launch_relax<4>(dist, out, deltas, sw, rows_c, nbr_c, rw,
+                                   d_cap, n_cap, s_cap, col0, w_cols, r_cap,
+                                   kr_cap, shared, g, flag, gate, stream);
+        case 2:
+            return launch_relax<2>(dist, out, deltas, sw, rows_c, nbr_c, rw,
+                                   d_cap, n_cap, s_cap, col0, w_cols, r_cap,
+                                   kr_cap, shared, g, flag, gate, stream);
+        default:
+            return launch_relax<1>(dist, out, deltas, sw, rows_c, nbr_c, rw,
+                                   d_cap, n_cap, s_cap, col0, w_cols, r_cap,
+                                   kr_cap, shared, g, flag, gate, stream);
+    }
 }
 
 int ladder_pick(const int* sw, const int* deltas, int* part, int* w_base,

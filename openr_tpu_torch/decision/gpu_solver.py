@@ -128,6 +128,7 @@ from openr_tpu_torch.ops.ksp2 import (
 )
 from openr_tpu_torch.ops.relax import (
     INF_E,
+    init_outputs,
     max_trips,
     plan_sssp,
     plan_sssp_lanes,
@@ -316,7 +317,7 @@ def pipeline(deltas, shift_w, res_rows, res_nbr, res_w, mbuf, root: int,
              kernel: str = "sync", delta_exp: int = 0,
              budget: int = DELTA_BUDGET, incr=None,
              emit_dist: bool = False, lfa: bool = False, stream: int = 0,
-             out=None) -> PipelineOut:
+             out=None, init_out=None) -> PipelineOut:
     """One solve for one (area, vantage) on the device of its tensors.
     Inputs are the resident mirror (deltas [s_cap], shift_w [s_cap,
     n_cap], the residual ELL res_rows [r_cap] / res_nbr, res_w [r_cap,
@@ -342,7 +343,10 @@ def pipeline(deltas, shift_w, res_rows, res_nbr, res_w, mbuf, root: int,
     each changed row (``ops/stream.py`` layout). ``out`` is the plane
     set K3 writes the published columns into — (metric, s3w, nhw,
     lfa_slot, lfa_metric), a set no input aliases — instead of new
-    tensors."""
+    tensors. ``init_out`` (with ``incr``) is K1s's outputs held by the
+    caller for the incremental solve (``relax.init_outputs``); the cold
+    solve allocates its own, since its seed plane becomes the returned
+    distance plane."""
     p_cap = prev_metric.shape[0]
     a_cap = mbuf.numel() // (6 * p_cap)
     if prev_lfa_slot is None:
@@ -363,6 +367,7 @@ def pipeline(deltas, shift_w, res_rows, res_nbr, res_w, mbuf, root: int,
             deltas, shift_w, res_rows, res_nbr, res_w, root, root_nbr,
             root_w, *incr, s_cap, has_res, n_cap, root_nbr.shape[0],
             max_trips(n_cap), kernel, delta_exp, mark=mark, stats=spread,
+            init_out=init_out,
         )
         incr_tail = (cone, fell_back)
         spread["cone_trips"] = _host_word(spread["cone_trips"])
@@ -682,7 +687,7 @@ class _VantageState:
 
     __slots__ = ("shape_key", "matrix_version", "prev", "spare", "crib",
                  "links_tuple", "valid", "prev_dist", "dist_epoch",
-                 "root_sig", "stream_budget")
+                 "root_sig", "stream_budget", "init")
 
     def __init__(self):
         self.shape_key = None
@@ -706,6 +711,11 @@ class _VantageState:
         self.prev_dist = None
         self.dist_epoch = -1
         self.root_sig = None
+        # K1s's outputs for the incremental solves (relax.init_outputs),
+        # sized with the vantage's shapes and dropped with them: written
+        # anew by every incremental solve, never its returned plane, so
+        # never ``prev_dist``
+        self.init = None
 
 
 class _UcmpAccel:
@@ -2038,6 +2048,7 @@ class GpuSpfSolver:
             vs.prev_dist = None
             vs.dist_epoch = -1
             vs.root_sig = None
+            vs.init = None
         root_sig = (root_nbr.tobytes(), (root_w < INF_E).tobytes())
         scatter_events, self._scatter_events = self._scatter_events, []
         return {
@@ -2085,13 +2096,17 @@ class GpuSpfSolver:
             if spare is None:
                 spare = tuple(torch.empty_like(t) for t in vs.prev)
         lane = self._lane_args(pv)
+        if incr is not None and vs.init is None:
+            ad = pv["ad"]
+            vs.init = init_outputs(ad.shift_w, ad.res_rows, ad.res_nbr,
+                                   ad.res_w, lane[7], ad.plan.n_cap)
         t1 = time.perf_counter()
         out = pipeline(
             *lane, *vs.prev, has_res=pv["has_res"], block_v4=pv["block_v4"],
             sentinels=self.enable_sentinels, kernel=pv["kernel"],
             delta_exp=pv["delta_exp"], incr=incr,
             emit_dist=self.incremental_spf, lfa=pv["lfa"], stream=sbudget,
-            out=spare,
+            out=spare, init_out=vs.init,
         )
         ctx = {"pv": pv, "out": out, "fused": 0, "stream": sbudget,
                "was_valid": vs.valid,

@@ -650,7 +650,8 @@ def incremental_sssp(deltas, shift_w, res_rows, res_nbr, res_w, root,
                      r_dirty_idx, r_dirty_old, cone_limit,
                      s_cap: int, has_res: bool, n_cap: int, d_cap: int,
                      max_trips: int, kernel: str = "sync",
-                     delta_exp: int = 0, *, mark=None, stats=None):
+                     delta_exp: int = 0, *, mark=None, stats=None,
+                     init_out=None):
     """Incremental counterpart of ``relax.plan_sssp``: the same resident
     inputs plus ``prev_dist`` [D, N] (the vantage's last distance
     plane), the consolidated dirty tuples (flat index into the raveled
@@ -664,10 +665,17 @@ def incremental_sssp(deltas, shift_w, res_rows, res_nbr, res_w, root,
     plane and the seed plane are queued (phase boundaries for CUDA
     events); ``stats``, when a dict, receives ``cone_trips``: the sweeps
     of the cone's closure (``cone_resolve``), an int32 0-d tensor on
-    the device, to be read once the solve's results are pulled."""
+    the device, to be read once the solve's results are pulled.
+
+    ``init_out``, when given, is K1s's outputs held by the caller
+    (``relax.init_outputs``), written in place: none of them is the
+    returned plane, which is the cone's fresh seed plane or the loop's
+    spare, so the caller may hold them across solves beside its
+    ``prev_dist``."""
     mark = mark or (lambda: None)
     swm_new, residual, dist0 = sssp_init(
-        shift_w, res_rows, res_nbr, res_w, root, seeds_nbr, seeds_w
+        shift_w, res_rows, res_nbr, res_w, root, seeds_nbr, seeds_w,
+        init_out,
     )
     swm_old, rwm_old = old_planes(
         shift_w, res_w, s_dirty_idx, s_dirty_old, r_dirty_idx,

@@ -117,8 +117,8 @@ def base_sssp(deltas, shift_w, res_rows, res_nbr, res_w, root: int,
     residual = (res_rows, res_nbr, res_w) if has_res else None
 
     def step(dist, out, flag):
-        base_sssp.launches += _launch_relax(dist, out, flag, deltas,
-                                            shift_w, residual)
+        _launch_relax(dist, out, flag, deltas, shift_w, residual)
+        base_sssp.launches += 1
 
     dist, trips, _ = run_sync(step, dist0, max_trips(n_cap))
     return dist[0], trips

@@ -24,7 +24,11 @@ CUDA tensor and run the plain version (``*_plain``) only on a CPU
 tensor. Each counts its kernel launches in ``<wrapper>.launches``. K2's
 class pick and each of its ladder passes are one cooperative launch
 (``ladder_pick``, ``ladder_pass``: a grid-wide barrier between their
-phases), so a pass costs the host one launch and one flag read.
+phases), so a pass costs the host one launch and one flag read. K1 is
+one launch a step, with or without a residual (a cooperative one with
+it: the shift phase, a grid barrier, the residual scatter-min), and K1s
+one launch that writes into outputs the caller may hold across solves
+(``out=``, ``init_outputs``).
 
 Fused solves (the port of ``tpu_solver._fused_pipeline``, a vmap of the
 cold pipeline over ``g`` same-shape areas) pass every plane with a
@@ -211,33 +215,75 @@ def _lane_residual(dist, residual, lane: int):
 
 # -- K1s: root masking + seed plane ----------------------------------------
 
+def init_outputs(shift_w, res_rows, res_nbr, res_w, seeds_nbr, n_cap: int):
+    """Uninitialised K1s outputs for these inputs: ``(sw, (rows_c, nbr_c,
+    rw), dist0)``, each shaped as ``sssp_init`` returns it. A caller that
+    solves the same plan again holds them and passes them as ``out=``."""
+    return (torch.empty_like(shift_w),
+            (torch.empty_like(res_rows), torch.empty_like(res_nbr),
+             torch.empty_like(res_w)),
+            torch.empty(seeds_nbr.shape + (n_cap,), dtype=torch.int32,
+                        device=shift_w.device))
+
+
+def _into(got, out):
+    """Copy the K1s outputs ``got`` into the held ``out`` and return
+    ``out`` (or ``got`` when ``out`` is None)."""
+    if out is None:
+        return got
+    sw, res, dist0 = out
+    sw.copy_(got[0])
+    for held, t in zip(res, got[1]):
+        held.copy_(t)
+    dist0.copy_(got[2])
+    return out
+
+
+def _check_out(out, shift_w, res_rows, res_nbr, res_w, seeds_nbr,
+               n_cap: int) -> None:
+    """Raise unless ``out`` holds K1s's outputs at these inputs' shapes."""
+    sw, (rows_c, nbr_c, rw), dist0 = out
+    want = (shift_w.shape, res_rows.shape, res_nbr.shape, res_w.shape,
+            seeds_nbr.shape + (n_cap,))
+    got = (sw.shape, rows_c.shape, nbr_c.shape, rw.shape, dist0.shape)
+    if got != want:
+        raise ValueError(f"sssp_init: out= shapes {got} != {want}")
+
+
 def sssp_init_plain(shift_w, res_rows, res_nbr, res_w, root, seeds_nbr,
-                    seeds_w):
+                    seeds_w, out=None):
     if shift_w.dim() == 3:
         roots = root.tolist()
         outs = [sssp_init_plain(shift_w[lane], res_rows[lane],
                                 res_nbr[lane], res_w[lane], roots[lane],
                                 seeds_nbr[lane], seeds_w[lane])
                 for lane in range(shift_w.shape[0])]
-        return (torch.stack([o[0] for o in outs]),
-                tuple(torch.stack([o[1][j] for o in outs]) for j in range(3)),
-                torch.stack([o[2] for o in outs]))
+        return _into((torch.stack([o[0] for o in outs]),
+                      tuple(torch.stack([o[1][j] for o in outs])
+                            for j in range(3)),
+                      torch.stack([o[2] for o in outs])), out)
     # the whole width is one window
     return sssp_init_mc_plain(shift_w, res_rows, res_nbr, res_w, root,
-                              seeds_nbr, seeds_w, 0, shift_w.shape[1])
+                              seeds_nbr, seeds_w, 0, shift_w.shape[1], out)
 
 
 def sssp_init(shift_w, res_rows, res_nbr, res_w, root, seeds_nbr,
-              seeds_w):
+              seeds_w, out=None):
     """-> (sw, (rows_c, nbr_c, rw), dist0): the root-masked class
     weights (the root is never a transit node), the clipped and
     root-masked residual ELL, and the [D, n_cap] seed plane (0 at each
     live out-neighbour, INF_E elsewhere). With a lane axis every input
     and output is stacked over ``g`` areas and ``root`` is an int32
-    tensor [g] of their roots."""
+    tensor [g] of their roots.
+
+    ``out``, when given, is a set of outputs held by the caller
+    (``init_outputs``), every word of which is written: the call returns
+    it, and on the card makes one launch and no torch op. A held seed
+    plane must not be a plane that the caller still reads as a solve's
+    result (``solve_from`` consumes ``dist0`` as scratch)."""
     if _is_cpu(shift_w):
         return sssp_init_plain(shift_w, res_rows, res_nbr, res_w, root,
-                               seeds_nbr, seeds_w)
+                               seeds_nbr, seeds_w, out)
     g = _lanes_of(shift_w, 2)
     s_cap, n_cap = shift_w.shape[-2:]
     if isinstance(root, torch.Tensor):
@@ -247,7 +293,7 @@ def sssp_init(shift_w, res_rows, res_nbr, res_w, root, seeds_nbr,
     else:
         root_i, roots = int(root), None
     out = _launch_init(shift_w, res_rows, res_nbr, res_w, root_i, roots,
-                       seeds_nbr, seeds_w, g, s_cap, n_cap, 0)
+                       seeds_nbr, seeds_w, g, s_cap, n_cap, 0, out)
     sssp_init.launches += 1
     return out
 
@@ -257,30 +303,29 @@ sssp_init.launches = 0
 
 def _launch_init(shift_w, res_rows, res_nbr, res_w, root_i: int, roots,
                  seeds_nbr, seeds_w, g: int, s_cap: int, n_cap: int,
-                 col0: int):
+                 col0: int, out=None):
     """Launch K1s over the class columns [col0, col0 + shift_w width) of
-    an n_cap-node plan."""
+    an n_cap-node plan, into ``out`` (allocated when None)."""
+    if out is None:
+        out = init_outputs(shift_w, res_rows, res_nbr, res_w, seeds_nbr,
+                           n_cap)
+    else:
+        _check_out(out, shift_w, res_rows, res_nbr, res_w, seeds_nbr, n_cap)
+    sw, (rows_c, nbr_c, rw), dist0 = out
     r_cap, kr_cap = res_nbr.shape[-2:]
-    d_cap = seeds_nbr.shape[-1]
-    sw = torch.empty_like(shift_w)
-    rows_c = torch.empty_like(res_rows)
-    nbr_c = torch.empty_like(res_nbr)
-    rw = torch.empty_like(res_w)
-    dist0 = torch.empty(seeds_nbr.shape + (n_cap,), dtype=torch.int32,
-                        device=shift_w.device)
     cuda.launch(
         "relax", "sssp_init", "tttttttttttiiiiiitiii",
         shift_w, sw, res_rows, res_nbr, res_w, rows_c, nbr_c, rw, seeds_nbr,
-        seeds_w, dist0, s_cap, n_cap, r_cap, kr_cap, d_cap, root_i, roots, g, col0,
-        shift_w.shape[-1],
+        seeds_w, dist0, s_cap, n_cap, r_cap, kr_cap, seeds_nbr.shape[-1],
+        root_i, roots, g, col0, shift_w.shape[-1],
     )
-    return sw, (rows_c, nbr_c, rw), dist0
+    return out
 
 
 # -- K1s [mc]: one shard's window of class columns ---------------------------
 
 def sssp_init_mc_plain(shift_w, res_rows, res_nbr, res_w, root: int,
-                       seeds_nbr, seeds_w, col0: int, n_cap: int):
+                       seeds_nbr, seeds_w, col0: int, n_cap: int, out=None):
     w_cols = shift_w.shape[1]
     sw = shift_w.clone()
     if 0 <= root - col0 < w_cols:
@@ -295,23 +340,24 @@ def sssp_init_mc_plain(shift_w, res_rows, res_nbr, res_w, root: int,
         dist0[lanes, seed],
         torch.where(seeds_w < INF_E, 0, INF_E).to(torch.int32),
     )
-    return sw, (res_rows.clamp(0, n_cap - 1), res_nbr.clamp(0, n_cap - 1),
-                rw), dist0
+    return _into((sw, (res_rows.clamp(0, n_cap - 1),
+                       res_nbr.clamp(0, n_cap - 1), rw), dist0), out)
 
 
 def sssp_init_mc(shift_w, res_rows, res_nbr, res_w, root: int, seeds_nbr,
-                 seeds_w, col0: int, n_cap: int):
+                 seeds_w, col0: int, n_cap: int, out=None):
     """K1s [mc]: ``sssp_init`` for one shard of the multichip tier, whose
     ``shift_w`` [s_cap, w] holds the class columns [col0, col0 + w) of an
     ``n_cap``-node plan: the root's column is masked only where it lies
     in the window (``parallel/sharding.py::make_mc_sssp``, :378-383);
     the residual ELL (whole) and the [D, n_cap] seed plane as
-    ``sssp_init``."""
+    ``sssp_init``, ``out`` too."""
     if _is_cpu(shift_w):
         return sssp_init_mc_plain(shift_w, res_rows, res_nbr, res_w, root,
-                                  seeds_nbr, seeds_w, col0, n_cap)
+                                  seeds_nbr, seeds_w, col0, n_cap, out)
     out = _launch_init(shift_w, res_rows, res_nbr, res_w, int(root), None,
-                       seeds_nbr, seeds_w, 1, shift_w.shape[0], n_cap, col0)
+                       seeds_nbr, seeds_w, 1, shift_w.shape[0], n_cap, col0,
+                       out)
     sssp_init_mc.launches += 1
     return out
 
@@ -346,41 +392,32 @@ def relax_step(dist, out, flag, deltas, sw, residual,
     ``residual`` is None when the plan has no residual edges. Stacked
     [g, ...] inputs relax every lane the ``gate`` opens; their residual
     index tables may be one shared pair ([r_cap], [r_cap, kr_cap]) beside
-    per-lane weights."""
+    per-lane weights. On the card: one launch, with or without a
+    residual."""
     if _is_cpu(dist):
         relax_step_plain(dist, out, flag, deltas, sw, residual, gate)
         return
-    relax_step.launches += _launch_relax(dist, out, flag, deltas, sw,
-                                         residual, gate)
+    _launch_relax(dist, out, flag, deltas, sw, residual, gate)
+    relax_step.launches += 1
 
 
 def _launch_relax(dist, out, flag, deltas, sw, residual,
-                  gate: Optional[Gate] = None, col0: int = 0) -> int:
-    """Launch K1 (the shift kernel over the class columns [col0, col0 +
-    sw width), then the residual one when there is a residual) and
-    return the number of launches. ``flag`` may be None."""
-    g = _lanes_of(dist, 2)
-    d_cap, n_cap = dist.shape[-2:]
-    s_cap, w_cols = sw.shape[-2:]
-    ga = _gate_args(gate)
+                  gate: Optional[Gate] = None, col0: int = 0) -> None:
+    """Launch K1 over the class columns [col0, col0 + sw width), and the
+    residual ELL when there is one: one kernel launch (a cooperative one
+    with a residual). ``flag`` may be None."""
+    rows_c = nbr_c = rw = None
+    r_cap = kr_cap = 0
+    if residual is not None:
+        rows_c, nbr_c, rw = residual
+        r_cap, kr_cap = nbr_c.shape[-2:]
     cuda.launch(
-        "relax", "relax_shift", "ttttiiiiiti" + _GATE_SIG,
-        dist, out, deltas, sw, d_cap, n_cap, s_cap, col0, w_cols, flag, g,
-        *ga,
+        "relax", "relax_step", "ttttttt" + "iiiiiiii" + "ti" + _GATE_SIG,
+        dist, out, deltas, sw, rows_c, nbr_c, rw, dist.shape[-2],
+        dist.shape[-1], sw.shape[-2], col0, sw.shape[-1], r_cap, kr_cap,
+        int(_shared_residual(dist, residual)), flag, _lanes_of(dist, 2),
+        *_gate_args(gate),
     )
-    if residual is None:
-        return 1
-    rows_c, nbr_c, rw = residual
-    if gate is not None:
-        # the shift launch counted this step for every open lane
-        ga = _gate_args(gate._replace(inc=(0, 0)))
-    cuda.launch(
-        "relax", "relax_residual", "tttttiiiiiti" + _GATE_SIG,
-        dist, out, rows_c, nbr_c, rw, d_cap, n_cap, nbr_c.shape[-2],
-        nbr_c.shape[-1], int(_shared_residual(dist, residual)), flag, g,
-        *ga,
-    )
-    return 2
 
 
 relax_step.launches = 0
@@ -434,8 +471,8 @@ def relax_step_mc(dist, out, flag, deltas, sw_local, residual,
         relax_step_mc_plain(dist, out, flag, deltas, sw_local, residual,
                             col0)
         return
-    relax_step_mc.launches += _launch_relax(dist, out, flag, deltas,
-                                            sw_local, residual, None, col0)
+    _launch_relax(dist, out, flag, deltas, sw_local, residual, None, col0)
+    relax_step_mc.launches += 1
 
 
 relax_step_mc.launches = 0

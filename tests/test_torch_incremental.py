@@ -409,13 +409,31 @@ def _cnt(port, key):
     return int(port.counters.get_counter(key) or 0)
 
 
+def _held_init_apart(incr, seen: dict) -> None:
+    """The vantage's held K1s outputs (``_VantageState.init``) share no
+    storage with its ``prev_dist`` (the last solve's returned plane), and
+    stay the same tensors from one solve to the next while the vantage's
+    shapes do. ``seen`` maps a shape key to the storages first held."""
+    (vs,) = incr._vstates.values()
+    if vs.init is None:
+        return
+    sw, res, dist0 = vs.init
+    held = {t.untyped_storage().data_ptr() for t in (sw, *res, dist0)}
+    assert len(held) == 5
+    assert vs.prev_dist.untyped_storage().data_ptr() not in held
+    assert seen.setdefault(vs.shape_key, held) == held
+
+
 def test_randomized_churn_incremental_equals_cold_and_oracle(port):
     """Randomized metric increase / decrease and link down / up, 10
     rounds from seed 7: on every round the incremental RIB equals the
     port's cold RIB and its CPU oracle's, and the warm path runs on at
-    least 5 rounds."""
-    churn, solve, _ = _trio(port)
+    least 5 rounds, each through the K1s outputs the vantage holds,
+    which never alias its ``prev_dist`` (``_held_init_apart``)."""
+    churn, solve, incr = _trio(port)
     assert not solve("round0").get("incremental")
+    assert next(iter(incr._vstates.values())).init is None
+    seen = {}
     rng = np.random.default_rng(7)
     metrics = (1, 3, 50, 100000)
     edges = churn.edges()
@@ -442,9 +460,11 @@ def test_randomized_churn_incremental_equals_cold_and_oracle(port):
             churn.set_metric(u, v, m)
             ctx = f"round{i + 1}: metric {u}<->{v}={m}"
         st = solve(ctx)
+        _held_init_apart(incr, seen)
         if st.get("incremental") and not st.get("fell_back"):
             warm += 1
     assert warm >= 5, warm
+    assert seen
 
 
 def test_mixed_churn_soak_equals_oracle(port):

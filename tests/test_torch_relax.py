@@ -13,6 +13,7 @@ a worker that never runs it imports no torch.
 """
 
 import types
+from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -154,10 +155,93 @@ def test_plan_sssp_matches_jax(port, name):
         assert (got[1], got[2]) == (int(want[1]), int(want[2])), kernel
 
 
+def _held_init_matches_jax(port, residual: bool, g: int) -> None:
+    """``sssp_init_plain(..., out=held)`` twice into the same held
+    outputs (first filled with -7), with other roots and seeds: each call
+    writes every word — equal to a fresh call without ``out`` — its seed
+    plane is ``_plan_sssp``'s (no trip: the seed plane itself), its mask
+    the one ``_plan_sssp`` applies (the root's class column and the
+    residual slots out of the root at INF_E, the indices clipped), and
+    the SSSP from the held outputs reaches ``_plan_sssp``'s fixpoint, lane
+    for lane."""
+    torch, relax = port.torch, port.relax
+    n_cap, s_cap, d_cap, r_cap, kr_cap = 64, 6, 3, 5, 3
+    rng = np.random.default_rng(41 + g + 2 * residual)
+    planes = [_random_plane(rng, n_cap, s_cap, d_cap, r_cap, kr_cap)
+              for _ in range(g)]
+    deltas, shift_w = (np.stack([p[i] for p in planes]) for i in (0, 1))
+    rows, nbr, rw = (np.stack([p[2][j] for p in planes]) for j in range(3))
+    rows[:, -1] = -1  # a pad row, clipped by K1s
+    nbr[:, 0, 0] = n_cap + 3  # an index past the plane, clipped
+    jitted = {trips: jax.jit(partial(
+        _plan_sssp, s_cap=s_cap, has_res=residual, n_cap=n_cap, d_cap=d_cap,
+        max_trips=trips)) for trips in (0, relax.max_trips(n_cap))}
+    held = None
+    for call in range(2):
+        roots = rng.integers(0, n_cap, size=g).astype(np.int32)
+        nbr[:, 1, 1] = roots  # a residual slot out of the root
+        seeds = rng.integers(-1, n_cap + 2, size=(g, d_cap)).astype(np.int32)
+        seeds_w = rng.integers(1, 9, size=(g, d_cap)).astype(np.int32)
+        seeds_w[:, -1] = INF_E  # a lane without a live seed
+        args = [torch.tensor(a if g > 1 else a[0]) for a in (
+            shift_w, rows, nbr, rw)]
+        root = torch.tensor(roots) if g > 1 else int(roots[0])
+        sargs = [torch.tensor(a if g > 1 else a[0]) for a in (seeds, seeds_w)]
+        if held is None:
+            held = relax.init_outputs(*args, sargs[0], n_cap)
+            for t in (held[0], *held[1], held[2]):
+                t.fill_(-7)
+        got = relax.sssp_init_plain(*args, root, *sargs, out=held)
+        assert got is held
+        fresh = relax.sssp_init_plain(*args, root, *sargs)
+        for h, f in zip((held[0], *held[1], held[2]),
+                        (fresh[0], *fresh[1], fresh[2])):
+            assert h.dtype == torch.int32
+            np.testing.assert_array_equal(h.numpy(), f.numpy())
+        res_t = held[1] if residual else None
+        for lane in range(g):
+            r = int(roots[lane])
+
+            def lane_of(t):
+                return (t[lane] if g > 1 else t).numpy()
+
+            def jax_plan(trips, lane=lane, r=r):
+                return jitted[trips](
+                    deltas[lane], shift_w[lane], rows[lane], nbr[lane],
+                    rw[lane], np.int32(r), seeds[lane], seeds_w[lane])
+
+            np.testing.assert_array_equal(lane_of(held[2]),
+                                          np.asarray(jax_plan(0)[0]))
+            want_sw = shift_w[lane].copy()
+            want_sw[:, r] = INF_E
+            np.testing.assert_array_equal(lane_of(held[0]), want_sw)
+            np.testing.assert_array_equal(lane_of(held[1][0]),
+                                          np.clip(rows[lane], 0, n_cap - 1))
+            np.testing.assert_array_equal(lane_of(held[1][1]),
+                                          np.clip(nbr[lane], 0, n_cap - 1))
+            np.testing.assert_array_equal(
+                lane_of(held[1][2]),
+                np.where(nbr[lane] == r, INF_E, rw[lane]))
+            want = jax_plan(relax.max_trips(n_cap))
+            got_d, trips, rounds = relax.solve_from(
+                torch.tensor(deltas[lane]),
+                held[0][lane] if g > 1 else held[0],
+                None if res_t is None else tuple(
+                    (t[lane] if g > 1 else t) for t in res_t),
+                (held[2][lane] if g > 1 else held[2]).clone())
+            np.testing.assert_array_equal(got_d.numpy(), np.asarray(want[0]))
+            assert (trips, rounds) == (int(want[1]), int(want[2]))
+
+
 def test_sssp_init_masks_root_and_seeds(port):
     """K1s alone: the root column of every class is INF_E, residual
     weights from the root are INF_E, indices are clipped, and each lane
-    seeds 0 at its live out-neighbour only."""
+    seeds 0 at its live out-neighbour only. Then K1s into held outputs
+    (``out=``), reused across calls, against the JAX ``_plan_sssp``:
+    with and without a residual, one lane and three stacked lanes
+    (``_held_init_matches_jax``)."""
+    for residual, g in ((True, 1), (False, 1), (True, 3)):
+        _held_init_matches_jax(port, residual, g)
     torch = port.torch
     shift_w = torch.arange(16, dtype=torch.int32).view(2, 8)
     res_rows = torch.tensor([3, -1], dtype=torch.int32)

@@ -13,7 +13,9 @@ in one fused dispatch, its RIB equal to an earlier solver's. Counts are
 ``chip_smoke.counted``'s:
 kernel launches by wrapper (every ``ops`` function with a ``launches``
 count), torch ops on the card by name (clones, fills, copies, reads),
-and their sum; beside them the host flag reads (``relax.read_flag``).
+and their sum; beside them the CUDA tensors allocated, the host flag
+reads (``relax.read_flag``) and, for the incremental build and the storm
+epoch, the allocations of each K1s call (``k1s_allocations``).
 ``cone`` splits the tree's cone work of one incremental solve (the
 spread to the closure, the count, the fallback and the seed plane, one
 ``cone_resolve`` launch: a tree without that wrapper stops there) on
@@ -46,9 +48,16 @@ def _wrappers(ops_pkg) -> dict:
     return out
 
 
-def _counted(cs, torch, relax, wrappers, fn) -> dict:
+def _counted(cs, torch, relax, wrappers, fn, inc=None) -> dict:
+    """``chip_smoke.counted`` and the flag reads; with ``inc`` (the
+    tree's incremental module) also the CUDA tensors each K1s call of
+    the solve allocated (``chip_smoke.k1s_allocations``)."""
     reads0 = relax.read_flag.reads
-    n = cs.counted(torch, wrappers, fn)
+    if inc is None:
+        n = cs.counted(torch, wrappers, fn)
+    else:
+        n, n["k1s_allocations"] = cs.k1s_allocations(
+            torch, inc, lambda: cs.counted(torch, wrappers, fn))
     n["flag_reads"] = relax.read_flag.reads - reads0
     return n
 
@@ -143,7 +152,8 @@ def main() -> int:
         box = {}
         out["incremental_build"].append(_counted(
             cs, torch, relax, wrappers,
-            lambda: box.update(db=inc.build_route_db(root, states, ps))))
+            lambda: box.update(db=inc.build_route_db(root, states, ps)),
+            incremental))
         cs.check(inc.last_device_stats.get("incremental") is True,
                  "the counted build must be incremental")
         held(box["db"], "incremental build")
@@ -151,7 +161,7 @@ def main() -> int:
         out["storm_epoch"].append(_counted(
             cs, torch, relax, wrappers,
             lambda: box.update(db=stream.collect_route_db(
-                stream.dispatch_route_db(root, states, ps)))))
+                stream.dispatch_route_db(root, states, ps))), incremental))
         cs.check(bool(stream.last_timing.get("stream")),
                  "the counted epoch must stream")
         held(box["db"], "storm epoch")
