@@ -39,6 +39,8 @@ prints no result line:
      follows a full garbage collection and carries ``HostMeter``'s
      reading (collector time, CPU times), and three more cold builds on
      fresh solvers (collector on, off, on) show its share of the host;
+     then a wide group: the hub in 10 grids of 16 x 16, one fused
+     dispatch, RIB equal to the oracle and to the unfused solve;
   3. the main path: the lsdb100k cell (grid 316 x 316 = 99,856 nodes,
      ~400k directed adjacencies, one loopback prefix per node, root
      node-158-158, default settings: bucketed kernel, sentinels on, no
@@ -89,9 +91,13 @@ prints no result line:
      K1s outputs the churn solver holds: the last step's, apart from its
      ``prev_dist``), timed
      beside their bounds and, for K5 and K7, the one PyTorch call that
-     computes the same scatter; K5, the old planes and K7 also split
-     into device time alone, host enqueue and (K5, K7) the bare
-     launch's host cost; the cone (K8 + K9, ``cone_resolve``: one
+     computes the same scatter; K5, the old planes, K6 (into the held
+     plane, the main path's call) and K7 also split into device time
+     alone, host enqueue and (K5, K6, K7) the bare launch's host cost;
+     K5 with both planes in one launch, and a sync's whole K5 step (the
+     staged copy and the launch, one plane and both: one launch, at
+     most one copy); K6 and K5 on seeded edge cases (``parent_cases``,
+     ``scatter_cases``), each call one launch; the cone (K8 + K9, ``cone_resolve``: one
      cooperative launch) against its plain composition, tolerance 0,
      each call one launch and no torch op, on the last flap step, the
      fallback step, a subtree below the root and a deep chain (lane 0
@@ -101,7 +107,9 @@ prints no result line:
      torch ops) of K7 alone (one launch, no fill), of the old planes
      alone (one launch a plane), of one incremental SSSP and of one
      incremental build, whose RIB equals a cold solve's and whose K1s
-     allocates nothing (``k1s_allocations``);
+     and K6 allocate nothing (``churn_allocations``), with its staged
+     copies; ``staging_cases``: 12 staged uploads queued behind a device
+     sleep, each equal to its plain upload;
   8. flapstorm100k (BASELINE config 5, bench.py's flapstorm lane): a
      ``GpuSpfSolver(streaming_pipeline=True, small_graph_nodes=0)`` on
      the lsdb100k cell takes a cold build and a warm-up flap of
@@ -236,7 +244,9 @@ prints no result line:
      equal to a fresh oracle's; each prints trips, rounds, cone,
      fell_back and halo exchanges beside the single
      build's, build_ms, its split and per-shard ms. K1s, K1, K2, K5, K6,
-     K7 ``[mc]``, K2's ladder pass on the member's own classes and K23
+     K7 ``[mc]`` (K5 ``[mc]`` as a sync runs it: every part of the
+     card's resident shift plane in one ``scatter_parts`` launch, split
+     like K7), K2's ladder pass on the member's own classes and K23
      (min, max, sum) against their plain versions at those shapes (the
      class pick counted as one launch and no torch op); K3 and K4 on the
      tier's tail (the arguments ``mc_pipeline`` passes them in one more
@@ -247,8 +257,10 @@ prints no result line:
      ``build_fabric_route_dbs(mesh=...)`` (window ``fabric_mesh``;
      ``pod063-rsw63``'s RIB equal to the LFA oracle) and the array-level
      step on the mesh equal to the one-card step (all seven arrays); K21
-     ``[mc]`` over every root (plain 256 a call) and K6's residual fill
-     against plain. tg1k-lfa on batch 2 x graph 3 (the node axis padded
+     ``[mc]`` over every root (plain 256 a call), K6's residual fill
+     and the whole K6 with the residual (one cooperative launch into a
+     held plane, its times in K6's row as ``residual_*``) against
+     plain. tg1k-lfa on batch 2 x graph 3 (the node axis padded
      1024 -> 1026): the step equal to the one-card step, LFA backups, its
      sampled RIBs equal to the LFA oracle. ``dryrun_multichip(8)`` on the
      card. With two or more cards, lsdb100k_mc on a mesh of the real
@@ -291,6 +303,9 @@ FABRIC = dict(pods=96, planes=8, ssws_per_plane=36, rsws_per_pod=64)
 # auto backend's small-graph cut of 2816 nodes (config.py:130)
 FUSED_SIDE = 56
 FUSED_AREAS = 4
+# the wide fused group (phase 2b): ten areas, all of whose root tables
+# are staged before the group's one launch
+WIDE_FUSED_AREAS = 10
 AUTO_SMALL_GRAPH_NODES = 2816
 DEVICE = "cuda"
 # the flapstorm100k lane (bench.py:553-760, :1163): 200 flaps asked at 100 Hz
@@ -362,6 +377,40 @@ def device_ms(torch, fn, reps: int = 50) -> tuple[float, float]:
         if covered:
             return a.elapsed_time(b) / reps, host
     raise SmokeError("device_ms: the enqueue outlasted the device sleep")
+
+
+def step_ms(torch, fn, reps: int = 20) -> dict:
+    """Host-side timing of ``fn``, a step that may wait on the stream (a
+    copy from pageable memory synchronises it): from an idle stream,
+    the host ms of the call (``host_ms``), to the end of its device work
+    (``wall_ms``) and its device span between two events
+    (``device_ms``), each the mean of ``reps`` calls; and the host ms of
+    one call queued behind a 1 ms device sleep (``behind_sleep_host_ms``:
+    about 1 when the call waits on the stream, a few hundredths when it
+    does not)."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    fn()
+    host = wall = dev = 0.0
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        a.record()
+        t0 = time.perf_counter()
+        fn()
+        t1 = time.perf_counter()
+        b.record()
+        torch.cuda.synchronize()
+        host += (t1 - t0) * 1e3
+        wall += (time.perf_counter() - t0) * 1e3
+        dev += a.elapsed_time(b)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1_000_000)
+    t0 = time.perf_counter()
+    fn()
+    behind = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    return {"host_ms": host / reps, "wall_ms": wall / reps,
+            "device_ms": dev / reps, "behind_sleep_host_ms": behind}
 
 
 def device_op_counter(torch):
@@ -662,24 +711,57 @@ def k1_floor(cuda, dist, out, flag, deltas, sw, residual, shared: int = 0):
         kr_cap, shared, ptrs[7], g, *(0,) * 8)
 
 
-def k1s_allocations(torch, module, fn) -> tuple:
-    """Run ``fn`` with ``module.sssp_init`` (the name a solve calls K1s
-    by) spied on: -> (``fn``'s result, the CUDA tensors each K1s call
-    inside it allocated). The launch counts and any outer op counter
-    still see every call."""
-    real, seen = module.sssp_init, []
+def call_allocations(torch, module, names, fn) -> tuple:
+    """Run ``fn`` with each of ``module``'s functions ``names`` (the
+    names a solve calls them by) spied on: -> (``fn``'s result, name ->
+    the CUDA tensors each call inside it allocated). The launch counts
+    and any outer op counter still see every call."""
+    real = {n: getattr(module, n) for n in names}
+    seen = {n: [] for n in names}
 
-    def spy(*a, **k):
-        with device_op_counter(torch) as mode:
-            out = real(*a, **k)
-        seen.append(sum(mode.allocs.values()))
-        return out
+    class Spy:
+        """Counts each call's allocations; ``launches`` reads and writes
+        go to the real wrapper (which bumps its count by its module
+        global, now this spy)."""
 
-    module.sssp_init = spy
+        def __init__(self, n):
+            object.__setattr__(self, "name", n)
+
+        def __call__(self, *a, **k):
+            with device_op_counter(torch) as mode:
+                out = real[self.name](*a, **k)
+            seen[self.name].append(sum(mode.allocs.values()))
+            return out
+
+        def __getattr__(self, k):
+            return getattr(real[self.name], k)
+
+        def __setattr__(self, k, v):
+            setattr(real[self.name], k, v)
+
+    for n in names:
+        setattr(module, n, Spy(n))
     try:
         return fn(), seen
     finally:
-        module.sssp_init = real
+        for n in names:
+            setattr(module, n, real[n])
+
+
+def staging_delta(before: dict, after: dict) -> dict:
+    """A solver's staging counts (``GpuSpfSolver.staging_counts``: its
+    staged copies) between two readings."""
+    return {k: after[k] - before[k] for k in after}
+
+
+def churn_allocations(torch, incremental, fn) -> tuple:
+    """``fn`` (a counted churn build or storm epoch) with K1s's and K6's
+    calls spied on: -> (``fn``'s result, {"k1s_allocations": [...],
+    "k6_allocations": [...]}); both must be [0] (held outputs)."""
+    out, seen = call_allocations(torch, incremental,
+                                 ("sssp_init", "parent_plane"), fn)
+    return out, {"k1s_allocations": seen["sssp_init"],
+                 "k6_allocations": seen["parent_plane"]}
 
 
 def held_launch(torch, wrappers, label: str, fn) -> dict:
@@ -687,6 +769,172 @@ def held_launch(torch, wrappers, label: str, fn) -> dict:
     n = one_launch(torch, wrappers, label, fn)
     check(n["allocations"] == 0, f"{label} must allocate nothing: {n}")
     return n
+
+
+# K6's seeded edge cases (phase 7): (lanes, n_cap, s_cap, r_cap, kr_cap)
+PARENT_SHAPES = ((3, 4096, 4, 512, 8), (19, 1024, 6, 256, 16))
+
+
+def parent_inputs(torch, dev, seed: int, d_cap: int, n_cap: int,
+                  s_cap: int, r_cap: int, kr_cap: int) -> tuple:
+    """Seeded K6 inputs with frequent tight edges (distances 0-15,
+    weights 1-3, ~1/6 of them INF_E): signed class shifts, lane 1
+    unreachable (all INF_E), unique residual rows with ~1/5 pad rows
+    (-1), pad slots (-1) and neighbours past the plane's end. -> (deltas,
+    swm, rows, nbr, rwm, prev) on ``dev``."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def ri(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=gen, dtype=torch.int32)
+
+    inf = 1 << 29
+    deltas = ri(-n_cap // 2, n_cap // 2, s_cap)
+    swm = ri(1, 4, s_cap, n_cap)
+    swm[ri(0, 6, s_cap, n_cap) == 0] = inf
+    prev = ri(0, 16, d_cap, n_cap)
+    prev[ri(0, 8, d_cap, n_cap) == 0] = inf
+    prev[1] = inf
+    rows = torch.randperm(n_cap, generator=gen)[:r_cap].to(torch.int32)
+    rows[ri(0, 5, r_cap) == 0] = -1
+    nbr = ri(-1, n_cap + 3, r_cap, kr_cap)
+    rwm = ri(1, 4, r_cap, kr_cap)
+    rwm[ri(0, 6, r_cap, kr_cap) == 0] = inf
+    return tuple(t.to(dev) for t in (deltas, swm, rows, nbr, rwm, prev))
+
+
+def parent_cases(c) -> dict:
+    """K6 on seeded edge cases (``PARENT_SHAPES``: 3 and 19 lanes, an
+    unreachable lane, pad rows, pad slots, neighbours past the plane),
+    each call into a held plane pre-filled with -7 and equal to its plain
+    version, one launch and no allocation: with the residual (nodes
+    whose shift parent exists beside a tight residual slot, and nodes
+    with only a residual parent, both present), without it, and as the
+    tier's ``[mc]`` window (a half of the columns) and its fill. ->
+    {case: its shift-and-residual / residual-only node counts}."""
+    torch, inc = c.torch, c.incremental
+    out = {}
+    for seed, (d_cap, n_cap, s_cap, r_cap, kr_cap) in enumerate(
+            PARENT_SHAPES):
+        deltas, swm, rows, nbr, rwm, prev = parent_inputs(
+            torch, c.dev, 40 + seed, d_cap, n_cap, s_cap, r_cap, kr_cap)
+        label = f"K6 D={d_cap} n={n_cap}"
+        shift = inc.parent_shift_mc_plain(deltas, swm, prev, s_cap, 0)
+        alone = torch.full_like(prev, -1)
+        inc.parent_fill_plain(alone, rows, nbr, rwm, prev)
+        both = inc.parent_plane_plain(deltas, swm, rows, nbr, rwm, prev,
+                                      s_cap, True, n_cap, d_cap)
+        kinds = {"shift_beside_residual": int(((shift >= 0)
+                                               & (alone >= 0)).sum()),
+                 "residual_only": int(((shift < 0) & (both >= 0)).sum())}
+        check(min(kinds.values()) > 0, f"{label}: the seeded planes must "
+              f"hold both kinds of node: {kinds}")
+        check(bool((both[1] == -1).all()),
+              f"{label}: the unreachable lane must have no parent")
+        held = torch.full_like(prev, -7)
+        for res in (True, False):
+            want = both if res else shift
+            held.fill_(-7)
+            held_launch(torch, c.wrappers, f"{label} residual={res}",
+                        lambda: inc.parent_plane(
+                            deltas, swm, rows, nbr, rwm, prev, s_cap, res,
+                            n_cap, d_cap, out=held))
+            check(max_abs_err(torch, held, want) == 0,
+                  f"{label} residual={res}: kernel != plain")
+        # the tier: the second half of the columns, then the fill
+        col0, w = n_cap // 2, n_cap // 2
+        win = swm[:, col0:].contiguous()
+        want = inc.parent_shift_mc_plain(deltas, win, prev, s_cap, col0)
+        held.fill_(-7)
+        held_launch(torch, c.wrappers, f"{label} [mc]",
+                    lambda: inc.parent_shift_mc(deltas, win, prev, s_cap,
+                                                col0, out=held))
+        check(max_abs_err(torch, held, want) == 0,
+              f"{label} [mc] window of {w}: kernel != plain")
+        inc.parent_fill_plain(want, rows, nbr, rwm, prev)
+        held_launch(torch, c.wrappers, f"{label} [mc] fill",
+                    lambda: inc.parent_fill(held, rows, nbr, rwm, prev))
+        check(max_abs_err(torch, held, want) == 0,
+              f"{label} [mc] fill: kernel != plain")
+        out[label] = kinds
+    log("K6 edge cases equal to plain, one launch each: " + json.dumps(out))
+    return out
+
+
+def scatter_cases(c) -> None:
+    """K5 on seeded edge cases: two planes (lsdb100k's shift plane shape
+    and fabric10k's residual ELL shape), each segment with live slots,
+    pads at the plane's end and indices past it; both segments, then
+    each with the other empty. Each call equal to its plain version on
+    copies, one launch."""
+    torch, inc = c.torch, c.incremental
+    gen = torch.Generator().manual_seed(51)
+    a0 = torch.randint(0, 1 << 20, (4, 131072), generator=gen,
+                       dtype=torch.int32)
+    b0 = torch.randint(0, 1 << 20, (8192, 128), generator=gen,
+                       dtype=torch.int32)
+
+    def segment(numel, n):
+        live = torch.randperm(numel, generator=gen)[:n].to(torch.int32)
+        idx = torch.cat([live, torch.tensor([numel, numel + 7, 1 << 30],
+                                            dtype=torch.int32)])
+        return idx, torch.randint(1, 99, idx.shape, generator=gen,
+                                  dtype=torch.int32)
+
+    sa, sb = segment(a0.numel(), 40), segment(b0.numel(), 25)
+    empty = (torch.empty(0, dtype=torch.int32),) * 2
+    for label, ea, eb in (("both", sa, sb), ("a alone", sa, empty),
+                          ("b alone", empty, sb)):
+        buf = torch.cat([*ea, *eb]).to(c.dev)
+        views = torch.split(buf, [t.numel() for t in (*ea, *eb)])
+        got = [a0.to(c.dev), b0.to(c.dev)]
+        want = [a0.to(c.dev), b0.to(c.dev)]
+        one_launch(torch, c.wrappers, f"K5 {label}",
+                   lambda: inc.scatter_set(got[0], *views[:2], got[1],
+                                           *views[2:]))
+        inc.scatter_set_plain(want[0], *views[:2], want[1], *views[2:])
+        check(max_abs_err(torch, got, want) == 0,
+              f"K5 {label}: kernel != plain")
+    log("K5 edge cases (both segments, each alone, pads, past the plane) "
+        "equal to plain, one launch each")
+
+
+def staging_cases(c, n_puts: int = 12) -> None:
+    """``GpuSpfSolver._stage`` with its copies still pending: ``n_puts``
+    stages of 1-6 seeded arrays (0-5000 words each) queued behind a
+    ~50 ms device sleep, the host arrays overwritten right after each
+    stage. The stream must still be busy after the last stage (no stage
+    waited for it), and each view must equal its array's plain upload
+    (``torch.tensor``) once the stream drains."""
+    import numpy as np
+
+    torch, dev = c.torch, c.dev
+    solver = c.gpu_solver.GpuSpfSolver(LSDB100K_ROOT, device=dev)
+    rng = np.random.default_rng(53)
+    stream = torch.cuda.current_stream(dev)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    t0 = time.perf_counter()
+    staged, kept = [], []
+    for _ in range(n_puts):
+        arrs = [rng.integers(-1 << 30, 1 << 30, rng.integers(0, 5001),
+                             dtype=np.int32)
+                for _ in range(rng.integers(1, 7))]
+        staged.append(solver._stage(arrs))
+        kept.append([a.copy() for a in arrs])
+        for a in arrs:
+            a[:] = -5
+    host_ms = (time.perf_counter() - t0) * 1e3
+    check(not stream.query(), "staging: the stream drained during the "
+          f"stages ({host_ms:.3f} ms): a stage waited for it")
+    torch.cuda.synchronize()
+    for k, (views, arrs) in enumerate(zip(staged, kept)):
+        for v, a in zip(views, arrs):
+            check(torch.equal(v, torch.tensor(a, device=dev)),
+                  f"staging: stage {k} != its plain upload")
+    check(solver.staging_counts()["copies"] == n_puts,
+          f"staging: {solver.staging_counts()} copies for {n_puts} stages")
+    log(f"staging: {n_puts} stages behind a device sleep, host "
+        f"{host_ms:.3f} ms, each equal to its plain upload")
 
 
 def relax_plane(torch, dev, seed: int, g: int, n_cap: int, s_cap: int,
@@ -1453,8 +1701,35 @@ def fused_phase(torch, gpu_solver, relax, select, compact, SpfSolver,
         fresh.append({"gc": on, "sync_ms": next(iter(
             fs.last_timing["areas"].values()))["sync_ms"], **meter.result})
     log("fused build on fresh solvers: " + json.dumps(fresh))
+    wide_fused(gpu_solver, SpfSolver, topologies, counters, types3, dev)
     fused_kernels(torch, gpu_solver, relax, select, compact, record,
                   wrappers, captured, real_fused, dev)
+
+
+def wide_fused(gpu_solver, SpfSolver, topologies, counters, types3, dev,
+               n_areas: int = WIDE_FUSED_AREAS) -> None:
+    """A wide fused group: vantage ``hub`` in
+    ``n_areas`` seeded grids of 16 x 16, every area on the card
+    (``small_graph_nodes=0``), one fused dispatch whose root tables are
+    staged area by area before its launch; its RIB must equal the
+    oracle's and the unfused solve's."""
+    states, ps = topologies.build_states(
+        *fused_cell(*types3, topologies, 16, n_areas, seed=7))
+    d0 = counters.get_counter("decision.device.fused_dispatches") or 0
+    solver = gpu_solver.GpuSpfSolver("hub", device=dev, small_graph_nodes=0)
+    got = solver.build_route_db("hub", states, ps)
+    check(solver.last_device_stats.get("fused") == n_areas
+          and counters.get_counter("decision.device.fused_dispatches")
+          == d0 + 1, f"wide fused: the {n_areas} areas must solve in one "
+          f"fused dispatch: {solver.last_device_stats}")
+    unfused = gpu_solver.GpuSpfSolver(
+        "hub", device=dev, small_graph_nodes=0, fuse_small_areas=False
+    ).build_route_db("hub", states, ps)
+    oracle = SpfSolver("hub").build_route_db("hub", states, ps)
+    check(rib_equal(oracle, got), "wide fused: fused RIB != oracle")
+    check(rib_equal(oracle, unfused), "wide fused: unfused RIB != oracle")
+    log(f"wide fused: {n_areas} areas in one fused dispatch, RIB equal to "
+        f"the oracle ({len(oracle.unicast_routes)} routes)")
 
 
 def fused_kernels(torch, gpu_solver, relax, select, compact, record,
@@ -1795,12 +2070,18 @@ def flapstorm_phase(c, adj_dbs, states, ps) -> tuple:
           f"flapstorm: the idle epoch must pull {idle_bytes} B: {idle}")
     cold_check("idle epoch", True)
     # one storm epoch's device work, torch ops included (not timed)
-    per_epoch, k1s_allocs = k1s_allocations(
+    st0 = solver.staging_counts()
+    per_epoch, allocs = churn_allocations(
         torch, c.incremental, lambda: counted(torch, c.wrappers, lambda: (
             epoch(2, STORM_FLAPS + 4, "counted"))))
-    per_epoch["k1s_allocations"] = k1s_allocs
-    check(k1s_allocs == [0], f"flapstorm: the counted epoch's K1s "
-          f"allocated {k1s_allocs}")
+    per_epoch.update(allocs)
+    per_epoch["staging"] = staging_delta(st0, solver.staging_counts())
+    check(per_epoch["staging"]["copies"] == 2,
+          f"flapstorm: the counted epoch's uploads must be two staged "
+          f"copies (the sync's, the solve's): {per_epoch['staging']}")
+    check(allocs["k1s_allocations"] == [0]
+          and allocs["k6_allocations"] == [0],
+          f"flapstorm: the counted epoch's K1s / K6 allocated: {allocs}")
     check(recs[-1]["streamed"]
           and per_epoch["kernels_by_wrapper"].get("K5:old_plane"),
           f"flapstorm: the counted epoch must stream incrementally: "
@@ -3583,7 +3864,8 @@ MC_FLAPS = 4
 MC_PATH = ("K1s:sssp_init_mc", "K1:relax_step_mc", "K2:ladder_classes_mc",
            "K2:ladder_pass", "K23:shard_combine",
            "K3:select_routes", "K4:compact_outputs")
-MC_INCR_PATH = MC_PATH + ("K5:scatter_window", "K6:parent_shift_mc",
+MC_INCR_PATH = MC_PATH + ("K5:scatter_parts", "K5:scatter_window",
+                          "K6:parent_shift_mc",
                           "K7:owned_weights", "K7:cone_seed_mc",
                           "K8+K9:cone_resolve", "K9:cone_finish")
 MESH_FABRIC_PATH = ("K1s:sssp_init", "K21e:fabric_extent",
@@ -3788,6 +4070,31 @@ def mc_kernels(c, solver, lsdb, root, dirty) -> None:
                                          0, jo * w_cols),
         nbytes=4 * (2 * sdi.numel() + loc.numel()), ops=6 * sdi.numel(),
         library=lambda: scratch.view(-1).index_copy_(0, loc, vals))
+    # K5 [mc] of a sync: every part of the resident shift plane on the
+    # card (the graph's distinct column windows) in one launch, against
+    # the per-part plain scatter
+    (parts, wins, _), = c.sharding._scatter_targets(ad.shift_w).values()
+    check(len(parts) == g, f"K5 [mc]: {len(parts)} parts on the card")
+    p_k = [t.clone() for t in parts]
+    p_p = [t.clone() for t in parts]
+    table = inc.part_table(p_k, wins)
+    scatter_args = (p_k, wins, sdi, sdo, (s_cap, n_cap), table)
+    one_launch(torch, c.wrappers, "K5 [mc] all parts of the card",
+               lambda: inc.scatter_parts(*scatter_args))
+    inc.scatter_parts_plain(p_p, wins, sdi, sdo, (s_cap, n_cap))
+    c.record(
+        "K5:scatter_parts", max_abs_err(torch, p_k, p_p),
+        lambda: inc.scatter_parts(*scatter_args),
+        lambda: inc.scatter_parts_plain(p_p, wins, sdi, sdo,
+                                        (s_cap, n_cap)),
+        nbytes=4 * (2 * sdi.numel() + 5 * len(parts) + loc.numel()),
+        ops=6 * sdi.numel() * len(parts))
+    tab_ptr = table.data_ptr()
+    c.split("K5:scatter_parts", lambda: inc.scatter_parts(*scatter_args),
+            floor=lambda: c.cuda.launch(
+                "incremental", "scatter_parts", "pippiii", tab_ptr,
+                len(parts), sdi.data_ptr(), sdo.data_ptr(), sdi.numel(),
+                s_cap, n_cap))
     old_k = owned[jr][2]
     # K6 [mc] on the solver's converged lanes of group 0 (its warm plane)
     prev = solver._vstates[("0", root)].prev_dist[0][jr]
@@ -3929,6 +4236,29 @@ def mesh_fabric_kernels(c, fsolver, fnames, fstates) -> None:
         nbytes=4 * (ad.res_rows.numel() + 2 * ad.res_nbr.numel()
                     + 2 * prev.numel()),
         ops=4 * prev.shape[0] * ad.res_nbr.numel())
+    # K6 whole with fabric10k's residual (shift phase, grid barrier,
+    # residual phase: one cooperative launch) into a held plane
+    held = torch.full_like(prev, -7)
+    pargs = (ad.deltas, swm, ad.res_rows, ad.res_nbr, rwm, prev, plan.s_cap,
+             True, plan.n_cap, prev.shape[0])
+
+    def whole():
+        inc.parent_plane(*pargs, out=held)
+
+    held_launch(torch, c.wrappers, "K6 with fabric10k's residual", whole)
+    err = max_abs_err(torch, held, inc.parent_plane_plain(*pargs))
+    check(err == 0, f"K6 with fabric10k's residual: kernel != plain ({err})")
+    dev_ms, host_ms = device_ms(torch, whole)
+    r = c.results["K6:parent_plane"]
+    r.update(
+        residual_ms=time_ms(torch, whole, 50), residual_device_ms=dev_ms,
+        residual_host_ms=host_ms, residual_shape=list(prev.shape),
+        residual_bound_ms=bound(
+            4 * (2 * prev.numel() + swm.numel() + ad.res_rows.numel()
+                 + 2 * ad.res_nbr.numel()),
+            4 * prev.numel() * plan.s_cap)[0])
+    log("K6 with fabric10k's residual, one launch: " + json.dumps(
+        {k: v for k, v in r.items() if k.startswith("residual_")}))
 
 
 def mc_tail(c, solver, lsdb, root) -> None:
@@ -4327,8 +4657,10 @@ def main() -> int:
                              "openr_tpu/parallel/sharding.py:414"),
         "K2:ladder_classes_mc": (relax.ladder_classes_mc, "relax.cu",
                                  "openr_tpu/parallel/sharding.py:402"),
+        "K5:scatter_parts": (incremental.scatter_parts, "incremental.cu",
+                             "openr_tpu/decision/tpu_solver.py:1113"),
         "K5:scatter_window": (incremental.scatter_window, "incremental.cu",
-                              "openr_tpu/decision/tpu_solver.py:1113"),
+                              "openr_tpu/parallel/sharding.py:494"),
         "K6:parent_shift_mc": (incremental.parent_shift_mc, "incremental.cu",
                                "openr_tpu/parallel/sharding.py:527"),
         "K6:parent_fill": (incremental.parent_fill, "incremental.cu",
@@ -4986,8 +5318,52 @@ def main() -> int:
     split("K5:scatter_set",
           lambda: incremental.scatter_set(scratch, sdi, sdo),
           lambda: scratch.view(-1).index_copy_(0, idx_live, vals_live),
-          lambda: cuda.launch("incremental", "scatter_set", "pppii",
-                              *k5_ptrs, cap, scratch.numel()))
+          lambda: cuda.launch("incremental", "scatter_set", "pppiipppii",
+                              *k5_ptrs, cap, scratch.numel(), 0, 0, 0, 0,
+                              0))
+    # both planes in one launch: the flap's slots and as many seeded
+    # slots of a residual ELL of fabric10k's shape (8192 x 128)
+    gen = torch.Generator().manual_seed(52)
+    res_b = torch.randint(0, 99, (8192, 128), generator=gen,
+                          dtype=torch.int32).to(dev)
+    rb_idx = torch.randperm(res_b.numel(), generator=gen)[:cap].to(
+        torch.int32).to(dev)
+    rb_val = torch.randint(1, 99, (cap,), generator=gen,
+                           dtype=torch.int32).to(dev)
+    pair = (scratch, sdi, sdo, res_b, rb_idx, rb_val)
+    one_launch(torch, wrappers, "K5 both planes",
+               lambda: incremental.scatter_set(*pair))
+    r5 = results["K5:scatter_set"]
+    r5["pair_ms"] = time_ms(torch, lambda: incremental.scatter_set(*pair),
+                            50)
+    r5["pair_device_ms"], r5["pair_host_ms"] = device_ms(
+        torch, lambda: incremental.scatter_set(*pair))
+    # the sync's whole K5 step on the host's arrays (a solver of its own,
+    # so its events stay out of the churn solver's timing): the staged
+    # copy and the launch, one plane (the main path's) and both
+    sync_solver = gpu_solver.GpuSpfSolver(LSDB100K_ROOT, device=dev)
+    h_idx, h_val = sdi.cpu().numpy(), sdo.cpu().numpy()
+    hb_idx, hb_val = rb_idx.cpu().numpy(), rb_val.cpu().numpy()
+    sync_one = lambda: sync_solver._scatter_counted(  # noqa: E731
+        (scratch, h_idx, h_val))
+    sync_two = lambda: sync_solver._scatter_counted(  # noqa: E731
+        (scratch, h_idx, h_val), (res_b, hb_idx, hb_val))
+    for key, fn in (("sync", sync_one), ("sync_pair", sync_two)):
+        r5.update({f"{key}_{k}": v for k, v in step_ms(torch, fn).items()})
+        st0 = sync_solver.staging_counts()
+        n = counted(torch, wrappers, fn)
+        n["staging"] = staging_delta(st0, sync_solver.staging_counts())
+        # the one torch op is the staged copy itself
+        check(n["kernel_launches"] == 1
+              and n["torch_ops_by_name"] == {"aten::_to_copy": 1}
+              and n["staging"]["copies"] == 1,
+              f"K5 {key}: one launch and one staged copy: {n}")
+        r5[f"{key}_counts"] = {k: n[k] for k in (
+            "kernel_launches", "torch_ops", "allocations", "staging")}
+    log("K5:scatter_set both planes and the sync's step: " + json.dumps(
+        {k: v for k, v in r5.items() if k.startswith(("pair", "sync"))}))
+    scatter_cases(c)
+    staging_cases(c)
 
     # the old planes: each plane's kernel against its plain version
     errs, o_bytes, o_ops = [], 0, 0
@@ -5020,15 +5396,34 @@ def main() -> int:
 
     pargs, par_k = ci["pargs"], ci["par"]
     par_p = incremental.parent_plane_plain(*pargs)
+    # the main path's call: into the plane the vantage holds
+    par_held = torch.full_like(par_k, -7)
+
+    def k6_held():
+        incremental.parent_plane(*pargs, out=par_held)
+
+    held_launch(torch, wrappers, "K6 into the held plane", k6_held)
     record(
-        "K6:parent_plane", max_abs_err(torch, par_k, par_p),
-        lambda: incremental.parent_plane(*pargs),
-        lambda: incremental.parent_plane_plain(*pargs),
+        "K6:parent_plane", max(max_abs_err(torch, par_k, par_p),
+                               max_abs_err(torch, par_held, par_p)),
+        k6_held, lambda: incremental.parent_plane_plain(*pargs),
         nbytes=4 * (2 * d_cap * n_cap + s_cap * n_cap + s_cap)
         + (res_bytes if has_res else 0),
         # every class tried for every word: an upper bound on the work
         ops=4 * d_cap * n_cap * s_cap,
     )
+    (p_dl, p_sw, p_rows, p_nbr, p_rw, p_prev) = pargs[:6]
+    k6_ptrs = [0 if t is None else t.data_ptr() for t in (
+        p_dl, p_sw, p_prev, par_held, *((p_rows, p_nbr, p_rw) if has_res
+                                        else (None,) * 3))]
+    k6_ints = (s_cap, n_cap, d_cap, 0, n_cap,
+               *(p_nbr.shape if has_res else (0, 0)))
+    split("K6:parent_plane", k6_held,
+          floor=lambda: cuda.launch("incremental", "parent_plane",
+                                    "p" * 7 + "i" * 7, *k6_ptrs, *k6_ints))
+    results["K6:parent_plane"]["alloc_ms"] = time_ms(
+        torch, lambda: incremental.parent_plane(*pargs), 50)
+    parent_cases(c)
 
     cargs, rdi = ci["cargs"], ci["rdi"]
     cargs_k7 = cargs
@@ -5181,13 +5576,19 @@ def main() -> int:
     per_sssp = counted(torch, wrappers, lambda: incremental.incremental_sssp(
         *args_w, **static_w))
     box = {}
-    per_build, k1s_allocs = k1s_allocations(
+    st0 = inc_solver.staging_counts()
+    per_build, allocs = churn_allocations(
         torch, incremental, lambda: counted(torch, wrappers, lambda: (
             box.update(db=inc_solver.build_route_db(LSDB100K_ROOT, states,
                                                     ps)))))
-    per_build["k1s_allocations"] = k1s_allocs
-    check(k1s_allocs == [0], f"the incremental build's K1s allocated "
-          f"{k1s_allocs}")
+    per_build.update(allocs)
+    per_build["staging"] = staging_delta(st0, inc_solver.staging_counts())
+    check(per_build["staging"]["copies"] == 2,
+          f"the incremental build's uploads must be two staged copies "
+          f"(the sync's, the solve's): {per_build['staging']}")
+    check(allocs["k1s_allocations"] == [0]
+          and allocs["k6_allocations"] == [0],
+          f"the incremental build's K1s / K6 allocated: {allocs}")
     st = inc_solver.last_device_stats
     check(st.get("incremental") is True and st.get("fell_back") is False,
           "the counted build must be incremental without fallback")

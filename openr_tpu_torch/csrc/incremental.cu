@@ -4,7 +4,8 @@
 // one kernel on the caller's stream and returns cudaGetLastError().
 //
 // Replaces the jitted XLA device code of the JAX package:
-//   K5  decision/tpu_solver.py::_scatter_jit            flat .at[idx].set
+//   K5  decision/tpu_solver.py::_scatter_jit            flat .at[idx].set,
+//       both planes of a sync in one launch
 //   K5 old planes  ops/incremental.py::_old_planes with incremental_sssp's
 //       root mask (:150-162): the new resident plane copied once with
 //       the dirty slots' pre-drain values put back and the root's slots
@@ -19,7 +20,8 @@
 // variants in parallel/sharding.py::make_mc_incremental_sssp:
 //   K5 [mc]  global flat indices translated to the shard's window, the
 //            rest dropped (:494-516; decision/tpu_solver.py::
-//            _mc_scatter_jit, :1113, the in-place sharded scatter)
+//            _mc_scatter_jit, :1113, the in-place sharded scatter: every
+//            part a card holds in one launch, scatter_parts)
 //   K6 [mc]  tight edges over the shard's own source columns (:527-551;
 //            the group then takes the max of its members' planes)
 //   K7 [mc]  the dirty slots' new weights read from the owning shard
@@ -39,9 +41,9 @@
 // words at any depth, where cone_fix streams the parent and cone planes
 // once a sweep, then the cone and the previous plane once more and the
 // seed plane: (2 s + 3) D n_cap words for s sweeps. Design: one thread
-// per (lane, node) or per dirty entry, neighbouring threads on
-// neighbouring nodes, so plane loads coalesce except the parent
-// gathers, which follow the forest.
+// per (lane, node) (K6: per node and chunk of lanes) or per dirty
+// entry, neighbouring threads on neighbouring nodes, so plane loads
+// coalesce except the parent gathers, which follow the forest.
 //
 // Tiled writes (the old planes, K7): each block owns a tile of its
 // output, writes all of it, and after __syncthreads() (which orders the
@@ -56,11 +58,10 @@
 // lanes share it.
 //
 // Exactness: every tie-break of the JAX functions is kept because the
-// cone rides the pull buffers. K6 tries shift classes in order and
-// stops at the first tight one (lowest class wins), then fills nodes
-// still without a parent from their residual row, first tight slot
-// first; residual rows are unique per node, so each (lane, row) thread
-// owns its node's word. Pad rows (res_rows == -1) are skipped, never
+// cone rides the pull buffers. K6 takes the lowest tight shift class,
+// then fills nodes still without a parent from their residual row,
+// first tight slot first; residual rows are unique per node, so each
+// (row, lane chunk) thread owns its node's words. Pad rows (res_rows == -1) are skipped, never
 // clipped onto node 0. K7's ones and K9's count commute, so their
 // store order does not matter (K7's zeros precede its ones, above).
 // The old planes need unique in-range dirty indices, as K5 does (the
@@ -87,15 +88,23 @@ static inline unsigned blocks_for(long long n) {
     return (unsigned)(b > 0 ? b : 1);
 }
 
-// K5: plane[idx[i]] = vals[i] for idx[i] in [0, numel); others drop.
-__global__ void scatter_set_kernel(int* __restrict__ plane,
-                                   const int* __restrict__ idx,
-                                   const int* __restrict__ vals, int n,
-                                   int numel) {
+// K5, the scatter of a sync: segment a's entries into plane a, then
+// segment b's into plane b, in one launch (the shift and residual planes'
+// drained slots; the caller stages both segments in one buffer):
+// plane[idx[i]] = vals[i] for idx[i] in [0, numel), other entries drop.
+// Thread i < n_a takes a's entry i, the next n_b threads b's entries.
+__global__ void scatter_set_kernel(int* a, const int* idx_a,
+                                   const int* vals_a, int n_a, int numel_a,
+                                   int* b, const int* idx_b,
+                                   const int* vals_b, int n_b, int numel_b) {
     int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    int f = idx[i];
-    if (f >= 0 && f < numel) plane[f] = vals[i];
+    const bool in_a = i < n_a;
+    if (!in_a) i -= n_a;
+    if (!in_a && i >= n_b) return;
+    int* plane = in_a ? a : b;
+    const int f = (in_a ? idx_a : idx_b)[i];
+    if (f >= 0 && f < (in_a ? numel_a : numel_b))
+        plane[f] = (in_a ? vals_a : vals_b)[i];
 }
 
 // K5 old planes: out = plane, with vals[j] at flat idx[j] for the
@@ -127,10 +136,22 @@ __global__ void old_plane_kernel(const int* __restrict__ plane,
     }
 }
 
-// K5 [mc]: idx[i] is a flat index into a global [rows, cols] plane; the
-// shard holds the window [row0, row0 + w_rows) x [col0, col0 + w_cols)
-// as a [w_rows, w_cols] plane. Entries inside the window are set at
-// their local index, every other entry (foreign or pad) drops.
+// K5 [mc]: f is a flat index into a global [rows, cols] plane; a shard
+// holds the window [row0, row0 + w_rows) x [col0, col0 + w_cols) as a
+// [w_rows, w_cols] plane. An entry inside the window is set at its local
+// index, every other entry (foreign or pad) drops.
+__device__ __forceinline__ void window_put(int* plane, int f, int v,
+                                           int rows, int cols, int row0,
+                                           int w_rows, int col0,
+                                           int w_cols) {
+    if (f < 0 || (long long)f >= (long long)rows * cols) return;
+    const int lr = f / cols - row0;
+    const int lc = f % cols - col0;
+    if (lr < 0 || lr >= w_rows || lc < 0 || lc >= w_cols) return;
+    plane[(long long)lr * w_cols + lc] = v;
+}
+
+// K5 [mc] into one window (the tier's old planes, made afresh a solve)
 __global__ void scatter_window_kernel(int* __restrict__ plane,
                                       const int* __restrict__ idx,
                                       const int* __restrict__ vals, int n,
@@ -138,75 +159,211 @@ __global__ void scatter_window_kernel(int* __restrict__ plane,
                                       int w_rows, int col0, int w_cols) {
     int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
-    int f = idx[i];
-    if (f < 0 || (long long)f >= (long long)rows * cols) return;
-    int lr = f / cols - row0;
-    int lc = f % cols - col0;
-    if (lr < 0 || lr >= w_rows || lc < 0 || lc >= w_cols) return;
-    plane[(long long)lr * w_cols + lc] = vals[i];
+    window_put(plane, idx[i], vals[i], rows, cols, row0, w_rows, col0,
+               w_cols);
 }
 
-// K6 shift part: par[d, v] = (v - δ_k) mod n for the lowest class k
-// whose old edge into v is tight under prev, else -1. K6 [mc]: only the
-// sources u in the shard's column window [col0, col0 + w_cols) count,
-// their old weights read from its [s_cap, w_cols] plane.
-__global__ void parent_shift_kernel(const int* __restrict__ deltas,
-                                    const int* __restrict__ swm_old,
-                                    const int* __restrict__ prev,
-                                    int* __restrict__ par, int s_cap,
-                                    int n_cap, int d_cap, int col0,
-                                    int w_cols) {
-    long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= (long long)d_cap * n_cap) return;
+// K5 [mc] into every distinct part of a resident sharded array that one
+// card holds, in one launch: table row p = (part address, row0, col0,
+// w_rows, w_cols), built once for the placed array; thread (i, p) puts
+// entry i into part p (blockIdx.y = p).
+__global__ void scatter_parts_kernel(const int64_t* __restrict__ table,
+                                     const int* __restrict__ idx,
+                                     const int* __restrict__ vals, int n,
+                                     int rows, int cols) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    const int64_t* t = table + 5 * (long long)blockIdx.y;
+    window_put(reinterpret_cast<int*>(t[0]), idx[i], vals[i], rows, cols,
+               (int)t[1], (int)t[3], (int)t[2], (int)t[4]);
+}
+
+// K6: par[d, v] = the old shortest-path parent of v in lane d. Shift
+// phase: (v - δ_k) mod n for the lowest class k whose old edge into v is
+// tight under prev (both ends finite, prev[u] + w == prev[v]), else -1;
+// K6 [mc] counts only the sources in the shard's column window [col0,
+// col0 + w_cols), their old weights read from its [s_cap, w_cols] plane
+// (a source outside weighs INF_E: never tight). Residual phase: each
+// valid row r (node v = rows[r]; pad rows, -1, skipped) fills the lanes
+// where v is still at -1 with the first slot j whose old edge
+// nbr[r, j] -> v is tight (its source clipped into the plane for the
+// read, written as given).
+//
+// Design (as K1's relax_step): a thread takes one node and DC lanes in
+// registers (the host picks DC, 8 to 1, keeping PARENT_MIN_THREADS
+// threads), so a class's old weight and shift are loaded once for DC
+// lanes; the lowest tight class is picked with selects, no per-thread
+// break, so the unrolled classes' loads go out together (without a
+// residual the warp leaves the loop together, below); tile index math
+// is 32-bit. A residual row likewise reads its slots once for DC lanes and
+// stops once every open lane has its parent. Without a residual: a
+// plain launch. With one, the residual phase reads the shift result of
+// its own node, so the launch is cooperative (the grid from coop_grid,
+// at most PARENT_BLOCKS_PER_SM blocks an SM) with one grid barrier
+// between the phases; residual rows are unique per node, so the one
+// thread of a (row, lane chunk) is the only writer of its words after
+// the barrier. With deltas null only the residual phase runs (K6's fill
+// after the tier's max over its members' shift parts), a plain launch.
+#define PARENT_BLOCKS_PER_SM 8
+// Without a residual the class loop stops, after each PARENT_EXIT_EVERY
+// classes, once every lane of every thread of the warp has its parent
+// (a warp-uniform exit: __all_sync); with one (the cooperative launch)
+// it loads every class. Device ms on an H100 80GB HBM3 at 700 W
+// (tools/relax_split.py --define): lsdb100k 0.00589-0.00592 with the
+// exit every 2 classes against 0.00599-0.00606 loading every class (1
+// and 4 no better); fabric10k's residual launch 0.0229-0.0235 with the
+// exit every 1, 2 or 4 classes against 0.0218-0.0219 without.
+#ifndef PARENT_EXIT_EVERY
+#define PARENT_EXIT_EVERY 2
+#endif
+// 2^18: lsdb100k's 4 x 131072 at DC 2 (fabric10k's 8 x 8192 takes DC
+// 1 at any target from 2^16 up), chosen on the H100 from scratch builds
+// at 2^16 to 2^19
+#define PARENT_MIN_THREADS (1 << 18)
+
+template <int DC, int EXIT>
+__global__ void __launch_bounds__(THREADS) parent_kernel(
+    const int* __restrict__ deltas, const int* __restrict__ swm,
+    const int* __restrict__ prev, int* par, const int* __restrict__ rows,
+    const int* __restrict__ nbr, const int* __restrict__ rwm, int s_cap,
+    int n_cap, int d_cap, int col0, int w_cols, int r_cap, int kr_cap) {
+    const int t = threadIdx.x;
     const unsigned hi = (unsigned)n_cap - 1u;
-    int d = (int)(i / n_cap);
-    unsigned v = (unsigned)(i - (long long)d * n_cap);
-    const int* row = prev + (long long)d * n_cap;
-    int pv = row[v];
-    int p = -1;
-    for (int k = 0; k < s_cap; ++k) {
-        unsigned u = (v - (unsigned)deltas[k]) & hi;
-        unsigned lc = u - (unsigned)col0;
-        if (lc >= (unsigned)w_cols) continue;
-        int pu = row[u];
-        int w = swm_old[(long long)k * w_cols + lc];
-        if (pu < INF_E && w < INF_E && pu + w == pv) {
-            p = (int)u;
-            break;
+    const int d_chunks = (d_cap + DC - 1) / DC;
+    if (deltas) {
+        const int u_tiles = (n_cap + THREADS - 1) / THREADS;
+        for (int tile = blockIdx.x; tile < d_chunks * u_tiles;
+             tile += gridDim.x) {
+            const int c = tile / u_tiles;
+            const int d0 = c * DC;
+            const unsigned v = (unsigned)(tile - c * u_tiles) * THREADS + t;
+            // the warp's threads on the plane (every thread of the warp
+            // runs the same tiles, so all reach the ballot)
+            const unsigned live =
+                EXIT ? __ballot_sync(0xffffffffu, v < (unsigned)n_cap) : 0u;
+            if (v >= (unsigned)n_cap) continue;
+            const int* lanes = prev + (long long)d0 * n_cap;
+            int pv[DC], p[DC];
+#pragma unroll
+            for (int j = 0; j < DC; ++j) {
+                pv[j] = d0 + j < d_cap ? lanes[(long long)j * n_cap + v] : 0;
+                p[j] = -1;
+            }
+            auto pick = [&](int k) {
+                const unsigned u = (v - (unsigned)deltas[k]) & hi;
+                const unsigned lc = u - (unsigned)col0;
+                const int w = lc < (unsigned)w_cols
+                                  ? swm[(long long)k * w_cols + lc]
+                                  : INF_E;
+#pragma unroll
+                for (int j = 0; j < DC; ++j)
+                    if (d0 + j < d_cap) {
+                        const int pu = lanes[(long long)j * n_cap + u];
+                        const bool tight =
+                            pu < INF_E && w < INF_E && pu + w == pv[j];
+                        p[j] = p[j] < 0 && tight ? (int)u : p[j];
+                    }
+            };
+            if constexpr (EXIT > 0) {
+                for (int k0 = 0; k0 < s_cap; k0 += EXIT) {
+#pragma unroll
+                    for (int k = k0; k < k0 + EXIT; ++k)
+                        if (k < s_cap) pick(k);
+                    bool done = true;
+#pragma unroll
+                    for (int j = 0; j < DC; ++j)
+                        done = done && (d0 + j >= d_cap || p[j] >= 0);
+                    if (__all_sync(live, done)) break;
+                }
+            } else {
+#pragma unroll 4
+                for (int k = 0; k < s_cap; ++k) pick(k);
+            }
+#pragma unroll
+            for (int j = 0; j < DC; ++j)
+                if (d0 + j < d_cap) par[(long long)(d0 + j) * n_cap + v] = p[j];
+        }
+        if (!rows) return;
+        // the residual phase reads words other blocks wrote: after the
+        // barrier, through L2 only (a stale L1 line stays valid)
+        cg::this_grid().sync();
+    }
+    const int r_tiles = (r_cap + THREADS - 1) / THREADS;
+    for (int tile = blockIdx.x; tile < d_chunks * r_tiles;
+         tile += gridDim.x) {
+        const int c = tile / r_tiles;
+        const int d0 = c * DC;
+        const int r = (tile - c * r_tiles) * THREADS + t;
+        if (r >= r_cap) continue;
+        const int v = rows[r];
+        if (v < 0) continue;  // pad row
+        const int* lanes = prev + (long long)d0 * n_cap;
+        int* out = par + (long long)d0 * n_cap + v;
+        int cur[DC], pv[DC];
+        int open = 0;
+#pragma unroll
+        for (int j = 0; j < DC; ++j) {
+            cur[j] = d0 + j < d_cap ? __ldcg(out + (long long)j * n_cap) : 0;
+            open += cur[j] < 0;
+        }
+        if (!open) continue;
+#pragma unroll
+        for (int j = 0; j < DC; ++j)
+            pv[j] = cur[j] < 0 ? lanes[(long long)j * n_cap + v] : 0;
+        const long long base = (long long)r * kr_cap;
+        for (int e = 0; e < kr_cap && open; ++e) {
+            const int nb = nbr[base + e];
+            const int w = rwm[base + e];
+            if (nb < 0 || w >= INF_E) continue;
+            const int src = min(nb, n_cap - 1);
+#pragma unroll
+            for (int j = 0; j < DC; ++j)
+                if (cur[j] < 0) {
+                    const int pu = lanes[(long long)j * n_cap + src];
+                    if (pu < INF_E && pu + w == pv[j]) {
+                        cur[j] = nb;
+                        out[(long long)j * n_cap] = nb;
+                        --open;
+                    }
+                }
         }
     }
-    par[i] = p;
 }
 
-// K6 residual part: for each valid row r (node v = res_rows[r]) still
-// without a parent, the first slot j whose old edge nbr -> v is tight.
-__global__ void parent_residual_kernel(const int* __restrict__ res_rows,
-                                       const int* __restrict__ res_nbr,
-                                       const int* __restrict__ rwm_old,
-                                       const int* __restrict__ prev,
-                                       int* __restrict__ par, int r_cap,
-                                       int kr_cap, int n_cap, int d_cap) {
-    long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= (long long)d_cap * r_cap) return;
-    int d = (int)(i / r_cap);
-    int r = (int)(i - (long long)d * r_cap);
-    int v = res_rows[r];
-    if (v < 0) return;  // pad row
-    long long pos = (long long)d * n_cap + v;
-    if (par[pos] >= 0) return;
-    const int* row = prev + (long long)d * n_cap;
-    int pv = row[v];
-    for (int j = 0; j < kr_cap; ++j) {
-        long long e = (long long)r * kr_cap + j;
-        int nb = res_nbr[e];
-        if (nb < 0) continue;
-        int pu = row[min(nb, n_cap - 1)];
-        int w = rwm_old[e];
-        if (pu < INF_E && w < INF_E && pu + w == pv) {
-            par[pos] = nb;
-            return;
-        }
+// One K6 call at row chunk DC: plain without a residual or without the
+// shift phase, cooperative with both.
+template <int DC>
+static int launch_parent(const int* deltas, const int* swm, const int* prev,
+                         int* par, const int* rows, const int* nbr,
+                         const int* rwm, int s_cap, int n_cap, int d_cap,
+                         int col0, int w_cols, int r_cap, int kr_cap,
+                         cudaStream_t stream) {
+    const long long d_chunks = (d_cap + DC - 1) / DC;
+    const long long tiles =
+        deltas ? d_chunks * ((n_cap + THREADS - 1) / THREADS) : 0;
+    const long long r_tiles =
+        rows ? d_chunks * ((r_cap + THREADS - 1) / THREADS) : 0;
+    if (tiles > 0x7fffffffLL || r_tiles > 0x7fffffffLL)
+        return (int)cudaErrorInvalidValue;
+    if (!deltas || !rows) {
+        parent_kernel<DC, PARENT_EXIT_EVERY>
+            <<<(unsigned)max(max(tiles, r_tiles), 1LL), THREADS, 0,
+               stream>>>(deltas, swm, prev, par, rows, nbr, rwm, s_cap,
+                         n_cap, d_cap, col0, w_cols, r_cap, kr_cap);
+        return (int)cudaGetLastError();
     }
+    static int grid[64];
+    const void* fn = (const void*)parent_kernel<DC, 0>;
+    int nb = (int)max(1LL, min(max(tiles, r_tiles),
+                               (long long)coop_grid(fn, THREADS,
+                                                    PARENT_BLOCKS_PER_SM,
+                                                    grid)));
+    void* args[] = {&deltas, &swm,   &prev,  &par,   &rows,
+                    &nbr,    &rwm,   &s_cap, &n_cap, &d_cap,
+                    &col0,   &w_cols, &r_cap, &kr_cap};
+    cudaError_t rc = cudaLaunchCooperativeKernel(fn, dim3(nb), dim3(THREADS),
+                                                 args, 0, stream);
+    return rc != cudaSuccess ? (int)rc : (int)cudaGetLastError();
 }
 
 // K7 [mc] gather: new_loc[j] = the root-masked new weight of shift entry
@@ -483,10 +640,12 @@ __global__ void cone_plane_kernel(const int* __restrict__ aff,
 
 extern "C" {
 
-int scatter_set(int* plane, const int* idx, const int* vals, int n,
-                int numel, cudaStream_t stream) {
-    scatter_set_kernel<<<blocks_for(n), THREADS, 0, stream>>>(plane, idx,
-                                                              vals, n, numel);
+int scatter_set(int* a, const int* idx_a, const int* vals_a, int n_a,
+                int numel_a, int* b, const int* idx_b, const int* vals_b,
+                int n_b, int numel_b, cudaStream_t stream) {
+    scatter_set_kernel<<<blocks_for((long long)n_a + n_b), THREADS, 0,
+                         stream>>>(a, idx_a, vals_a, n_a, numel_a, b, idx_b,
+                                   vals_b, n_b, numel_b);
     return (int)cudaGetLastError();
 }
 
@@ -512,13 +671,45 @@ int scatter_window(int* plane, const int* idx, const int* vals, int n,
     return (int)cudaGetLastError();
 }
 
-int parent_shift(const int* deltas, const int* swm_old, const int* prev,
-                 int* par, int s_cap, int n_cap, int d_cap, int col0,
-                 int w_cols, cudaStream_t stream) {
-    parent_shift_kernel<<<blocks_for((long long)d_cap * n_cap), THREADS, 0,
-                          stream>>>(deltas, swm_old, prev, par, s_cap, n_cap,
-                                    d_cap, col0, w_cols);
+int scatter_parts(const int64_t* table, int n_parts, const int* idx,
+                  const int* vals, int n, int rows, int cols,
+                  cudaStream_t stream) {
+    if (n_parts < 1 || n_parts > 65535) return (int)cudaErrorInvalidValue;
+    scatter_parts_kernel<<<dim3(blocks_for(n), (unsigned)n_parts), THREADS,
+                           0, stream>>>(table, idx, vals, n, rows, cols);
     return (int)cudaGetLastError();
+}
+
+int parent_plane(const int* deltas, const int* swm, const int* prev,
+                 int* par, const int* rows, const int* nbr, const int* rwm,
+                 int s_cap, int n_cap, int d_cap, int col0, int w_cols,
+                 int r_cap, int kr_cap, cudaStream_t stream) {
+    if (n_cap <= 0 || (n_cap & (n_cap - 1)))
+        return (int)cudaErrorInvalidValue;
+    // the largest lane chunk that still gives the call enough threads
+    const long long width = deltas ? n_cap : r_cap;
+    int dc = 8;
+    while (dc > 1 && (dc >= 2 * d_cap ||
+                      width * ((d_cap + dc - 1) / dc) < PARENT_MIN_THREADS))
+        dc >>= 1;
+    switch (dc) {
+        case 8:
+            return launch_parent<8>(deltas, swm, prev, par, rows, nbr, rwm,
+                                    s_cap, n_cap, d_cap, col0, w_cols, r_cap,
+                                    kr_cap, stream);
+        case 4:
+            return launch_parent<4>(deltas, swm, prev, par, rows, nbr, rwm,
+                                    s_cap, n_cap, d_cap, col0, w_cols, r_cap,
+                                    kr_cap, stream);
+        case 2:
+            return launch_parent<2>(deltas, swm, prev, par, rows, nbr, rwm,
+                                    s_cap, n_cap, d_cap, col0, w_cols, r_cap,
+                                    kr_cap, stream);
+        default:
+            return launch_parent<1>(deltas, swm, prev, par, rows, nbr, rwm,
+                                    s_cap, n_cap, d_cap, col0, w_cols, r_cap,
+                                    kr_cap, stream);
+    }
 }
 
 int owned_weights(const int* swm_new, const int* s_idx, int* new_loc,
@@ -526,15 +717,6 @@ int owned_weights(const int* swm_new, const int* s_idx, int* new_loc,
                   cudaStream_t stream) {
     owned_weights_kernel<<<blocks_for(n_s), THREADS, 0, stream>>>(
         swm_new, s_idx, new_loc, n_s, s_cap, n_cap, col0, w_cols);
-    return (int)cudaGetLastError();
-}
-
-int parent_residual(const int* res_rows, const int* res_nbr,
-                    const int* rwm_old, const int* prev, int* par, int r_cap,
-                    int kr_cap, int n_cap, int d_cap, cudaStream_t stream) {
-    parent_residual_kernel<<<blocks_for((long long)d_cap * r_cap), THREADS, 0,
-                             stream>>>(res_rows, res_nbr, rwm_old, prev, par,
-                                       r_cap, kr_cap, n_cap, d_cap);
     return (int)cudaGetLastError();
 }
 

@@ -317,7 +317,7 @@ def pipeline(deltas, shift_w, res_rows, res_nbr, res_w, mbuf, root: int,
              kernel: str = "sync", delta_exp: int = 0,
              budget: int = DELTA_BUDGET, incr=None,
              emit_dist: bool = False, lfa: bool = False, stream: int = 0,
-             out=None, init_out=None) -> PipelineOut:
+             out=None, init_out=None, par_out=None) -> PipelineOut:
     """One solve for one (area, vantage) on the device of its tensors.
     Inputs are the resident mirror (deltas [s_cap], shift_w [s_cap,
     n_cap], the residual ELL res_rows [r_cap] / res_nbr, res_w [r_cap,
@@ -346,7 +346,8 @@ def pipeline(deltas, shift_w, res_rows, res_nbr, res_w, mbuf, root: int,
     tensors. ``init_out`` (with ``incr``) is K1s's outputs held by the
     caller for the incremental solve (``relax.init_outputs``); the cold
     solve allocates its own, since its seed plane becomes the returned
-    distance plane."""
+    distance plane. ``par_out`` (with ``incr``) is K6's parent plane held
+    by the caller, read only inside the solve."""
     p_cap = prev_metric.shape[0]
     a_cap = mbuf.numel() // (6 * p_cap)
     if prev_lfa_slot is None:
@@ -367,7 +368,7 @@ def pipeline(deltas, shift_w, res_rows, res_nbr, res_w, mbuf, root: int,
             deltas, shift_w, res_rows, res_nbr, res_w, root, root_nbr,
             root_w, *incr, s_cap, has_res, n_cap, root_nbr.shape[0],
             max_trips(n_cap), kernel, delta_exp, mark=mark, stats=spread,
-            init_out=init_out,
+            init_out=init_out, par_out=par_out,
         )
         incr_tail = (cone, fell_back)
         spread["cone_trips"] = _host_word(spread["cone_trips"])
@@ -687,7 +688,7 @@ class _VantageState:
 
     __slots__ = ("shape_key", "matrix_version", "prev", "spare", "crib",
                  "links_tuple", "valid", "prev_dist", "dist_epoch",
-                 "root_sig", "stream_budget", "init")
+                 "root_sig", "stream_budget", "init", "par")
 
     def __init__(self):
         self.shape_key = None
@@ -716,6 +717,9 @@ class _VantageState:
         # anew by every incremental solve, never its returned plane, so
         # never ``prev_dist``
         self.init = None
+        # K6's parent plane for the incremental solves, held likewise:
+        # written whole and read only inside a solve, never returned
+        self.par = None
 
 
 class _UcmpAccel:
@@ -991,8 +995,13 @@ class GpuSpfSolver:
         self._ksp2_lru: OrderedDict[tuple, None] = OrderedDict()
         self._ksp2_timing: dict = {}
         self._bytes_uploaded = 0
-        # CUDA event pairs around the dirty-weight scatters of this solve
+        # CUDA event pairs around the dirty-weight scatters of this solve,
+        # and the pairs read and free for the next ones
         self._scatter_events: list = []
+        self._event_pool: list = []
+        # host-to-device copies made by _stage (the scatter's and the
+        # incremental solve's small uploads)
+        self._staged_copies = 0
         self._last_exec_incr = None
         # numerical-health sentinels of the last solve, summed over areas
         self.last_sentinels: dict = {}
@@ -1724,6 +1733,37 @@ class GpuSpfSolver:
         return torch.tensor(np.ascontiguousarray(arr), dtype=torch.int32,
                             device=self.device)
 
+    def _stage(self, arrays, dev=None) -> list:
+        """Host arrays -> int32 tensors on ``dev`` (the solver's device by
+        default). On a card: views into one device buffer, sent by ONE
+        non-blocking copy from one pinned block of PyTorch's caching host
+        allocator (a copy from pinned memory never waits on the stream,
+        unlike ``torch.tensor(..., device=)`` from pageable memory). The
+        allocators make reuse safe: the host block returns to its pool
+        only after the copy's event, the device block only when its
+        views are dropped, ordered on the stream as any tensor's. On the
+        CPU one ``torch.tensor`` each."""
+        dev = self.device if dev is None else torch.device(dev)
+        arrs = [np.asarray(a) for a in arrays]
+        sizes = [a.size for a in arrs]
+        self._bytes_uploaded += 4 * sum(sizes)
+        if dev.type != "cuda":
+            return [torch.tensor(np.ascontiguousarray(a), dtype=torch.int32,
+                                 device=dev) for a in arrs]
+        host = torch.empty(sum(sizes), dtype=torch.int32, pin_memory=True)
+        words, off = host.numpy(), 0
+        for a in arrs:
+            words[off:off + a.size] = a.ravel()
+            off += a.size
+        flat = host.to(dev, non_blocking=True)
+        self._staged_copies += 1
+        return [v.view(a.shape) for v, a in zip(flat.split(sizes), arrs)]
+
+    def staging_counts(self) -> dict:
+        """The host-to-device copies ``_stage`` made on cards since the
+        solver was made."""
+        return {"copies": self._staged_copies}
+
     def _put(self, arr: np.ndarray, mesh=None, layout=None):
         """``_upload`` for a one-device area; on the multichip tier's mesh
         the array placed as ``layout`` says (``parallel/sharding.place``:
@@ -1736,40 +1776,46 @@ class GpuSpfSolver:
         self._bytes_uploaded += out.nbytes()
         return out
 
-    def _scatter_counted(self, d_arr, idx: np.ndarray, vals: np.ndarray):
-        """Scatter (idx, vals) into the resident tensor in place (K5);
-        only the index and value buffers cross to the device. A
-        ``Sharded`` array on the multichip mesh takes each entry on the
-        shards that own it, in place (K5 [mc], the reference's
-        ``_mc_scatter_jit``): one copy of the buffers a card."""
+    def _scatter_counted(self, *segments) -> list:
+        """Scatter each segment ``(d_arr, idx, vals)`` (at most two: a
+        sync's shift and residual planes) into its resident tensor in
+        place (K5); only the index and value buffers cross to the
+        device, both segments in one staged copy, and one ``scatter_set``
+        launch takes both. ``Sharded`` arrays on the multichip mesh take
+        each entry on the shards that own it, in place (K5 [mc], the
+        reference's ``_mc_scatter_jit``): one staged copy a card, then
+        one ``scatter_parts`` launch a card and array. -> the arrays."""
         from openr_tpu_torch.parallel.sharding import Sharded, scatter_sharded
 
-        ref = (next(d_arr.distinct())[2] if isinstance(d_arr, Sharded)
-               else d_arr)
+        d0 = segments[0][0]
+        ref = next(d0.distinct())[2] if isinstance(d0, Sharded) else d0
         ev = None
         if ref.is_cuda:
             stream = torch.cuda.current_stream(ref.device)
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev = (self._event_pool.pop() if self._event_pool else tuple(
+                torch.cuda.Event(enable_timing=True) for _ in range(2)))
             ev[0].record(stream)
-        if isinstance(d_arr, Sharded):
+        host = [a for _, idx, vals in segments for a in (idx, vals)]
+        if isinstance(d0, Sharded):
             bufs: dict = {}
 
-            def idx_on(dev):
+            def on(dev):
                 if dev not in bufs:
-                    self._bytes_uploaded += int(idx.nbytes + vals.nbytes)
-                    bufs[dev] = tuple(
-                        torch.tensor(np.ascontiguousarray(a), dtype=torch.int32,
-                                     device=dev) for a in (idx, vals))
+                    bufs[dev] = self._stage(host, dev)
                 return bufs[dev]
 
-            scatter_sharded(d_arr, idx_on)
+            for k, (d_arr, _, _) in enumerate(segments):
+                scatter_sharded(d_arr, lambda dev, k=k: on(dev)[2 * k:2 * k + 2])
         else:
-            idx_t, vals_t = self._upload(idx), self._upload(vals)
-            scatter_set(d_arr, idx_t, vals_t)
+            t = self._stage(host, ref.device)
+            args = []
+            for k, (d_arr, _, _) in enumerate(segments):
+                args += [d_arr, t[2 * k], t[2 * k + 1]]
+            scatter_set(*args)
         if ev:
             ev[1].record(stream)
             self._scatter_events.append(ev)
-        return d_arr
+        return [d_arr for d_arr, _, _ in segments]
 
     def _diff_scatter(self, d_arr, old_np: np.ndarray, new_np: np.ndarray,
                       extra_idx=None, mesh=None, layout=None):
@@ -1785,7 +1831,7 @@ class GpuSpfSolver:
         if diff.size * 4 > new_np.size:
             return self._put(new_np, mesh, layout)
         vals = np.ascontiguousarray(new_np.ravel()[diff])
-        return self._scatter_counted(d_arr, diff.astype(np.int32), vals)
+        return self._scatter_counted((d_arr, diff.astype(np.int32), vals))[0]
 
     def _sync_area(self, area: str, link_state: LinkState,
                    prefix_state: PrefixState, prefixes: list) -> _AreaDev:
@@ -1882,10 +1928,15 @@ class GpuSpfSolver:
              nbr_changed) = drain_dirty(plan)
             if s_idx is not None or r_idx is not None or nbr_changed:
                 ad.whole = {}
-            if s_idx is not None:
-                ad.shift_w = self._scatter_counted(ad.shift_w, s_idx, s_val)
-            if r_idx is not None:
-                ad.res_w = self._scatter_counted(ad.res_w, r_idx, r_val)
+            # both planes' drained slots: one staged copy, one launch
+            segs = [(role, idx, val) for role, idx, val in (
+                ("shift_w", s_idx, s_val), ("res_w", r_idx, r_val))
+                if idx is not None]
+            if segs:
+                done = self._scatter_counted(*[
+                    (getattr(ad, role), idx, val) for role, idx, val in segs])
+                for (role, _, _), arr in zip(segs, done):
+                    setattr(ad, role, arr)
             ad.drain_epoch += 1
             if nbr_changed:
                 ad.res_rows = put(plan.res_rows, "res_rows")
@@ -2049,6 +2100,7 @@ class GpuSpfSolver:
             vs.dist_epoch = -1
             vs.root_sig = None
             vs.init = None
+            vs.par = None
         root_sig = (root_nbr.tobytes(), (root_w < INF_E).tobytes())
         scatter_events, self._scatter_events = self._scatter_events, []
         return {
@@ -2063,13 +2115,15 @@ class GpuSpfSolver:
             "scatter_events": scatter_events, "t0": t0,
         }
 
-    def _lane_args(self, pv: dict) -> tuple:
+    def _lane_args(self, pv: dict, roots=None) -> tuple:
         """The area's resident mirror and matrix, its root, and the root
-        tables uploaded: the first nine ``pipeline`` inputs."""
+        tables on the device (``roots``, or staged here): the first nine
+        ``pipeline`` inputs."""
         ad = pv["ad"]
+        if roots is None:
+            roots = self._stage([pv["root_nbr"], pv["root_w"]])
         return (ad.deltas, ad.shift_w, ad.res_rows, ad.res_nbr, ad.res_w,
-                ad.mbuf, pv["root_idx"], self._upload(pv["root_nbr"]),
-                self._upload(pv["root_w"]))
+                ad.mbuf, pv["root_idx"], *roots)
 
     def _dispatch_one(self, pv: dict) -> dict:
         """Launch one area's pipeline (incremental where the gate
@@ -2086,27 +2140,28 @@ class GpuSpfSolver:
         if pv["mc"] is not None:
             return self._dispatch_mc(pv)
         vs = pv["vs"]
-        incr = None
+        incr = roots = None
         if pv["incr"] is not None:
-            incr = self._incr_tensors(pv)
+            incr, roots = self._incr_tensors(pv)
         sbudget, spare = 0, None
         if incr is not None and self.streaming_pipeline:
             sbudget = int(vs.stream_budget) or STREAM_BUDGETS[0]
             spare = vs.spare
             if spare is None:
                 spare = tuple(torch.empty_like(t) for t in vs.prev)
-        lane = self._lane_args(pv)
+        lane = self._lane_args(pv, roots)
         if incr is not None and vs.init is None:
             ad = pv["ad"]
             vs.init = init_outputs(ad.shift_w, ad.res_rows, ad.res_nbr,
                                    ad.res_w, lane[7], ad.plan.n_cap)
+            vs.par = torch.empty_like(vs.prev_dist)
         t1 = time.perf_counter()
         out = pipeline(
             *lane, *vs.prev, has_res=pv["has_res"], block_v4=pv["block_v4"],
             sentinels=self.enable_sentinels, kernel=pv["kernel"],
             delta_exp=pv["delta_exp"], incr=incr,
             emit_dist=self.incremental_spf, lfa=pv["lfa"], stream=sbudget,
-            out=spare, init_out=vs.init,
+            out=spare, init_out=vs.init, par_out=vs.par,
         )
         ctx = {"pv": pv, "out": out, "fused": 0, "stream": sbudget,
                "was_valid": vs.valid,
@@ -2171,12 +2226,14 @@ class GpuSpfSolver:
                 "t1": t1, "t2": time.perf_counter(), "mc": info}
 
     def _incr_tensors(self, pv: dict) -> tuple:
-        """The incremental solve's six inputs: the vantage's distance
-        plane, the dirty tuples uploaded, the cone budget."""
+        """-> (the incremental solve's six inputs: the vantage's distance
+        plane, the dirty tuples on the device, the cone budget; the root
+        tables on the device). The four dirty arrays and the two root
+        tables cross in one staged copy (``_stage``)."""
         (sd_idx, sd_old, rd_idx, rd_old, cone_limit), _ = pv["incr"]
-        return (pv["vs"].prev_dist, self._upload(sd_idx),
-                self._upload(sd_old), self._upload(rd_idx),
-                self._upload(rd_old), cone_limit)
+        t = self._stage([sd_idx, sd_old, rd_idx, rd_old, pv["root_nbr"],
+                         pv["root_w"]])
+        return (pv["vs"].prev_dist, *t[:4], cone_limit), tuple(t[4:])
 
     def _dispatch_fused(self, group: list) -> list:
         """ONE fused dispatch for a group of same-shape areas: the cold
@@ -2387,4 +2444,5 @@ class GpuSpfSolver:
             timing["scatter_ms"] = sum(
                 a.elapsed_time(b) for a, b in pv["scatter_events"]
             )
+            self._event_pool.extend(pv["scatter_events"])
         return crib.view(), timing, stats

@@ -35,9 +35,9 @@ distance and the parent plane is a forest.
 
 Wrappers (``scatter_set``, ``old_plane``, ``parent_plane``, ``cone_seed``,
 ``cone_resolve``, and the multichip tier's ``scatter_window``,
-``parent_shift_mc``, ``parent_fill``, ``owned_weights``,
-``cone_seed_mc``, ``cone_finish``, composed per shard by
-``parallel/sharding.mc_incremental_sssp``) launch their CUDA kernel
+``scatter_parts``, ``parent_shift_mc``, ``parent_fill``,
+``owned_weights``, ``cone_seed_mc``, ``cone_finish``, composed per shard
+by ``parallel/sharding.mc_incremental_sssp``) launch their CUDA kernel
 (``csrc/incremental.cu``) on a CUDA tensor and run the plain version
 (``*_plain``) only on a CPU tensor; each counts its kernel launches in
 ``<wrapper>.launches``. ``old_planes`` and ``incremental_sssp`` compose
@@ -69,33 +69,45 @@ def _check_len(n: int) -> None:
 
 # -- K5: flat scatter into a resident plane ----------------------------------
 
-def scatter_set_plain(plane, idx, vals) -> None:
-    flat = plane.view(-1)
-    ok = (idx >= 0) & (idx < flat.numel())
-    live = idx[ok].long()
-    if torch.unique(live).numel() != live.numel():
-        raise ValueError("scatter_set: in-range indices must be unique")
-    flat[live] = vals[ok]
+def scatter_set_plain(plane, idx, vals, plane_b=None, idx_b=None,
+                      vals_b=None) -> None:
+    for pl, ix, vl in ((plane, idx, vals), (plane_b, idx_b, vals_b)):
+        if pl is None:
+            continue
+        flat = pl.view(-1)
+        ok = (ix >= 0) & (ix < flat.numel())
+        live = ix[ok].long()
+        if torch.unique(live).numel() != live.numel():
+            raise ValueError("scatter_set: in-range indices must be unique")
+        flat[live] = vl[ok]
 
 
-def scatter_set(plane, idx, vals) -> None:
+def scatter_set(plane, idx, vals, plane_b=None, idx_b=None,
+                vals_b=None) -> None:
     """In place: ``plane.ravel()[idx[i]] = vals[i]`` for every ``i`` with
     ``idx[i]`` in ``[0, plane.numel())``; other entries are pads and
-    drop. The in-range indices must be unique (the dirty lists are
+    drop. With ``plane_b`` the second segment (``idx_b``, ``vals_b``)
+    goes into it the same way, in the same launch: a sync's shift and
+    residual entries, staged in one buffer by the caller
+    (``decision/gpu_solver.GpuSpfSolver._scatter_counted``). The
+    in-range indices of a segment must be unique (the dirty lists are
     consolidated, ``ops/edgeplan._consolidate``): the plain version
-    raises on a duplicate, the kernel cannot order one."""
+    raises on a duplicate, the kernel cannot order one. One launch, no
+    torch op."""
     if _is_cpu(plane):
-        scatter_set_plain(plane, idx, vals)
+        scatter_set_plain(plane, idx, vals, plane_b, idx_b, vals_b)
         return
     n = idx.numel()
-    if n != vals.numel():
+    n_b = 0 if plane_b is None else idx_b.numel()
+    if n != vals.numel() or (plane_b is not None and n_b != vals_b.numel()):
         raise ValueError("scatter_set: idx and vals differ in length")
-    if n == 0:
+    if n + n_b == 0:
         return
     numel = plane.numel()
-    _check_len(numel)
-    cuda.launch("incremental", "scatter_set", "tttii", plane, idx, vals, n,
-                numel)
+    numel_b = 0 if plane_b is None else plane_b.numel()
+    _check_len(max(numel, numel_b, n + n_b))
+    cuda.launch("incremental", "scatter_set", "tttiitttii", plane, idx, vals,
+                n, numel, plane_b, idx_b, vals_b, n_b, numel_b)
     scatter_set.launches += 1
 
 
@@ -124,7 +136,8 @@ def scatter_window(plane, idx, vals, shape: tuple, row0: int = 0,
     other one (another shard's, or a pad) drops. A shift plane is split
     by columns, the residual ELL by rows (``parallel/sharding.py::
     make_mc_incremental_sssp``, :494-516; ``tpu_solver._mc_scatter_jit``,
-    the in-place sharded update)."""
+    the in-place sharded update). ``scatter_parts`` does every part of
+    a resident array on one card in one launch."""
     if _is_cpu(plane):
         scatter_window_plain(plane, idx, vals, shape, row0, col0)
         return
@@ -142,6 +155,51 @@ def scatter_window(plane, idx, vals, shape: tuple, row0: int = 0,
 
 
 scatter_window.launches = 0
+
+
+def part_table(parts, windows):
+    """The device table of ``scatter_parts``: int64 [len(parts), 5], a
+    row (address, row0, col0, w_rows, w_cols) a part, on the parts'
+    card. Build it once for a placed array (the parts' addresses do
+    not move) and pass it to every scatter into it."""
+    rows = [[t.data_ptr(), r0, c0, *t.shape] for t, (r0, c0) in
+            zip(parts, windows)]
+    return torch.tensor(rows, dtype=torch.int64, device=parts[0].device)
+
+
+def scatter_parts_plain(parts, windows, idx, vals, shape: tuple) -> None:
+    for t, (row0, col0) in zip(parts, windows):
+        scatter_window_plain(t, idx, vals, shape, row0, col0)
+
+
+def scatter_parts(parts, windows, idx, vals, shape: tuple,
+                  table=None) -> None:
+    """K5 [mc] on one card: ``scatter_window`` into each of ``parts`` (2-D
+    planes on one card, the distinct parts of a resident sharded array
+    there) at its window ``windows[i]`` = (row0, col0) of the global
+    ``shape``, all in one launch. ``table`` is ``part_table(parts,
+    windows)``, held by the caller for the placed array (built here
+    when None)."""
+    if _is_cpu(idx):
+        scatter_parts_plain(parts, windows, idx, vals, shape)
+        return
+    n = idx.numel()
+    if n != vals.numel():
+        raise ValueError("scatter_parts: idx and vals differ in length")
+    if n == 0 or not parts:
+        return
+    rows, cols = shape
+    _check_len(rows * cols)
+    if table is None:
+        table = part_table(parts, windows)
+    if table.shape != (len(parts), 5):
+        raise ValueError("scatter_parts: the table does not match the parts")
+    cuda.launch("incremental", "scatter_parts", "littiii", table,
+                len(parts), idx, vals, n, rows, cols)
+    scatter_parts.launches += 1
+
+
+scatter_parts.launches = 0
 
 
 def old_plane_plain(plane, idx, vals, root: int = -1, nbr=None):
@@ -208,39 +266,54 @@ def _check_unique_rows(res_rows) -> None:
         raise ValueError("parent_plane: residual rows must be unique per node")
 
 
+def _held(out, like):
+    """``out`` checked to be an int32 plane of ``like``'s shape, or a new
+    one."""
+    if out is None:
+        return torch.empty(like.shape, dtype=torch.int32, device=like.device)
+    if out.shape != like.shape or out.dtype != torch.int32:
+        raise ValueError("parent plane: out must be int32 of prev's shape")
+    return out
+
+
 def parent_plane_plain(deltas, swm_old, res_rows, res_nbr, rwm_old,
-                       prev_dist, s_cap, has_res, n_cap, d_cap):
+                       prev_dist, s_cap, has_res, n_cap, d_cap, out=None):
     # the whole width is one window
-    par = parent_shift_mc_plain(deltas, swm_old, prev_dist, s_cap, 0)
+    par = parent_shift_mc_plain(deltas, swm_old, prev_dist, s_cap, 0, out)
     if has_res:
         parent_fill_plain(par, res_rows, res_nbr, rwm_old, prev_dist)
     return par
 
 
 def parent_plane(deltas, swm_old, res_rows, res_nbr, rwm_old, prev_dist,
-                 s_cap, has_res, n_cap, d_cap):
+                 s_cap, has_res, n_cap, d_cap, out=None):
     """-> par int32 [D, N]: ``par[d, v] = u`` for an edge u -> v with
     ``prev[d, u] + w_old(u -> v) == prev[d, v]`` (both finite), else -1.
-    Shift classes are tried in order and the lowest class wins; the
-    residual fills only nodes still at -1, the first tight slot of the
-    node's row winning. ``swm_old`` / ``rwm_old`` are the root-masked
-    old weights. Residual rows must be unique per node."""
+    The lowest tight shift class wins; the residual fills only nodes
+    still at -1, the first tight slot of the node's row winning.
+    ``swm_old`` / ``rwm_old`` are the root-masked old weights. Residual
+    rows must be unique per node.
+
+    ``out``, when given, is a plane held by the caller (the vantage's
+    ``_VantageState.par``), every word written: the call then makes one
+    launch, no torch op and no allocation. The incremental solve reads
+    the plane only inside the solve (K7 and the cone) and never returns
+    it, so a held plane is never the caller's ``prev_dist``. On the card:
+    one ``parent_plane`` launch with or without a residual (cooperative
+    with one, ``csrc/incremental.cu``)."""
     if _is_cpu(prev_dist):
         return parent_plane_plain(deltas, swm_old, res_rows, res_nbr,
                                   rwm_old, prev_dist, s_cap, has_res,
-                                  n_cap, d_cap)
+                                  n_cap, d_cap, out)
     _check_len(d_cap * n_cap)
-    par = torch.empty((d_cap, n_cap), dtype=torch.int32,
-                      device=prev_dist.device)
-    cuda.launch("incremental", "parent_shift", "ttttiiiii", deltas, swm_old,
-                prev_dist, par, s_cap, n_cap, d_cap, 0, n_cap)
+    par = _held(out, prev_dist)
+    r_cap, kr_cap = res_nbr.shape if has_res else (0, 0)
+    if not has_res:
+        res_rows = res_nbr = rwm_old = None
+    cuda.launch("incremental", "parent_plane", "tttttttiiiiiii", deltas,
+                swm_old, prev_dist, par, res_rows, res_nbr, rwm_old, s_cap,
+                n_cap, d_cap, 0, n_cap, r_cap, kr_cap)
     parent_plane.launches += 1
-    if has_res:
-        r_cap, kr_cap = res_nbr.shape
-        cuda.launch("incremental", "parent_residual", "tttttiiii",
-                    res_rows, res_nbr, rwm_old, prev_dist, par, r_cap,
-                    kr_cap, n_cap, d_cap)
-        parent_plane.launches += 1
     return par
 
 
@@ -248,7 +321,7 @@ parent_plane.launches = 0
 
 
 def parent_shift_mc_plain(deltas, swm_old, prev_dist, s_cap: int,
-                          col0: int):
+                          col0: int, out=None):
     d_cap, n_cap = prev_dist.shape
     dev = prev_dist.device
     par = torch.full((d_cap, n_cap), -1, dtype=torch.int32, device=dev)
@@ -260,27 +333,32 @@ def parent_shift_mc_plain(deltas, swm_old, prev_dist, s_cap: int,
                & (prev_dist + wk[None, :] == torch.roll(prev_dist, -dk, 1)))
         par = torch.where((par < 0) & torch.roll(hit, dk, dims=1),
                           torch.roll(src, dk)[None, :], par)
-    return par
+    if out is None:
+        return par
+    _held(out, prev_dist).copy_(par)
+    return out
 
 
-def parent_shift_mc(deltas, swm_old, prev_dist, s_cap: int, col0: int):
+def parent_shift_mc(deltas, swm_old, prev_dist, s_cap: int, col0: int,
+                    out=None):
     """K6 [mc]: the shift part of ``parent_plane`` for one shard, whose
     ``swm_old`` [s_cap, w] holds the root-masked old weights of the
     source columns [col0, col0 + w): ``par[d, v]`` is the source of the
     lowest class whose old edge into v is tight among the shard's own
-    sources, else -1. The group's max over its members
-    (``ops/combine.shard_combine``) is the reference's ``pmax``
-    (``parallel/sharding.py``, :527-551); ``parent_fill`` then adds the
-    residual parents."""
+    sources, else -1 (into ``out`` when given). The group's max over
+    its members (``ops/combine.shard_combine``) is the reference's
+    ``pmax`` (``parallel/sharding.py``, :527-551); ``parent_fill`` then
+    adds the residual parents. One ``parent_plane`` launch without a
+    residual."""
     if _is_cpu(prev_dist):
         return parent_shift_mc_plain(deltas, swm_old, prev_dist, s_cap,
-                                     col0)
+                                     col0, out)
     d_cap, n_cap = prev_dist.shape
     _check_len(d_cap * n_cap)
-    par = torch.empty((d_cap, n_cap), dtype=torch.int32,
-                      device=prev_dist.device)
-    cuda.launch("incremental", "parent_shift", "ttttiiiii", deltas, swm_old,
-                prev_dist, par, s_cap, n_cap, d_cap, col0, swm_old.shape[1])
+    par = _held(out, prev_dist)
+    cuda.launch("incremental", "parent_plane", "tttttttiiiiiii", deltas,
+                swm_old, prev_dist, par, None, None, None, s_cap, n_cap,
+                d_cap, col0, swm_old.shape[1], 0, 0)
     parent_shift_mc.launches += 1
     return par
 
@@ -310,14 +388,16 @@ def parent_fill(par, res_rows, res_nbr, rwm_old, prev_dist) -> None:
     """K6's residual part on its own, in place: each node still without
     a parent in ``par`` takes the first tight slot of its residual row
     (after the multichip tier's max over the shift parts,
-    ``parallel/sharding.py``, :552-573). Residual rows must be unique."""
+    ``parallel/sharding.py``, :552-573). Residual rows must be unique.
+    One ``parent_plane`` launch with the shift phase off."""
     if _is_cpu(prev_dist):
         parent_fill_plain(par, res_rows, res_nbr, rwm_old, prev_dist)
         return
     d_cap, n_cap = prev_dist.shape
     r_cap, kr_cap = res_nbr.shape
-    cuda.launch("incremental", "parent_residual", "tttttiiii", res_rows,
-                res_nbr, rwm_old, prev_dist, par, r_cap, kr_cap, n_cap, d_cap)
+    cuda.launch("incremental", "parent_plane", "tttttttiiiiiii", None, None,
+                prev_dist, par, res_rows, res_nbr, rwm_old, 0, n_cap, d_cap,
+                0, 0, r_cap, kr_cap)
     parent_fill.launches += 1
 
 
@@ -651,7 +731,7 @@ def incremental_sssp(deltas, shift_w, res_rows, res_nbr, res_w, root,
                      s_cap: int, has_res: bool, n_cap: int, d_cap: int,
                      max_trips: int, kernel: str = "sync",
                      delta_exp: int = 0, *, mark=None, stats=None,
-                     init_out=None):
+                     init_out=None, par_out=None):
     """Incremental counterpart of ``relax.plan_sssp``: the same resident
     inputs plus ``prev_dist`` [D, N] (the vantage's last distance
     plane), the consolidated dirty tuples (flat index into the raveled
@@ -671,7 +751,8 @@ def incremental_sssp(deltas, shift_w, res_rows, res_nbr, res_w, root,
     (``relax.init_outputs``), written in place: none of them is the
     returned plane, which is the cone's fresh seed plane or the loop's
     spare, so the caller may hold them across solves beside its
-    ``prev_dist``."""
+    ``prev_dist``; ``par_out``, when given, is the parent plane held by
+    the caller (``parent_plane(out=)``), read only inside this solve."""
     mark = mark or (lambda: None)
     swm_new, residual, dist0 = sssp_init(
         shift_w, res_rows, res_nbr, res_w, root, seeds_nbr, seeds_w,
@@ -683,7 +764,7 @@ def incremental_sssp(deltas, shift_w, res_rows, res_nbr, res_w, root,
     )
     mark()
     par = parent_plane(deltas, swm_old, res_rows, res_nbr, rwm_old,
-                       prev_dist, s_cap, has_res, n_cap, d_cap)
+                       prev_dist, s_cap, has_res, n_cap, d_cap, par_out)
     mark()
     aff = cone_seed(par, swm_new, residual[2], deltas, res_rows, res_nbr,
                     root, s_dirty_idx, s_dirty_old, r_dirty_idx,

@@ -64,6 +64,8 @@ from openr_tpu_torch.ops.incremental import (
     owned_weights,
     parent_fill,
     parent_shift_mc,
+    part_table,
+    scatter_parts,
     scatter_set,
     scatter_window,
 )
@@ -231,6 +233,9 @@ class Sharded:
     def __init__(self, mesh: Mesh, shape: tuple, layout: Layout, parts):
         self.mesh, self.shape, self.layout = mesh, tuple(shape), layout
         self.parts = parts
+        # card -> (parts as 2-D planes, windows, K5 [mc]'s device table),
+        # built at the first scatter into this placement
+        self._scatter: dict = {}
 
     def part(self, b: int, g: int) -> torch.Tensor:
         return self.parts[b][g]
@@ -288,19 +293,35 @@ def gather(sh: Sharded, b: int, g: int) -> torch.Tensor:
     return torch.cat([t.to(dev) for t in parts], dim=sh.layout.axis)
 
 
+def _scatter_targets(sh: Sharded) -> dict:
+    """card -> (its distinct parts as 2-D planes, their (row0, col0)
+    windows in the global plane, the ``scatter_parts`` table or None on
+    the CPU), built once for the placed array: its parts never move."""
+    if not sh._scatter:
+        split_cols = len(sh.shape) == 1 or sh.layout.axis == 1
+        by_dev: dict = {}
+        for b, g, t in sh.distinct():
+            lo, _ = sh.window(b, g)
+            view = t.view(-1, t.shape[-1]) if t.dim() == 2 else t.view(1, -1)
+            parts, wins = by_dev.setdefault(t.device, ([], []))
+            parts.append(view)
+            wins.append((0, lo) if split_cols else (lo, 0))
+        for dev, (parts, wins) in by_dev.items():
+            sh._scatter[dev] = (parts, wins, part_table(parts, wins)
+                                if dev.type == "cuda" else None)
+    return sh._scatter
+
+
 def scatter_sharded(sh: Sharded, idx_on) -> None:
     """In place, on every distinct part: the global flat (idx, vals)
     scatter, each entry landing only on the shards that own it (K5 [mc],
-    the reference's in-place ``_mc_scatter_jit``). ``idx_on(device)``
+    the reference's in-place ``_mc_scatter_jit``): one ``scatter_parts``
+    launch a card for all of that card's parts. ``idx_on(device)``
     returns the index and value tensors on that device."""
     shape2 = sh.shape if len(sh.shape) == 2 else (1, sh.shape[0])
-    split_cols = len(sh.shape) == 1 or sh.layout.axis == 1
-    for b, g, t in sh.distinct():
-        lo, _ = sh.window(b, g)
-        row0, col0 = (0, lo) if split_cols else (lo, 0)
-        i_t, v_t = idx_on(t.device)
-        view = t.view(-1, t.shape[-1]) if t.dim() == 2 else t.view(1, -1)
-        scatter_window(view, i_t, v_t, shape2, row0, col0)
+    for dev, (parts, wins, table) in _scatter_targets(sh).items():
+        i_t, v_t = idx_on(dev)
+        scatter_parts(parts, wins, i_t, v_t, shape2, table)
 
 
 def pad_to(arr: np.ndarray, size: int, fill, axis: int = 0) -> np.ndarray:
@@ -518,19 +539,32 @@ def mc_incremental_sssp(mesh, deltas, shift_w, res_rows, res_nbr, res_w,
         return j * shard_cols
 
     new, old = {}, {}
+    # the old planes, one a distinct (part, dirty list): the shards of a
+    # card that hold the same part and list share it (a clone and a
+    # scatter each, not one a shard)
+    olds: dict = {}
+
+    def old_of(part, idx, vals, col0, put):
+        key = (id(part), id(idx), id(vals), col0)
+        if key not in olds:
+            olds[key] = part.clone()
+            put(olds[key], idx, vals)
+        return olds[key]
+
     for b in range(nb):
         for j in range(ng):
             args = (res_rows[b][j], res_nbr[b][j])
             new[b, j] = sssp_init_mc(shift_w[b][j], *args, res_w[b][j], root,
                                      root_nbr[b][j], root_w[b][j], col_of(j),
                                      n_cap)
-            old_shift = shift_w[b][j].clone()
-            scatter_window(old_shift, s_dirty_idx[b][j], s_dirty_old[b][j],
-                           (s_cap, n_cap), 0, col_of(j))
+            old_shift = old_of(
+                shift_w[b][j], s_dirty_idx[b][j], s_dirty_old[b][j],
+                col_of(j), lambda t, i, v, c0=col_of(j): scatter_window(
+                    t, i, v, (s_cap, n_cap), 0, c0))
             old_res = res_w[b][j]
             if has_res:
-                old_res = old_res.clone()
-                scatter_set(old_res, r_dirty_idx[b][j], r_dirty_old[b][j])
+                old_res = old_of(old_res, r_dirty_idx[b][j],
+                                 r_dirty_old[b][j], 0, scatter_set)
             old[b, j] = sssp_init_mc(old_shift, *args, old_res, root,
                                      root_nbr[b][j], root_w[b][j], col_of(j),
                                      n_cap)

@@ -217,6 +217,7 @@ def test_incremental_sssp_matches_jax(port, name, kernel):
     )
     np.testing.assert_array_equal(p_par.numpy(), j_par)
     assert (j_par >= 0).sum() > n_cap // 2, "a real forest"
+    _held_parent_planes(port, name, st["s_cap"], n_cap, has_res)
 
     # B13: the whole solve, held and fallen back
     run = jincr.jit_incremental_sssp(**st, kernel=kernel, delta_exp=dexp)
@@ -245,6 +246,54 @@ def test_incremental_sssp_matches_jax(port, name, kernel):
         if cold is None:
             cold = dist
         np.testing.assert_array_equal(dist.numpy(), cold.numpy())
+
+
+def _held_parent_planes(port, name, s_cap, n_cap, has_res):
+    """``parent_plane`` into a held plane pre-filled with -7, reused for
+    the forests of two other roots, at 1 and 3 lanes, with the residual
+    (where the plan has one) and without: every call equals the JAX
+    ``_parent_plane`` on the same inputs (the held plane written
+    whole)."""
+    torch, inc = port.torch, port.incremental
+    from openr_tpu_torch.ops import relax as prelax
+
+    _, states, _, me = _state(name)
+    ls = states["0"]
+    plan = build_plan(ls)
+    names = sorted(plan.node_index, key=plan.node_index.get)
+    others = [n for n in names if n != me and plan.out_links(ls, n)[0].size
+              ][:2]
+    assert len(others) == 2
+    t = {k: torch.tensor(getattr(plan, k)) for k in (
+        "deltas", "shift_w", "res_rows", "res_nbr", "res_w")}
+    held = {lanes: torch.full((lanes, n_cap), -7, dtype=torch.int32)
+            for lanes in (1, 3)}
+    for other in others:
+        root = plan.node_index[other]
+        nbr, w, _ = plan.out_links(ls, other)
+        prev, _, _ = prelax.plan_sssp(
+            t["deltas"], t["shift_w"], t["res_rows"], t["res_nbr"],
+            t["res_w"], root, torch.tensor(nbr), torch.tensor(w), has_res)
+        swm = plan.shift_w.copy()
+        swm[:, root] = INF_E
+        rwm = np.where(plan.res_nbr == root, INF_E, plan.res_w).astype(
+            np.int32)
+        for lanes, out in held.items():
+            pl = prev[torch.arange(lanes) % prev.shape[0]].contiguous()
+            for res in sorted({False, has_res}):
+                want = np.asarray(jax.jit(partial(
+                    jincr._parent_plane, s_cap=s_cap, has_res=res,
+                    n_cap=n_cap, d_cap=lanes))(
+                        plan.deltas, swm, plan.res_rows, plan.res_nbr, rwm,
+                        pl.numpy()))
+                got = inc.parent_plane(
+                    t["deltas"], torch.tensor(swm), t["res_rows"],
+                    t["res_nbr"], torch.tensor(rwm), pl, s_cap, res, n_cap,
+                    lanes, out=out)
+                assert got is out
+                np.testing.assert_array_equal(out.numpy(), want)
+                if res == has_res:
+                    assert (want >= 0).any(), (other, lanes)
 
 
 def _grid_churn_inputs(kernel, sentinels):
@@ -410,16 +459,20 @@ def _cnt(port, key):
 
 
 def _held_init_apart(incr, seen: dict) -> None:
-    """The vantage's held K1s outputs (``_VantageState.init``) share no
-    storage with its ``prev_dist`` (the last solve's returned plane), and
-    stay the same tensors from one solve to the next while the vantage's
-    shapes do. ``seen`` maps a shape key to the storages first held."""
+    """The vantage's held K1s outputs (``_VantageState.init``) and its
+    held K6 parent plane (``_VantageState.par``) share no storage with
+    its ``prev_dist`` (the last solve's returned plane), and stay the
+    same tensors from one solve to the next while the vantage's shapes
+    do. ``seen`` maps a shape key to the storages first held."""
     (vs,) = incr._vstates.values()
     if vs.init is None:
+        assert vs.par is None
         return
     sw, res, dist0 = vs.init
-    held = {t.untyped_storage().data_ptr() for t in (sw, *res, dist0)}
-    assert len(held) == 5
+    held = {t.untyped_storage().data_ptr()
+            for t in (sw, *res, dist0, vs.par)}
+    assert len(held) == 6
+    assert vs.par.shape == vs.prev_dist.shape
     assert vs.prev_dist.untyped_storage().data_ptr() not in held
     assert seen.setdefault(vs.shape_key, held) == held
 
@@ -644,6 +697,13 @@ def test_layout_changes_reset_the_journal_and_reconcile(port):
 
 
 def test_scatter_set_plain_drops_pads_and_rejects_duplicates(port):
+    """K5 drops pads (negative, at and past the plane's end) and rejects
+    a duplicate; its two-segment form (a sync's shift and residual
+    entries, staged as views of one buffer) equals ``_scatter_jit`` on
+    each plane, with pads, indices past the plane and an empty
+    segment."""
+    from openr_tpu.decision.tpu_solver import _scatter_jit
+
     torch = port.torch
     inc = port.incremental
     plane = torch.arange(12, dtype=torch.int32).view(3, 4)
@@ -656,6 +716,29 @@ def test_scatter_set_plain_drops_pads_and_rejects_duplicates(port):
     with pytest.raises(ValueError, match="unique"):
         inc.scatter_set(plane, torch.tensor([3, 7, 3], dtype=torch.int32),
                         torch.tensor([1, 2, 3], dtype=torch.int32))
+
+    scatter = _scatter_jit.__wrapped__(False)
+    rng = np.random.default_rng(21)
+    a0 = rng.integers(0, 1 << 20, (4, 32), dtype=np.int32)
+    b0 = rng.integers(0, 1 << 20, (6, 8), dtype=np.int32)
+    segs = {
+        # live slots, a pad at the end, indices past the plane
+        "both": ([3, 40, 127, 128, 500], [0, 47, 48, 1000]),
+        "a only": ([7, 128, 64], []),
+        "b only": ([], [5, 48, 9, 77]),
+    }
+    for label, (ia, ib) in segs.items():
+        ia, ib = np.asarray(ia, np.int32), np.asarray(ib, np.int32)
+        va = rng.integers(1, 99, ia.size, dtype=np.int32)
+        vb = rng.integers(1, 99, ib.size, dtype=np.int32)
+        buf = torch.tensor(np.concatenate([ia, va, ib, vb]))
+        views = torch.split(buf, [ia.size, va.size, ib.size, vb.size])
+        a, b = torch.tensor(a0), torch.tensor(b0)
+        inc.scatter_set(a, views[0], views[1], b, views[2], views[3])
+        for got, p0, ix, vx in ((a, a0, ia, va), (b, b0, ib, vb)):
+            np.testing.assert_array_equal(
+                got.numpy(), np.asarray(scatter(p0, ix, vx)), label)
+        assert torch.equal(a, torch.tensor(a0)) == (ia.size == 0)
 
 
 def _old_planes_case(name, dirty):

@@ -313,6 +313,7 @@ def test_mc_pipeline_buffers_match_jax(port, jmesh, cells):
     one-device incremental pipeline's but for the counters, and its
     cone and fell_back equal ``mc_incremental_sssp``'s."""
     from openr_tpu.decision import tpu_solver
+    from openr_tpu_torch.ops.incremental import scatter_window_plain
 
     torch = port.torch
     gs = port.gpu_solver
@@ -351,13 +352,30 @@ def test_mc_pipeline_buffers_match_jax(port, jmesh, cells):
     assert sorted(info.shard_end) == [f"{b}.{g}" for b in range(4)
                                       for g in range(2)]
 
-    # churn: the dirty slots scattered into the shards that own them
+    # churn: the dirty slots scattered into the shards that own them,
+    # every part a card holds in one multi-part call (K5 [mc]), equal to
+    # the per-part scatter
     new_sw, new_rw, dirty = cell.churn(seed=5)
     for name, old, new in (("shift_w", plan.shift_w, new_sw),
                            ("res_w", plan.res_w, new_rw)):
         flat = np.flatnonzero(new.ravel() != old.ravel()).astype(np.int32)
-        port.sharding.scatter_sharded(mirror[name], lambda dev, f=flat, a=new: (
-            torch.tensor(f), torch.tensor(a.ravel()[f])))
+        each = [(t.clone(), mirror[name].window(b, g)[0])
+                for b, g, t in mirror[name].distinct()]
+        calls = []
+
+        def idx_on(dev, f=flat, a=new):
+            calls.append(dev)
+            return torch.tensor(f), torch.tensor(a.ravel()[f])
+
+        port.sharding.scatter_sharded(mirror[name], idx_on)
+        (targets,) = port.sharding._scatter_targets(mirror[name]).values()
+        assert len(calls) == 1 and len(targets[0]) == len(each) > 1
+        shape2 = new.shape if new.ndim == 2 else (1, new.size)
+        f_t, v_t = torch.tensor(flat), torch.tensor(new.ravel()[flat])
+        for (t, lo), part in zip(each, targets[0]):
+            win = (lo, 0) if mirror[name].layout.axis == 0 else (0, lo)
+            scatter_window_plain(t.view(part.shape), f_t, v_t, shape2, *win)
+            assert torch.equal(t.view(part.shape), part)
         axis = mirror[name].layout.axis
         for b, g, t in mirror[name].distinct():
             lo, hi = mirror[name].window(b, g)

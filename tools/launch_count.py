@@ -15,7 +15,9 @@ kernel launches by wrapper (every ``ops`` function with a ``launches``
 count), torch ops on the card by name (clones, fills, copies, reads),
 and their sum; beside them the CUDA tensors allocated, the host flag
 reads (``relax.read_flag``) and, for the incremental build and the storm
-epoch, the allocations of each K1s call (``k1s_allocations``).
+epoch, the allocations of each K1s and K6 call
+(``chip_smoke.churn_allocations``) and, where the tree's solver stages
+its uploads, its staged copies (``staging``).
 ``cone`` splits the tree's cone work of one incremental solve (the
 spread to the closure, the count, the fallback and the seed plane, one
 ``cone_resolve`` launch: a tree without that wrapper stops there) on
@@ -48,17 +50,23 @@ def _wrappers(ops_pkg) -> dict:
     return out
 
 
-def _counted(cs, torch, relax, wrappers, fn, inc=None) -> dict:
+def _counted(cs, torch, relax, wrappers, fn, inc=None, solver=None) -> dict:
     """``chip_smoke.counted`` and the flag reads; with ``inc`` (the
-    tree's incremental module) also the CUDA tensors each K1s call of
-    the solve allocated (``chip_smoke.k1s_allocations``)."""
+    tree's incremental module) also the CUDA tensors each K1s and K6
+    call of the solve allocated (``chip_smoke.churn_allocations``), and
+    ``solver``'s staged copies where it counts them."""
     reads0 = relax.read_flag.reads
+    counts = getattr(solver, "staging_counts", None)
+    st0 = counts() if counts else None
     if inc is None:
         n = cs.counted(torch, wrappers, fn)
     else:
-        n, n["k1s_allocations"] = cs.k1s_allocations(
+        n, allocs = cs.churn_allocations(
             torch, inc, lambda: cs.counted(torch, wrappers, fn))
+        n.update(allocs)
     n["flag_reads"] = relax.read_flag.reads - reads0
+    if counts:
+        n["staging"] = cs.staging_delta(st0, counts())
     return n
 
 
@@ -153,7 +161,7 @@ def main() -> int:
         out["incremental_build"].append(_counted(
             cs, torch, relax, wrappers,
             lambda: box.update(db=inc.build_route_db(root, states, ps)),
-            incremental))
+            incremental, inc))
         cs.check(inc.last_device_stats.get("incremental") is True,
                  "the counted build must be incremental")
         held(box["db"], "incremental build")
@@ -161,7 +169,8 @@ def main() -> int:
         out["storm_epoch"].append(_counted(
             cs, torch, relax, wrappers,
             lambda: box.update(db=stream.collect_route_db(
-                stream.dispatch_route_db(root, states, ps))), incremental))
+                stream.dispatch_route_db(root, states, ps))), incremental,
+            stream))
         cs.check(bool(stream.last_timing.get("stream")),
                  "the counted epoch must stream")
         held(box["db"], "storm epoch")
