@@ -223,9 +223,16 @@ prints no result line:
      the step's arrays equal the plain step's on the first 64 roots
      (tg1k, tg1k-lfa, which must hold backups) and on all 4,096
      (fabric10k, 256 roots a call), and ``sharded_fabric_step``'s the
-     solver's step; each fabric kernel against its plain version over
-     all 4,096 fabric10k roots, timed there (K3 also with skewed uplink
-     costs, which must leave backups). Each build prints ``fabric_ms``
+     solver's step, and tg1k's step at 2 trips (unconverged) equal to
+     the plain step's, ``converged`` included; each fabric kernel
+     against its plain version over all 4,096 fabric10k roots, timed
+     there (K3 also with skewed uplink costs, which must leave backups;
+     K21e with the class liveness; K21 one launch, split into device,
+     host and bare launch, and on ``K21_CASES``: seeded planes and
+     tables with root slabs' tails, a column window holding some roots,
+     rows past the shared copy, D of 1, 2, 5 and 12, no residual, gated
+     roots, pad rows, INF_E entries inside a row's extent and a void
+     class, each one launch). Each build prints ``fabric_ms``
      and its split (sync, exec, the CUDA-event SSSP and tail, pull, RIBs,
      host routes), trips, the bound and its retries, bytes moved, peak
      device bytes, its launches and the wall of full garbage collections
@@ -248,7 +255,12 @@ prints no result line:
      card's resident shift plane in one ``scatter_parts`` launch, split
      like K7), K2's ladder pass on the member's own classes and K23
      (min, max, sum) against their plain versions at those shapes (the
-     class pick counted as one launch and no torch op); K3 and K4 on the
+     class pick counted as one launch and no torch op); K23 over all 4
+     groups of the mesh in one launch (``[groups]``, beside
+     ``torch.minimum`` once a group) and on ``COMBINE_CASES`` (1 to 9
+     groups of 1 to 16 members, widths 0 and not a multiple of 4,
+     unaligned planes, min / max / sum, with and without ref and flag,
+     ``also`` groups); K3 and K4 on the
      tier's tail (the arguments ``mc_pipeline`` passes them in one more
      flap build) against plain, each call one launch, and in that build
      every member's cone (``cone_resolve`` without a plane) and K9 seed
@@ -257,7 +269,8 @@ prints no result line:
      ``build_fabric_route_dbs(mesh=...)`` (window ``fabric_mesh``;
      ``pod063-rsw63``'s RIB equal to the LFA oracle) and the array-level
      step on the mesh equal to the one-card step (all seven arrays); K21
-     ``[mc]`` over every root (plain 256 a call), K6's residual fill
+     ``[mc]`` over every root (plain 256 a call; roots in and out of the
+     member's window, its pad rows; one launch, split), K6's residual fill
      and the whole K6 with the residual (one cooperative launch into a
      held plane, its times in K6's row as ``residual_*``) against
      plain. tg1k-lfa on batch 2 x graph 3 (the node axis padded
@@ -517,7 +530,8 @@ def max_abs_err(torch, got, want) -> int:
         if got.numel() == 0:
             return 0
         return int((got.long() - want.long()).abs().max())
-    return max(max_abs_err(torch, g, w) for g, w in zip(got, want))
+    return max((max_abs_err(torch, g, w) for g, w in zip(got, want)),
+               default=0)
 
 
 def tensors_mapped(fn, args) -> tuple:
@@ -3236,6 +3250,8 @@ FABRIC_PLAIN_ROOTS = 64
 # roots per call of a plain version run over many roots (rows are
 # independent; one gather over every root would not fit)
 PLAIN_CHUNK = 256
+# the trip bound of the tg1k step held to plain while unconverged
+UNCONVERGED_TRIPS = 2
 LEGACY_PATH = ("K18:ell_relax", "K19:ell_next_hop", "K20:ell_select")
 FABRIC_PATH = ("K1s:sssp_init", "K21e:fabric_extent", "K21:fabric_relax",
                "K3:select_routes")
@@ -3556,14 +3572,16 @@ def fabric_build(c, solver, states, ps, names, mesh=None) -> tuple:
     return dbs, st, launches
 
 
-def fabric_vs_plain(c, label, solver, ls, names, lfa, n_plain) -> tuple:
+def fabric_vs_plain(c, label, solver, ls, names, lfa, n_plain,
+                    n_trips=None) -> tuple:
     """The step over every vantage on the card against the plain step on
     the first ``n_plain`` (per-root results are independent; the plain
-    step runs PLAIN_CHUNK roots a call). Returns the kernel step's
-    outputs and its (args, kw)."""
+    step runs PLAIN_CHUNK roots a call), at the solver's last trip bound
+    or ``n_trips``. Returns the kernel step's outputs and its (args,
+    kw)."""
     torch, fabric = c.torch, c.fabric
     args, kw = fabric_step_args(c, solver, names, ls, lfa)
-    n_trips = solver.last_fabric_stats["n_trips"]
+    n_trips = n_trips or solver.last_fabric_stats["n_trips"]
     t0 = time.perf_counter()
     got = fabric.fabric_step(*args, n_trips=n_trips, **kw)
     torch.cuda.synchronize()
@@ -3589,6 +3607,128 @@ def fabric_vs_plain(c, label, solver, ls, names, lfa, n_plain) -> tuple:
     return got, args, kw
 
 
+def k21_floor(cuda, dist, out, flag, deltas, sw, live, roots, residual,
+              col0: int = 0):
+    """-> a bare ``cuda.launch`` of K21's entry point for the ungated call
+    ``fabric_relax_mc(dist, out, flag, deltas, sw, residual, roots,
+    col0=col0, live=live)`` (raw addresses, no checks): the host floor of
+    a K21 call."""
+    _, nbr, rw, ext, row_of = residual or (None,) * 5
+    ptrs = [0 if t is None else t.data_ptr()
+            for t in (dist, out, deltas, sw, live, roots, nbr, rw, ext,
+                      row_of, flag)]
+    g, d_cap, n_cap = dist.shape
+    kr_cap = nbr.shape[1] if residual else 0
+    return lambda: cuda.launch(
+        "fabric", "fabric_relax", "p" * 10 + "i" * 6 + "pi" + "ppiiiiii",
+        *ptrs[:10], d_cap, n_cap, sw.shape[0], col0, sw.shape[1], kr_cap,
+        ptrs[10], g, *(0,) * 8)
+
+
+# K21's seeded edge cases: (label, n_cap, d_cap, roots, s_cap, r_cap,
+# kr_cap, col0, w_cols (0: the whole width), rows full to kr_cap, gated)
+K21_CASES = (
+    ("D 5, root slabs with tails", 1000, 5, 70, 4, 600, 40, 0, 0, False,
+     False),
+    ("[mc] window, roots in and out of it", 1000, 4, 45, 3, 500, 24, 500,
+     500, False, False),
+    ("rows past the shared copy", 256, 3, 9, 2, 256, 512, 0, 0, True, False),
+    ("D 12, two row chunks", 300, 12, 10, 3, 200, 9, 0, 0, False, False),
+    ("D 1, no residual", 500, 1, 33, 4, 0, 0, 0, 0, False, False),
+    ("D 2, gated roots", 400, 2, 66, 3, 300, 16, 0, 0, False, True),
+)
+
+
+def k21_inputs(torch, dev, seed: int, n_cap: int, d_cap: int, g: int,
+               s_cap: int, r_cap: int, kr_cap: int, col0: int, w_cols: int,
+               full: bool) -> tuple:
+    """Seeded K21 inputs: planes with INF_E words, class rows with INF_E
+    weights and one void class, signed shifts; residual rows unique per
+    node among pad rows (-1, INF_E weights, as a plan pads), entries
+    whose source is a root, pads (-1) and INF_E entries inside a row's
+    live extent; half the roots inside the column window. -> (dist,
+    deltas, sw, roots, (rows, nbr, w) or None), on ``dev``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    w_cols = w_cols or n_cap
+    inf = 1 << 29
+    dist = rng.integers(0, 60, (g, d_cap, n_cap)).astype(np.int32)
+    dist[rng.random(dist.shape) < 0.3] = inf
+    deltas = rng.integers(-n_cap + 1, n_cap, s_cap).astype(np.int32)
+    sw = rng.integers(1, 9, (s_cap, w_cols)).astype(np.int32)
+    sw[rng.random(sw.shape) < 0.4] = inf
+    sw[s_cap - 1] = inf
+    roots = np.where(np.arange(g) % 2 == 0,
+                     rng.integers(col0, col0 + w_cols, g),
+                     rng.integers(0, n_cap, g)).astype(np.int32)
+    res = None
+    if r_cap:
+        rows = np.full(r_cap, -1, np.int32)
+        n_rows = min(r_cap, n_cap) * 2 // 3
+        at = rng.choice(r_cap, n_rows, replace=False)
+        rows[at] = rng.choice(n_cap, n_rows, replace=False)
+        nbr = rng.integers(-1, n_cap, (r_cap, kr_cap)).astype(np.int32)
+        nbr[rng.random(nbr.shape) < 0.05] = roots[0]
+        w = rng.integers(0, 20, (r_cap, kr_cap)).astype(np.int32)
+        ends = (np.full(r_cap, kr_cap) if full
+                else rng.integers(0, kr_cap + 1, r_cap))
+        w[np.arange(kr_cap)[None, :] >= ends[:, None]] = inf
+        w[rng.random(w.shape) < 0.1] = inf
+        w[(nbr < 0) | (rows < 0)[:, None]] = inf
+        res = tuple(torch.tensor(a, device=dev) for a in (rows, nbr, w))
+    return (*(torch.tensor(a, device=dev) for a in (dist, deltas, sw,
+                                                     roots)), res)
+
+
+def k21_cases(c) -> int:
+    """K21 on K21_CASES against its plain version (tolerance 0): the
+    planes, the flag and, gated, the roots' stamps and counters; each
+    call one launch. -> the largest error."""
+    torch, fabric = c.torch, c.fabric
+    errs = []
+    for i, (label, n_cap, d_cap, g, s_cap, r_cap, kr_cap, col0, w_cols,
+            full, gated) in enumerate(K21_CASES):
+        dist, deltas, sw, roots, res = k21_inputs(
+            torch, c.dev, 300 + i, n_cap, d_cap, g, s_cap, r_cap, kr_cap,
+            col0, w_cols, full)
+        ext, live = fabric.fabric_extent(None if res is None else res[2], sw)
+        check(int(live.sum()) < s_cap, f"K21 case {label}: a void class ran")
+        residual = None if res is None else (
+            *res, ext, fabric.row_table(res[0], n_cap))
+        lanes = [c.relax.Lanes(g, c.dev) for _ in range(2)]
+        gates = [None, None]
+        if gated:
+            for ln in lanes:
+                ln.st[::3, 0] = -5
+            gates = [ln.gate((-2, c.relax.ALWAYS), (7, c.relax.KEEP), (1, 1))
+                     for ln in lanes]
+        outs = [torch.full_like(dist, -7) for _ in range(2)]
+        flags = [torch.zeros(1, dtype=torch.int32, device=c.dev)
+                 for _ in range(2)]
+        if w_cols:
+            one_launch(torch, c.wrappers, f"K21 case {label}",
+                       lambda: fabric.fabric_relax_mc(
+                           dist, outs[0], flags[0], deltas, sw, residual,
+                           roots, gates[0], col0, live=live))
+        else:
+            one_launch(torch, c.wrappers, f"K21 case {label}",
+                       lambda: fabric.fabric_relax(
+                           dist, outs[0], flags[0], deltas, sw, residual,
+                           roots, gates[0], live=live))
+        fabric.fabric_relax_mc_plain(dist, outs[1], flags[1], deltas, sw,
+                                     residual, roots, gates[1], col0)
+        err = max_abs_err(torch, (outs[0], flags[0], lanes[0].st,
+                                  lanes[0].cnt),
+                          (outs[1], flags[1], lanes[1].st, lanes[1].cnt))
+        check(err == 0, f"K21 case {label}: kernel != plain ({err})")
+        check(int(flags[0]) == 1, f"K21 case {label}: nothing changed")
+        errs.append(err)
+    log(f"K21: {len(K21_CASES)} seeded edge cases equal to plain, one "
+        f"launch each")
+    return max(errs)
+
+
 def fabric_kernels(c, args, kw, n_trips: int) -> None:
     """The fabric path's kernels against their plain versions on every
     root of the fabric10k step (the plain versions PLAIN_CHUNK roots a
@@ -3600,17 +3740,20 @@ def fabric_kernels(c, args, kw, n_trips: int) -> None:
     s_cap, n_cap = shift_w.shape
     p_cap, a_cap, lfa = kw["p_cap"], kw["a_cap"], kw["lfa"]
     check(lfa, "the fabric10k step runs with LFA")
-    residual = None
-    if kw["has_res"]:
-        ext = fabric.fabric_extent(res_w)
-        c.record(
-            "K21e:fabric_extent",
-            max_abs_err(torch, ext, fabric.fabric_extent_plain(res_w)),
-            lambda: fabric.fabric_extent(res_w),
-            lambda: fabric.fabric_extent_plain(res_w),
-            nbytes=4 * (res_w.numel() + res_w.shape[0]),
-            ops=2 * res_w.numel())
-        residual = (res_rows, res_nbr, res_w, ext)
+    check(kw["has_res"], "the fabric10k step has a residual")
+    ext, live = fabric.fabric_extent(res_w, shift_w)
+    c.record(
+        "K21e:fabric_extent",
+        max_abs_err(torch, (ext, live),
+                    fabric.fabric_extent_plain(res_w, shift_w)),
+        lambda: fabric.fabric_extent(res_w, shift_w),
+        lambda: fabric.fabric_extent_plain(res_w, shift_w),
+        nbytes=4 * (res_w.numel() + res_w.shape[0] + shift_w.numel()
+                    + s_cap),
+        ops=2 * (res_w.numel() + shift_w.numel()))
+    n_live = int(live.sum())
+    residual = (res_rows, res_nbr, res_w, ext,
+                fabric.row_table(res_rows, n_cap))
 
     def none(*shape):
         return torch.empty((rt,) + shape, dtype=torch.int32, device=dev)
@@ -3633,7 +3776,7 @@ def fabric_kernels(c, args, kw, n_trips: int) -> None:
     flag = torch.zeros(1, dtype=torch.int32, device=dev)
     for _ in range(2):
         fabric.fabric_relax(mid, spare, flag, deltas, shift_w, residual,
-                            roots)
+                            roots, live=live)
         mid, spare = spare, mid
     del spare
     o_k, o_p = torch.empty_like(mid), torch.empty_like(mid)
@@ -3644,26 +3787,35 @@ def fabric_kernels(c, args, kw, n_trips: int) -> None:
         by_roots(torch, rt, lambda s: fabric.fabric_relax_plain(
             mid[s], o_p[s], f_p, deltas, shift_w, residual, roots[s]))
 
-    fabric.fabric_relax(mid, o_k, f_k, deltas, shift_w, residual, roots)
+    def k21():
+        fabric.fabric_relax(mid, o_k, f_k, deltas, shift_w, residual, roots,
+                            live=live)
+
+    one_launch(torch, c.wrappers, "K21 over fabric10k's roots", k21)
     relax_plain()
     check(int(f_k) == 1, "K21 on a wavefront must change the planes")
-    # the work this data needs: every shift class, the live entries
-    live = int((res_w < (1 << 29)).sum()) if residual else 0
+    # the work this data needs: the live shift classes (fabric10k: none),
+    # the residual's live entries, each read once, and the node -> row
+    # table
+    n_ent = int((res_w < relax.INF_E).sum())
     c.record(
-        "K21:fabric_relax", max_abs_err(torch, (o_k, f_k), (o_p, f_p)),
-        lambda: fabric.fabric_relax(mid, o_k, f_k, deltas, shift_w, residual,
-                                    roots),
-        relax_plain,
-        nbytes=4 * (2 * mid.numel() + s_cap * n_cap + s_cap)
-        + (4 * (2 * res_rows.numel() + 2 * live) if residual else 0),
-        ops=2 * mid.numel() * s_cap + 2 * rt * d_cap * live,
+        "K21:fabric_relax", max(max_abs_err(torch, (o_k, f_k), (o_p, f_p)),
+                                k21_cases(c)),
+        k21, relax_plain,
+        nbytes=4 * (2 * mid.numel() + s_cap * n_cap + s_cap
+                    + 2 * res_rows.numel() + n_cap + 2 * n_ent),
+        ops=2 * mid.numel() * n_live + 2 * rt * d_cap * n_ent,
         reps=10, plain_reps=1, plain_warmup=0)
+    c.split("K21:fabric_relax", k21,
+            floor=k21_floor(c.cuda, mid, o_k, f_k, deltas, shift_w, live,
+                            roots, residual))
+    c.results["K21:fabric_relax"]["live_classes"] = n_live
     del mid, o_k, o_p
     # K3 on the step's converged planes, with the uplink costs as they
     # are and skewed 1, 2, 3, ... (as phase 3: on the unit-metric fabric
     # every detour ties its primary, so only the skew leaves backups)
     planes, conv, _ = fabric.fabric_sssp(
-        deltas, shift_w, residual and residual[:3], roots, nbr, w, n_trips)
+        deltas, shift_w, residual[:3], roots, nbr, w, n_trips)
     check(conv.all(), "fabric10k: the step's SSSP did not converge")
     dist_k = torch.empty((rt, n_cap), dtype=torch.int32, device=dev)
     dist_p = torch.empty_like(dist_k)
@@ -3833,6 +3985,16 @@ def fabric_phase(c, fcell) -> tuple:
     # the steps' arrays against the plain step, then each kernel
     fabric_vs_plain(c, "tg1k", t_cold, tstates["0"], tnames, False,
                     FABRIC_PLAIN_ROOTS)
+    # too small a trip bound: the vote and ``converged`` equal plain's
+    got, _, _ = fabric_vs_plain(c, "tg1k unconverged", t_cold, tstates["0"],
+                                tnames, False, FABRIC_PLAIN_ROOTS,
+                                n_trips=UNCONVERGED_TRIPS)
+    check(not got.converged[:FABRIC_PLAIN_ROOTS].all(),
+          f"tg1k at {UNCONVERGED_TRIPS} trips: every checked root converged")
+    log(f"tg1k at {UNCONVERGED_TRIPS} trips: "
+        f"{int((~got.converged).sum())} of {len(tnames)} roots unconverged,"
+        f" the first {FABRIC_PLAIN_ROOTS} equal to plain")
+    del got
     got, _, _ = fabric_vs_plain(c, "tg1k-lfa", l_cold, lstates["0"], tnames,
                                 True, FABRIC_PLAIN_ROOTS)
     check(int((got.lfa_slot[:FABRIC_PLAIN_ROOTS] >= 0).sum()) > 0,
@@ -3946,6 +4108,74 @@ def mc_vs_single(c, label, mc, single, lsdb, root, window, oracle=None):
     rec["oracle_checked"] = oracle is not None
     log(f"lsdb100k_mc {label}: " + json.dumps(rec))
     return rec
+
+
+# K23's seeded edge cases: (groups, members, width, also width or None,
+# planes 16-byte aligned)
+COMBINE_CASES = (
+    (1, 1, 7, None, True),
+    (1, 2, 131072, None, True),
+    (4, 2, 131072, 8192, True),
+    (8, 16, 1001, 3, True),
+    (3, 5, 4097, None, False),
+    (2, 3, 0, 5, True),
+    (8, 2, 65539, None, True),
+    (9, 2, 100, 10, True),
+)
+
+
+def combine_cases(c) -> int:
+    """K23 on COMBINE_CASES, min / max / sum, with and without a ref and
+    flag a group (each group's ref its own result, or one word off),
+    ``also`` groups by max where given, unaligned planes (views one word
+    into their storage: the scalar path), against the plain version at
+    tolerance 0; one launch a call (two past 8 groups). -> the largest
+    error."""
+    torch, comb = c.torch, c.combine
+    gen = torch.Generator().manual_seed(23)
+    errs = []
+
+    def plane(n, aligned):
+        t = torch.randint(-99, 99, (n + 1,), generator=gen,
+                          dtype=torch.int32).to(c.dev)
+        return t[:n] if aligned else t[1:]
+
+    for n_groups, members, width, also_w, aligned in COMBINE_CASES:
+        for op in ("min", "max", "sum"):
+            for with_ref in (False, True):
+                groups = [[plane(width, aligned) for _ in range(members)]
+                          for _ in range(n_groups)]
+                also = None if also_w is None else [
+                    [plane(also_w, aligned) for _ in range(members)]
+                    for _ in range(n_groups)]
+                want = [[t.clone() for t in grp] for grp in groups]
+                want_also = None if also is None else [
+                    [t.clone() for t in grp] for grp in also]
+                refs = flags = flags_p = None
+                if with_ref:
+                    refs = [grp[0].clone() for grp in groups]
+                    res0 = [t.clone() for t in groups[0]]
+                    comb.shard_combine_plain(res0, op)
+                    refs[0] = res0[0]
+                    flags = [torch.zeros(1, dtype=torch.int32, device=c.dev)
+                             for _ in groups]
+                    flags_p = [torch.zeros_like(f) for f in flags]
+                n = counted(torch, c.wrappers, lambda: comb.shard_combine_groups(
+                    groups, op, refs, flags, also))
+                check(n["launches"] == n["kernel_launches"]
+                      == -(-n_groups // comb.MAX_GROUPS),
+                      f"K23 {n_groups} x {members}: launches {n}")
+                comb.shard_combine_groups_plain(want, op, refs, flags_p,
+                                                want_also)
+                err = max_abs_err(torch, (groups, also or [], flags or []),
+                                  (want, want_also or [], flags_p or []))
+                check(err == 0, f"K23 {n_groups} groups x {members} members"
+                      f" of {width} words, {op}, ref {with_ref}: kernel != "
+                      f"plain ({err})")
+                errs.append(err)
+    log(f"K23: {len(COMBINE_CASES)} seeded shapes x min / max / sum x "
+        f"ref or not equal to plain")
+    return max(errs)
 
 
 def mc_kernels(c, solver, lsdb, root, dirty) -> None:
@@ -4150,11 +4380,44 @@ def mc_kernels(c, solver, lsdb, root, dirty) -> None:
     check(int(fk) == 1, "K23: the combined plane must differ from ref")
     n = a.numel()
     c.record(
-        "K23:shard_combine", max(errs),
+        "K23:shard_combine", max(errs + [combine_cases(c)]),
         lambda: comb.shard_combine([a, b], "min", ref=ref, flag=fk),
         lambda: comb.shard_combine_plain([a, b], "min", ref=ref, flag=fk),
         nbytes=4 * (2 * 2 * n + n), ops=2 * n,
         library=lambda: torch.minimum(a, b))
+    c.split("K23:shard_combine",
+            lambda: comb.shard_combine([a, b], "min", ref=ref, flag=fk),
+            library=lambda: torch.minimum(a, b))
+    # every group of the mc path's mesh at once (batch 4 x graph 2: one
+    # launch a relaxation), against torch.minimum once a group
+    nb_ = mesh.shape["batch"]
+    groups = [[mid.clone(), o_k.clone()] for _ in range(nb_)]
+    groups_p = [[t.clone() for t in grp] for grp in groups]
+    refs = [mid.clone() for _ in range(nb_)]
+    gflags = [torch.zeros(1, dtype=torch.int32, device=c.dev)
+              for _ in range(2 * nb_)]
+
+    def grouped():
+        comb.shard_combine_groups(groups, "min", refs=refs,
+                                  flags=gflags[:nb_])
+
+    def per_group_library():
+        for grp in groups:
+            torch.minimum(grp[0], grp[1])
+
+    one_launch(torch, c.wrappers, f"K23 over {nb_} groups", grouped)
+    comb.shard_combine_groups_plain(groups_p, "min", refs=refs,
+                                    flags=gflags[nb_:])
+    c.record(
+        "K23:shard_combine[groups]",
+        max_abs_err(torch, (groups, gflags[:nb_]), (groups_p, gflags[nb_:])),
+        grouped,
+        lambda: comb.shard_combine_groups_plain(groups_p, "min", refs=refs,
+                                                flags=gflags[nb_:]),
+        nbytes=4 * nb_ * (2 * 2 * n + n), ops=2 * n * nb_,
+        library=per_group_library)
+    c.split("K23:shard_combine[groups]", grouped, library=per_group_library)
+    c.results["K23:shard_combine[groups]"]["groups"] = nb_
     log(f"lsdb100k_mc kernels on shard (0, {jr}) (columns {col0}.."
         f"{col0 + w_cols}) equal to plain")
 
@@ -4174,8 +4437,13 @@ def mesh_fabric_kernels(c, fsolver, fnames, fstates) -> None:
     n_cap = 2 * shift.shape[1]
     deltas, roots_t = kw["deltas"][0][1], kw["roots"][0][1]
     col0 = n_cap // 2
-    residual = (rows, rnbr, rw, fabric.fabric_extent(rw))
+    ext, live = fabric.fabric_extent(rw, shift)
+    residual = (rows, rnbr, rw, ext, kw["row_of"][0][1])
     rt = roots_t.shape[0]
+    inside = int(((roots_t >= col0) & (roots_t < n_cap)).sum())
+    check(0 < inside < rt, "K21 [mc]: roots must lie in and out of the "
+          "member's window")
+    check(int((rows < 0).sum()) > 0, "K21 [mc]: the member holds no pad row")
     d0 = relax.sssp_init(*(torch.empty((rt,) + sh, dtype=torch.int32,
                                        device=c.dev)
                            for sh in ((0, n_cap), (0,), (0, 0), (0, 0))),
@@ -4183,10 +4451,12 @@ def mesh_fabric_kernels(c, fsolver, fnames, fstates) -> None:
     # a wavefront: 2 whole-width relaxations from the seeds
     mid, spare = d0, torch.empty_like(d0)
     flag = torch.zeros(1, dtype=torch.int32, device=c.dev)
+    whole = (ad.res_rows, ad.res_nbr, ad.res_w,
+             fabric.fabric_extent(ad.res_w),
+             fabric.row_table(ad.res_rows, ad.plan.n_cap))
     for _ in range(2):
-        fabric.fabric_relax(mid, spare, flag, ad.deltas, ad.shift_w,
-                            (ad.res_rows, ad.res_nbr, ad.res_w,
-                             fabric.fabric_extent(ad.res_w)), roots_t)
+        fabric.fabric_relax(mid, spare, flag, ad.deltas, ad.shift_w, whole,
+                            roots_t)
         mid, spare = spare, mid
     del spare
     o_k, o_p = torch.empty_like(mid), torch.empty_like(mid)
@@ -4198,21 +4468,28 @@ def mesh_fabric_kernels(c, fsolver, fnames, fstates) -> None:
             mid[s], o_p[s], f_p, deltas, shift, residual, roots_t[s],
             col0=col0))
 
-    fabric.fabric_relax_mc(mid, o_k, f_k, deltas, shift, residual, roots_t,
-                           col0=col0)
+    def k21_mc():
+        fabric.fabric_relax_mc(mid, o_k, f_k, deltas, shift, residual,
+                               roots_t, col0=col0, live=live)
+
+    one_launch(torch, c.wrappers, "K21 [mc] over fabric10k's roots", k21_mc)
     relax_plain()
     check(int(f_k) == 1, "K21 [mc] on a wavefront must change the planes")
-    live = int((rw < relax.INF_E).sum())
+    n_ent = int((rw < relax.INF_E).sum())
     s_cap, w_cols = shift.shape
+    n_live = int(live.sum())
     c.record(
         "K21:fabric_relax_mc", max_abs_err(torch, (o_k, f_k), (o_p, f_p)),
-        lambda: fabric.fabric_relax_mc(mid, o_k, f_k, deltas, shift,
-                                       residual, roots_t, col0=col0),
-        relax_plain,
+        k21_mc, relax_plain,
         nbytes=4 * (2 * mid.numel() + s_cap * w_cols + s_cap
-                    + 2 * rows.numel() + 2 * live),
-        ops=mid.numel() * s_cap * 2 + 2 * rt * nbr.shape[1] * live,
+                    + 2 * rows.numel() + n_cap + 2 * n_ent),
+        ops=2 * mid.numel() * n_live + 2 * rt * nbr.shape[1] * n_ent,
         reps=10, plain_reps=1, plain_warmup=0)
+    c.split("K21:fabric_relax_mc", k21_mc,
+            floor=k21_floor(c.cuda, mid, o_k, f_k, deltas, shift, live,
+                            roots_t, residual, col0))
+    c.results["K21:fabric_relax_mc"].update(
+        live_classes=n_live, roots_in_window=inside)
     del mid, o_k, o_p
     # K6's residual fill on a fabric10k root's converged planes
     r0 = plan.node_index[fnames[0]]
@@ -4700,6 +4977,8 @@ def main() -> int:
                                      "openr_tpu/parallel/sharding.py:149"),
         "K2:ladder_pass[mc]": ("K2:ladder_pass",
                                "openr_tpu/parallel/sharding.py:402"),
+        "K23:shard_combine[groups]": ("K23:shard_combine",
+                                      "openr_tpu/parallel/sharding.py:420"),
     }
     variant_launches: dict = {}
     results = {}
@@ -5673,6 +5952,9 @@ def main() -> int:
     mc_windows, mc_halo = multichip_phase(c, (adj_dbs, states, ps), fcell)
     variant_launches["K2:ladder_pass[mc]"] = sum(
         w.get("K2:ladder_pass", 0) for w in mc_windows.values())
+    # the mc paths' K23 launches (every call goes through the grouped entry)
+    variant_launches["K23:shard_combine[groups]"] = sum(
+        w.get("K23:shard_combine", 0) for w in mc_windows.values())
     log(f"phase 14 took {time.perf_counter() - t_phase:.1f} s")
 
     # -- result ----------------------------------------------------------

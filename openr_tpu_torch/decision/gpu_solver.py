@@ -1586,7 +1586,11 @@ class GpuSpfSolver:
         vantage gets one ColumnarRib, filled from the packed words K3
         emits (``set_full_packed``, the packed twin of the reference's
         ``set_full_arrays``)."""
-        from openr_tpu_torch.ops.fabric import fabric_step_grid, root_tables
+        from openr_tpu_torch.ops.fabric import (
+            fabric_step_grid,
+            root_tables,
+            row_table,
+        )
         from openr_tpu_torch.parallel import sharding
 
         if mesh is None:
@@ -1635,7 +1639,10 @@ class GpuSpfSolver:
                             *ad.single(self.device), ad.mbuf,
                             self._upload(roots), self._upload(out_nbr),
                             self._upload(out_w)))),
-                    has_res=plan.k_res > 0, p_cap=p_cap, a_cap=a_cap)
+                    has_res=plan.k_res > 0, p_cap=p_cap, a_cap=a_cap,
+                    # K21's node -> row table, once a build of the plan
+                    row_of=[[self._upload(row_table(plan.res_rows,
+                                                    plan.n_cap))]])
             else:
                 inputs = sharding.fabric_mesh_inputs(
                     mesh, plan, matrix, roots, out_nbr, out_w)

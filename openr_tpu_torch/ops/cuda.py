@@ -29,6 +29,7 @@ import os
 import shutil
 import subprocess
 import threading
+import weakref
 from pathlib import Path
 
 import torch
@@ -143,8 +144,25 @@ def _bad(lib: str, fn: str, t, dtype) -> ValueError:
                       f"tensor, got {t.dtype} on {t.device}")
 
 
+# the packed pointer arrays of the sequences passed under "a", by the ids
+# of their tensors: a sequence of the same live tensors at the same
+# addresses (a relaxation loop's ping-pong buffers) is checked and packed
+# once
+_packed: dict = {}
+_PACKED_MAX = 256
+
+
 def _array(lib: str, fn: str, ts) -> tuple:
     """(C array of the pointers, card) of a sequence of int32 tensors."""
+    key = tuple(map(id, ts))
+    hit = _packed.get(key)
+    if hit is not None:
+        refs, ptrs, arr, card = hit
+        for r, t, p in zip(refs, ts, ptrs):
+            if r() is not t or t.data_ptr() != p:
+                break
+        else:
+            return arr, card
     if not ts:
         raise ValueError(f"{lib}.{fn}: an empty sequence of tensors")
     cards = {t.get_device() for t in ts}
@@ -154,8 +172,12 @@ def _array(lib: str, fn: str, ts) -> tuple:
             raise _bad(lib, fn, t, _INT32)
     if len(cards) > 1:
         raise ValueError(f"{lib}.{fn}: arguments on cards {sorted(cards)}")
-    return ((ctypes.c_longlong * len(ts))(*(t.data_ptr() for t in ts)),
-            cards.pop())
+    ptrs = [t.data_ptr() for t in ts]
+    arr = (ctypes.c_longlong * len(ts))(*ptrs)
+    if len(_packed) >= _PACKED_MAX:
+        _packed.clear()
+    _packed[key] = ([weakref.ref(t) for t in ts], ptrs, arr, cards.pop())
+    return arr, _packed[key][3]
 
 
 def launch(lib: str, fn: str, sig: str, *args) -> None:

@@ -10,8 +10,11 @@ grid (``fabric_step``), where that min is the identity.
 Per root r (a lane): the [D, n_cap] seed plane of its out-neighbours
 (K1s with a root axis, seed rows only), then exactly ``n_trips``
 trips of ``UNROLL`` Jacobi relaxations with the root masked as a
-transit node (K21 ``fabric_relax``, ``csrc/fabric.cu``, reading each
-residual row up to its live extent, K21e ``fabric_extent``), then the
+transit node (K21 ``fabric_relax``, ``csrc/fabric.cu``: one launch a
+relaxation that writes each word once; it finds a node's residual row
+through the node -> row table ``row_table``, reads it up to its live
+extent and runs only the class rows that hold a finite weight, both
+from K21e ``fabric_extent`` once a step), then the
 convergence vote — one more relaxation must change nothing, else the
 root did not converge — and the reference's tail (K3
 ``select_routes`` with a root axis and one shared announcer matrix:
@@ -42,7 +45,10 @@ import numpy as np
 import torch
 
 from openr_tpu_torch.ops import cuda
-from openr_tpu_torch.ops.combine import shard_combine, shard_combine_plain
+from openr_tpu_torch.ops.combine import (
+    shard_combine_groups,
+    shard_combine_groups_plain,
+)
 from openr_tpu_torch.ops.relax import (
     _GATE_SIG,
     ALWAYS,
@@ -62,88 +68,127 @@ from openr_tpu_torch.ops.relax import (
 from openr_tpu_torch.ops.select import select_routes, select_routes_plain
 
 
-# -- K21: one relaxation of every root's planes -------------------------------
+# -- K21e: each residual row's live extent, each class row's liveness ----
 
-# -- K21e: each residual row's live extent ------------------------------------
+def fabric_extent_plain(res_w, shift_w=None):
+    ext = None
+    if res_w is not None:
+        col = torch.arange(1, res_w.shape[1] + 1, dtype=torch.int32,
+                           device=res_w.device)
+        ext = torch.where(res_w < INF_E, col, 0).amax(dim=1).to(torch.int32)
+    if shift_w is None:
+        return ext
+    return ext, (shift_w < INF_E).any(dim=1).to(torch.int32)
 
-def fabric_extent_plain(res_w):
-    col = torch.arange(1, res_w.shape[1] + 1, dtype=torch.int32,
-                       device=res_w.device)
-    return torch.where(res_w < INF_E, col, 0).amax(dim=1).to(torch.int32)
 
-
-def fabric_extent(res_w):
+def fabric_extent(res_w, shift_w=None):
     """int32 [r_cap]: 1 + the last column of each residual row whose
     weight is finite (< INF_E), 0 for a row with none; K21 reads a row
-    up to there (an INF_E weight cannot lower a word)."""
-    if _is_cpu(res_w):
-        return fabric_extent_plain(res_w)
-    ext = torch.empty(res_w.shape[0], dtype=torch.int32, device=res_w.device)
-    cuda.launch("fabric", "fabric_extent", "ttii", res_w, ext,
-                res_w.shape[0], res_w.shape[1])
+    up to there (an INF_E weight cannot lower a word). With ``shift_w``
+    (a member's class rows [s_cap, w]) returns ``(ext, live)``, ``live``
+    int32 [s_cap] 1 where the class row holds a finite weight (K21 runs
+    only those); ``res_w`` may then be None (no residual: ext None).
+    One launch."""
+    lead = res_w if res_w is not None else shift_w
+    if _is_cpu(lead):
+        return fabric_extent_plain(res_w, shift_w)
+    dev = lead.device
+    r_cap, kr_cap = res_w.shape if res_w is not None else (0, 0)
+    s_cap, w_cols = shift_w.shape if shift_w is not None else (0, 0)
+    ext = None if res_w is None else torch.empty(
+        r_cap, dtype=torch.int32, device=dev)
+    live = None if shift_w is None else torch.empty(
+        s_cap, dtype=torch.int32, device=dev)
+    cuda.launch("fabric", "fabric_extent", "ttiittii", res_w, ext, r_cap,
+                kr_cap, shift_w, live, s_cap, w_cols)
     fabric_extent.launches += 1
-    return ext
+    return ext if shift_w is None else (ext, live)
 
 
 fabric_extent.launches = 0
 
 
+def row_table(res_rows, n_cap: int):
+    """int32 [n_cap]: the residual row of each node, -1 where the node has
+    none — the inverse of ``res_rows`` (pad rows, -1, dropped). Raises
+    when a node has two rows: K21 writes each word once, from its node's
+    one row (``ops/edgeplan.py`` builds one row a destination). Built on
+    the host once a plan or placement; a tensor's table lies on its
+    device, an array's is an array."""
+    arr = (res_rows.cpu().numpy() if isinstance(res_rows, torch.Tensor)
+           else np.asarray(res_rows))
+    rows = np.flatnonzero(arr >= 0)
+    nodes = arr[rows]
+    if nodes.size and int(nodes.max()) >= n_cap:
+        raise ValueError(f"residual row of node {int(nodes.max())} past "
+                         f"n_cap {n_cap}")
+    if np.unique(nodes).size != nodes.size:
+        raise ValueError("K21: residual rows must be unique per node")
+    table = np.full(n_cap, -1, np.int32)
+    table[nodes] = rows
+    if isinstance(res_rows, torch.Tensor):
+        return torch.from_numpy(table).to(res_rows.device)
+    return table
+
+
+# -- K21: one relaxation of every root's planes -------------------------------
+
 def fabric_relax_plain(dist, out, flag, deltas, shift_w, residual, roots,
-                       gate: Optional[Gate] = None) -> None:
+                       gate: Optional[Gate] = None, live=None) -> None:
     # the whole width is one window
     fabric_relax_mc_plain(dist, out, flag, deltas, shift_w, residual, roots,
                           gate, 0)
 
 
 def fabric_relax(dist, out, flag, deltas, shift_w, residual, roots,
-                 gate: Optional[Gate] = None) -> None:
+                 gate: Optional[Gate] = None, live=None) -> None:
     """out[r] = one Jacobi relaxation of root r's [D, n_cap] plane
     ``dist[r]`` over the shared class weights ``shift_w`` [s_cap, n_cap]
     and the shared residual ELL ``residual`` = (res_rows [r_cap],
     res_nbr, res_w [r_cap, kr_cap], ext [r_cap]: ``fabric_extent`` of
-    res_w) (None without residual edges), with ``roots[r]`` never a
-    transit node; ORs 1 into ``flag`` when any word decreased. The
-    ``gate`` (``ops/relax.Lanes``, a lane per root) opens the roots
-    that run and records which changed."""
+    res_w, and optionally row_of [n_cap]: ``row_table`` of res_rows,
+    else built here on the host) (None without residual edges), with
+    ``roots[r]`` never a transit node; ORs 1 into ``flag`` when any word
+    decreased. The ``gate`` (``ops/relax.Lanes``, a lane per root) opens
+    the roots that run and records which changed; ``live`` (K21e's class
+    mask) names the classes that can lower a word (None: all). On the
+    card: one launch."""
     if _is_cpu(dist):
         fabric_relax_plain(dist, out, flag, deltas, shift_w, residual,
                            roots, gate)
         return
-    fabric_relax.launches += _launch_fabric(dist, out, flag, deltas, shift_w,
-                                            residual, roots, gate, 0)
+    _launch_fabric(dist, out, flag, deltas, shift_w, residual, roots, gate,
+                   0, live)
+    fabric_relax.launches += 1
 
 
 fabric_relax.launches = 0
 
 
 def _launch_fabric(dist, out, flag, deltas, shift_w, residual, roots, gate,
-                   col0: int) -> int:
+                   col0: int, live) -> None:
     """Launch K21 over the class columns [col0, col0 + shift_w width)
-    (and the residual rows given); returns the launches. ``flag`` may be
-    None."""
+    (and the residual rows given): one launch. ``flag`` may be None."""
     g, d_cap, n_cap = dist.shape
-    ga = _gate_args(gate)
     s_cap, w_cols = shift_w.shape
-    cuda.launch("fabric", "fabric_shift", "tttttiiiiiti" + _GATE_SIG,
-                dist, out, deltas, shift_w, roots, d_cap, n_cap, s_cap, col0,
-                w_cols, flag, g, *ga)
-    if residual is None:
-        return 1
-    rows, nbr, rw, ext = residual
-    if gate is not None:
-        # the shift launch counted this step for every open root
-        ga = _gate_args(gate._replace(inc=(0, 0)))
-    cuda.launch("fabric", "fabric_residual", "ttttttt" + "iiiiti" + _GATE_SIG,
-                dist, out, rows, nbr, rw, ext, roots, d_cap, n_cap,
-                nbr.shape[0], nbr.shape[1], flag, g, *ga)
-    return 2
+    nbr = rw = ext = row_of = None
+    kr_cap = 0
+    if residual is not None:
+        rows, nbr, rw, ext = residual[:4]
+        row_of = residual[4] if len(residual) > 4 else row_table(rows, n_cap)
+        kr_cap = nbr.shape[1]
+    cuda.launch("fabric", "fabric_relax",
+                "tttttttttt" + "iiiiii" + "ti" + _GATE_SIG,
+                dist, out, deltas, shift_w, live, roots, nbr, rw, ext,
+                row_of, d_cap, n_cap, s_cap, col0, w_cols, kr_cap, flag, g,
+                *_gate_args(gate))
 
 
 # -- K21 [mc]: one shard's relaxation of every root's planes ------------------
 
 def fabric_relax_mc_plain(dist, out, flag, deltas, shift_w, residual, roots,
                           gate: Optional[Gate] = None,
-                          col0: int = 0) -> None:
+                          col0: int = 0, live=None) -> None:
     n_cap = dist.shape[-1]
     w_cols = shift_w.shape[1]
     root_of = roots.tolist()
@@ -164,21 +209,25 @@ def fabric_relax_mc_plain(dist, out, flag, deltas, shift_w, residual, roots,
 
 
 def fabric_relax_mc(dist, out, flag, deltas, shift_w, residual, roots,
-                    gate: Optional[Gate] = None, col0: int = 0) -> None:
+                    gate: Optional[Gate] = None, col0: int = 0,
+                    live=None) -> None:
     """K21 [mc]: ``fabric_relax`` for one shard of a ('batch', 'graph')
     mesh, which holds the class columns [col0, col0 + w) of ``shift_w``
-    ([s_cap, w]) and its own residual rows (``residual``, its rows and
-    their extent): each root's planes relaxed over the shard's own
-    sources only, the root masked only where it lies in the window
+    ([s_cap, w]) and its own residual rows (``residual``, its rows,
+    their extent and its node -> row table: a node without a row in this
+    shard has none here): each root's planes relaxed over the shard's
+    own sources only, the root masked only where it lies in the window
     (``parallel/sharding.py``, :104-148). The group's min over its
-    members' planes (``ops/combine.shard_combine``) is the reference's
-    ``pmin``. ``flag`` may be None."""
+    members' planes (``ops/combine.shard_combine_groups``) is the
+    reference's ``pmin``. ``flag`` may be None. On the card: one
+    launch."""
     if _is_cpu(dist):
         fabric_relax_mc_plain(dist, out, flag, deltas, shift_w, residual,
                               roots, gate, col0)
         return
-    fabric_relax_mc.launches += _launch_fabric(
-        dist, out, flag, deltas, shift_w, residual, roots, gate, col0)
+    _launch_fabric(dist, out, flag, deltas, shift_w, residual, roots, gate,
+                   col0, live)
+    fabric_relax_mc.launches += 1
 
 
 fabric_relax_mc.launches = 0
@@ -225,7 +274,8 @@ class FabricOut(NamedTuple):
 class FabricKernels(NamedTuple):
     """The functions one step runs: K21 over a one-member group's whole
     width (``relax``) and over a member's column window (``relax_mc``),
-    K1s, K21e, K3 and the group combine (K23)."""
+    K1s, K21e (extents and live classes), K3 and the groups' combine
+    (K23, every active group of a card at once)."""
     relax: object
     relax_mc: object
     init: object
@@ -241,14 +291,16 @@ def fabric_sssp_grid(deltas, shift_w, residual, roots, seeds_nbr, seeds_w,
     grid is one card). Every input is a grid ``x[b][j]`` of shard
     (b, j)'s tensors: ``deltas`` whole, ``shift_w`` the shard's class
     columns [j * w, (j + 1) * w) of the ``graph * w``-node plan,
-    ``residual`` its own residual rows (res_rows, res_nbr, res_w), or
-    None, ``roots`` / ``seeds_nbr`` / ``seeds_w`` its batch group's
-    roots and their out-slot tables.
+    ``residual`` its own residual rows (res_rows, res_nbr, res_w[,
+    row_of]: its node -> row table, built here when missing), or None,
+    ``roots`` / ``seeds_nbr`` / ``seeds_w`` its batch group's roots and
+    their out-slot tables.
 
     Per group: K1s seeds on every member, up to ``n_trips`` trips of
     ``UNROLL`` relaxations (K21 on every member over its own sources and
-    rows; with more than one member, the group's min of the planes and
-    max of the per-root change stamps, K23), each root gated off once its
+    rows; with more than one member, the groups' min of the planes and
+    max of the per-root change stamps, one K23 launch a relaxation for
+    every active group of a card), each root gated off once its
     planes stop changing, and the group's exit on a trip that changed
     nothing, so the outputs are the reference's fixpoint. A group still
     changing after the last trip runs the vote: one more relaxation of
@@ -259,9 +311,18 @@ def fabric_sssp_grid(deltas, shift_w, residual, roots, seeds_nbr, seeds_w,
     col = shift_w[0][0].shape[1]
     n_cap = col * ng
     k = kernels
-    res = [[None if residual is None else
-            (*residual[b][j], k.extent(residual[b][j][2]))
-            for j in range(ng)] for b in range(nb)]
+    # once a step: each member's live classes and residual extents (K21e)
+    # and its node -> row table (given, or built on the host here)
+    live = [[None] * ng for _ in range(nb)]
+    res = [[None] * ng for _ in range(nb)]
+    for b in range(nb):
+        for j in range(ng):
+            mine = None if residual is None else residual[b][j]
+            ext, live[b][j] = k.extent(None if mine is None else mine[2],
+                                       shift_w[b][j])
+            if mine is not None:
+                res[b][j] = (*mine[:3], ext, mine[3] if len(mine) > 3
+                             else row_table(mine[0], n_cap))
     cur, lanes = [], []
     for b in range(nb):
         row, lrow = [], []
@@ -293,15 +354,21 @@ def fabric_sssp_grid(deltas, shift_w, residual, roots, seeds_nbr, seeds_w,
                         deltas[b][j], shift_w[b][j], res[b][j], roots[b][j],
                         lanes[b][j].gate(*gate))
                 if ng == 1:
-                    k.relax(*step)
+                    k.relax(*step, live=live[b][j])
                 else:
-                    k.relax_mc(*step, j * col)
-            if ng > 1:
-                if not vote:
-                    k.combine(spare[b], "min", ref=cur[b][0], flag=flags[b])
-                # a root changed in the group iff it changed on a member
-                k.combine([ln.st for ln in lanes[b]], "max")
-            if not vote:
+                    k.relax_mc(*step, j * col, live=live[b][j])
+        if ng > 1:
+            # a root changed in a group iff it changed on a member: the
+            # stamps' max, with the planes' min in the same launch
+            stamps = [[ln.st for ln in lanes[b]] for b in active]
+            if vote:
+                k.combine(stamps, "max")
+            else:
+                k.combine([spare[b] for b in active], "min",
+                          refs=[cur[b][0] for b in active],
+                          flags=[flags[b] for b in active], also=stamps)
+        if not vote:
+            for b in active:
                 cur[b], spare[b] = spare[b], cur[b]
 
     active = list(range(nb))
@@ -332,10 +399,12 @@ def fabric_step_grid(deltas, shift_w, res_rows, res_nbr, res_w, mbuf, roots,
                      out_nbr, out_w, *, n_trips: int, has_res: bool,
                      p_cap: int, a_cap: int, lfa: bool = False,
                      block_v4: bool = False, mark=None,
-                     kernels: Optional[FabricKernels] = None) -> FabricOut:
+                     kernels: Optional[FabricKernels] = None,
+                     row_of=None) -> FabricOut:
     """The whole-fabric step on a grid of shards: ``fabric_sssp_grid``
     (``res_*`` grids of each shard's residual rows, relaxed only with
-    ``has_res``), then per batch group K3 with a root axis on its first
+    ``has_res``; ``row_of`` a grid of their node -> row tables, built
+    from ``res_rows`` when None), then per batch group K3 with a root axis on its first
     member over the packed announcer matrix ``mbuf`` (a grid of whole
     copies; ``select.pack_matrix``: drain flags, the v4 bit, min_nh):
     distances, selection, next-hop words, ``lfa``'s backup columns, and
@@ -347,6 +416,7 @@ def fabric_step_grid(deltas, shift_w, res_rows, res_nbr, res_w, mbuf, roots,
     mark = mark or _nothing
     nb, ng = len(shift_w), len(shift_w[0])
     residual = [[(res_rows[b][j], res_nbr[b][j], res_w[b][j])
+                 + (() if row_of is None else (row_of[b][j],))
                  for j in range(ng)] for b in range(nb)] if has_res else None
     mark()
     cur, converged, trips = fabric_sssp_grid(
@@ -444,7 +514,7 @@ def root_tables(plan, link_state, names) -> tuple:
 
 
 KERNELS = FabricKernels(fabric_relax, fabric_relax_mc, sssp_init,
-                        fabric_extent, select_routes, shard_combine)
+                        fabric_extent, select_routes, shard_combine_groups)
 PLAIN = FabricKernels(fabric_relax_plain, fabric_relax_mc_plain,
                       sssp_init_plain, fabric_extent_plain,
-                      select_routes_plain, shard_combine_plain)
+                      select_routes_plain, shard_combine_groups_plain)

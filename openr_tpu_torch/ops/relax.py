@@ -653,10 +653,12 @@ class FlagBank:
             self._banks[dev] = self._banks.get(dev, 0) + 1
         self._banks = {dev: torch.zeros(n, dtype=torch.int32, device=dev)
                        for dev, n in self._banks.items()}
+        # one view a slot, made once: a kernel given the same flags again
+        # finds its packed pointers (ops/cuda.launch's "a" sequences)
+        self._views = [self._banks[dev][j:j + 1] for dev, j in self._slot]
 
     def __getitem__(self, i: int) -> torch.Tensor:
-        dev, j = self._slot[i]
-        return self._banks[dev][j:j + 1]
+        return self._views[i]
 
     def read(self) -> list:
         """Every slot's flag (one host read a device), then clear them."""

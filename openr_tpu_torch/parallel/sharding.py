@@ -55,8 +55,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from openr_tpu_torch.ops.combine import shard_combine
-from openr_tpu_torch.ops.fabric import fabric_step_grid, unpack_bits
+from openr_tpu_torch.ops.combine import shard_combine, shard_combine_groups
+from openr_tpu_torch.ops.fabric import fabric_step_grid, row_table, unpack_bits
 from openr_tpu_torch.ops.incremental import (
     cone_finish,
     cone_resolve,
@@ -338,17 +338,20 @@ def pad_to(arr: np.ndarray, size: int, fill, axis: int = 0) -> np.ndarray:
 def _relax_groups(mesh, deltas, sw, residual, cur, spare, flags, active,
                   col_of) -> None:
     """One combined relaxation of every active group: K1 [mc] on each
-    member into ``spare``, then the group's min (the flag of group b, on
-    its first member's device, ORs a change; a one-member group has
-    nothing to combine and its step ORs the flag itself); then the
-    buffers swap."""
+    member into ``spare``, then every group's min in one combine (one K23
+    launch for the groups of a card; the flag of group b, on its first
+    member's device, ORs a change; a one-member group has nothing to
+    combine and its step ORs the flag itself); then the buffers swap."""
     g = mesh.shape["graph"]
     for b in active:
         for j in range(g):
             relax_step_mc(cur[b][j], spare[b][j], flags[b] if g == 1 else None,
                           deltas[b][j], sw[b][j], residual[b][j], col_of(j))
-        if g > 1:
-            shard_combine(spare[b], "min", ref=cur[b][0], flag=flags[b])
+    if g > 1:
+        shard_combine_groups([spare[b] for b in active], "min",
+                             refs=[cur[b][0] for b in active],
+                             flags=[flags[b] for b in active])
+    for b in active:
         cur[b], spare[b] = spare[b], cur[b]
 
 
@@ -572,10 +575,10 @@ def mc_incremental_sssp(mesh, deltas, shift_w, res_rows, res_nbr, res_w,
         deltas[b][j], old[b, j][0], prev_dist[b][j], s_cap, col_of(j)))
     new_m = _grid(mesh, lambda b, j: owned_weights(
         new[b, j][0], s_dirty_idx[b][j], n_cap, col_of(j)))
+    if ng > 1:
+        # every group's parent max and new-weight min: one combine
+        shard_combine_groups(par, "max", also=new_m, also_op="min")
     for b in range(nb):
-        if ng > 1:
-            shard_combine(par[b], "max")
-            shard_combine(new_m[b], "min")
         if has_res:
             for j in range(ng):
                 parent_fill(par[b][j], res_rows[b][j], res_nbr[b][j],
@@ -637,8 +640,10 @@ def fabric_mesh_inputs(mesh: Mesh, plan, matrix, roots, out_nbr,
     differences, so no real edge wraps through the pad, and a pad
     column neither emits nor receives a finite distance), the residual
     rows to a multiple of it (rows -1, weights INF_E), each array placed
-    as the reference's in_specs lay it out. The roots must split over
-    'batch'."""
+    as the reference's in_specs lay it out, and each shard's node -> row
+    table of its own residual rows (``row_of``, built here once a
+    placement: -1 where the node's row lies on another member or
+    nowhere). The roots must split over 'batch'."""
     g, b = mesh.shape["graph"], mesh.shape["batch"]
     if len(roots) % b:
         raise ValueError(f"{len(roots)} roots do not split over batch {b}")
@@ -648,11 +653,14 @@ def fabric_mesh_inputs(mesh: Mesh, plan, matrix, roots, out_nbr,
     rows = Layout(0, "graph")
     lanes = Layout(0, "batch")
     p_cap, a_cap = matrix.ann_node.shape
+    rows_np = pad_to(plan.res_rows, r_cap, -1)
+    res_parts = place(mesh, rows_np, rows)
     return dict(
         deltas=place(mesh, plan.deltas).parts,
         shift_w=place(mesh, pad_to(plan.shift_w, n_cap, INF_E, axis=1),
                       Layout(1, "graph")).parts,
-        res_rows=place(mesh, pad_to(plan.res_rows, r_cap, -1), rows).parts,
+        res_rows=res_parts.parts,
+        row_of=_row_tables(res_parts, rows_np, n_cap),
         res_nbr=place(mesh, pad_to(plan.res_nbr, r_cap, -1), rows).parts,
         res_w=place(mesh, pad_to(plan.res_w, r_cap, INF_E), rows).parts,
         mbuf=place(mesh, mbuf).parts,
@@ -661,6 +669,22 @@ def fabric_mesh_inputs(mesh: Mesh, plan, matrix, roots, out_nbr,
         out_w=place(mesh, out_w, lanes).parts,
         has_res=bool(plan.k_res > 0), p_cap=p_cap, a_cap=a_cap,
     )
+
+
+def _row_tables(res_parts: Sharded, rows_np: np.ndarray, n_cap: int):
+    """Each shard's node -> row table of its part of the residual rows
+    (``ops/fabric.row_table``), one tensor a distinct (card, part)."""
+    tables: dict = {}
+
+    def one(b, j):
+        dev = res_parts.mesh.devices[b][j]
+        lo, hi = res_parts.window(b, j)
+        if (dev, lo) not in tables:
+            tables[dev, lo] = torch.tensor(row_table(rows_np[lo:hi], n_cap),
+                                           device=dev)
+        return tables[dev, lo]
+
+    return _grid(res_parts.mesh, one)
 
 
 def sharded_fabric_step(mesh, plan, matrix, roots, out_nbr, out_w,

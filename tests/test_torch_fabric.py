@@ -173,6 +173,54 @@ def test_fabric_extent_plain(port):
     assert got.tolist() == [2, 5, 0, 6, 6]
 
 
+def test_fabric_extent_plain_live_classes(port):
+    """K21e's class pass: a class row is live where it holds a finite
+    weight (K21 runs only those); without residual rows the extent is
+    None."""
+    t = port.torch
+    inf = 1 << 29
+    sw = np.full((4, 6), inf, np.int32)
+    sw[0, 5] = 2
+    sw[2, :] = 1
+    sw[3, 0] = 0
+    res_w = np.full((3, 4), inf, np.int32)
+    res_w[1, 2] = 9
+    ext, live = port.fabric.fabric_extent_plain(t.tensor(res_w),
+                                                t.tensor(sw))
+    assert ext.tolist() == [0, 3, 0]
+    assert live.dtype == t.int32 and live.tolist() == [1, 0, 1, 1]
+    ext, live = port.fabric.fabric_extent(None, t.tensor(sw))
+    assert ext is None and live.tolist() == [1, 0, 1, 1]
+
+
+def test_row_table(port):
+    """K21's node -> row table: the numpy inverse of ``res_rows`` with
+    the pad rows (-1) dropped and -1 for a node without a row; a
+    tensor's table is a tensor on its device; a node with two rows, or
+    a row past ``n_cap``, raises."""
+    t = port.torch
+    rng = np.random.default_rng(5)
+    n_cap = 64
+    rows = np.full(40, -1, np.int32)
+    at = rng.choice(40, 25, replace=False)
+    rows[at] = rng.choice(n_cap, 25, replace=False)
+    want = np.full(n_cap, -1, np.int32)
+    for r, v in enumerate(rows):
+        if v >= 0:
+            want[v] = r
+    got = port.fabric.row_table(rows, n_cap)
+    np.testing.assert_array_equal(got, want)
+    got_t = port.fabric.row_table(t.tensor(rows), n_cap)
+    assert got_t.dtype == t.int32 and got_t.device.type == "cpu"
+    np.testing.assert_array_equal(got_t.numpy(), want)
+    dup = rows.copy()
+    dup[np.flatnonzero(rows < 0)[0]] = rows[at[0]]
+    with pytest.raises(ValueError, match="unique"):
+        port.fabric.row_table(dup, n_cap)
+    with pytest.raises(ValueError):
+        port.fabric.row_table(np.array([n_cap], np.int32), n_cap)
+
+
 def _fabric_vs_oracle(port, states, ps, roots, solver=None, **kw):
     solver = solver or port.gpu_solver.GpuSpfSolver(roots[0], device="cpu",
                                                     **kw)

@@ -550,6 +550,49 @@ def test_shard_combine_plain(port, op):
         port.combine.shard_combine(planes, "prod")
 
 
+@pytest.mark.parametrize("op", ["min", "max", "sum"])
+def test_shard_combine_groups_plain(port, op):
+    """The grouped combine's plain form, and the grouped wrapper on CPU
+    tensors: every group (1 to 8 groups of 1 to 16 members, widths 0 and
+    not a multiple of 4) holds ``shard_combine_plain`` of its own
+    members, each group's flag is set only where its result differs
+    from its ref, and each ``also`` group is combined by ``also_op``."""
+    torch = port.torch
+    comb = port.combine
+    rng = np.random.default_rng(23)
+    fold = {"min": np.minimum, "max": np.maximum, "sum": np.add}[op]
+    for n_groups, members, width in ((1, 1, 7), (3, 2, 5), (8, 16, 13),
+                                     (2, 4, 0), (4, 2, 9)):
+        def planes(n):
+            return [[rng.integers(-50, 50, n).astype(np.int32)
+                     for _ in range(members)] for _ in range(n_groups)]
+
+        groups, also = planes(width), planes(width + 2)
+        folded = [fold.reduce(p, dtype=np.int32) for p in groups]
+        # group 0's ref is its result (flag stays 0), the others differ
+        refs = [f if q == 0 else f + 1 for q, f in enumerate(folded)]
+        want_also = [np.minimum.reduce(p) for p in also]
+        for fn in (comb.shard_combine_groups_plain, comb.shard_combine_groups):
+            got = [[torch.tensor(a) for a in p] for p in groups]
+            got_also = [[torch.tensor(a) for a in p] for p in also]
+            flags = [torch.zeros(1, dtype=torch.int32) for _ in groups]
+            fn(got, op, [torch.tensor(r) for r in refs], flags, got_also,
+               "min")
+            for q in range(n_groups):
+                for t in got[q]:
+                    np.testing.assert_array_equal(t.numpy(), folded[q])
+                for t in got_also[q]:
+                    np.testing.assert_array_equal(t.numpy(), want_also[q])
+                assert int(flags[q]) == int(q > 0 and width > 0), (q, width)
+            # the one-group call is the grouped call of one group
+            one = [torch.tensor(a) for a in groups[-1]]
+            comb.shard_combine(one, op)
+            np.testing.assert_array_equal(one[0].numpy(), folded[-1])
+    with pytest.raises(ValueError):
+        comb.shard_combine_groups([[torch.zeros(3, dtype=torch.int32)]],
+                                  "min", also=[])
+
+
 def _port_lsdb(port, gen):
     adj_dbs, pdbs = gen()
     pstates, pps = port.topologies.build_states(

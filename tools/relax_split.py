@@ -1,5 +1,6 @@
-"""Time split of K1s ``sssp_init``, K1 ``relax_step``, K6 ``parent_plane``
-and K5's scatter at the shapes of the paths that run them, for the
+"""Time split of K1s ``sssp_init``, K1 ``relax_step``, K6 ``parent_plane``,
+K5's scatter, K21 ``fabric_relax`` and K23 ``shard_combine`` at the
+shapes of the paths that run them, for the
 ``openr_tpu_torch`` package found under ``--root`` (default: this
 checkout), so that two trees can be compared in one run on the same
 card:
@@ -35,14 +36,32 @@ Needs a CUDA card. The cases (all by default):
   column parts). A step may wait on the stream (a copy from pageable
   memory synchronises it), so these rows are ``chip_smoke.step_ms``'s:
   host, wall and device ms from an idle stream, and the host ms of a
-  call queued behind a 1 ms device sleep.
+  call queued behind a 1 ms device sleep;
+- ``k21``: K21 on the whole-fabric step's shape (``chip_smoke.py``
+  phase 13: fabric10k, its 4,096 rack-switch roots, D 8), from a
+  wavefront 2 relaxations past the seed planes, held to plain on the
+  first ``PLAIN_ROOTS`` roots; ``k21_mc``: K21 [mc] on shard 1 of a
+  graph-2 split of the same step (phase 14);
+- ``k23``: K23 over the two members' planes of an lsdb100k_mc group
+  ([1, 131072] each, min, with ref and flag); ``k23_groups``: every
+  group of lsdb100k_mc's mesh at once (4 groups of 2), one grouped call
+  where the tree has one (``shard_combine_groups``), else one call a
+  group, beside ``torch.minimum`` once a group;
+- ``fabric_sssp``: the whole-fabric step's SSSP on fabric10k's 4,096
+  roots at 2 trips (the bound the cold build takes: K1s seeds, 16 K21
+  relaxations, the vote), one card, and the array-level step on 8
+  logical shards (batch 4 x graph 2: K21 ``[mc]`` and K23 a
+  relaxation), each as a host wall ending in a synchronise (the best
+  of 3 after a warm-up), with its launches by wrapper.
 
-With ``--define NAME=VALUE`` (repeatable) the tree's ``csrc/incremental.cu``
-is built again with ``-DNAME=VALUE`` into a library of its own under
-the tree's ``_build/`` (a variant of K5-K9, e.g. ``PARENT_EXIT_EVERY=4``
-for K6's class loop with a warp-uniform exit), and the cases run on it;
-``--build-only`` builds it and stops (several variants can then be
-built at once, one process each).
+With ``--define NAME=VALUE`` (repeatable) the tree's ``csrc/<lib>.cu``
+(``--lib``, default ``incremental``) is built again with
+``-DNAME=VALUE`` into a library of its own under the tree's ``_build/``
+(a variant, e.g. ``PARENT_EXIT_EVERY=4`` for K6's class loop with a
+warp-uniform exit, or ``--lib fabric --define FAB_RS=4`` for K21's
+roots a slab), and the cases run on it; ``--build-only`` builds it and
+stops (several variants can then be built at once, one process
+each).
 
 Each case is first held to the plain version on the same card tensors
 (tolerance 0). Then: ``ms`` (``chip_smoke.time_ms``: calls back to
@@ -68,7 +87,10 @@ import sys
 from pathlib import Path
 
 CASES = ("k1s", "k1", "k1_res", "k1_ksp2", "k6", "k6_res", "k5", "k5_pair",
-         "k5_mc")
+         "k5_mc", "k21", "k21_mc", "k23", "k23_groups", "fabric_sssp")
+# roots of the k21 cases held to the plain version (the plain relaxation
+# runs cs.PLAIN_CHUNK roots a call)
+PLAIN_ROOTS = 256
 
 
 def _ptr(t) -> int:
@@ -223,13 +245,253 @@ def _row(cs, torch, wrappers, fn, floor, extra=None) -> dict:
             **(extra or {})}
 
 
+def _bare_fabric(cs, cuda, mid, o, f, deltas, sw, live, roots, residual,
+                 col0: int):
+    """The bare K21 launches of one call: the tree's one ``fabric_relax``
+    entry (``chip_smoke.k21_floor``), or its ``fabric_shift`` and
+    ``fabric_residual``."""
+    if hasattr(cuda._lib("fabric"), "fabric_relax"):
+        return cs.k21_floor(cuda, mid, o, f, deltas, sw, live, roots,
+                            residual, col0)
+    g, d_cap, n_cap = mid.shape
+    rows, nbr, rw, ext = residual[:4]
+    shift = [_ptr(t) for t in (mid, o, deltas, sw, roots)]
+    res = [_ptr(t) for t in (mid, o, rows, nbr, rw, ext, roots)]
+    gate = (0,) * 8
+
+    def launches():
+        cuda.launch("fabric", "fabric_shift", "ppppp" + "iiiii" + "pi"
+                    + "ppiiiiii", *shift, d_cap, n_cap, sw.shape[0], col0,
+                    sw.shape[1], _ptr(f), g, *gate)
+        cuda.launch("fabric", "fabric_residual", "ppppppp" + "iiii" + "pi"
+                    + "ppiiiiii", *res, d_cap, n_cap, *nbr.shape, _ptr(f), g,
+                    *gate)
+
+    return launches
+
+
+def _k21_cases(cs, torch, cuda, fabric, relax, wrappers, solved, topologies,
+               dev, cases, out) -> None:
+    """The ``k21`` and ``k21_mc`` rows (module docstring)."""
+    from openr_tpu_torch.parallel import sharding
+
+    keep: dict = {}
+    _, ad, _ = solved(lambda: topologies.fabric(**cs.FABRIC), "pod000-rsw00",
+                      keep, enable_lfa=True)
+    plan = ad.plan
+    names = [f"pod{p:03d}-rsw{i:02d}" for p in range(cs.FABRIC_POD_VANTAGES)
+             for i in range(cs.FABRIC["rsws_per_pod"])]
+    roots, nbr, w, _ = fabric.root_tables(plan, keep["states"]["0"], names)
+    # this tree: K21e gives the live classes, the plan the node -> row
+    # table; a parent's K21 takes the extent alone
+    new = hasattr(fabric, "row_table")
+
+    def member(shift, rows, rnbr, rw, row_of, n_cap):
+        if not new:
+            return None, (rows, rnbr, rw, fabric.fabric_extent(rw))
+        ext, live = fabric.fabric_extent(rw, shift)
+        return live, (rows, rnbr, rw, ext,
+                      row_of if row_of is not None
+                      else fabric.row_table(rows, n_cap))
+
+    def seeds(roots_t, nbr_t, w_t, n_cap):
+        rt = roots_t.shape[0]
+        none = [torch.empty((rt,) + sh, dtype=torch.int32, device=dev)
+                for sh in ((0, n_cap), (0,), (0, 0), (0, 0))]
+        return relax.sssp_init(*none, roots_t, nbr_t, w_t)[2]
+
+    def row(label, call, plain, mid, o_k, f_k, bare, extra):
+        call()
+        o_p, f_p = torch.empty_like(o_k[:n_plain]), torch.zeros_like(f_k)
+        plain(o_p, f_p)
+        cs.check(int(f_k) == 1, f"{label}: a wavefront step must change")
+        cs.check(cs.max_abs_err(torch, o_k[:n_plain], o_p) == 0,
+                 f"{label}: kernel != plain")
+        dev_ms, host_ms = cs.device_ms(torch, call, reps=10)
+        out[label] = {
+            "ms": cs.time_ms(torch, call, 10), "device_ms": dev_ms,
+            "host_ms": host_ms,
+            "launch_floor_host_ms": cs.device_ms(torch, bare, reps=10)[1],
+            "per_call": {k: v for k, v in cs.counted(
+                torch, wrappers, call).items()
+                if k in ("kernel_launches", "torch_ops", "allocations")},
+            "shape": list(mid.shape), "plain_roots": n_plain, **extra}
+
+    roots_t, nbr_t, w_t = (torch.tensor(a, device=dev)
+                           for a in (roots, nbr, w))
+    whole_live, whole = member(ad.shift_w, ad.res_rows, ad.res_nbr, ad.res_w,
+                               None, plan.n_cap)
+    kw_live = {} if whole_live is None else {"live": whole_live}
+    mid = seeds(roots_t, nbr_t, w_t, plan.n_cap)
+    spare = torch.empty_like(mid)
+    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    for _ in range(2):
+        fabric.fabric_relax(mid, spare, flag, ad.deltas, ad.shift_w, whole,
+                            roots_t, **kw_live)
+        mid, spare = spare, mid
+    o_k, f_k = spare, torch.zeros(1, dtype=torch.int32, device=dev)
+    n_plain = min(PLAIN_ROOTS, roots_t.shape[0])
+    s = slice(0, n_plain)
+    if "k21" in cases:
+        row("k21",
+            lambda: fabric.fabric_relax(mid, o_k, f_k, ad.deltas, ad.shift_w,
+                                        whole, roots_t, **kw_live),
+            lambda o, f: cs.by_roots(torch, n_plain,
+                                     lambda q: fabric.fabric_relax_plain(
+                                         mid[s][q], o[q], f, ad.deltas,
+                                         ad.shift_w, whole, roots_t[s][q])),
+            mid, o_k, f_k,
+            _bare_fabric(cs, cuda, mid, o_k, f_k, ad.deltas, ad.shift_w,
+                         whole_live, roots_t, whole, 0),
+            {"live_classes": None if whole_live is None
+             else int(whole_live.sum())})
+    if "k21_mc" in cases:
+        mesh = sharding.make_mesh(2, batch=1, devices=[dev] * 2)
+        kw = sharding.fabric_mesh_inputs(mesh, plan, ad.matrix, roots, nbr, w)
+        shift, rows, rnbr, rw = (kw[k][0][1] for k in (
+            "shift_w", "res_rows", "res_nbr", "res_w"))
+        n_cap = 2 * shift.shape[1]
+        col0 = n_cap // 2
+        deltas, mroots = kw["deltas"][0][1], kw["roots"][0][1]
+        live, res = member(shift, rows, rnbr, rw,
+                           kw["row_of"][0][1] if "row_of" in kw else None,
+                           n_cap)
+        kwm = {} if live is None else {"live": live}
+        row("k21_mc",
+            lambda: fabric.fabric_relax_mc(mid, o_k, f_k, deltas, shift, res,
+                                           mroots, col0=col0, **kwm),
+            lambda o, f: cs.by_roots(torch, n_plain,
+                                     lambda q: fabric.fabric_relax_mc_plain(
+                                         mid[s][q], o[q], f, deltas, shift,
+                                         res, mroots[s][q], col0=col0)),
+            mid, o_k, f_k,
+            _bare_fabric(cs, cuda, mid, o_k, f_k, deltas, shift, live,
+                         mroots, res, col0),
+            {"col0": col0})
+
+    if "fabric_sssp" in cases:
+        del mid, spare, o_k
+        torch.cuda.empty_cache()
+        import time
+
+        def wall(fn):
+            fn()
+            best = None
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                best = ms if best is None else min(best, ms)
+            return best
+
+        mesh8 = sharding.make_mesh(8, devices=[dev] * 8)
+        residual3 = (ad.res_rows, ad.res_nbr, ad.res_w)
+        runs = {
+            "one_card": lambda: fabric.fabric_sssp(
+                ad.deltas, ad.shift_w, residual3, roots_t, nbr_t, w_t, 2),
+            "mesh_8": lambda: sharding.sharded_fabric_step(
+                mesh8, plan, ad.matrix, roots, nbr, w, 2, lfa=True),
+        }
+        out["fabric_sssp"] = {
+            label: {"host_wall_ms": wall(fn),
+                    "per_call": cs.counted(torch, wrappers, fn)[
+                        "kernels_by_wrapper"]}
+            for label, fn in runs.items()}
+        out["fabric_sssp"]["roots"] = len(names)
+
+
+def _k23_cases(cs, torch, cuda, combine, wrappers, dev, cases, out) -> None:
+    """The ``k23`` and ``k23_groups`` rows (module docstring)."""
+    gen = torch.Generator().manual_seed(23)
+    n, nb = 131072, 4
+
+    def plane():
+        return torch.randint(0, 1 << 20, (1, n), generator=gen,
+                             dtype=torch.int32).to(dev)
+
+    groups = [[plane(), plane()] for _ in range(nb)]
+    refs = [plane() for _ in range(nb)]
+    flags = torch.zeros(nb, dtype=torch.int32, device=dev)
+    # one view a group's flag, made once, as the relaxation loops hold them
+    flag_views = [flags[q:q + 1] for q in range(nb)]
+    grouped = hasattr(combine, "shard_combine_groups")
+    ptrs = [(ctypes.c_longlong * 2)(*(t.data_ptr() for t in grp))
+            for grp in groups]
+
+    def bare_group(q):
+        """A parent's bare K23 launch of group q."""
+        return lambda: cuda.launch(
+            "combine", "shard_combine", "piLipp", ctypes.addressof(ptrs[q]),
+            2, n, 0, refs[q].data_ptr(), flag_views[q].data_ptr())
+
+    def bare_first(k):
+        """This tree's bare K23 launch of the first k groups: one array of
+        the members, the refs and the flags."""
+        arr = (ctypes.c_longlong * (4 * k))(
+            *(t.data_ptr() for grp in groups[:k] for t in grp),
+            *(t.data_ptr() for t in refs[:k]),
+            *(f.data_ptr() for f in flag_views[:k]))
+        return lambda: cuda.launch(
+            "combine", "shard_combine", "piiLiiiLi", ctypes.addressof(arr),
+            k, 2, n, 0, 1, 0, 0, 1)
+
+    def library(k):
+        def fn():
+            for grp in groups[:k]:
+                torch.minimum(grp[0], grp[1])
+        return fn
+
+    def k23_row(label, call, floor, k):
+        want = [[t.clone() for t in grp] for grp in groups[:k]]
+        w_flags = [torch.zeros(1, dtype=torch.int32, device=dev)
+                   for _ in range(k)]
+        for grp, ref, f in zip(want, refs, w_flags):
+            combine.shard_combine_plain(grp, "min", ref=ref, flag=f)
+        flags.zero_()
+        call()
+        cs.check(cs.max_abs_err(torch, (groups[:k], flag_views[:k]),
+                                (want, w_flags)) == 0,
+                 f"{label}: kernel != plain")
+        r = _row(cs, torch, wrappers, call, floor,
+                 {"groups": k, "shape": [1, n], "grouped_entry": grouped})
+        r["library_device_ms"], r["library_host_ms"] = cs.device_ms(
+            torch, library(k))
+        out[label] = r
+
+    if "k23" in cases:
+        k23_row("k23", lambda: combine.shard_combine(
+            groups[0], "min", ref=refs[0], flag=flag_views[0]),
+            bare_first(1) if grouped else bare_group(0), 1)
+    if "k23_groups" in cases:
+        if grouped:
+            def call():
+                combine.shard_combine_groups(groups, "min", refs=refs,
+                                             flags=flag_views)
+            floor = bare_first(nb)
+        else:
+            def call():
+                for q in range(nb):
+                    combine.shard_combine(groups[q], "min", ref=refs[q],
+                                          flag=flag_views[q])
+            floors = [bare_group(q) for q in range(nb)]
+
+            def floor():
+                for f in floors:
+                    f()
+        k23_row("k23_groups", call, floor, nb)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", help="tree holding openr_tpu_torch/")
     ap.add_argument("--cases", default=",".join(CASES))
     ap.add_argument("--define", action="append", default=[],
                     metavar="NAME=VALUE",
-                    help="run on csrc/incremental.cu built with -DNAME=VALUE")
+                    help="run on csrc/<lib>.cu built with -DNAME=VALUE")
+    ap.add_argument("--lib", default="incremental",
+                    help="the source --define rebuilds")
     ap.add_argument("--build-only", action="store_true",
                     help="with --define: build the variant and stop")
     a = ap.parse_args()
@@ -246,15 +508,14 @@ def main() -> int:
         return 2
     from openr_tpu_torch.decision import gpu_solver
     from openr_tpu_torch.models import topologies
-    from openr_tpu_torch.ops import cuda, ksp2, relax
+    from openr_tpu_torch.ops import combine, cuda, fabric, ksp2, relax
 
     from openr_tpu_torch.ops import incremental as inc
 
     out = {"root": a.root or "."}
     if a.define:
         out["variant"] = {"defines": a.define,
-                          "library": _variant(cuda, "incremental",
-                                              a.define).name}
+                          "library": _variant(cuda, a.lib, a.define).name}
         if a.build_only:
             print(json.dumps(out), flush=True)
             return 0
@@ -264,9 +525,13 @@ def main() -> int:
         *((k, getattr(inc, k)) for k in (
             "scatter_set", "scatter_window", "scatter_parts",
             "parent_plane", "parent_shift_mc", "parent_fill")
-          if hasattr(inc, k)))}
+          if hasattr(inc, k)),
+        ("fabric_relax", fabric.fabric_relax),
+        ("fabric_relax_mc", fabric.fabric_relax_mc),
+        ("fabric_extent", fabric.fabric_extent),
+        ("shard_combine", combine.shard_combine))}
 
-    def solved(gen, me, **kw):
+    def solved(gen, me, keep=None, **kw):
         _, states, ps = cs.build_cell(topologies, gen)
         solver = gpu_solver.GpuSpfSolver(me, device=dev, **kw)
         solver.build_route_db(me, states, ps)
@@ -275,6 +540,8 @@ def main() -> int:
         args = (ad.shift_w, ad.res_rows, ad.res_nbr, ad.res_w,
                 ad.plan.node_index[me], torch.tensor(nbr, device=dev),
                 torch.tensor(w, device=dev))
+        if keep is not None:
+            keep["states"] = states
         return solver, ad, args
 
     def equal(got, want, label):
@@ -465,6 +732,12 @@ def main() -> int:
                                     t.shape[0], lo, t.shape[1])
             out["k5_mc"] = _step_row(cs, torch, wrappers, fn, bare, solver,
                                      {"parts": sum(1 for _ in sh.distinct())})
+
+    if {"k21", "k21_mc", "fabric_sssp"} & set(cases):
+        _k21_cases(cs, torch, cuda, fabric, relax, wrappers, solved,
+                   topologies, dev, cases, out)
+    if {"k23", "k23_groups"} & set(cases):
+        _k23_cases(cs, torch, cuda, combine, wrappers, dev, cases, out)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
