@@ -193,19 +193,24 @@ prints no result line:
      diamond of tests/test_whatif.py:353 (lr 0.05, 30 iterations): its
      loss falls and a metric moves.
   13. the all-roots paths. (a) The legacy ELL pipeline
-     (``gpu_solver.legacy_pipeline``: K18 ``ell_relax``, K19
+     (``gpu_solver.legacy_pipeline``: K18 ``ell_trip``, K19
      ``ell_next_hop``, K20 ``ell_select``, ``csrc/legacy.cu``) on
      ``build_ell`` of the lsdb100k LSDB as phase 8 left it, root
      node-158-158, the counts zeroed before it and read after: every
      prefix's metric and route equal a fresh oracle RIB's, the distances
      equal the main path's (phase 8's solver's resident mirror); the
-     whole K18 and K19 loops (through ``legacy.run_rounds`` with the
-     plain round) and one round of each and K20 against their plain
-     versions. Then ``sssp_all_pairs`` from all 7,200 fabric10k roots
-     ([7200, 8192] int32), its own counts: the first 64 roots' rows equal
-     the plain loop's, 8 seeded rows a host ``run_spf``; it prints
-     ``allpairs_ms``, roots/s, trips and peak device bytes, and holds and
-     times K18 over every root (``[allpairs]``; plain 256 roots a call).
+     whole K18 loop (one launch and one flag read a trip, counted) and
+     K19 loop against the plain loops over the padded mirror
+     (``legacy.run_rounds`` with the plain round), one K18 trip (the
+     single-root tiling), one K19 round and K20 against their plain
+     versions, K18 also on seeded edge cases (R = 1, 31, 33, an
+     overloaded root, links down). Then ``sssp_all_pairs`` from all
+     7,200 fabric10k roots ([7200, 8192] int32), its own counts: the
+     first 64 roots' rows equal the plain loop's, 8 seeded rows a host
+     ``run_spf``; it prints ``allpairs_ms``, roots/s, trips, K18
+     launches, flag reads and peak device bytes, and holds and times a
+     K18 trip over every root (``[allpairs]``, the batched tiling; plain
+     256 roots a call; ms a round) and the transpose (K18t).
      (b) Whole-fabric RIBs (``GpuSpfSolver.build_fabric_route_dbs``;
      ``ops/fabric.py``: K1s seeds and K3 selection with a root axis, K21
      ``fabric_relax``, K21e ``fabric_extent``, ``csrc/fabric.cu``) on
@@ -3253,6 +3258,7 @@ PLAIN_CHUNK = 256
 # the trip bound of the tg1k step held to plain while unconverged
 UNCONVERGED_TRIPS = 2
 LEGACY_PATH = ("K18:ell_relax", "K19:ell_next_hop", "K20:ell_select")
+ALLPAIRS_PATH = ("K18:ell_relax", "K18t:ell_transpose")
 FABRIC_PATH = ("K1s:sssp_init", "K21e:fabric_extent", "K21:fabric_relax",
                "K3:select_routes")
 # the array-level entry also unpacks the masks on the card
@@ -3272,8 +3278,10 @@ def by_roots(torch, n: int, fn):
 
 
 def plain_ell_sssp(c, mirror, roots):
-    """The K18 loop of ``legacy.ell_sssp`` through the plain version on
-    the card's tensors -> (dist, trips)."""
+    """The K18 loop of ``legacy.ell_sssp`` as the reference runs it: the
+    plain round over the padded mirror (``legacy.ell_relax_plain``,
+    ``UNROLL`` a trip through ``legacy.run_rounds``) on the card's
+    tensors -> (dist, trips)."""
     n_cap = mirror[0].shape[0]
     plane = c.torch.empty((roots.shape[0], n_cap), dtype=c.torch.int32,
                           device=c.dev)
@@ -3281,6 +3289,150 @@ def plain_ell_sssp(c, mirror, roots):
         lambda s, d, f, seed: c.legacy.ell_relax_plain(s, d, f, *mirror,
                                                        roots, seed),
         plane, c.relax.max_trips(n_cap))
+
+
+def padded_rounds(c, mirror, roots, dist, rounds: int):
+    """``rounds`` plain rounds over the padded mirror from ``dist``
+    [R, n_cap] (not the seed) -> (plane, flag word)."""
+    torch = c.torch
+    flag = torch.zeros(1, dtype=torch.int32, device=c.dev)
+    dist, out = dist.clone(), torch.empty_like(dist)
+    for _ in range(rounds):
+        c.legacy.ell_relax_plain(dist, out, flag, *mirror, roots)
+        dist, out = out, dist
+    return dist, flag
+
+
+def k18_wavefront(c, packed, roots, n_cap: int, rounds: int):
+    """K18's plane ``rounds`` rounds past the seed, on R's tiling (one
+    trip launch of ``rounds`` rounds)."""
+    torch, legacy = c.torch, c.legacy
+    shape = legacy.plane_shape(roots.shape[0], n_cap)
+    a = torch.empty(shape, dtype=torch.int32, device=c.dev)
+    b = torch.empty_like(a)
+    flags = torch.empty(2, dtype=torch.int32, device=c.dev)
+    return legacy.ell_trip(a, b, flags, packed, roots, 0, rounds)
+
+
+def k18_trip_check(c, label, mirror, packed, roots, mid, chunk=None):
+    """One K18 trip (trip 1, ``UNROLL`` rounds) from the wavefront plane
+    ``mid`` on the card against ``legacy.ell_trip_plain`` on copies of
+    the same planes (``chunk``: that many roots a plain call; the rows
+    are independent) and, on the first ``ALLPAIRS_PLAIN_ROOTS`` roots,
+    against ``UNROLL`` rounds of the padded ``ell_relax_plain``.
+    Returns (max abs err, the kernel's trip callable, the plain trip's
+    callable); a trip from a wavefront must set the flag."""
+    torch, legacy = c.torch, c.legacy
+    r = roots.shape[0]
+    words = legacy.plane_words
+    k_a, k_b = mid.clone(), torch.empty_like(mid)
+    p_a, p_b = mid.clone(), torch.empty_like(mid)
+    k_f = torch.zeros(2, dtype=torch.int32, device=c.dev)
+    p_f = torch.zeros_like(k_f)
+
+    # the plain calls' roots: ``chunk`` a call, rounded up to a multiple
+    # of 32, the last call taking the pad columns and at least 32 roots
+    if chunk is not None:
+        chunk = -(-chunk // legacy.WARP) * legacy.WARP
+    edges = [0, r] if chunk is None else list(range(0, r, chunk)) + [r]
+    if len(edges) > 2 and edges[-1] - edges[-2] < legacy.WARP:
+        del edges[-2]
+
+    def plain_trip(a=p_a, b=p_b):
+        for lo, hi in zip(edges, edges[1:]):
+            cols = slice(lo, hi if hi < r else a.shape[1])
+            legacy.ell_trip_plain(a[:, cols], b[:, cols], p_f, packed,
+                                  roots[lo:hi], 1)
+        return a
+
+    check(legacy.ell_trip(k_a, k_b, k_f, packed, roots, 1) is k_a,
+          f"{label}: an even trip ends in its first plane")
+    plain_trip()
+    check(int(k_f[1]) == 1 and int(k_f[0]) == 0,
+          f"{label}: a trip from a wavefront must set its flag word")
+    err = max_abs_err(torch, (words(k_a, r), k_f), (words(p_a, r), p_f))
+    sub = min(r, ALLPAIRS_PLAIN_ROOTS)
+    want, _ = padded_rounds(c, mirror, roots[:sub],
+                            words(mid, r)[:, :sub].t().contiguous(),
+                            c.relax.UNROLL)
+    check(max_abs_err(torch, words(k_a, r)[:, :sub].t(), want) == 0,
+          f"{label}: a trip != {c.relax.UNROLL} padded plain rounds")
+    t_a, t_b = mid.clone(), torch.empty_like(mid)
+    t_f = torch.zeros_like(k_f)
+    q_a, q_b = mid.clone(), torch.empty_like(mid)
+    return (err, lambda: legacy.ell_trip(t_a, t_b, t_f, packed, roots, 1),
+            lambda: plain_trip(q_a, q_b))
+
+
+def k18_live(packed) -> int:
+    """The live slots of a packed K18 mirror."""
+    return packed.slots.shape[0]
+
+
+def k18_round_bytes(packed, r: int) -> int:
+    """The bytes a K18 round must move for ``r`` roots: the packed
+    mirror read once (8 B a live slot and ``row_ptr``), each root's row
+    read and written once."""
+    n_cap = packed.row_ptr.shape[0] - 1
+    return 8 * k18_live(packed) + 4 * (n_cap + 1) + 8 * r * n_cap
+
+
+def k18_edge_mirror(np, r: int, seed: int):
+    """A seeded padded mirror (numpy, n_cap 45: not a multiple of 32) of
+    40 nodes in two components with no link between them, a share of
+    links down, 6 overloaded nodes, and ``r`` roots, the first of them
+    overloaded -> (in_nbr, in_w, in_up, node_over, roots)."""
+    n, n_cap, k_cap = 40, 45, 6
+    rng = np.random.default_rng(seed)
+    in_nbr = np.full((n_cap, k_cap), -1, np.int32)
+    in_w = np.full((n_cap, k_cap), 1 << 30, np.int32)
+    in_up = np.zeros((n_cap, k_cap), bool)
+    for v in range(n):
+        lo, hi = (0, 30) if v < 30 else (30, n)
+        deg = int(rng.integers(1, k_cap + 1))
+        slots = np.sort(rng.choice(k_cap, deg, replace=False))
+        in_nbr[v, slots] = rng.choice([u for u in range(lo, hi) if u != v],
+                                      deg)
+        in_w[v, slots] = rng.integers(1, 1 << 28, deg)
+        in_up[v, slots] = rng.random(deg) >= 0.2
+    node_over = np.zeros(n_cap, bool)
+    over = rng.choice(n, 6, replace=False)
+    node_over[over] = True
+    roots = rng.choice(n, r).astype(np.int32)
+    roots[0] = over[0]
+    return in_nbr, in_w, in_up, node_over, roots
+
+
+def k18_edge_cases(c) -> dict:
+    """K18 on seeded edge cases (``k18_edge_mirror``: R = 1, 31, 33 on
+    both tilings, an overloaded root, down links, an unreachable
+    component): ``ell_sssp`` on the card equals the padded plain loop,
+    trips included, and a trip from a wavefront equals its plain
+    version. -> the largest error."""
+    import numpy as np
+
+    torch, legacy = c.torch, c.legacy
+    worst = 0
+    for r in (1, 31, 33):
+        arrays = k18_edge_mirror(np, r, 18 + r)
+        mirror = legacy.to_device(c.dev, *arrays[:4])
+        (roots,) = legacy.to_device(c.dev, arrays[4])
+        d_k, tr_k = legacy.ell_sssp(*mirror, roots)
+        d_p, tr_p = plain_ell_sssp(c, mirror, roots)
+        check(max_abs_err(torch, d_k, d_p) == 0 and tr_k == tr_p,
+              f"K18 edge case R={r}: ell_sssp != the plain loop")
+        check(bool((d_k == legacy.INF).any()),
+              f"K18 edge case R={r}: the second component must be "
+              "unreachable")
+        packed = legacy.packed_mirror(*mirror)
+        mid = k18_wavefront(c, packed, roots, arrays[0].shape[0], 2)
+        err, _, _ = k18_trip_check(c, f"K18 edge case R={r}", mirror,
+                                   packed, roots, mid)
+        check(err == 0, f"K18 edge case R={r}: a trip != plain ({err})")
+        worst = max(worst, err)
+    log("K18 edge cases (R = 1, 31, 33; an overloaded root, links down, "
+        "an unreachable component, metrics < 2^28, n_cap 45): == plain")
+    return worst
 
 
 def plain_ell_next_hops(c, dist, mirror, root, rtab):
@@ -3383,9 +3535,14 @@ def legacy_phase(c, lsdb, fcell) -> tuple:
             "launches": {k: launches[k] for k in LEGACY_PATH},
             "flag_reads": reads}))
 
-    # each kernel against its plain version on the card
+    # each kernel against its plain version on the card; K18's loop
+    # alone, its launches and flag reads counted
     roots1 = torch.tensor([root], dtype=torch.int32, device=dev)
+    reads0 = c.zero_counts()
     d_k, tr_k = legacy.ell_sssp(*mirror, roots1)
+    k18_launches, k18_reads = c.read_counts(reads0)
+    check(k18_launches["K18:ell_relax"] == tr_k == k18_reads,
+          "K18: one launch and one flag read a trip")
     d_p, tr_p = plain_ell_sssp(c, mirror, roots1)
     check(max_abs_err(torch, d_k, d_p) == 0 and tr_k == tr_p,
           "K18 loop != plain")
@@ -3393,6 +3550,9 @@ def legacy_phase(c, lsdb, fcell) -> tuple:
     nh_p, nt_p = plain_ell_next_hops(c, d_k[0], mirror, root, rtab)
     check(max_abs_err(torch, nh_k, nh_p) == 0 and nt_k == nt_p,
           "K19 loop != plain")
+    log("legacy lsdb100k K18 alone: " + json.dumps({
+        "trips": tr_k, "launches": k18_launches["K18:ell_relax"],
+        "flag_reads": k18_reads, "k19_trips": nt_k}))
     n_cap, k_cap = graph.in_nbr.shape
     live = int((graph.in_nbr >= 0).sum())
     ell_bytes = 9 * n_cap * k_cap + n_cap
@@ -3407,26 +3567,22 @@ def legacy_phase(c, lsdb, fcell) -> tuple:
             plane, spare = spare, plane
         return plane
 
-    mid = mid_plane(lambda s, d, f, seed: legacy.ell_relax(
-        s, d, f, *mirror, roots1, seed), torch.empty_like(d_k), 40)
-    o_k, o_p = torch.empty_like(mid), torch.empty_like(mid)
-    f_k = torch.zeros(1, dtype=torch.int32, device=dev)
-    f_p = torch.zeros_like(f_k)
-    legacy.ell_relax(mid, o_k, f_k, *mirror, roots1)
-    legacy.ell_relax_plain(mid, o_p, f_p, *mirror, roots1)
-    check(int(f_k) == 1, "K18 on a wavefront must change the plane")
-    c.record(
-        "K18:ell_relax", max_abs_err(torch, (o_k, f_k), (o_p, f_p)),
-        lambda: legacy.ell_relax(mid, o_k, f_k, *mirror, roots1),
-        lambda: legacy.ell_relax_plain(mid, o_p, f_p, *mirror, roots1),
-        nbytes=ell_bytes + 8 * n_cap, ops=4 * live)
+    # K18 (single-root tiling): a trip from 40 rounds past the seed
+    packed = legacy.packed_mirror(*mirror)
+    mid = k18_wavefront(c, packed, roots1, n_cap, 40)
+    err, trip_k, trip_p = k18_trip_check(c, "K18", mirror, packed, roots1,
+                                         mid)
+    c.record("K18:ell_relax", max(err, k18_edge_cases(c)), trip_k, trip_p,
+             nbytes=k18_round_bytes(packed, 1), ops=4 * k18_live(packed),
+             per=c.relax.UNROLL)
+    c.split("K18:ell_relax", trip_k)
     d_cap = r_nbr.shape[0]
     nmid = mid_plane(lambda s, d, f, seed: legacy.ell_next_hop(
         s, d, f, d_k[0], *mirror, root, *rtab, seed),
         torch.empty_like(nh_k), 40)
     h_k, h_p = torch.empty_like(nmid), torch.empty_like(nmid)
-    f_k.zero_()
-    f_p.zero_()
+    f_k = torch.zeros(1, dtype=torch.int32, device=dev)
+    f_p = torch.zeros_like(f_k)
     legacy.ell_next_hop(nmid, h_k, f_k, d_k[0], *mirror, root, *rtab)
     legacy.ell_next_hop_plain(nmid, h_p, f_p, d_k[0], *mirror, root, *rtab)
     check(int(f_k) == 1, "K19 on a wavefront must change the plane")
@@ -3459,8 +3615,11 @@ def legacy_phase(c, lsdb, fcell) -> tuple:
     torch.cuda.synchronize()
     allpairs_ms = (time.perf_counter() - t0) * 1e3
     ap_launches, ap_reads = c.read_counts(reads0)
-    check(ap_launches["K18:ell_relax"] > 0,
-          "K18 never launched on the all-pairs path")
+    for name in ALLPAIRS_PATH:
+        check(ap_launches[name] > 0,
+              f"kernel {name} never launched on the all-pairs path")
+    check(ap_launches["K18:ell_relax"] == ap_reads,
+          "all-pairs: one K18 launch and one flag read a trip")
     peak = torch.cuda.max_memory_allocated() - mem0
     n_roots = fgraph.n_nodes
     check(tuple(ap.shape) == (n_roots, fgraph.n_cap), "all-pairs shape")
@@ -3483,36 +3642,38 @@ def legacy_phase(c, lsdb, fcell) -> tuple:
     log("all-pairs fabric10k: the first roots == plain, sampled rows == "
         "run_spf: " + json.dumps({
             "roots": n_roots, "n_cap": fgraph.n_cap, "k_cap": fgraph.k_cap,
+            "live_slots": int(((fgraph.in_nbr >= 0) & fgraph.in_up).sum()),
             "allpairs_ms": allpairs_ms,
             "roots_per_s": n_roots / (allpairs_ms / 1e3),
-            "trips": ap_reads, "launches": ap_launches["K18:ell_relax"],
+            "trips": ap_reads, "flag_reads": ap_reads,
+            "launches": ap_launches["K18:ell_relax"],
+            "transposes": ap_launches["K18t:ell_transpose"],
             "dist_bytes": ap.numel() * 4, "peak_bytes": peak,
             "run_spf_rows": ALLPAIRS_SPF_ROOTS, "run_spf_ms": spf_ms}))
-    # K18 over every root, one round from a wavefront plane
+    del ap, d_p
+    # K18 (batched tiling) over every root, a trip from 2 rounds past the
+    # seed; the transpose of its result
     aroots = torch.arange(n_roots, dtype=torch.int32, device=dev)
-    amid = mid_plane(lambda s, d, f, seed: legacy.ell_relax(
-        s, d, f, *fmirror, aroots, seed), torch.empty_like(ap), 2)
-    del ap
-    o_k, o_p = torch.empty_like(amid), torch.empty_like(amid)
-
-    def relax_plain():
-        by_roots(torch, n_roots, lambda s: legacy.ell_relax_plain(
-            amid[s], o_p[s], f_p, *fmirror, aroots[s]))
-
-    f_k.zero_()
-    f_p.zero_()
-    legacy.ell_relax(amid, o_k, f_k, *fmirror, aroots)
-    relax_plain()
-    check(int(f_k) == 1, "K18 on the all-pairs wavefront must change it")
-    flive = int((fgraph.in_nbr >= 0).sum())
+    fpacked = legacy.packed_mirror(*fmirror)
+    amid = k18_wavefront(c, fpacked, aroots, fgraph.n_cap, 2)
+    err, trip_k, trip_p = k18_trip_check(c, "K18 [allpairs]", fmirror,
+                                         fpacked, aroots, amid, PLAIN_CHUNK)
     c.record(
-        "K18:ell_relax[allpairs]", max_abs_err(torch, (o_k, f_k), (o_p, f_p)),
-        lambda: legacy.ell_relax(amid, o_k, f_k, *fmirror, aroots),
-        relax_plain,
-        nbytes=9 * fgraph.in_nbr.size + 8 * amid.numel(),
-        ops=4 * flive * n_roots, reps=10, plain_reps=2)
+        "K18:ell_relax[allpairs]", err, trip_k, trip_p,
+        nbytes=k18_round_bytes(fpacked, n_roots),
+        ops=4 * k18_live(fpacked) * n_roots, reps=10, plain_reps=1,
+        plain_warmup=1, per=c.relax.UNROLL)
     c.variant_launches["K18:ell_relax[allpairs]"] = ap_launches[
         "K18:ell_relax"]
+    scratch = torch.empty_like(amid)
+    got = legacy.ell_transpose(amid, scratch, n_roots)
+    want = legacy.ell_transpose_plain(amid, torch.empty_like(amid), n_roots)
+    c.record(
+        "K18t:ell_transpose", max_abs_err(torch, got, want),
+        lambda: legacy.ell_transpose(amid, scratch, n_roots),
+        lambda: legacy.ell_transpose_plain(amid, scratch, n_roots),
+        nbytes=8 * n_roots * fgraph.n_cap, ops=0, reps=20,
+        library=lambda: got.copy_(amid[:, :n_roots].t()))
     return launches, ap_launches
 
 
@@ -4916,8 +5077,10 @@ def main() -> int:
                              "openr_tpu/ops/sweep.py:233"),
         "K16:te_relax_vjp_jvp": (te.te_relax_vjp_jvp, "te.cu",
                                  "openr_tpu/ops/sweep.py:233"),
-        "K18:ell_relax": (legacy.ell_relax, "legacy.cu",
+        "K18:ell_relax": (legacy.ell_trip, "legacy.cu",
                           "openr_tpu/decision/tpu_solver.py:177"),
+        "K18t:ell_transpose": (legacy.ell_transpose, "legacy.cu",
+                               "openr_tpu/decision/tpu_solver.py:282"),
         "K19:ell_next_hop": (legacy.ell_next_hop, "legacy.cu",
                              "openr_tpu/decision/tpu_solver.py:197"),
         "K20:ell_select": (legacy.ell_select, "legacy.cu",
@@ -4984,18 +5147,27 @@ def main() -> int:
     results = {}
 
     def record(name, err, fn, plain, nbytes, ops, reps=50, plain_reps=5,
-               library=None, plain_warmup=2):
+               library=None, plain_warmup=2, per=1):
+        """Hold ``name`` to its plain version and time both; with ``per``
+        > 1 a call of ``fn`` does ``per`` rounds, ``nbytes`` / ``ops``
+        are a round's, and every ms is a round's (a call's beside it as
+        ``call_ms`` / ``plain_call_ms``)."""
         check(err == 0, f"{name}: kernel != plain (max abs err {err})")
         b_ms, b_by = bound(nbytes, ops)
+        call_ms = time_ms(torch, fn, reps)
+        plain_call_ms = time_ms(torch, plain, plain_reps, plain_warmup)
         results[name] = {
             "max_abs_err": err,
-            "ms": time_ms(torch, fn, reps),
-            "plain_ms": time_ms(torch, plain, plain_reps, plain_warmup),
+            "ms": call_ms / per,
+            "plain_ms": plain_call_ms / per,
             "bound_ms": b_ms,
             "bound_by": b_by,
             "library_ms": None if library is None
-            else time_ms(torch, library, reps),
+            else time_ms(torch, library, reps) / per,
         }
+        if per > 1:
+            results[name].update(rounds_a_call=per, call_ms=call_ms,
+                                 plain_call_ms=plain_call_ms)
         log(f"{name}: equal; {json.dumps(results[name])}")
 
     def record_float(name, err, rel_err, fn, plain, nbytes, ops, reps=10,

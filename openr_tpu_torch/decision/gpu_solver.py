@@ -580,7 +580,7 @@ def legacy_pipeline(in_nbr, in_w, in_up, node_over, root, root_nbr,
                     source_pref, dist_adv) -> tuple:
     """The legacy single-graph pipeline (the port of
     ``tpu_solver._jitted_pipeline`` and of ``__graft_entry__.entry``'s
-    forward step) on the device of its tensors: K18 rounds from
+    forward step) on the device of its tensors: K18 trips from
     ``root``, K19 rounds for its slot masks, K20 selection. Inputs are
     the JAX pipeline's 13, in its order: the ELL mirror (``in_nbr`` /
     ``in_w`` int32, ``in_up`` bool [n_cap, k_cap], ``node_over`` bool
@@ -605,7 +605,7 @@ def legacy_pipeline(in_nbr, in_w, in_up, node_over, root, root_nbr,
 def sssp_batch(in_nbr, in_w, in_up, node_over, roots) -> torch.Tensor:
     """Distances int32 [R, n_cap] from each root of the int32 tensor
     ``roots`` [R] over the ELL mirror (INF = 2^30 where unreachable): the
-    port of ``tpu_solver._jitted_sssp_batch``, K18 rounds on the device
+    port of ``tpu_solver._jitted_sssp_batch``, K18 trips on the device
     of the tensors."""
     return legacy.ell_sssp(in_nbr, in_w, in_up, node_over, roots)[0]
 
@@ -619,7 +619,8 @@ def sssp_all_pairs(graph: EllGraph, roots=None,
     if roots is None:
         roots = np.arange(graph.n_nodes, dtype=np.int32)
     (roots,) = legacy.to_device(dev, np.asarray(roots, np.int32))
-    return sssp_batch(*legacy.ell_tensors(graph, dev), roots)
+    # K18 reads only the packed mirror: the padded one stays on the host
+    return legacy.sssp_packed(legacy.packed_tensors(graph, dev), roots)[0]
 
 
 class _AreaDev:

@@ -627,12 +627,14 @@ ladder_pass.launches = 0
 
 # -- the loops ---------------------------------------------------------------
 
-def read_flag(flag) -> bool:
-    """Read the change flag on the host (one sync) and clear it; counts
-    the reads in ``read_flag.reads``."""
+def read_flag(flag, clear: bool = True) -> bool:
+    """Read the change flag on the host (one sync) and, with ``clear``,
+    clear it (a kernel that clears its own flag words passes False);
+    counts the reads in ``read_flag.reads``."""
     read_flag.reads += 1
     hit = bool(flag.item())
-    flag.zero_()
+    if clear:
+        flag.zero_()
     return hit
 
 

@@ -7,9 +7,14 @@ csrc/legacy.cu: K18 ``ell_relax``, K19 ``ell_next_hop``, K20
 
 The JAX functions are fresh ``jax.jit``s of the raw kernels
 (``_sssp_kernel``, ``_next_hop_kernel``, ``_select_kernel``, their vmap
-and the pipeline as ``_jitted_pipeline`` composes it); no
-``TpuSpfSolver`` is built. Both packages get the same mirror: the port's
-tensors carry the JAX ``EllGraph``'s arrays (``weights.ell_from_jax``),
+and the pipeline as ``_jitted_pipeline`` composes it, and
+``_jitted_sssp_batch``); no ``TpuSpfSolver`` is built. K18's packed
+mirror and its trips are also held, on seeded padded mirrors (down
+links, overloaded transit nodes and roots, an unreachable component,
+metrics up to 2^28, ``n_cap`` not a multiple of 32; R in 1, 31, 33),
+to ``UNROLL`` rounds of the padded round ``ell_relax_plain``. Both
+packages get the same mirror: the port's tensors carry the JAX
+``EllGraph``'s arrays (``weights.ell_from_jax``),
 and the port's own ``build_ell`` / ``build_prefix_matrix`` on the same
 LSDB in its own types must give those arrays field for field. The port
 runs on CPU tensors, so every kernel runs its plain PyTorch version.
@@ -296,14 +301,13 @@ def test_legacy_entry_points_need_a_card_or_cpu(port):
         port.entry.entry()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port.gpu_solver.sssp_all_pairs(graph)
-    before = (port.legacy.ell_relax.launches,
-              port.legacy.ell_next_hop.launches,
-              port.legacy.ell_select.launches)
+    counters = (port.legacy.ell_trip, port.legacy.ell_transpose,
+                port.legacy.ell_next_hop, port.legacy.ell_select)
+    before = [c.launches for c in counters]
     fn, args = port.entry.entry(device="cpu")
     fn(*args)
-    assert (port.legacy.ell_relax.launches,
-            port.legacy.ell_next_hop.launches,
-            port.legacy.ell_select.launches) == before
+    port.gpu_solver.sssp_all_pairs(graph, device="cpu")
+    assert [c.launches for c in counters] == before
 
 
 def test_new_modules_import_without_jax():
@@ -326,3 +330,139 @@ def test_new_modules_import_without_jax():
     )
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "[]"
+
+
+# -- K18's packed mirror and trips ---------------------------------------------
+
+# seeded padded mirrors: (n_nodes, n_cap, k_cap, metric max, share of
+# links down, overloaded nodes, roots drawn from the overloaded ones,
+# two components with no link between them)
+K18_CASES = {
+    "down_links": (40, 45, 6, 9, 0.3, 0, False, False),
+    "overloaded_transit": (40, 45, 6, 9, 0.0, 6, False, False),
+    "overloaded_root": (40, 45, 6, 9, 0.1, 6, True, False),
+    "unreachable": (40, 45, 6, 9, 0.0, 2, False, True),
+    "metric_2p28": (40, 45, 6, 1 << 28, 0.1, 2, False, False),
+    "n_cap_64": (50, 64, 5, 99, 0.1, 3, True, False),
+}
+
+
+def _k18_mirror(case, r):
+    """(in_nbr, in_w, in_up, node_over, roots) numpy arrays of a seeded
+    padded mirror: every slot of a real node drawn (or a pad, -1), pad
+    nodes without slots."""
+    n, n_cap, k_cap, wmax, down, n_over, over_roots, split = \
+        K18_CASES[case]
+    rng = np.random.default_rng(sorted(K18_CASES).index(case) * 100 + r)
+    in_nbr = np.full((n_cap, k_cap), -1, np.int32)
+    in_w = np.full((n_cap, k_cap), INF, np.int32)
+    in_up = np.zeros((n_cap, k_cap), bool)
+    half = n // 2
+    for v in range(n):
+        lo, hi = ((0, half) if v < half else (half, n)) if split else (0, n)
+        others = [u for u in range(lo, hi) if u != v]
+        deg = int(rng.integers(1, k_cap + 1))
+        slots = np.sort(rng.choice(k_cap, deg, replace=False))
+        in_nbr[v, slots] = rng.choice(others, deg)
+        in_w[v, slots] = rng.integers(1, wmax + 1, deg)
+        in_up[v, slots] = rng.random(deg) >= down
+    node_over = np.zeros(n_cap, bool)
+    over = rng.choice(n, n_over, replace=False) if n_over else []
+    node_over[over] = True
+    pool = over if over_roots else np.arange(n)
+    roots = rng.choice(pool, r)
+    if over_roots and r > 1:
+        roots[1:] = rng.choice(n, r - 1)  # the first is overloaded
+    return in_nbr, in_w, in_up, node_over, roots.astype(np.int32)
+
+
+def _padded_rounds(port, mirror, roots, dist, rounds, seed):
+    """``rounds`` rounds of ell_relax_plain -> (plane, flag)."""
+    t = port.torch
+    flag = t.zeros(1, dtype=t.int32)
+    out = t.empty_like(dist)
+    for k in range(rounds):
+        port.legacy.ell_relax_plain(dist, out, flag, *mirror, roots,
+                                    seed and k == 0)
+        dist, out = out, dist
+    return dist, int(flag)
+
+
+@pytest.mark.parametrize("r", [1, 31, 33])
+@pytest.mark.parametrize("case", sorted(K18_CASES))
+def test_k18_packed_trip_matches_padded_rounds_and_jax(port, case, r):
+    """The packed mirror keeps each live slot (real, up) of its node with
+    its source's overload bit; a plain trip over it (from the seed, and
+    from a wavefront on the plane of R's tiling) equals UNROLL rounds of
+    ell_relax_plain, flag included; ell_sssp equals the JAX vmapped
+    kernel at tolerance 0 with the plain loop's trips."""
+    t, lg = port.torch, port.legacy
+    arrays = _k18_mirror(case, r)
+    in_nbr, in_w, in_up, node_over, roots_np = arrays
+    n_cap = in_nbr.shape[0]
+    mirror = (t.tensor(in_nbr), t.tensor(in_w), t.tensor(in_up),
+              t.tensor(node_over))
+    roots = t.tensor(roots_np)
+    if case == "overloaded_root":
+        assert node_over[roots_np[0]]
+
+    row_ptr, slots = lg.pack_ell(*arrays[:4])
+    live = (in_nbr >= 0) & in_up
+    assert row_ptr[0] == 0 and np.array_equal(np.diff(row_ptr),
+                                              live.sum(axis=1))
+    for v in range(n_cap):
+        got = slots[row_ptr[v]:row_ptr[v + 1]]
+        src = got[:, 0] & lg.SLOT_SRC
+        assert np.array_equal(src, in_nbr[v][live[v]])
+        assert np.array_equal(got[:, 0] < 0, node_over[src])
+        assert np.array_equal(got[:, 1], in_w[v][live[v]])
+    packed = lg.packed_mirror(*mirror)
+    assert np.array_equal(packed.row_ptr.numpy(), row_ptr)
+    assert np.array_equal(packed.slots.numpy(), slots)
+    assert lg.packed_mirror(*mirror) is packed
+
+    shape = lg.plane_shape(r, n_cap)
+    assert lg.batched(r) == (r >= 32)
+    assert shape == ((n_cap, 64) if r == 33 else (r, n_cap))
+    flags = t.full((2,), 5, dtype=t.int32)
+
+    def trip(start, k):
+        """A plain trip k from ``start`` [r, n_cap] (ignored at k = 0)
+        on R's tiling -> (result [r, n_cap], the trip's flag word)."""
+        cur = t.full(shape, -7, dtype=t.int32)
+        spare = t.full(shape, -7, dtype=t.int32)
+        lg.plane_words(cur, r).copy_(start.t())
+        out = lg.ell_trip(cur, spare, flags, packed, roots, k)
+        assert out is cur
+        if lg.batched(r):  # pad columns are never written
+            assert bool((cur[:, r:] == -7).all())
+            assert bool((spare[:, r:] == -7).all())
+        assert int(flags[(k + 1) & 1]) == 0
+        return lg.plane_words(out, r).t(), int(flags[k & 1])
+
+    seed_want, seed_flag = _padded_rounds(
+        port, mirror, roots, t.empty((r, n_cap), dtype=t.int32), 8, True)
+    got, f = trip(t.empty((r, n_cap), dtype=t.int32), 0)
+    _equal(seed_want.numpy(), got, f"{case} seed trip")
+    assert f == seed_flag == 1
+    mid, _ = _padded_rounds(port, mirror, roots,
+                            t.empty((r, n_cap), dtype=t.int32), 2, True)
+    want, want_flag = _padded_rounds(port, mirror, roots, mid.clone(), 8,
+                                     False)
+    got, f = trip(mid, 1)
+    _equal(want.numpy(), got, f"{case} wavefront trip")
+    assert f == want_flag
+
+    dist, trips = lg.ell_sssp(*mirror, roots)
+    plain, plain_trips = lg.run_rounds(
+        lambda s, d, fl, seed: lg.ell_relax_plain(s, d, fl, *mirror, roots,
+                                                  seed),
+        t.empty((r, n_cap), dtype=t.int32),
+        port.gpu_solver.max_trips(n_cap))
+    assert trips == plain_trips
+    _equal(plain.numpy(), dist, f"{case} ell_sssp == plain loop")
+    want = jts._jitted_sssp_batch()(in_nbr, in_w, in_up, node_over,
+                                    roots_np)
+    _equal(want, dist, f"{case} ell_sssp == JAX")
+    if case == "unreachable":
+        assert bool((dist == INF).any())

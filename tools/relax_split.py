@@ -1,6 +1,6 @@
 """Time split of K1s ``sssp_init``, K1 ``relax_step``, K6 ``parent_plane``,
-K5's scatter, K21 ``fabric_relax`` and K23 ``shard_combine`` at the
-shapes of the paths that run them, for the
+K5's scatter, K21 ``fabric_relax``, K23 ``shard_combine`` and a K18
+trip at the shapes of the paths that run them, for the
 ``openr_tpu_torch`` package found under ``--root`` (default: this
 checkout), so that two trees can be compared in one run on the same
 card:
@@ -47,6 +47,20 @@ Needs a CUDA card. The cases (all by default):
   group of lsdb100k_mc's mesh at once (4 groups of 2), one grouped call
   where the tree has one (``shard_combine_groups``), else one call a
   group, beside ``torch.minimum`` once a group;
+- ``k18``: one K18 trip (``UNROLL`` Jacobi rounds of the legacy ELL
+  SSSP) over all 7,200 fabric10k roots (``sssp_all_pairs``'s shape),
+  from 2 rounds past the seed; ``k18_single``: the same on lsdb100k's
+  one root (the legacy pipeline's shape), from 40 rounds past the
+  seed. A tree with ``legacy.ell_trip`` runs the trip as one launch
+  (and, as ``k18_by_round`` / ``k18_single_by_round``, as ``UNROLL``
+  launches of one round each); a parent's trip is ``UNROLL``
+  ``legacy.ell_relax`` launches. Each is held on its first 64 roots to
+  ``UNROLL`` rounds of the padded ``ell_relax_plain``;
+- ``allpairs``: the whole ``gpu_solver.sssp_all_pairs`` call on
+  fabric10k (every root), its first 64 rows held to the padded plain
+  loop, as host walls ending in a synchronise (5 after a warm-up), with
+  its launches by wrapper and the peak device bytes above what was
+  resident;
 - ``fabric_sssp``: the whole-fabric step's SSSP on fabric10k's 4,096
   roots at 2 trips (the bound the cold build takes: K1s seeds, 16 K21
   relaxations, the vote), one card, and the array-level step on 8
@@ -60,8 +74,7 @@ With ``--define NAME=VALUE`` (repeatable) the tree's ``csrc/<lib>.cu``
 (a variant, e.g. ``PARENT_EXIT_EVERY=4`` for K6's class loop with a
 warp-uniform exit, or ``--lib fabric --define FAB_RS=4`` for K21's
 roots a slab), and the cases run on it; ``--build-only`` builds it and
-stops (several variants can then be built at once, one process
-each).
+stops (several variants can then be built at once, one process each).
 
 Each case is first held to the plain version on the same card tensors
 (tolerance 0). Then: ``ms`` (``chip_smoke.time_ms``: calls back to
@@ -87,7 +100,8 @@ import sys
 from pathlib import Path
 
 CASES = ("k1s", "k1", "k1_res", "k1_ksp2", "k6", "k6_res", "k5", "k5_pair",
-         "k5_mc", "k21", "k21_mc", "k23", "k23_groups", "fabric_sssp")
+         "k5_mc", "k21", "k21_mc", "k23", "k23_groups", "k18", "k18_single",
+         "allpairs", "fabric_sssp")
 # roots of the k21 cases held to the plain version (the plain relaxation
 # runs cs.PLAIN_CHUNK roots a call)
 PLAIN_ROOTS = 256
@@ -234,9 +248,9 @@ def _step_row(cs, torch, wrappers, fn, floor, solver,
     return {**row, **(extra or {})}
 
 
-def _row(cs, torch, wrappers, fn, floor, extra=None) -> dict:
-    dev_ms, host_ms = cs.device_ms(torch, fn)
-    return {"ms": cs.time_ms(torch, fn, 50), "device_ms": dev_ms,
+def _row(cs, torch, wrappers, fn, floor, extra=None, reps=50) -> dict:
+    dev_ms, host_ms = cs.device_ms(torch, fn, reps)
+    return {"ms": cs.time_ms(torch, fn, reps), "device_ms": dev_ms,
             "host_ms": host_ms,
             "launch_floor_host_ms": cs.device_ms(torch, floor)[1],
             "per_call": {k: v for k, v in cs.counted(
@@ -402,6 +416,148 @@ def _k21_cases(cs, torch, cuda, fabric, relax, wrappers, solved, topologies,
         out["fabric_sssp"]["roots"] = len(names)
 
 
+def _k18_cases(cs, torch, cuda, wrappers, topologies, dev, cases,
+               out) -> None:
+    """The ``k18`` and ``k18_single`` rows (module docstring)."""
+    import types
+
+    from openr_tpu_torch.ops import csr, legacy, relax
+
+    c = types.SimpleNamespace(torch=torch, dev=dev, legacy=legacy,
+                              relax=relax)
+    trip_api = hasattr(legacy, "ell_trip")
+    unroll = relax.UNROLL
+    shapes = {"k18": (lambda: topologies.fabric(**cs.FABRIC), None, 2, 10),
+              "k18_single": (lambda: topologies.grid(
+                  cs.LSDB100K_SIDE, node_labels=False), cs.LSDB100K_ROOT,
+                  40, 50)}
+    for label, (gen, root, wave, reps) in shapes.items():
+        if label not in cases:
+            continue
+        _, states, _ = cs.build_cell(topologies, gen)
+        graph = csr.build_ell(states["0"])
+        mirror = legacy.ell_tensors(graph, dev)
+        n_cap, k_cap = graph.in_nbr.shape
+        roots = (torch.arange(graph.n_nodes, dtype=torch.int32, device=dev)
+                 if root is None else torch.tensor(
+                     [graph.node_index[root]], dtype=torch.int32, device=dev))
+        r = roots.shape[0]
+        sub = min(r, cs.ALLPAIRS_PLAIN_ROOTS)
+        if trip_api:
+            packed = legacy.packed_mirror(*mirror)
+            mid = cs.k18_wavefront(c, packed, roots, n_cap, wave)
+            rows = lambda p: legacy.plane_words(p, r)[:, :sub].t()  # noqa: E731
+            entry = "ell_trip_batch" if legacy.batched(r) else \
+                "ell_trip_single"
+            sig = "ppppp" + ("iiiii" if legacy.batched(r) else "iiii") + "p"
+        else:
+            mid = torch.empty((r, n_cap), dtype=torch.int32, device=dev)
+            spare = torch.empty_like(mid)
+            f = torch.zeros(1, dtype=torch.int32, device=dev)
+            for i in range(wave):
+                legacy.ell_relax(mid, spare, f, *mirror, roots, i == 0)
+                mid, spare = spare, mid
+            rows = lambda p: p[:sub]  # noqa: E731
+        want, _ = cs.padded_rounds(c, mirror, roots[:sub],
+                                   rows(mid).contiguous(), unroll)
+        a, b = mid.clone(), torch.empty_like(mid)
+        flags = torch.zeros(2, dtype=torch.int32, device=dev)
+        p = [t.data_ptr() for t in (a, b)]
+        if trip_api:
+            pk = [t.data_ptr() for t in (packed.row_ptr, packed.slots, roots)]
+            dims = (n_cap, r, a.shape[1]) if legacy.batched(r) else (n_cap, r)
+
+            def trip():
+                legacy.ell_trip(a, b, flags, packed, roots, 1)
+
+            def by_round():
+                for k in range(unroll):
+                    legacy.ell_trip(*((a, b) if k % 2 == 0 else (b, a)),
+                                    flags, packed, roots, 1, 1)
+
+            def bare():
+                cuda.launch("legacy", entry, sig, *p, *pk, *dims, unroll, 1,
+                            flags.data_ptr())
+
+            def bare_by_round():
+                for k in range(unroll):
+                    cuda.launch("legacy", entry, sig, *(p if k % 2 == 0
+                                                        else p[::-1]),
+                                *pk, *dims, 1, 1, flags.data_ptr())
+        else:
+            pm = [t.data_ptr() for t in (*mirror, roots)]
+
+            def trip():
+                for k in range(unroll):
+                    legacy.ell_relax(*((a, b) if k % 2 == 0 else (b, a)),
+                                     flags[:1], *mirror, roots)
+
+            def bare():
+                for k in range(unroll):
+                    cuda.launch("legacy", "ell_relax", "ppppppp" + "iiii" + "p",
+                                *(p if k % 2 == 0 else p[::-1]), *pm, n_cap,
+                                k_cap, r, 0, flags.data_ptr())
+        trip()
+        cs.check(cs.max_abs_err(torch, rows(a), want) == 0,
+                 f"{label}: a trip != {unroll} padded plain rounds")
+        extra = {"roots": r, "n_cap": n_cap, "k_cap": k_cap,
+                 "rounds": unroll,
+                 "plane": list(a.shape), "trip_api": trip_api}
+        out[label] = _row(cs, torch, wrappers, trip, bare, extra, reps)
+        if trip_api:
+            a.copy_(mid)
+            by_round()
+            cs.check(cs.max_abs_err(torch, rows(a), want) == 0,
+                     f"{label}: {unroll} one-round launches != plain")
+            out[f"{label}_by_round"] = _row(cs, torch, wrappers, by_round,
+                                            bare_by_round, extra, reps)
+
+
+def _allpairs_case(cs, torch, gpu_solver, wrappers, topologies, dev,
+                   out) -> None:
+    """The ``allpairs`` row (module docstring)."""
+    import time
+    import types
+
+    from openr_tpu_torch.ops import csr, legacy, relax
+
+    _, states, _ = cs.build_cell(topologies,
+                                 lambda: topologies.fabric(**cs.FABRIC))
+    graph = csr.build_ell(states["0"])
+
+    def call():
+        return gpu_solver.sssp_all_pairs(graph, device=dev)
+
+    c = types.SimpleNamespace(torch=torch, dev=dev, legacy=legacy,
+                              relax=relax)
+    sub = torch.arange(cs.ALLPAIRS_PLAIN_ROOTS, dtype=torch.int32,
+                       device=dev)
+    want, _ = cs.plain_ell_sssp(c, legacy.ell_tensors(graph, dev), sub)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    got = call()
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() - mem0
+    cs.check(cs.max_abs_err(torch, got[:cs.ALLPAIRS_PLAIN_ROOTS], want) == 0,
+             "allpairs: the first rows != the padded plain loop")
+    del got, want
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    out["allpairs"] = {
+        "roots": graph.n_nodes, "n_cap": graph.n_cap, "k_cap": graph.k_cap,
+        "first_ms": first_ms, "host_wall_ms": walls,
+        "best_ms": min(walls), "peak_bytes": peak,
+        "per_call": cs.counted(torch, wrappers, call)["kernels_by_wrapper"]}
+
+
 def _k23_cases(cs, torch, cuda, combine, wrappers, dev, cases, out) -> None:
     """The ``k23`` and ``k23_groups`` rows (module docstring)."""
     gen = torch.Generator().manual_seed(23)
@@ -508,7 +664,7 @@ def main() -> int:
         return 2
     from openr_tpu_torch.decision import gpu_solver
     from openr_tpu_torch.models import topologies
-    from openr_tpu_torch.ops import combine, cuda, fabric, ksp2, relax
+    from openr_tpu_torch.ops import combine, cuda, fabric, ksp2, legacy, relax
 
     from openr_tpu_torch.ops import incremental as inc
 
@@ -529,7 +685,10 @@ def main() -> int:
         ("fabric_relax", fabric.fabric_relax),
         ("fabric_relax_mc", fabric.fabric_relax_mc),
         ("fabric_extent", fabric.fabric_extent),
-        ("shard_combine", combine.shard_combine))}
+        ("shard_combine", combine.shard_combine),
+        *((k, getattr(legacy, k)) for k in ("ell_trip", "ell_relax",
+                                            "ell_transpose")
+          if hasattr(legacy, k)))}
 
     def solved(gen, me, keep=None, **kw):
         _, states, ps = cs.build_cell(topologies, gen)
@@ -736,6 +895,10 @@ def main() -> int:
     if {"k21", "k21_mc", "fabric_sssp"} & set(cases):
         _k21_cases(cs, torch, cuda, fabric, relax, wrappers, solved,
                    topologies, dev, cases, out)
+    if {"k18", "k18_single"} & set(cases):
+        _k18_cases(cs, torch, cuda, wrappers, topologies, dev, cases, out)
+    if "allpairs" in cases:
+        _allpairs_case(cs, torch, gpu_solver, wrappers, topologies, dev, out)
     if {"k23", "k23_groups"} & set(cases):
         _k23_cases(cs, torch, cuda, combine, wrappers, dev, cases, out)
 
