@@ -189,9 +189,17 @@ prints no result line:
      output's largest magnitude (loss, cost, util) and 1e-3 (grad); each
      TE kernel against its plain version on the card tensors within rel
      1e-4 (K13 / K15 on 4 mid-run trips, K14 / K16 over the whole run,
-     K14s / K17 on the step's buffers), timed on whatif1k. Then the
-     diamond of tests/test_whatif.py:353 (lr 0.05, 30 iterations): its
-     loss falls and a metric moves.
+     K14s / K17 on the step's buffers), timed on whatif1k; K14 and K16
+     (the adjoint, one cluster launch each) also over all 64 fabric10k
+     sources, the cluster layout the step runs, K14 twice with the same
+     bits, and every TE kernel timed at fabric10k's whole plan beside
+     its bound (``fabric10k_ms``, ``fabric10k_bound_ms`` in the kernels
+     line); K14's and K16's cluster size and shared bytes at both cells
+     are printed; K14 and K16 with shared memory holding nothing (the
+     layout of a graph too large for it) against plain and the same
+     bits as at the card's layout (whatif1k, fabric10k's 2 sources).
+     Then the diamond of tests/test_whatif.py:353 (lr 0.05, 30
+     iterations): its loss falls and a metric moves.
   13. the all-roots paths. (a) The legacy ELL pipeline
      (``gpu_solver.legacy_pipeline``: K18 ``ell_trip``, K19
      ``ell_next_hop``, K20 ``ell_select``, ``csrc/legacy.cu``) on
@@ -2983,6 +2991,126 @@ def te_step_split(c, tp, theta, tau: float, tau_u: float) -> dict:
             "K15:te_relax_jvp": t[4], "K16:te_relax_vjp_jvp": t[5]}
 
 
+def te_buffers(c, tp, theta, tau: float = 1.0, tau_u: float = 1.0):
+    """One step's buffers on the card: the trips' fields (K13), K14's
+    cotangents, util (K14s), the loss and v (K17), the tangent fields
+    (K15)."""
+    torch, te = c.torch, c.te
+    s, n, T = tp.srcs.numel(), tp.n_cap, tp.trips
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=c.dev)
+
+    fields = empty(T + 1, s, n)
+    te.te_relax(tp, theta, fields, tau)
+    lam = empty(s, n)
+    ct = (empty(s, tp.sh_link.numel()), empty(s, tp.rs_link.numel()))
+    te.te_relax_vjp(tp, theta, fields, lam, *ct, tau)
+    util = te.te_link_sum(tp, *ct)
+    lc, v = te.te_loss(tp, util, fields[-1], tau_u)
+    tfields = torch.empty_like(fields)
+    te.te_relax_jvp(tp, theta, v, fields, tfields, tau)
+    return types.SimpleNamespace(fields=fields, lam=lam, ct=ct, util=util,
+                                 lc=lc, v=v, tfields=tfields)
+
+
+def te_adjoint_err(c, tp, theta, b, tan: bool, tau: float = 1.0):
+    """K14 (``tan`` False) or K16 over the whole run against its plain
+    version on the same card tensors, its cotangents seeded from the
+    demands as in a step: -> ((abs, rel) error, the largest of its
+    outputs'; K16's lam_t apart, or None). K16's tangent of the
+    cotangent on trip 0's field is 0 but for rounding (that cotangent is
+    each source's total volume, whatever theta is): it is reported, not
+    held to a relative tolerance."""
+    torch, te = c.torch, c.te
+    s, n = tp.srcs.numel(), tp.n_cap
+    outs = []
+    fn = te.te_relax_vjp_jvp if tan else te.te_relax_vjp
+    for f in (fn, getattr(te, fn.__name__ + "_plain")):
+        bufs = [torch.empty((s, n), device=c.dev)
+                for _ in range(2 if tan else 1)] + [
+            torch.empty((s, tp.sh_link.numel()), device=c.dev),
+            torch.empty((s, tp.rs_link.numel()), device=c.dev)]
+        if tan:
+            f(tp, theta, b.v, b.fields, b.tfields, *bufs, tau)
+        else:
+            f(tp, theta, b.fields, *bufs, tau)
+        outs.append(bufs)
+    es = [te_err(torch, x, y) for x, y in zip(*outs)]
+    lam_t = es.pop(1) if tan else None
+    return max(es, key=lambda e: e[1]), lam_t
+
+
+def te_work(tp) -> dict:
+    """Each TE kernel's least work at ``tp``'s shapes: -> {kernel:
+    (bytes, operations)}. Every input read once, every output written
+    once; the operations each (trip, source, node) does (exp / log1p
+    counted as one operation each, as the float32 rate counts an
+    add)."""
+    s, n, T = tp.srcs.numel(), tp.n_cap, tp.trips
+    n_sh, n_rs = tp.sh_link.numel(), tp.rs_link.numel()
+    C, (R, K) = tp.deltas.numel(), tp.res_nbr.shape
+    rows = int((tp.row_of >= 0).sum())
+    live, L, D = int(tp.inv_ptr[-1]), tp.l_cap, tp.dem_row.numel()
+    field = (T + 1) * s * n * 4
+    tables = 4 * (2 * C * n + n + 3 * R * K + R + n + 1 + live + s
+                  + 3 * D + L)
+    fwd_ops = T * s * (n * C * 12 + live * 8 + rows * 6 + n * 4)
+    adj_ops = T * s * (n * C * 20 + live * 14 + rows * 10 + n * 8)
+    ct_bytes = 4 * s * (n_sh + n_rs)
+    lam_bytes = 4 * s * n
+    return {
+        "K13:te_relax": (tables + field, fwd_ops),
+        "K14:te_relax_vjp": (tables + field + lam_bytes + ct_bytes,
+                             adj_ops),
+        "K14s:te_link_sum": (ct_bytes + 4 * (L + 1 + n_sh + n_rs) + 4 * L,
+                             s * (n_sh + n_rs)),
+        "K17:te_loss": (4 * (2 * L + 4 * D + 2), 6 * L + 2 * D),
+        "K15:te_relax_jvp": (tables + 2 * field + 4 * L, 2 * fwd_ops),
+        "K16:te_relax_vjp_jvp": (
+            tables + 2 * field + 2 * lam_bytes + ct_bytes + 4 * L,
+            2 * adj_ops),
+    }
+
+
+def te_calls(c, tp, theta, b, tau: float = 1.0, tau_u: float = 1.0) -> dict:
+    """Each TE kernel's call at the step's own shapes (the whole trip
+    count), on fresh outputs, and its plain version's: -> {kernel:
+    (call, plain call)}."""
+    torch, te = c.torch, c.te
+    s, n, T = tp.srcs.numel(), tp.n_cap, tp.trips
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=c.dev)
+
+    ff, tt = empty(T + 1, s, n), empty(T + 1, s, n)
+    bl = [empty(s, n), empty(s, n), empty(s, tp.sh_link.numel()),
+          empty(s, tp.rs_link.numel())]
+    f, tf, v, ct = b.fields, b.tfields, b.v, b.ct
+    return {
+        "K13:te_relax": (
+            lambda: te.te_relax(tp, theta, ff, tau),
+            lambda: te.te_relax_plain(tp, theta, ff, tau)),
+        "K14:te_relax_vjp": (
+            lambda: te.te_relax_vjp(tp, theta, f, bl[0], *bl[2:], tau),
+            lambda: te.te_relax_vjp_plain(tp, theta, f, bl[0], *bl[2:],
+                                          tau)),
+        "K14s:te_link_sum": (
+            lambda: te.te_link_sum(tp, *ct),
+            lambda: te.te_link_sum_plain(tp, *ct)),
+        "K17:te_loss": (
+            lambda: te.te_loss(tp, b.util, f[-1], tau_u),
+            lambda: te.te_loss_plain(tp, b.util, f[-1], tau_u)),
+        "K15:te_relax_jvp": (
+            lambda: te.te_relax_jvp(tp, theta, v, f, tt, tau),
+            lambda: te.te_relax_jvp_plain(tp, theta, v, f, tt, tau)),
+        "K16:te_relax_vjp_jvp": (
+            lambda: te.te_relax_vjp_jvp(tp, theta, v, f, tf, *bl, tau),
+            lambda: te.te_relax_vjp_jvp_plain(tp, theta, v, f, tf, *bl,
+                                              tau)),
+    }
+
+
 def te_kernels(c, tp, theta, timed: bool, label: str) -> None:
     """Each TE kernel against its plain version (run on the same card
     tensors) within TE_KERNEL_TOL: K13 and K15 over TE_SLICE trips from
@@ -2992,21 +3120,9 @@ def te_kernels(c, tp, theta, timed: bool, label: str) -> None:
     shapes (the whole trip count) beside their bounds."""
     torch, te = c.torch, c.te
     tau = tau_u = 1.0
-    s, n, T = tp.srcs.numel(), tp.n_cap, tp.trips
-    n_sh, n_rs = tp.sh_link.numel(), tp.rs_link.numel()
-
-    def empty(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=c.dev)
-
-    fields = empty(T + 1, s, n)
-    te.te_relax(tp, theta, fields, tau)
-    lam, lam_t = empty(s, n), empty(s, n)
-    ct = (empty(s, n_sh), empty(s, n_rs))
-    te.te_relax_vjp(tp, theta, fields, lam, *ct, tau)
-    util = te.te_link_sum(tp, *ct)
-    lc, v = te.te_loss(tp, util, fields[-1], tau_u)
-    tfields = torch.empty_like(fields)
-    te.te_relax_jvp(tp, theta, v, fields, tfields, tau)
+    T = tp.trips
+    b = te_buffers(c, tp, theta, tau, tau_u)
+    fields, tfields, v, util, lc = b.fields, b.tfields, b.v, b.util, b.lc
     errs = {}
     # K13 / K15 on a mid-run slice
     t0 = T // 2
@@ -3024,30 +3140,12 @@ def te_kernels(c, tp, theta, timed: bool, label: str) -> None:
     # splits its cotangent 1:3 under the reference's rules and sends all
     # of it to the candidate one ulp away, so which of the two a
     # recomputed trip takes moves cotangent between a slice's first field
-    # and its theta slots — the sums over every trip do not move. K16's
-    # tangent of the cotangent on trip 0's field is 0 but for rounding
-    # (that cotangent is each source's total volume, whatever theta is):
-    # it is reported, not held to a relative tolerance
-
-    def adj(fn, *extra):
-        outs = []
-        for f in (fn, getattr(te, fn.__name__ + "_plain")):
-            bufs = [empty(s, n) for _ in range(2 if extra else 1)] + [
-                empty(s, n_sh), empty(s, n_rs)]
-            if extra:
-                f(tp, theta, v, fields, tfields, *bufs, tau)
-            else:
-                f(tp, theta, fields, *bufs, tau)
-            outs.append(bufs)
-        es = [te_err(torch, a, b) for a, b in zip(*outs)]
-        if extra:
-            errs["K16 lam_t (abs, rel)"] = es.pop(1)
-        return max(es, key=lambda e: e[1])
-
-    errs["K14:te_relax_vjp"] = adj(te.te_relax_vjp)
-    errs["K16:te_relax_vjp_jvp"] = adj(te.te_relax_vjp_jvp, True)
+    # and its theta slots — the sums over every trip do not move
+    errs["K14:te_relax_vjp"] = te_adjoint_err(c, tp, theta, b, False)[0]
+    errs["K16:te_relax_vjp_jvp"], errs["K16 lam_t (abs, rel)"] = (
+        te_adjoint_err(c, tp, theta, b, True))
     errs["K14s:te_link_sum"] = te_err(torch, util,
-                                      te.te_link_sum_plain(tp, *ct))
+                                      te.te_link_sum_plain(tp, *b.ct))
     lc_p, v_p = te.te_loss_plain(tp, util, fields[-1], tau_u)
     errs["K17:te_loss"] = max(te_err(torch, lc, lc_p), te_err(torch, v, v_p),
                               key=lambda e: e[1])
@@ -3058,53 +3156,115 @@ def te_kernels(c, tp, theta, timed: bool, label: str) -> None:
         f"{TE_SLICE} trips): " + json.dumps(errs))
     if not timed:
         return
-    # the bounds: every input read once, every output written once; the
-    # operations each (trip, source, node) does (exp / log1p counted as
-    # one operation each, as the float32 rate counts an add)
-    C, (R, K) = tp.deltas.numel(), tp.res_nbr.shape
-    rows = int((tp.row_of >= 0).sum())
-    live, L, D = tp.inv_ent.numel(), tp.l_cap, tp.dem_row.numel()
-    field = (T + 1) * s * n * 4
-    tables = 4 * (2 * C * n + n + 3 * R * K + R + n + 1 + live + s
-                  + 3 * D + L)
-    fwd_ops = T * s * (n * C * 12 + live * 8 + rows * 6 + n * 4)
-    adj_ops = T * s * (n * C * 20 + live * 14 + rows * 10 + n * 8)
-    ct_bytes = 4 * s * (n_sh + n_rs)
-    lam_bytes = 4 * s * n
-    ff, tt = empty(T + 1, s, n), empty(T + 1, s, n)
-    bl = [empty(s, n), empty(s, n), empty(s, n_sh), empty(s, n_rs)]
-    specs = {
-        "K13:te_relax": (
-            lambda: te.te_relax(tp, theta, ff, tau),
-            lambda: te.te_relax_plain(tp, theta, ff, tau),
-            tables + field, fwd_ops),
-        "K14:te_relax_vjp": (
-            lambda: te.te_relax_vjp(tp, theta, fields, bl[0], *bl[2:], tau),
-            lambda: te.te_relax_vjp_plain(tp, theta, fields, bl[0],
-                                          *bl[2:], tau),
-            tables + field + lam_bytes + ct_bytes, adj_ops),
-        "K14s:te_link_sum": (
-            lambda: te.te_link_sum(tp, *ct),
-            lambda: te.te_link_sum_plain(tp, *ct),
-            ct_bytes + 4 * (L + 1 + n_sh + n_rs) + 4 * L, s * (n_sh + n_rs)),
-        "K17:te_loss": (
-            lambda: te.te_loss(tp, util, fields[-1], tau_u),
-            lambda: te.te_loss_plain(tp, util, fields[-1], tau_u),
-            4 * (2 * L + 4 * D + 2), 6 * L + 2 * D),
-        "K15:te_relax_jvp": (
-            lambda: te.te_relax_jvp(tp, theta, v, fields, tt, tau),
-            lambda: te.te_relax_jvp_plain(tp, theta, v, fields, tt, tau),
-            tables + 2 * field + 4 * L, 2 * fwd_ops),
-        "K16:te_relax_vjp_jvp": (
-            lambda: te.te_relax_vjp_jvp(tp, theta, v, fields, tfields,
-                                        *bl, tau),
-            lambda: te.te_relax_vjp_jvp_plain(tp, theta, v, fields,
-                                              tfields, *bl, tau),
-            tables + 2 * field + 2 * lam_bytes + ct_bytes + 4 * L,
-            2 * adj_ops),
-    }
-    for name, (fn, plain, nbytes, ops) in specs.items():
-        c.record_float(name, *errs[name], fn, plain, nbytes, ops)
+    work = te_work(tp)
+    for name, (fn, plain) in te_calls(c, tp, theta, b, tau, tau_u).items():
+        c.record_float(name, *errs[name], fn, plain, *work[name])
+
+
+def te_device_memory(c, tp, theta, label: str) -> None:
+    """K14 and K16 at the layouts a graph too large for shared memory
+    takes (``te.SMEM_BLOCK`` cut, and for the field alone one block a
+    source, ``te._sm_count`` 1): a block's own nodes in shared memory and
+    the field in device memory; the field in shared memory and the own
+    nodes in device memory; nothing in shared memory. Each within
+    TE_KERNEL_TOL of plain, and the same bits as the launch at the
+    card's own layout."""
+    torch, te = c.torch, c.te
+    b = te_buffers(c, tp, theta)
+    s, n, n_cls = tp.srcs.numel(), tp.n_cap, tp.deltas.numel()
+    n_sm = torch.cuda.get_device_properties(c.dev).multi_processor_count
+    errs = {}
+    for name, tan in (("K14:te_relax_vjp", False),
+                      ("K16:te_relax_vjp_jvp", True)):
+        fn = te.te_relax_vjp_jvp if tan else te.te_relax_vjp
+        card = te.adjoint_layout(s, n, n_cls, tan, n_sm)
+        f = 4 * (2 if tan else 1)
+        # (label, SMs, budget, (own_smem, field_smem, gx_smem) wanted)
+        cases = (("card", n_sm, te.SMEM_BLOCK, None),
+                 ("own", n_sm, (f + (20 if tan else 16)) * card.span,
+                  (True, False, False)),
+                 ("field", 1, f * n, (False, True, False)),
+                 ("none", n_sm, 0, (False, False, False)))
+        outs = []
+        for case, sms, budget, want in cases:
+            bufs = [torch.empty((s, n), device=c.dev)
+                    for _ in range(2 if tan else 1)] + [
+                torch.empty((s, tp.sh_link.numel()), device=c.dev),
+                torch.empty((s, tp.rs_link.numel()), device=c.dev)]
+            saved = te.SMEM_BLOCK, te._sm_count
+            te.SMEM_BLOCK, te._sm_count = budget, lambda card, k=sms: k
+            try:
+                lay = te.adjoint_layout(s, n, n_cls, tan, sms)
+                check(want is None or (lay.own_smem, lay.field_smem,
+                                       lay.gx_smem) == want,
+                      f"{label} {name} {case}: layout {lay}")
+                if tan:
+                    fn(tp, theta, b.v, b.fields, b.tfields, *bufs, 1.0)
+                else:
+                    fn(tp, theta, b.fields, *bufs, 1.0)
+                if want is not None:
+                    errs[f"{name} {case} {lay.cluster}x{lay.smem}"], _ = \
+                        te_adjoint_err(c, tp, theta, b, tan)
+            finally:
+                te.SMEM_BLOCK, te._sm_count = saved
+            outs.append(torch.cat([t.flatten() for t in bufs]))
+            check(torch.equal(outs[0], outs[-1]), f"{label} {name} {case}: "
+                  f"the bits differ from the card's layout's")
+    for key, err in errs.items():
+        check(err[1] <= TE_KERNEL_TOL, f"{label} {key}: rel err {err[1]} > "
+              f"{TE_KERNEL_TOL}")
+    log(f"{label}: K14 / K16 with own nodes only, the field only and "
+        f"nothing in shared memory (name case cluster x bytes) == plain "
+        f"([abs, rel] err), the same bits as the card's layout: "
+        + json.dumps(errs))
+
+
+def te_layouts(c, tp) -> dict:
+    """K14's and K16's cluster launch at ``tp`` on this card."""
+    props = c.torch.cuda.get_device_properties(c.dev)
+    return {name: c.te.adjoint_layout(
+        tp.srcs.numel(), tp.n_cap, tp.deltas.numel(), tan,
+        props.multi_processor_count)._asdict()
+        for name, tan in (("K14:te_relax_vjp", False),
+                          ("K16:te_relax_vjp_jvp", True))}
+
+
+def te_full_cell(c, tp, theta, label: str) -> None:
+    """The TE kernels at a cell's whole plan (every source): K14 and K16
+    held to their plain versions on the card within TE_KERNEL_TOL (the
+    cluster layout the step runs), K14 twice with the same bits; every
+    kernel timed beside its bound, into its row of the kernels line as
+    ``<label>_ms`` / ``<label>_bound_ms``."""
+    torch = c.torch
+    b = te_buffers(c, tp, theta)
+    errs = {}
+    for name, tan in (("K14:te_relax_vjp", False),
+                      ("K16:te_relax_vjp_jvp", True)):
+        errs[name], lam_t = te_adjoint_err(c, tp, theta, b, tan)
+        check(errs[name][1] <= TE_KERNEL_TOL, f"{label} {name} (every "
+              f"source): rel err {errs[name][1]} > {TE_KERNEL_TOL}")
+        if lam_t is not None:
+            errs["K16 lam_t (abs, rel)"] = lam_t
+    outs = []
+    for _ in range(2):
+        lam = torch.empty_like(b.lam)
+        ct = [torch.empty_like(t) for t in b.ct]
+        c.te.te_relax_vjp(tp, theta, b.fields, lam, *ct, 1.0)
+        outs.append(torch.cat([lam.flatten(), *(t.flatten() for t in ct)]))
+    check(torch.equal(*outs), f"{label} K14: two runs differ")
+    work = te_work(tp)
+    timed = {}
+    for name, (fn, _) in te_calls(c, tp, theta, b).items():
+        ms = time_ms(torch, fn, 5)
+        b_ms, b_by = bound(*work[name])
+        c.results[name].update({f"{label}_ms": ms,
+                                f"{label}_bound_ms": b_ms,
+                                f"{label}_bound_by": b_by})
+        timed[name] = [ms, b_ms]
+    log(f"{label}: K14 / K16 over every source == plain ([abs, rel] err), "
+        f"K14 deterministic: " + json.dumps(errs))
+    log(f"{label}: TE kernels [ms, bound ms] at the whole plan: "
+        + json.dumps(timed))
 
 
 def te_cell(c, label: str, cell, n_src: int, seed: int,
@@ -3142,7 +3302,7 @@ def te_cell(c, label: str, cell, n_src: int, seed: int,
         "classes": tp.deltas.numel(), "sources": tp.srcs.numel(),
         "demands": out["demands"], "links": len(job.link_names),
         "res": list(tp.res_nbr.shape) if tp.has_res else [0, 0],
-        "live_res_entries": tp.inv_ent.numel(), "trips": out["trips"],
+        "live_res_entries": int(tp.inv_ptr[-1]), "trips": out["trips"],
         "iters": out["iters"], "optimize_ms": out["optimize_ms"],
         "wall_ms": wall, "te_step_ms": step_ms, "te_step_split_ms": split,
         "launches": {k: v for k, v in launches.items() if v},
@@ -3215,9 +3375,14 @@ def te_phase(c, cells: dict) -> dict:
     w = te_cell(c, "whatif1k", cells["whatif1k"], TE_SOURCES[0], TE_SEED,
                 TE_SOURCES[0])
     te_kernels(c, w.tp, w.theta, True, "whatif1k")
+    te_device_memory(c, w.tp, w.theta, "whatif1k")
     f = te_cell(c, "fabric10k", cells["fabric10k"], TE_SOURCES[1],
                 TE_SEED + 1, TE_CPU_SOURCES)
     te_kernels(c, f.sub, f.theta, False, "fabric10k")
+    te_device_memory(c, f.sub, f.theta, "fabric10k")
+    te_full_cell(c, f.tp, f.theta, "fabric10k")
+    log("TE adjoint launches (cluster, span, shared memory): " + json.dumps(
+        {"whatif1k": te_layouts(c, w.tp), "fabric10k": te_layouts(c, f.tp)}))
     te_diamond(c)
     log(f"TE phase took {time.perf_counter() - t_phase:.1f} s (whatif1k "
         f"{w.seconds:.1f} s, fabric10k {f.seconds:.1f} s)")

@@ -35,8 +35,9 @@ the rules above are the exact derivatives of the cost with every tied
 minimum replaced by the mean of its tied sides, a smooth function whose
 Hessian is symmetric.
 
-Kernels (``csrc/te.cu``), one launch each a step, one block per source
-looping over the trips:
+Kernels (``csrc/te.cu``), one launch each a step looping over the trips:
+one block per source (K13, K15), one cluster of blocks per source (K14,
+K16: ``adjoint_layout``):
 
   K13  ``te_relax``          the forward trips, every trip's field kept
   K14  ``te_relax_vjp``      the adjoint sweep backwards over the trips:
@@ -69,6 +70,7 @@ costs only through exp(-BIG_F / tau) = 0 factors).
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import NamedTuple
 
 import numpy as np
@@ -85,8 +87,18 @@ BIG_F = 1.0e9
 # node 0's scatter-min
 MAX_TAU = 1.0e6
 
-# the kernels keep a node's per-class chain in registers / local memory
+# the kernels keep a node's per-class chain in registers (the adjoint's
+# up to 8 classes) or local memory
 MAX_CLASSES = 64
+
+# the adjoint's cluster launch (``adjoint_layout``): at most 8 blocks a
+# source (the portable cluster size; a block's span is a multiple of an
+# eighth of the nodes), threads a block (CUDA's most, the kernel's
+# ``__launch_bounds__``: te.cu's THREADS), and the dynamic shared memory
+# a block can opt into on Hopper (227 KB) less the kernel's static tables
+MAX_CLUSTER = 8
+ADJ_THREADS = 1024
+SMEM_BLOCK = 232448 - 256
 
 _F32 = torch.float32
 
@@ -99,14 +111,23 @@ class TePlan(NamedTuple):
     shift slots (flat into [C * n_cap]) and their links, ``rs_flat`` /
     ``rs_link`` the live residual slots (flat into [R * K]), ``srcs``
     [S], ``dem_row`` / ``dem_dst`` [D] int32, ``dem_vol`` [D] float32.
-    Derived for the kernels: ``sh_slot`` [C * n_cap] / ``rs_slot`` [R *
-    K], the live slot at each plane word (or -1), ``sh_lnk`` / ``rs_lnk``
-    its link (or -1); ``row_of`` [n_cap], a
-    node's residual row (or -1); ``row_start`` [R], a row's first entry
-    among the live residual entries (row-major); ``inv_ptr`` [n_cap + 1]
-    / ``inv_ent`` the live entries by source node (CSR); ``link_ptr``
-    [l_cap + 1] / ``link_slot`` each link's slots (shift slots, then
-    residual slots offset by the shift count)."""
+    Derived for the kernels: ``sh_slot`` [C * n_cap], the live shift
+    slot at each plane word (or -1), ``sh_lnk`` / ``rs_lnk`` [R * K] a
+    plane word's link (or -1); ``row_of`` [n_cap], a node's residual row
+    (or -1); ``inv_ptr`` [n_cap + 1], where each node's received live
+    residual entries start (CSR by receiver); ``link_ptr`` [l_cap + 1] /
+    ``link_slot`` each link's slots (shift slots, then residual slots
+    offset by the shift count); ``row_fill`` [R] each row's live entries
+    (0 on pad rows); ``dem_ptr`` [S + 1] / ``dem_ids`` [D] each source's
+    demands in demand order (CSR). ``held``: the adjoint's host tables
+    (``host``, numpy: ``rs_slot`` [R * K] the live residual slot at each
+    plane word (or -1); the live entries row-major, ``ent_row`` /
+    ``ent_col`` / ``ent_nbr`` / ``ent_lnk`` / ``ent_slot``, with
+    ``row_start`` [R] a row's first; ``inv_ent`` the entries by receiver
+    (``inv_ptr``'s runs) and ``rc_pos`` each entry's position there;
+    ``node_fill`` a node's row fill) and, from its first launch on the
+    plan, that launch layout's tables and scratch, reused by every later
+    launch (two streams must not run one plan's adjoint at once)."""
 
     n_cap: int
     l_cap: int
@@ -124,15 +145,16 @@ class TePlan(NamedTuple):
     dem_dst: torch.Tensor
     dem_vol: torch.Tensor
     sh_slot: torch.Tensor
-    rs_slot: torch.Tensor
     sh_lnk: torch.Tensor
     rs_lnk: torch.Tensor
     row_of: torch.Tensor
-    row_start: torch.Tensor
     inv_ptr: torch.Tensor
-    inv_ent: torch.Tensor
     link_ptr: torch.Tensor
     link_slot: torch.Tensor
+    row_fill: torch.Tensor
+    dem_ptr: torch.Tensor
+    dem_ids: torch.Tensor
+    held: dict
 
 
 def te_plan(deltas, res_rows, res_nbr, sh_idx, sh_link, rs_idx, rs_link,
@@ -199,9 +221,24 @@ def te_plan(deltas, res_rows, res_nbr, sh_idx, sh_link, rs_idx, rs_link,
     ent_col = np.arange(int(fill.sum()), dtype=i32) - np.repeat(row_start,
                                                                 fill)
     ent_nbr = res_nbr[ent_row, ent_col]
-    order = np.argsort(ent_nbr, kind="stable")
+    inv_ent = np.argsort(ent_nbr, kind="stable").astype(i32)
     inv_ptr = np.zeros(n_cap + 1, i32)
     inv_ptr[1:] = np.cumsum(np.bincount(ent_nbr, minlength=n_cap)[:n_cap])
+    rc_pos = np.empty(len(inv_ent), i32)
+    rc_pos[inv_ent] = np.arange(len(inv_ent), dtype=i32)
+    flat = ent_row.astype(np.int64) * k + ent_col
+    # each source's demands, in demand order
+    n_src = len(srcs)
+    dem_ids = np.argsort(dem_row, kind="stable").astype(i32)
+    dem_ptr = np.zeros(n_src + 1, i32)
+    dem_ptr[1:] = np.cumsum(np.bincount(dem_row, minlength=n_src)[:n_src])
+    node_fill = np.zeros(n_cap, i32)
+    node_fill[res_rows[real]] = fill[real]
+    host = {"node_fill": node_fill, "res_rows": res_rows,
+            "inv_ptr": inv_ptr, "inv_ent": inv_ent, "rc_pos": rc_pos,
+            "rs_slot": rs_slot, "row_start": row_start, "ent_row": ent_row,
+            "ent_col": ent_col, "ent_nbr": ent_nbr, "ent_lnk": rs_lnk[flat],
+            "ent_slot": rs_slot[flat]}
     # each link's slots: shift slots, then residual slots after them
     links = np.concatenate([sh_link, rs_link])
     slot_ids = np.arange(len(links), dtype=i32)
@@ -220,11 +257,11 @@ def te_plan(deltas, res_rows, res_nbr, sh_idx, sh_link, rs_idx, rs_link,
         rs_flat=up(rs_flat), rs_link=up(rs_link), srcs=up(srcs),
         dem_row=up(dem_row), dem_dst=up(dem_dst),
         dem_vol=up(np.asarray(dem_vol, np.float32), _F32),
-        sh_slot=up(sh_slot), rs_slot=up(rs_slot), sh_lnk=up(sh_lnk),
-        rs_lnk=up(rs_lnk), row_of=up(row_of),
-        row_start=up(row_start), inv_ptr=up(inv_ptr),
-        inv_ent=up(order.astype(i32)), link_ptr=up(link_ptr),
-        link_slot=up(slot_ids[by_link]),
+        sh_slot=up(sh_slot), sh_lnk=up(sh_lnk), rs_lnk=up(rs_lnk),
+        row_of=up(row_of), inv_ptr=up(inv_ptr), link_ptr=up(link_ptr),
+        link_slot=up(slot_ids[by_link]), row_fill=up(fill),
+        dem_ptr=up(dem_ptr),
+        dem_ids=up(dem_ids), held={"host": host},
     )
 
 
@@ -517,12 +554,175 @@ def _check_tau(tau: float) -> None:
             f"tau {tau} is outside the kernels' domain (0, {MAX_TAU}]")
 
 
-def _launch(name, plan, tau, seed, theta, v, fields, tfields=None,
-            lam=None, lam_t=None, ct_sh=None, ct_rs=None) -> None:
-    """Launch one of K13-K16: the plan's tables, then the kernel's own
-    buffers (an absent one passes a null pointer), ``tau``, the trip
-    count and ``seed``."""
-    c, s, _, k = _dims(plan)
+# the letters of csrc/te.cu's PLAN_PARAMS, LAYOUT_PARAMS and BUF_PARAMS
+_PLAN_SIG = "ti" + "t" * 7 + "i" + "ttTtt" + "i" * 5
+_LAYOUT_SIG = "t" * 8 + "i" * 9 + "TTT"
+_BUF_SIG = "T" * 10 + "fii"
+
+
+class AdjLayout(NamedTuple):
+    """The adjoint's cluster launch: ``cluster`` blocks a source, each
+    owning ``span`` consecutive nodes (the last fewer), ``threads`` a
+    block, ``smem`` dynamic shared bytes a block; whether shared memory
+    holds a block's own nodes' cotangents and row scalars
+    (``own_smem``), the trip's field and tangent (``field_smem``) and the
+    class cotangents a block receives (``gx_smem``), each else in device
+    memory (the cotangents' own rows, the fields, the plan's held
+    scratch)."""
+
+    cluster: int
+    span: int
+    own_smem: bool
+    field_smem: bool
+    gx_smem: bool
+    smem: int
+    threads: int
+
+
+def adjoint_layout(n_src: int, n_cap: int, n_cls: int, tan: bool,
+                   n_sm: int) -> AdjLayout:
+    """K14's (``tan`` False) or K16's launch for ``n_src`` sources of
+    ``n_cap`` nodes and ``n_cls`` classes on a card of ``n_sm`` SMs: the
+    largest cluster (a power of two up to ``MAX_CLUSTER``) whose
+    ``n_src * cluster`` blocks fit on the SMs; shared memory holds, each
+    where it still fits, a block's own nodes' cotangents and row scalars
+    (24 bytes a node, K16 28), the field, then the received class
+    cotangents."""
+    cs = 1
+    while cs < MAX_CLUSTER and 2 * cs * n_src <= n_sm:
+        cs *= 2
+    span = -(-n_cap // MAX_CLUSTER) * (MAX_CLUSTER // cs)
+    f = 4 * (2 if tan else 1)
+    smem, fits = 0, []
+    for size in ((f + (20 if tan else 16)) * span, f * n_cap,
+                 f * n_cls * span):
+        fits.append(smem + size <= SMEM_BLOCK)
+        smem += size if fits[-1] else 0
+    return AdjLayout(cs, span, *fits, smem,
+                     min(ADJ_THREADS, -(-span // 32) * 32))
+
+
+def adjoint_order(node_fill, n_cls: int, lay: AdjLayout) -> np.ndarray:
+    """The node at each position of the adjoint's launch ``lay``: a
+    block of rank q visits the nodes of its span, position p = i *
+    threads + tid in its i-th pass. Its nodes, by row fill (fullest
+    first, ties by index), are cut into groups of 32, one warp's rows in
+    one pass, and each group goes to the warp with the least work so far
+    (longest first; a node's work 3 x fill + 2 x classes: the row's three
+    walks and its class chain) that has a pass free. Every warp then
+    walks about as many entries, and its 32 lanes rows of one fill. With
+    one fill everywhere it is the index order."""
+    import heapq
+
+    node_fill = np.asarray(node_fill)
+    n = len(node_fill)
+    order = np.arange(n, dtype=np.int32)
+    tpb, warps = lay.threads, -(-lay.threads // 32)
+    for q in range(lay.cluster):
+        lo = q * lay.span
+        m = min(n, lo + lay.span) - lo
+        fills = node_fill[lo:lo + m]
+        if m <= 0 or fills.min() == fills.max():
+            continue
+        nodes = lo + np.argsort(-node_fill[lo:lo + m], kind="stable")
+        cost = 3 * node_fill[nodes].astype(np.int64) + 2 * n_cls
+        # each warp's passes, with the lanes each takes
+        slots = [[] for _ in range(warps)]
+        for i in range(-(-m // tpb)):
+            for w in range(warps):
+                at = i * tpb + w * 32
+                if at < m:
+                    slots[w].append((at, min(32, m - at, tpb - w * 32)))
+        load = [(0, w) for w in range(warps)]
+        free = [list(reversed(s)) for s in slots]
+        full = [g for g in range(0, m, 32)]
+        # the last, partial group takes the partial pass where there is one
+        part = [(w, s) for w in range(warps) for s in free[w] if s[1] < 32]
+        if part:
+            w, s = part[0]
+            free[w].remove(s)
+            g = m - s[1]
+            order[lo + s[0]:lo + s[0] + s[1]] = nodes[g:g + s[1]]
+            load[w] = (int(cost[g]), w)
+            full = [g for g in full if g < m - s[1]]
+        heapq.heapify(load)
+        for g in full:
+            while True:
+                work, w = heapq.heappop(load)
+                if free[w]:
+                    break
+            at, k = free[w].pop()
+            order[lo + at:lo + at + k] = nodes[g:g + k]
+            heapq.heappush(load, (work + int(cost[g]), w))
+    return order
+
+
+def adjoint_tables(host: dict, n_cls: int, lay: AdjLayout) -> dict:
+    """The host tables of the adjoint's launch ``lay`` (``host``: a
+    plan's ``held["host"]``): ``order`` (``adjoint_order``); a warp's 32
+    positions interleave their entries (each warp's padded to its
+    longest): entry c of position P's row at sender index ``e0[P] + 32
+    c``, with its neighbour ``snbr`` and link ``slnk`` (-1: none); the
+    c-th entry the node at P receives, in ``inv_ent``'s order (by
+    receiver, then row-major), at receiver index ``r0[P] + 32 c``, with
+    its sender's block rank and index there (``rsrc``: rank << 24 |
+    index), link ``rlnk`` and residual theta slot ``rslot`` (-1: none).
+    ``es`` / ``er`` are the two index ranges."""
+    order = adjoint_order(host["node_fill"], n_cls, lay)
+    n = len(order)
+    if lay.span >= 1 << 24:
+        raise ValueError(f"a span of {lay.span} nodes: rsrc packs 24 bits")
+    pos_of = np.empty(n, np.int64)
+    pos_of[order] = np.arange(n)
+    at = np.arange(n)
+    lane = (at - (at // lay.span) * lay.span) % 32
+    group = np.unique(at - lane, return_inverse=True)[1]
+
+    def bases(width):
+        wide = np.zeros(group.max() + 1, np.int64)
+        np.maximum.at(wide, group, width)
+        start = np.concatenate([[0], np.cumsum(32 * wide)])
+        return start[group] + lane, int(start[-1])
+
+    e0, es = bases(host["node_fill"][order])
+    r0, er = bases(np.diff(host["inv_ptr"])[order])
+    i32 = np.int32
+    snbr = np.zeros(max(es, 1), i32)
+    slnk = np.full(max(es, 1), -1, i32)
+    rsrc = np.zeros(max(er, 1), i32)
+    rlnk = np.full(max(er, 1), -1, i32)
+    rslot = np.full(max(er, 1), -1, i32)
+    if len(host["ent_row"]):
+        sender = host["res_rows"][host["ent_row"]]
+        nbr = host["ent_nbr"]
+        idx = e0[pos_of[sender]] + 32 * host["ent_col"]
+        snbr[idx], slnk[idx] = nbr, host["ent_lnk"]
+        rank = host["rc_pos"] - host["inv_ptr"][nbr]
+        idx = r0[pos_of[nbr]] + 32 * rank
+        owner = sender // lay.span
+        rsrc[idx] = (owner << 24) | (sender - owner * lay.span)
+        rlnk[idx], rslot[idx] = host["ent_lnk"], host["ent_slot"]
+    return {"order": order, "e0": e0.astype(i32), "r0": r0.astype(i32),
+            "snbr": snbr, "slnk": slnk, "rsrc": rsrc, "rlnk": rlnk,
+            "rslot": rslot, "es": es, "er": er}
+
+
+@lru_cache(maxsize=None)
+def _sm_count(card: int) -> int:
+    return torch.cuda.get_device_properties(card).multi_processor_count
+
+
+def _held(plan: TePlan, key, shape, device) -> torch.Tensor:
+    """The plan's scratch ``key`` of ``shape`` on ``device``, allocated
+    once."""
+    t = plan.held.get(key)
+    if t is None or tuple(t.shape) != shape or t.device != device:
+        t = plan.held[key] = torch.empty(shape, dtype=_F32, device=device)
+    return t
+
+
+def _check(plan, tau, theta, v, fields, tfields, lam, lam_t, ct_sh, ct_rs):
+    c, s, _, _ = _dims(plan)
     if c > MAX_CLASSES:
         raise ValueError(f"{c} shift classes: the kernels take at most "
                          f"{MAX_CLASSES}")
@@ -538,28 +738,69 @@ def _launch(name, plan, tau, seed, theta, v, fields, tfields=None,
         if t is not None and tuple(t.shape) != want[key]:
             raise ValueError(f"{key} has shape {tuple(t.shape)}, not "
                              f"{want[key]}")
-    bufs = [theta, v, fields, tfields, lam, lam_t, ct_sh, ct_rs]
-    scratch = [None] * 4
-    if lam is not None:
-        # the adjoint's per-trip partials: class cotangents [S, C, N]
-        # and live residual entries' [S, n_live]
-        def empty(*shape):
-            return torch.empty(shape, dtype=_F32, device=lam.device)
 
-        n_live = max(1, plan.inv_ent.numel())
-        scratch[0], scratch[2] = empty(s, c, plan.n_cap), empty(s, n_live)
-        if lam_t is not None:
-            scratch[1], scratch[3] = empty(s, c, plan.n_cap), empty(s,
-                                                                   n_live)
+
+def _plan_args(plan: TePlan) -> tuple:
+    c, s, _, k = _dims(plan)
+    return (plan.deltas, c, plan.sh_slot, plan.sh_lnk, plan.row_of,
+            plan.res_nbr, plan.rs_lnk, plan.row_fill, plan.inv_ptr, k,
+            plan.srcs, plan.dem_dst, plan.dem_vol, plan.dem_ptr,
+            plan.dem_ids, s, plan.n_cap, int(plan.has_res),
+            plan.sh_link.numel(), plan.rs_link.numel())
+
+
+def _launch(name, plan, tau, seed, theta, v, fields, tfields=None) -> None:
+    """Launch K13 or K15: the plan's tables, then the kernel's buffers (an
+    absent one passes a null pointer), ``tau``, the trip count and
+    ``seed``."""
+    _check(plan, tau, theta, v, fields, tfields, None, None, None, None)
+    cuda.launch("te", name, _PLAN_SIG + _BUF_SIG, *_plan_args(plan), theta,
+                v, fields, tfields, *[None] * 6, float(tau),
+                fields.shape[0] - 1, int(seed))
+
+
+def _launch_adjoint(name, plan, tau, seed, theta, v, fields, tfields, lam,
+                    lam_t, ct_sh, ct_rs) -> None:
+    """Launch K14 (``lam_t`` None) or K16 as one cluster launch
+    (``adjoint_layout`` on the card of ``lam``) with that layout's
+    tables (``adjoint_tables``) and scratch, held by the plan and shared
+    by K14 and K16: the class and entry weights (one table for every
+    source, 2 (es + er + C n_cap) float32), each source's slot
+    cotangents by receiver index and class word ([S, er + C n_cap]) and,
+    where shared memory does not hold them, the class cotangents
+    received and the row scalars."""
+    _check(plan, tau, theta, v, fields, tfields, lam, lam_t, ct_sh, ct_rs)
+    c, s, _, _ = _dims(plan)
+    dev = lam.device
+    lay = adjoint_layout(s, plan.n_cap, c, lam_t is not None,
+                         _sm_count(dev.index or 0))
+    tabs = plan.held.get((lay.cluster, lay.span, lay.threads))
+    if tabs is None or tabs["order"].device != dev:
+        host = adjoint_tables(plan.held["host"], c, lay)
+        tabs = {k: torch.from_numpy(a).to(dev) if isinstance(a, np.ndarray)
+                else a for k, a in host.items()}
+        n = plan.n_cap
+        tabs["tab"] = torch.empty(2 * (tabs["es"] + tabs["er"] + c * n),
+                                  dtype=_F32, device=dev)
+        tabs["scr"] = torch.empty((s, tabs["er"] + c * n), dtype=_F32,
+                                  device=dev)
+        plan.held[lay.cluster, lay.span, lay.threads] = tabs
+    gx = own = None
+    if not lay.gx_smem:
+        gx = _held(plan, ("gx", lay.cluster),
+                   (2, s * lay.cluster * c * lay.span), dev)
+    if not lay.own_smem:
+        own = _held(plan, ("own", lay.cluster),
+                    (s * lay.cluster * -(-5 * lay.span // 4) * 4,), dev)
     cuda.launch(
-        "te", name, "ti" + "t" * 9 + "i" + "tttT" + "i" * 7 + "T" * 12
-        + "fii",
-        plan.deltas, c, plan.sh_slot, plan.sh_lnk, plan.row_of,
-        plan.res_nbr, plan.rs_slot, plan.rs_lnk, plan.row_start,
-        plan.inv_ptr, plan.inv_ent, k, plan.srcs, plan.dem_row,
-        plan.dem_dst, plan.dem_vol, plan.dem_row.numel(), s, plan.n_cap,
-        int(plan.has_res), plan.sh_link.numel(), plan.rs_link.numel(),
-        plan.inv_ent.numel(), *bufs[:6], *scratch, ct_sh, ct_rs,
+        "te", name, _PLAN_SIG + _LAYOUT_SIG + _BUF_SIG, *_plan_args(plan),
+        *(tabs[k] for k in ("order", "e0", "r0", "snbr", "slnk", "rsrc",
+                            "rlnk", "rslot")),
+        tabs["es"], tabs["er"], lay.cluster, lay.span, int(lay.own_smem),
+        int(lay.field_smem), int(lay.gx_smem), lay.smem, lay.threads,
+        tabs["tab"], tabs["scr"], own, theta, v, fields, tfields, lam,
+        lam_t, None if gx is None else gx[0],
+        None if gx is None or lam_t is None else gx[1], ct_sh, ct_rs,
         float(tau), fields.shape[0] - 1, int(seed))
 
 
@@ -580,23 +821,23 @@ def te_relax_jvp(plan, theta, v, fields, tfields, tau, seed=True):
 
 
 def te_relax_vjp(plan, theta, fields, lam, ct_sh, ct_rs, tau, seed=True):
-    """K14 (see ``te_relax_vjp_plain``)."""
+    """K14 (see ``te_relax_vjp_plain``): one cluster launch."""
     if _is_cpu(theta):
         return te_relax_vjp_plain(plan, theta, fields, lam, ct_sh, ct_rs,
                                   tau, seed)
-    _launch("te_relax_vjp", plan, tau, seed, theta, None, fields, None, lam,
-            None, ct_sh, ct_rs)
+    _launch_adjoint("te_relax_vjp", plan, tau, seed, theta, None, fields,
+                    None, lam, None, ct_sh, ct_rs)
     te_relax_vjp.launches += 1
 
 
 def te_relax_vjp_jvp(plan, theta, v, fields, tfields, lam, lam_t, ct_sh,
                      ct_rs, tau, seed=True):
-    """K16 (see ``te_relax_vjp_jvp_plain``)."""
+    """K16 (see ``te_relax_vjp_jvp_plain``): one cluster launch."""
     if _is_cpu(theta):
         return te_relax_vjp_jvp_plain(plan, theta, v, fields, tfields, lam,
                                       lam_t, ct_sh, ct_rs, tau, seed)
-    _launch("te_relax_vjp_jvp", plan, tau, seed, theta, v, fields, tfields,
-            lam, lam_t, ct_sh, ct_rs)
+    _launch_adjoint("te_relax_vjp_jvp", plan, tau, seed, theta, v, fields,
+                    tfields, lam, lam_t, ct_sh, ct_rs)
     te_relax_vjp_jvp.launches += 1
 
 

@@ -371,7 +371,9 @@ def test_te_wrappers_marshal_their_launches(port, monkeypatch):
     (a tensor of the letter's dtype or None where it names a tensor),
     counts the launch, and refuses a buffer of the wrong shape or a tau
     outside the kernels' domain — checked here with the launch
-    recorded instead of run (no card)."""
+    recorded instead of run (no card). K14 and K16 pass their cluster
+    layout (``adjoint_layout`` for a card of 132 SMs) and the plan's
+    held scratch, the same buffers on every call."""
     torch, te = port.torch, port.te
     args, static = _cell_inputs("fabric", 1.0, 3)
     plan, theta, tau, tau_u = port.weights.te_inputs_from_jax(
@@ -379,6 +381,7 @@ def test_te_wrappers_marshal_their_launches(port, monkeypatch):
         has_res=static[-2], device="cpu")
     calls = []
     monkeypatch.setattr(te, "_is_cpu", lambda t: False)
+    monkeypatch.setattr(te, "_sm_count", lambda card: 132)
     monkeypatch.setattr(te.cuda, "launch",
                         lambda lib, fn, sig, *a: calls.append((lib, fn, sig,
                                                                a)))
@@ -411,10 +414,235 @@ def test_te_wrappers_marshal_their_launches(port, monkeypatch):
                 assert isinstance(x, float if letter == "f" else int), (
                     fn, letter)
     assert all(getattr(te, f).launches == k + 1 for f, k in before.items())
+    n_plan = len(te._PLAN_SIG)
+    c = plan.deltas.numel()
+    scr = []
+    for (_, fn, _, a), tan in ((calls[2], False), (calls[3], True)):
+        lay = te.adjoint_layout(s, n, c, tan, 132)
+        tabs = te.adjoint_tables(plan.held["host"], c, lay)
+        assert a[n_plan + 10:n_plan + 17] == (
+            lay.cluster, lay.span, int(lay.own_smem), int(lay.field_smem),
+            int(lay.gx_smem), lay.smem, lay.threads), fn
+        assert a[n_plan + 8:n_plan + 10] == (tabs["es"], tabs["er"])
+        for k, name in enumerate(("order", "e0", "r0", "snbr", "slnk",
+                                  "rsrc", "rlnk", "rslot")):
+            assert torch.equal(a[n_plan + k], torch.from_numpy(tabs[name]))
+        assert lay.smem <= te.SMEM_BLOCK and lay.threads <= te.ADJ_THREADS
+        scr.append(a[n_plan + 17:n_plan + 19])
+        assert a[n_plan + 19] is None  # the row scalars in shared memory
+        assert tuple(scr[-1][0].shape) == (2 * (tabs["es"] + tabs["er"]
+                                                + c * n),)
+        assert tuple(scr[-1][1].shape) == (s, tabs["er"] + c * n)
+    # the scratch is the plan's, the same for K14 and K16 at one layout
+    assert [t.data_ptr() for t in scr[0]] == [t.data_ptr() for t in scr[1]]
     with pytest.raises(ValueError):
         te.te_relax_vjp(plan, theta, fields, lam[:, :-1], *ct, tau)
     with pytest.raises(ValueError):
         te.te_relax(plan, theta, fields, te.MAX_TAU * 2)
+
+
+@pytest.mark.parametrize("cell", ["grid4", "fabric"])
+def test_te_plan_adjoint_tables(port, cell):
+    """``te_plan``'s tables for the adjoint's cluster launch agree with
+    the ones they are built from: ``rc_pos`` puts every live residual
+    entry at its place among the entries by receiver (``inv_ent``), so a
+    node's received cotangents are the one run ``inv_ptr[j]`` to
+    ``inv_ptr[j + 1]`` and their sum in that run's order is the sum over
+    ``inv_ent``'s, bit for bit; ``row_fill`` counts each row's live
+    entries; ``dem_ptr`` / ``dem_ids`` list each source's demands in
+    demand order; the host tables ``adjoint_tables`` reads agree with
+    the plan's device tables."""
+    te = port.te
+    args, static = _cell_inputs(cell, 1.0, 7)
+    plan, _, _, _ = port.weights.te_inputs_from_jax(
+        (*args, 1.0, 1.0), n_cap=static[5], trips=static[-1],
+        has_res=static[-2], device="cpu")
+    n = plan.n_cap
+    host = plan.held["host"]
+    inv_ptr, inv_ent = plan.inv_ptr.numpy(), host["inv_ent"]
+    rc_pos = host["rc_pos"]
+    n_live = len(inv_ent)
+    assert (host["inv_ptr"] == inv_ptr).all() and inv_ptr[-1] == n_live
+    assert (n_live > 0) == plan.has_res
+    assert sorted(rc_pos) == list(range(n_live))
+    assert (inv_ent[rc_pos] == np.arange(n_live)).all()
+    # each live entry (row-major) and the node it sends to
+    nbr = plan.res_nbr.numpy()
+    fill = (nbr >= 0).sum(axis=1) * (plan.res_rows.numpy() >= 0)
+    ent_nbr = np.concatenate([nbr[r, :f] for r, f in enumerate(fill)] or
+                             [np.zeros(0, np.int32)])
+    assert len(ent_nbr) == n_live
+    assert (host["ent_nbr"] == ent_nbr).all()
+    assert (plan.row_fill.numpy() == fill).all()
+    assert (host["row_start"] == np.cumsum(fill) - fill).all()
+    k = nbr.shape[1]
+    flat = np.concatenate([r * k + np.arange(f) for r, f in enumerate(fill)]
+                          or [np.zeros(0, np.int64)])
+    assert (host["ent_lnk"] == plan.rs_lnk.numpy()[flat]).all()
+    # the residual slots: each live plane word's, in rs_flat's order
+    rs_slot = host["rs_slot"]
+    assert (rs_slot[flat] >= 0).all() and (host["ent_slot"] == rs_slot[flat]
+                                           ).all()
+    words = np.flatnonzero(rs_slot >= 0)
+    assert (plan.rs_flat.numpy()[rs_slot[words]] == words).all()
+    rng = np.random.default_rng(3)
+    sent = rng.standard_normal(n_live).astype(np.float32)
+    recv = np.zeros(n_live, np.float32)
+    recv[rc_pos] = sent  # phase 1's writes
+    for j in range(n):
+        run = np.arange(inv_ptr[j], inv_ptr[j + 1])
+        assert (ent_nbr[inv_ent[run]] == j).all()
+        assert (np.diff(inv_ent[run]) > 0).all()  # row-major within a run
+        a = b = np.float32(0.0)
+        for e in run:
+            a = np.float32(a + recv[e])
+            b = np.float32(b + sent[inv_ent[e]])
+        assert a == b
+    dem_row, dem_ptr = plan.dem_row.numpy(), plan.dem_ptr.numpy()
+    dem_ids = plan.dem_ids.numpy()
+    assert dem_ptr[0] == 0 and dem_ptr[-1] == len(dem_row)
+    for src in range(plan.srcs.numel()):
+        assert list(dem_ids[dem_ptr[src]:dem_ptr[src + 1]]) == list(
+            np.flatnonzero(dem_row == src))
+    node_fill = np.zeros(n, np.int64)
+    rows = plan.res_rows.numpy()
+    node_fill[rows[rows >= 0]] = fill[rows >= 0]
+    assert (host["node_fill"] == node_fill).all()
+
+
+@pytest.mark.parametrize("cell,n_sm", [
+    ("grid4", 132), ("fabric", 132), ("fabric", 6), ("fabric", 1)])
+def test_adjoint_tables_interleave_rows(port, cell, n_sm):
+    """``adjoint_tables`` at the layout of a card of ``n_sm`` SMs (one to
+    eight blocks a source, 32 to 1,024 threads): each position's row, in
+    column order, at its sender indices e0 + 32 c (neighbour, link), no
+    two entries on one index; and each node's received entries at r0 +
+    32 c are its run of ``inv_ent``, in order, each naming its sender's
+    block rank and index there, its link and its slot — the entries the
+    kernel's receivers walk every trip."""
+    te = port.te
+    args, static = _cell_inputs(cell, 1.0, 7)
+    plan, _, _, _ = port.weights.te_inputs_from_jax(
+        (*args, 1.0, 1.0), n_cap=static[5], trips=static[-1],
+        has_res=static[-2], device="cpu")
+    n, c = plan.n_cap, plan.deltas.numel()
+    for tan in (False, True):
+        lay = te.adjoint_layout(plan.srcs.numel(), n, c, tan, n_sm)
+        t = te.adjoint_tables(plan.held["host"], c, lay)
+        order = t["order"]
+        assert sorted(order) == list(range(n))
+        row_of, rows = plan.row_of.numpy(), plan.res_nbr.numpy()
+        k = rows.shape[1]
+        host = plan.held["host"]
+        rs_lnk, rs_slot = plan.rs_lnk.numpy(), host["rs_slot"]
+        fill = plan.row_fill.numpy()
+        seen = np.zeros(t["es"], bool)
+        for pos, i in enumerate(order):
+            r = row_of[i]
+            if r < 0:
+                continue
+            idx = t["e0"][pos] + 32 * np.arange(fill[r])
+            assert not seen[idx].any()
+            seen[idx] = True
+            assert (t["snbr"][idx] == rows[r, :fill[r]]).all()
+            assert (t["slnk"][idx] == rs_lnk[r * k:r * k + fill[r]]).all()
+        assert seen.sum() == plan.inv_ptr[-1]
+        # each live entry (row-major): its sender node, link and slot
+        sender = plan.res_rows.numpy()[host["ent_row"]]
+        flat = host["ent_row"] * k + host["ent_col"]
+        inv_ptr, inv_ent = plan.inv_ptr.numpy(), host["inv_ent"]
+        seen = np.zeros(max(t["er"], 1), bool)
+        for pos, j in enumerate(order):
+            run = inv_ent[inv_ptr[j]:inv_ptr[j + 1]]
+            idx = t["r0"][pos] + 32 * np.arange(len(run))
+            assert not seen[idx].any()
+            seen[idx] = True
+            src = t["rsrc"][idx]
+            assert ((src >> 24) * lay.span + (src & 0xffffff)
+                    == sender[run]).all()
+            assert (t["rlnk"][idx] == rs_lnk[flat[run]]).all()
+            assert (t["rslot"][idx] == rs_slot[flat[run]]).all()
+        assert seen.sum() == plan.inv_ptr[-1]
+
+
+@pytest.mark.parametrize("fills,threads", [
+    ("fabric10k", 1024), ("fabric10k", 256), ("uneven", 64),
+    ("flat", 1024)])
+def test_adjoint_order_deals_rows_to_warps(port, fills, threads):
+    """``adjoint_order``: every block of the cluster visits exactly the
+    nodes of its own span, each warp's 32 lanes take rows of about one
+    fill, and the warps' work (their rows' longest fill a pass) is
+    within one group of even — where index order puts a pod's eight
+    fill-100 rows beside its 64 fill-8 rows in a warp. One fill: index
+    order."""
+    te = port.te
+    rng = np.random.default_rng(5)
+    if fills == "fabric10k":
+        # 96 pods of 8 fsws (100 entries) and 64 rsws (8), 288 spines
+        # (96), pads to 8,192
+        pod = [100] * 8 + [8] * 64
+        node_fill = np.array(pod * 96 + [96] * 288 + [0] * 992)
+    elif fills == "uneven":
+        node_fill = rng.integers(0, 130, 1000)
+    else:
+        node_fill = np.full(3000, 5)
+    n, n_cls = len(node_fill), 4
+    lay = te.adjoint_layout(64, n, n_cls, True, 132)._replace(
+        threads=threads)
+    order = te.adjoint_order(node_fill, n_cls, lay)
+    assert sorted(order) == list(range(n))
+    if fills == "flat":
+        assert (order == np.arange(n)).all()
+        return
+    cost = 3 * node_fill + 2 * n_cls
+    for q in range(lay.cluster):
+        lo, hi = q * lay.span, min(n, (q + 1) * lay.span)
+        part = order[lo:hi]
+        assert sorted(part) == list(range(lo, hi))
+        warps = np.zeros(-(-threads // 32))
+        naive = np.zeros_like(warps)
+        for at in range(0, hi - lo, 32):
+            w = (at % threads) // 32
+            warps[w] += cost[part[at:at + 32]].max()
+            naive[w] += cost[lo + at:min(hi, lo + at + 32)].max()
+            # a warp's rows: one fill, or two neighbours in fill order
+            got = sorted(node_fill[part[at:at + 32]])
+            want = sorted(node_fill[lo:hi])[::-1]
+            assert got[-1] - got[0] <= max(
+                want[i] - want[i + 31] for i in range(len(want) - 31))
+        assert warps.max() - warps.min() <= cost.max()
+        if fills == "fabric10k":
+            assert warps.max() < 0.75 * naive.max()
+
+
+@pytest.mark.parametrize("n_src,n_cap,n_cls,tan,want", [
+    # whatif1k and fabric10k on an H100 (132 SMs): the card full, every
+    # buffer in shared memory but K16's received class cotangents at
+    # fabric10k
+    (32, 1024, 4, False, (4, 256, True, True, True, 13312, 256)),
+    (32, 1024, 4, True, (4, 256, True, True, True, 23552, 256)),
+    (64, 8192, 4, False, (2, 4096, True, True, True, 180224, 1024)),
+    (64, 8192, 4, True, (2, 4096, True, True, False, 180224, 1024)),
+    # past shared memory, each buffer where it still fits: the received
+    # class cotangents, then the field, then a block's own nodes go to
+    # device memory
+    (64, 12288, 4, False, (2, 6144, True, True, False, 172032, 1024)),
+    (64, 16384, 4, True, (2, 8192, True, False, False, 229376, 1024)),
+    (64, 24000, 4, True, (2, 12000, False, True, False, 192000, 1024)),
+    (64, 32768, 4, True, (2, 16384, False, False, False, 0, 1024)),
+    # many sources: one block each; one source: eight
+    (200, 1000, 3, False, (1, 1000, True, True, True, 36000, 1024)),
+    (1, 100, 2, False, (8, 13, True, True, True, 764, 32)),
+])
+def test_adjoint_layout(port, n_src, n_cap, n_cls, tan, want):
+    """``adjoint_layout``: the largest cluster whose blocks fit on the
+    SMs, the spans that tile the nodes, and what shared memory holds."""
+    te = port.te
+    lay = te.adjoint_layout(n_src, n_cap, n_cls, tan, 132)
+    assert tuple(lay) == want
+    assert lay.cluster * lay.span >= n_cap > (lay.cluster - 1) * lay.span
+    assert n_src * lay.cluster <= 132 or lay.cluster == 1
+    assert lay.smem <= te.SMEM_BLOCK
 
 
 # -- WhatIfEngine.optimize against the JAX loop -------------------------------

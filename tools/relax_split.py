@@ -1,6 +1,7 @@
 """Time split of K1s ``sssp_init``, K1 ``relax_step``, K6 ``parent_plane``,
-K5's scatter, K21 ``fabric_relax``, K23 ``shard_combine`` and a K18
-trip at the shapes of the paths that run them, for the
+K5's scatter, K21 ``fabric_relax``, K23 ``shard_combine``, a K18
+trip and the TE adjoint (K14, K16) at the shapes of the paths that run
+them, for the
 ``openr_tpu_torch`` package found under ``--root`` (default: this
 checkout), so that two trees can be compared in one run on the same
 card:
@@ -66,7 +67,18 @@ Needs a CUDA card. The cases (all by default):
   relaxations, the vote), one card, and the array-level step on 8
   logical shards (batch 4 x graph 2: K21 ``[mc]`` and K23 a
   relaxation), each as a host wall ending in a synchronise (the best
-  of 3 after a warm-up), with its launches by wrapper.
+  of 3 after a warm-up), with its launches by wrapper;
+- ``te14`` / ``te16``: K14 ``te_relax_vjp`` / K16 ``te_relax_vjp_jvp``
+  over a whole TE step's trips at ``chip_smoke.py`` phase 12's plans
+  (whatif1k: 32 sources, fabric10k: 64, ``TE_SEED``'s demands; the
+  step's inputs from K13, K14, K14s, K17 and K15 on the card), each
+  held to its plain version on the card (rel ``TE_KERNEL_TOL``; K16's
+  ``lam_t`` reported), run twice (``deterministic``: the same bits),
+  with ``device_ms`` / ``host_ms``, ``ms``, the bound
+  (``chip_smoke.te_work``), launches, the peak device bytes a warm call
+  allocates above what was resident and the scratch the plan holds,
+  and a hash of the outputs (``sha``; ``te13_15`` hashes K13's fields
+  and K15's tangent fields), to compare two trees' bits.
 
 With ``--define NAME=VALUE`` (repeatable) the tree's ``csrc/<lib>.cu``
 (``--lib``, default ``incremental``) is built again with
@@ -101,7 +113,7 @@ from pathlib import Path
 
 CASES = ("k1s", "k1", "k1_res", "k1_ksp2", "k6", "k6_res", "k5", "k5_pair",
          "k5_mc", "k21", "k21_mc", "k23", "k23_groups", "k18", "k18_single",
-         "allpairs", "fabric_sssp")
+         "allpairs", "fabric_sssp", "te14", "te16")
 # roots of the k21 cases held to the plain version (the plain relaxation
 # runs cs.PLAIN_CHUNK roots a call)
 PLAIN_ROOTS = 256
@@ -639,6 +651,103 @@ def _k23_cases(cs, torch, cuda, combine, wrappers, dev, cases, out) -> None:
         k23_row("k23_groups", call, floor, nb)
 
 
+def _held_bytes(torch, held) -> int:
+    """The device bytes of the tensors a TE plan holds (its ``held``)."""
+    return sum(_held_bytes(torch, v) if isinstance(v, dict)
+               else v.numel() * v.element_size()
+               for v in held.values() if isinstance(v, (dict, torch.Tensor))
+               and (isinstance(v, dict) or v.is_cuda))
+
+
+def _te_cases(cs, torch, gpu_solver, topologies, dev, cases, out) -> None:
+    """The ``te14`` / ``te16`` rows (module docstring), by cell."""
+    import types
+
+    from openr_tpu_torch.decision import whatif
+    from openr_tpu_torch.ops import te
+
+    names = ("te_relax", "te_relax_jvp", "te_relax_vjp", "te_relax_vjp_jvp",
+             "te_link_sum", "te_loss")
+    wrappers = {n: (getattr(te, n), None, None) for n in names}
+    c = types.SimpleNamespace(torch=torch, te=te, dev=dev)
+    cells = (
+        ("whatif1k", lambda: topologies.grid(cs.WHATIF1K_SIDE,
+                                             node_labels=False),
+         cs.WHATIF1K_ROOT, cs.TE_SOURCES[0], cs.TE_SEED),
+        ("fabric10k", lambda: topologies.fabric(**cs.FABRIC),
+         "pod000-rsw00", cs.TE_SOURCES[1], cs.TE_SEED + 1))
+
+    def sha(ts) -> str:
+        h = hashlib.sha256()
+        for t in ts:
+            h.update(t.detach().cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    for label, gen, me, n_src, seed in cells:
+        _, states, ps = cs.build_cell(topologies, gen)
+        solver = gpu_solver.GpuSpfSolver(me, device=dev)
+        solver.build_route_db(me, states, ps)
+        demands = cs.te_demands(sorted(states["0"].node_names()), n_src,
+                                cs.TE_DEMANDS, seed)
+        tp, theta0 = whatif.WhatIfEngine(solver).plan_optimize(
+            states, ps, demands).te_plan()
+        theta = torch.from_numpy(theta0).to(dev)
+        b = cs.te_buffers(c, tp, theta)
+        out.setdefault("te13_15", {})[label] = {
+            "fields_sha": sha([b.fields]), "tfields_sha": sha([b.tfields])}
+        work = cs.te_work(tp)
+        s, n = tp.srcs.numel(), tp.n_cap
+        for case, tan, name in (("te14", False, "K14:te_relax_vjp"),
+                                ("te16", True, "K16:te_relax_vjp_jvp")):
+            if case not in cases:
+                continue
+            err, lam_t = cs.te_adjoint_err(c, tp, theta, b, tan)
+            cs.check(err[1] <= cs.TE_KERNEL_TOL,
+                     f"{case} {label}: rel err {err[1]}")
+            kern = te.te_relax_vjp_jvp if tan else te.te_relax_vjp
+
+            def bufs():
+                return [torch.empty((s, n), device=dev)
+                        for _ in range(2 if tan else 1)] + [
+                    torch.empty((s, tp.sh_link.numel()), device=dev),
+                    torch.empty((s, tp.rs_link.numel()), device=dev)]
+
+            def call(o, kern=kern, tan=tan):
+                if tan:
+                    kern(tp, theta, b.v, b.fields, b.tfields, *o, 1.0)
+                else:
+                    kern(tp, theta, b.fields, *o, 1.0)
+
+            runs = [bufs(), bufs()]
+            for o in runs:
+                call(o)
+            reps = 10 if label == "fabric10k" else 50
+            o = bufs()
+            dev_ms, host_ms = cs.device_ms(torch, lambda: call(o), reps)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            mem0 = torch.cuda.memory_allocated()
+            call(o)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - mem0
+            b_ms, b_by = cs.bound(*work[name])
+            out.setdefault(case, {})[label] = {
+                "ms": cs.time_ms(torch, lambda: call(o), reps),
+                "device_ms": dev_ms, "host_ms": host_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "max_abs_err": err[0],
+                "max_rel_err": err[1], "lam_t_err": lam_t,
+                "sha": sha(runs[0]),
+                "deterministic": sha(runs[0]) == sha(runs[1]),
+                "peak_bytes": peak,
+                "held_bytes": _held_bytes(torch, getattr(tp, "held", {})),
+                "per_call": cs.counted(torch, wrappers, lambda: call(o))[
+                    "kernels_by_wrapper"],
+                "sources": s, "n_cap": n, "trips": tp.trips,
+                "live_res_entries": int(tp.inv_ptr[-1])}
+            if hasattr(te, "adjoint_layout"):
+                out[case][label]["layout"] = cs.te_layouts(c, tp)[name]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", help="tree holding openr_tpu_torch/")
@@ -901,6 +1010,8 @@ def main() -> int:
         _allpairs_case(cs, torch, gpu_solver, wrappers, topologies, dev, out)
     if {"k23", "k23_groups"} & set(cases):
         _k23_cases(cs, torch, cuda, combine, wrappers, dev, cases, out)
+    if {"te14", "te16"} & set(cases):
+        _te_cases(cs, torch, gpu_solver, topologies, dev, cases, out)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
